@@ -1,0 +1,238 @@
+"""The PyTorch port's flash attention (K1 forward, K2 dQ, K3 dK/dV) on CPU.
+
+On CPU tensors the port's wrappers run the kernels' plain versions; these
+tests hold them against the JAX package's Pallas kernels in interpret mode,
+run as tests/test_ops.py runs them, on the same numpy inputs. Tolerances as
+in tests/test_ops.py: f32 2e-5 on outputs and lse, 1e-4 on gradients; bf16
+3e-2 on outputs and 1e-1 on gradients (8-bit mantissas, contraction order).
+The CUDA kernels themselves are held against the same plain versions on the
+card by chip_smoke.py.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tf_operator_tpu.ops import flash_attention as jfa
+from tf_operator_tpu.parallel.ring_attention import (
+    attention_reference as jax_attention_reference,
+)
+from tf_operator_tpu_torch.ops import _build
+from tf_operator_tpu_torch.ops import flash_attention as fa
+from tf_operator_tpu_torch.ops.attention import flash_attention
+from tf_operator_tpu_torch.parallel.ring_attention import (
+    attention_reference,
+    make_attention_fn,
+)
+
+torch.set_num_threads(2)
+
+F32_OUT, F32_GRAD = 2e-5, 1e-4
+BF16_OUT, BF16_GRAD = 3e-2, 1e-1
+
+
+def _inputs(seed, shape, n=3):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(shape).astype(np.float32) for _ in range(n)]
+
+
+def _jax(arrs, dtype=jnp.float32):
+    return [jnp.asarray(a, dtype) for a in arrs]
+
+
+def _torch(arrs, dtype=torch.float32, grad=False):
+    return [torch.from_numpy(a.copy()).to(dtype).requires_grad_(grad) for a in arrs]
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().numpy()
+    return np.array(x, np.float32)
+
+
+class TestForward:
+    @pytest.mark.parametrize("shape,causal", [
+        ((2, 2, 256, 128), False),
+        ((2, 2, 256, 128), True),
+        ((1, 1, 192, 128), False),  # ragged tail: T % 128 != 0
+        ((1, 2, 192, 64), True),
+    ])
+    def test_matches_pallas_interpret(self, shape, causal):
+        arrs = _inputs(0, shape)
+        expected = jfa.flash_attention_pallas(*_jax(arrs), causal, 128, 128, True)
+        got = fa.FlashAttention.apply(*_torch(arrs), causal)
+        np.testing.assert_allclose(_np(got), _np(expected), atol=F32_OUT)
+
+    @pytest.mark.parametrize("shape,causal", [
+        ((1, 2, 256, 128), True), ((1, 1, 192, 64), False)])
+    def test_lse_matches_pallas_residual(self, shape, causal):
+        b, h, t, d = shape
+        arrs = [a.reshape(b * h, t, d) for a in _inputs(1, shape)]
+        o_j, lse_j = jfa._flash_fwd(*_jax(arrs), causal, 128, 128, True,
+                                    save_residuals=True)
+        o_t, lse_t = fa.flash_fwd(*_torch(arrs), causal)
+        assert lse_t.shape == (b * h, t) and lse_t.dtype == torch.float32
+        np.testing.assert_allclose(_np(o_t), _np(o_j), atol=F32_OUT)
+        np.testing.assert_allclose(_np(lse_t), _np(lse_j)[:, :, 0], atol=F32_OUT)
+
+    def test_bf16(self):
+        arrs = _inputs(4, (1, 2, 256, 128))
+        expected = jfa.flash_attention_pallas(*_jax(arrs, jnp.bfloat16), True,
+                                              128, 128, True)
+        got = fa.FlashAttention.apply(*_torch(arrs, torch.bfloat16), True)
+        assert got.dtype == torch.bfloat16
+        np.testing.assert_allclose(_np(got), _np(expected), atol=BF16_OUT,
+                                   rtol=BF16_OUT)
+
+    def test_primal_without_grad_keeps_no_lse(self):
+        q, k, v = _torch(_inputs(2, (1, 1, 64, 32)))
+        with torch.no_grad():
+            o = fa.FlashAttention.apply(q, k, v, True)
+        assert o.grad_fn is None
+        o_ref, _ = fa.flash_fwd_plain(q[0], k[0], v[0], True)
+        torch.testing.assert_close(o[0], o_ref)
+
+
+class TestBackward:
+    @pytest.mark.parametrize("causal", [False, True])
+    @pytest.mark.parametrize("shape", [(1, 2, 128, 128), (2, 2, 256, 64)])
+    def test_grad_matches_pallas_interpret(self, causal, shape):
+        arrs = _inputs(2, shape)
+
+        def loss_flash(q, k, v):
+            return jnp.sum(jfa.flash_attention_pallas(q, k, v, causal, 128, 128, True) ** 2)
+
+        gj = jax.grad(loss_flash, argnums=(0, 1, 2))(*_jax(arrs))
+        qkv = _torch(arrs, grad=True)
+        gt = torch.autograd.grad((fa.FlashAttention.apply(*qkv, causal) ** 2).sum(), qkv)
+        for a, b in zip(gt, gj):
+            np.testing.assert_allclose(_np(a), _np(b), atol=F32_GRAD)
+
+    def test_grad_ragged_tail(self):
+        """Padded tail rows must not leak into dk/dv (T=192, blocks of 128
+        on the JAX side, 64 in the port's kernels)."""
+        arrs = _inputs(5, (1, 1, 192, 128))
+
+        def loss_flash(q, k, v):
+            return jnp.sum(jfa.flash_attention_pallas(q, k, v, True, 128, 128, True) ** 2)
+
+        gj = jax.grad(loss_flash, argnums=(0, 1, 2))(*_jax(arrs))
+        qkv = _torch(arrs, grad=True)
+        gt = torch.autograd.grad((fa.FlashAttention.apply(*qkv, True) ** 2).sum(), qkv)
+        for a, b in zip(gt, gj):
+            np.testing.assert_allclose(_np(a), _np(b), atol=F32_GRAD)
+
+    def test_grad_bf16(self):
+        arrs = _inputs(6, (1, 2, 256, 64))
+
+        def loss_flash(q, k, v):
+            o = jfa.flash_attention_pallas(q, k, v, True, 128, 128, True)
+            return jnp.sum(o.astype(jnp.float32) ** 2)
+
+        gj = jax.grad(loss_flash, argnums=(0, 1, 2))(*_jax(arrs, jnp.bfloat16))
+        qkv = _torch(arrs, torch.bfloat16, grad=True)
+        o = fa.FlashAttention.apply(*qkv, True)
+        gt = torch.autograd.grad((o.float() ** 2).sum(), qkv)
+        for a, b in zip(gt, gj):
+            assert a.dtype == torch.bfloat16
+            np.testing.assert_allclose(_np(a), _np(b), atol=BF16_GRAD, rtol=BF16_GRAD)
+
+    @pytest.mark.parametrize("shape,causal", [
+        ((1, 2, 256, 64), True), ((1, 1, 192, 128), False)])
+    def test_lse_cotangent_matches_pallas_interpret(self, shape, causal):
+        """The lse output's cotangent enters both backward passes as
+        delta - g_lse: grads of sum(o * go) + sum(lse * gl)."""
+        q, k, v, go = _inputs(7, shape, n=4)
+        gl = np.random.default_rng(8).standard_normal(shape[:3]).astype(np.float32)
+
+        def loss(q, k, v):
+            o, lse = jfa.flash_attention_with_lse(q, k, v, causal, 128, 128, True)
+            return jnp.sum(o * go) + jnp.sum(lse * gl)
+
+        val_j = jfa.flash_attention_with_lse(*_jax([q, k, v]), causal, 128, 128, True)
+        gj = jax.grad(loss, argnums=(0, 1, 2))(*_jax([q, k, v]))
+        qkv = _torch([q, k, v], grad=True)
+        o_t, lse_t = fa.FlashAttentionWithLse.apply(*qkv, causal)
+        np.testing.assert_allclose(_np(o_t), _np(val_j[0]), atol=F32_OUT)
+        np.testing.assert_allclose(_np(lse_t), _np(val_j[1]), atol=F32_OUT)
+        gt = torch.autograd.grad(
+            (o_t * torch.from_numpy(go)).sum() + (lse_t * torch.from_numpy(gl)).sum(), qkv)
+        for a, b in zip(gt, gj):
+            np.testing.assert_allclose(_np(a), _np(b), atol=F32_GRAD)
+
+    def test_split_backward_equals_plain(self):
+        """flash_bwd_dq and flash_bwd_dkv (the K2/K3 wrappers) together
+        give flash_bwd_plain's three gradients."""
+        q, k, v, do = _torch(_inputs(9, (2, 96, 64), n=4))
+        gl = torch.from_numpy(np.random.default_rng(3).standard_normal((2, 96)).astype(np.float32))
+        o, lse = fa.flash_fwd(q, k, v, True)
+        dq = fa.flash_bwd_dq(q, k, v, o, lse, do, True, gl)
+        dk, dv = fa.flash_bwd_dkv(q, k, v, o, lse, do, True, gl)
+        for a, b in zip((dq, dk, dv), fa.flash_bwd_plain(q, k, v, o, lse, do, True, gl)):
+            torch.testing.assert_close(a, b)
+
+
+class TestFullyMaskedRows:
+    def test_empty_rows_give_zero_and_neg_inf(self):
+        """With no key visible to any row, the plain version's guards give
+        o = 0, lse = NEG_INF and a zero dq."""
+        q = torch.randn(1, 4, 8, generator=torch.Generator().manual_seed(0))
+        k = torch.zeros(1, 0, 8)
+        o, lse = fa.flash_fwd_plain(q, k, k, False)
+        assert torch.all(o == 0) and torch.all(lse == fa.NEG_INF)
+        dq = fa.flash_bwd_dq(q, k, k, o, lse, torch.ones_like(o))
+        assert torch.all(dq == 0)
+
+
+class TestDispatch:
+    def test_cpu_runs_plain_and_counts_no_launch(self):
+        fa.reset_launches()
+        qkv = _torch(_inputs(3, (1, 2, 64, 32)), grad=True)
+        (flash_attention(*qkv, causal=True) ** 2).sum().backward()
+        assert fa.LAUNCHES == {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 0}
+
+    def test_dispatcher_matches_jax_reference(self):
+        arrs = _inputs(3, (1, 1, 64, 32))
+        expected = jax_attention_reference(*_jax(arrs), causal=True)
+        got = flash_attention(*_torch(arrs), causal=True)
+        np.testing.assert_allclose(_np(got), _np(expected), atol=1e-6)
+
+    @pytest.mark.parametrize("causal", [False, True])
+    def test_attention_reference_matches_jax(self, causal):
+        arrs = _inputs(10, (2, 2, 48, 32))
+        expected = jax_attention_reference(*_jax(arrs), causal=causal)
+        got = attention_reference(*_torch(arrs), causal=causal)
+        np.testing.assert_allclose(_np(got), _np(expected), atol=1e-6)
+
+    def test_attention_fn_is_flash_and_sp_raises(self):
+        q, k, v = _torch(_inputs(11, (1, 2, 32, 16)))
+        torch.testing.assert_close(make_attention_fn(causal=True)(q, k, v),
+                                   fa.FlashAttention.apply(q, k, v, True))
+        with pytest.raises(NotImplementedError):
+            make_attention_fn(sp=2)
+
+    def test_kernel_checks_refuse_non_cuda_operands(self):
+        q, k, v = _torch(_inputs(12, (2, 64, 64)))
+        with pytest.raises(ValueError, match="CUDA"):
+            fa._check_cuda(q, k, v)
+        with pytest.raises(ValueError, match="head_dim"):
+            fa._check_cuda(q[..., :32], k[..., :32], v[..., :32])
+
+
+class TestBuild:
+    def test_missing_nvcc_raises(self, monkeypatch, tmp_path):
+        monkeypatch.setenv("PATH", str(tmp_path))
+        monkeypatch.delenv("CUDA_HOME", raising=False)
+        monkeypatch.delenv("CUDA_PATH", raising=False)
+        monkeypatch.setattr(_build, "NVCC_ROOTS", ())
+        monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "kernels")
+        monkeypatch.setattr(_build, "_loaded", {})
+        with pytest.raises(_build.KernelBuildError, match="nvcc"):
+            _build.load("flash_attention")
+
+    def test_library_name_follows_the_source_hash(self):
+        p = _build.library_path("flash_attention")
+        assert p.parent == _build.BUILD_DIR
+        assert p.name.startswith("libflash_attention-") and p.suffix == ".so"

@@ -1,0 +1,225 @@
+"""The PyTorch port's train step and trainer, on CPU.
+
+Step parity: from the same flax init (carried across by params_from_flax)
+and the same numpy token batches, five steps of the port's train_step
+follow the JAX package's make_train_step (1-device CPU mesh) at rtol 1e-4
+in f32 compute with f32 AdamW. The bench's bf16 compute with bf16 moments
+and master weights is held at rtol 2e-3 (bf16 rounding at different
+places on the two sides; 2.1e-4 was seen). The trainer runs as a pod
+would run it, in a subprocess with TPUJOB_METRICS_FILE and
+TPUJOB_HEARTBEAT_FILE set.
+"""
+
+import ast
+import dataclasses
+import json
+import math
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tf_operator_tpu import optim as joptim
+from tf_operator_tpu.models import transformer as jtfm
+from tf_operator_tpu.parallel import mesh as mesh_lib
+from tf_operator_tpu.parallel import train_step as jts
+from tf_operator_tpu_torch import optim
+from tf_operator_tpu_torch.models import train
+from tf_operator_tpu_torch.models import transformer as tfm
+from tf_operator_tpu_torch.parallel import train_step as ts
+
+torch.set_num_threads(2)
+
+ROOT = Path(__file__).resolve().parents[1]
+T, BATCH, STEPS = 64, 2, 5
+TINY_ARGS = ["--device", "cpu", "--batch", "2", "--seq", "64", "--layers", "2",
+             "--hidden", "128", "--heads", "4"]
+
+
+def _batches():
+    rng = np.random.default_rng(0)
+    return [rng.integers(0, 1024, (BATCH, T)).astype(np.int32) for _ in range(STEPS)]
+
+
+def _trajectories(dtype_name: str, opt_kw: dict):
+    jcfg = dataclasses.replace(jtfm.TINY_LM, dtype=getattr(jnp, dtype_name))
+    jmodel = jtfm.TransformerLM(jcfg)
+    params = jmodel.init(jax.random.key(0), jnp.zeros((1, T), jnp.int32))["params"]
+
+    def jloss(p, model_state, batch, rng):
+        logits = jmodel.apply({"params": p}, batch["tokens"])
+        return jtfm.lm_loss(logits, batch["tokens"]), model_state
+
+    jtx = joptim.make_optimizer(joptim.OptimizerConfig(**opt_kw))
+    mesh = mesh_lib.make_mesh({"dp": 1}, devices=jax.devices()[:1])
+    step, _ = jts.make_train_step(jloss, jtx, mesh)
+    step = jax.jit(step)
+    jstate = jts.create_train_state(params, jtx)
+
+    tcfg = dataclasses.replace(tfm.TINY_LM, dtype=getattr(torch, dtype_name))
+    tmodel = tfm.TransformerLM(tcfg)
+    tmodel.load_state_dict(tfm.params_from_flax(jax.tree.map(np.array, params)))
+    ttx = optim.make_optimizer(optim.OptimizerConfig(**opt_kw))
+    tstate = ts.create_train_state(tmodel, ttx)
+
+    def tloss(model, batch):
+        return tfm.lm_loss(model(batch["tokens"]), batch["tokens"])
+
+    out = {"jax": [], "torch": [], "jax_gn": [], "torch_gn": []}
+    for b in _batches():
+        jstate, jm = step(jstate, {"tokens": jnp.asarray(b)}, jax.random.key(0))
+        tstate, tm = ts.train_step(tstate, {"tokens": torch.from_numpy(b).long()}, tloss, ttx)
+        out["jax"].append(float(jm["loss"]))
+        out["torch"].append(float(tm["loss"]))
+        out["jax_gn"].append(float(jm["grad_norm"]))
+        out["torch_gn"].append(float(tm["grad_norm"]))
+    assert tstate.step == STEPS
+    return out
+
+
+def test_five_step_trajectory_f32():
+    out = _trajectories("float32", {"learning_rate": 1e-2})
+    assert out["torch"][-1] < out["torch"][0]
+    np.testing.assert_allclose(out["torch"], out["jax"], rtol=1e-4)
+    np.testing.assert_allclose(out["torch_gn"], out["jax_gn"], rtol=1e-4)
+
+
+def test_five_step_trajectory_bf16_master_weights():
+    out = _trajectories("bfloat16", {"learning_rate": 1e-2, "moment_dtype": "bf16",
+                                     "master_weights": True})
+    np.testing.assert_allclose(out["torch"], out["jax"], rtol=2e-3)
+
+
+def test_master_weights_state_layout():
+    model = tfm.TransformerLM(tfm.TINY_LM, generator=torch.Generator().manual_seed(0))
+    init = [p.detach().clone() for p in model.parameters()]
+    tx = optim.make_optimizer(optim.OptimizerConfig(moment_dtype="bf16", master_weights=True))
+    state = ts.create_train_state(model, tx)
+    for p, m, p0 in zip(state.params, state.opt_state.master, init):
+        assert p.dtype == torch.bfloat16 and m.dtype == torch.float32
+        torch.testing.assert_close(m, p0, rtol=0, atol=0)  # master from the f32 init
+
+
+def test_chunking_does_not_change_the_stream():
+    """Batches come from a generator seeded by (seed, global step): 2 + 3
+    steps and 5 steps give the same parameters and last loss."""
+    def run(chunks):
+        model = tfm.TransformerLM(tfm.TINY_LM, attn_fn=None,
+                                  generator=torch.Generator().manual_seed(0))
+        tx = optim.make_optimizer(optim.OptimizerConfig())
+        state = ts.create_train_state(model, tx)
+
+        def make_batch(gen):
+            return {"tokens": torch.randint(0, 1024, (BATCH, 32), generator=gen)}
+
+        step = ts.make_chunked_train_step(
+            lambda m, b: tfm.lm_loss(m(b["tokens"]), b["tokens"]), tx, make_batch, "cpu")
+        for n in chunks:
+            state, metrics = step(state, n)
+        return state, float(metrics["loss"])
+
+    (s1, l1), (s2, l2) = run([2, 3]), run([5])
+    assert s1.step == s2.step == 5 and l1 == l2
+    for a, b in zip(s1.params, s2.params):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def _run_trainer(tmp_path, extra, env_extra=None):
+    env = dict(os.environ, OMP_NUM_THREADS="2",
+               TPUJOB_METRICS_FILE=str(tmp_path / "events.jsonl"),
+               TPUJOB_HEARTBEAT_FILE=str(tmp_path / "hb.json"), **(env_extra or {}))
+    return subprocess.run(
+        [sys.executable, "-m", "tf_operator_tpu_torch.models.train", *extra],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+
+
+def test_trainer_on_cpu_writes_events_and_heartbeat(tmp_path):
+    proc = _run_trainer(tmp_path, ["--model", "transformer-lm", "--steps", "5",
+                                   "--log-every", "2", "--moment-dtype", "bf16",
+                                   "--master-weights", *TINY_ARGS])
+    assert proc.returncode == 0, proc.stderr
+    events = [json.loads(x) for x in (tmp_path / "events.jsonl").read_text().splitlines()]
+    names = [e["event"] for e in events]
+    assert names[:4] == ["start", "jax_ready", "model_ready", "first_step"]
+    by = {e["event"]: e for e in events}
+    first = by["first_step"]
+    assert isinstance(first["startup_s"], float) and first["startup_s"] > 0
+    assert first["backend"] == "cpu" and first["steps_in_first_call"] == 2
+    assert by["jax_ready"]["backend"] == "cpu"
+    progress = [e["step"] for e in events if e["event"] == "progress"]
+    assert progress == [4, 5]
+    done = by["done"]
+    assert done["steps"] == 5 and math.isfinite(done["final_loss"])
+    assert done["step_time_s"]["mean"] > 0 and done["phase_breakdown"]["steps"] == 2
+    assert json.loads((tmp_path / "hb.json").read_text())["step"] == 5
+    # Events also reach stdout, one JSON object per line.
+    assert [json.loads(x)["event"] for x in proc.stdout.splitlines()] == names
+
+
+def test_trainer_refuses_cuda_without_a_device(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the trainer would use it")
+    proc = _run_trainer(tmp_path, TINY_ARGS[2:] + ["--steps", "1"])
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr
+    assert not (tmp_path / "events.jsonl").exists()
+
+
+@pytest.mark.parametrize("flag", [
+    ["--checkpoint-dir", "/nonexistent"], ["--remat"], ["--data-dir", "/nonexistent"],
+    ["--chaos", "kill:step=1"], ["--trace"], ["--eval"], ["--model", "resnet50"],
+])
+def test_trainer_refuses_what_is_not_ported(flag, capsys):
+    with pytest.raises(SystemExit) as e:
+        train.main([*TINY_ARGS, *flag])
+    assert e.value.code == 2
+    assert "not ported" in capsys.readouterr().err
+
+
+def test_chip_smoke_fails_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+
+
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "tf_operator_tpu")
+
+
+def test_import_hygiene_in_a_fresh_process():
+    code = (
+        "import json, pkgutil, sys\n"
+        f"sys.path.insert(0, {str(ROOT)!r})\n"
+        "import tf_operator_tpu_torch, tf_operator_tpu_torch.models.train, chip_smoke\n"
+        "for m in pkgutil.walk_packages(tf_operator_tpu_torch.__path__, 'tf_operator_tpu_torch.'):\n"
+        "    __import__(m.name)\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
+        "print(json.dumps(bad))\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=120, cwd=ROOT / "tests")
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.splitlines()[-1]) == []
+
+
+def test_import_hygiene_ast_scan():
+    files = sorted((ROOT / "tf_operator_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                assert name.split(".")[0] not in FORBIDDEN, f"{path}: imports {name}"

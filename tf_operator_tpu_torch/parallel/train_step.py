@@ -1,0 +1,89 @@
+"""Single-device train step: counterpart of tf_operator_tpu/parallel/train_step.py.
+
+`TrainState` holds the model (its parameters are the compute copy), the
+optimizer state and the step. `train_step` runs loss, gradients, the
+optimizer update and the gradient norm; the optimizer's replacement
+parameters are copied into the model's parameters in place, so the step
+allocates no second parameter set. `make_chunked_train_step` is the
+`--log-every` loop: batches are made on the device from a generator seeded
+from (seed, global step), so how the steps are chunked does not change the
+stream. Sharding, meshes and torch.distributed are not ported yet.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable
+
+import torch
+from torch import nn
+
+from tf_operator_tpu_torch import optim as optim_lib
+
+LossFn = Callable[[nn.Module, Any], torch.Tensor]
+# signature: loss_fn(model, batch) -> scalar loss
+
+
+@dataclass
+class TrainState:
+    step: int
+    model: nn.Module
+    opt_state: optim_lib.MixedAdamState
+
+    @property
+    def params(self) -> list[torch.Tensor]:
+        return list(self.model.parameters())
+
+
+def create_train_state(model: nn.Module,
+                       tx: optim_lib.MixedPrecisionTransformation) -> TrainState:
+    # Init BEFORE the compute cast: under master_weights the optimizer's f32
+    # master copy comes from the full-precision init parameters, and the
+    # model then holds the bf16 compute copy.
+    opt_state = tx.init(list(model.parameters()))
+    dtype = optim_lib.compute_dtype(tx)
+    if dtype is not None:
+        model.to(dtype)
+    return TrainState(step=0, model=model, opt_state=opt_state)
+
+
+def global_norm(tensors: list[torch.Tensor]) -> torch.Tensor:
+    return torch.sqrt(sum(t.float().pow(2).sum() for t in tensors))
+
+
+def train_step(state: TrainState, batch, loss_fn: LossFn,
+               tx: optim_lib.MixedPrecisionTransformation):
+    """One optimizer step; returns (state, {"loss", "grad_norm"}) with the
+    metrics as device scalars (no host sync)."""
+    params = state.params
+    loss = loss_fn(state.model, batch)
+    grads = torch.autograd.grad(loss, params)
+    new_params, new_opt = tx.update(list(grads), state.opt_state, params)
+    with torch.no_grad():
+        for p, new in zip(params, new_params):
+            p.copy_(new)
+    metrics = {"loss": loss.detach(), "grad_norm": global_norm(grads)}
+    return TrainState(state.step + 1, state.model, new_opt), metrics
+
+
+def batch_generator(seed: int, step: int, device) -> torch.Generator:
+    """The generator of global step `step`'s batch: its seed depends on
+    (seed, step) only, never on how the steps are chunked."""
+    return torch.Generator(device=device).manual_seed(
+        (seed * 0x9E3779B97F4A7C15 + step) % (1 << 63))
+
+
+def make_chunked_train_step(loss_fn: LossFn,
+                            tx: optim_lib.MixedPrecisionTransformation,
+                            make_batch: Callable[[torch.Generator], Any],
+                            device, seed: int = 0):
+    """run(state, n) -> (state, metrics of the last of its n steps)."""
+
+    def run(state: TrainState, n: int):
+        metrics = None
+        for _ in range(n):
+            batch = make_batch(batch_generator(seed, state.step, device))
+            state, metrics = train_step(state, batch, loss_fn, tx)
+        return state, metrics
+
+    return run
