@@ -15,8 +15,8 @@ Phases, in order:
   4. train the full-width causal LM (12L x 768h, 6 heads x 128, vocab 32000,
      seq 8192) through tf_operator_tpu_torch.models.train for a few steps,
      and check that every kernel ran on that path;
-  5. (only with --phases ...,profile) device time by kernel group over a few
-     training steps, under torch.profiler.
+  5. (only with --phases ...,profile) the same trainer run under
+     torch.profiler: device time by kernel group over its steady steps.
 The last lines are the kernels' JSON record, the card, and
 {"ok": true, "device": {...}}. Any failed phase exits nonzero with no
 result line. Needs a CUDA device: it never runs on the CPU.
@@ -40,16 +40,46 @@ OUT_DIR = ROOT / "artifacts" / "chip_smoke"  # git-ignored
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_BYTES_PER_S = 3.35e12
 
+# The trainer's full-width configuration (bench.py's long-context LM).
+BATCH = 4
+SEQ = 8192
+LAYERS = 12
+LOG_EVERY = 2
+
 # (shape [B, H, T, D], dtype, causal); the first is the trainer's at batch 1.
 CHECK_CASES = (
-    ((1, 6, 8192, 128), "bfloat16", True),
+    ((1, 6, SEQ, 128), "bfloat16", True),
     ((1, 2, 1000, 64), "float32", False),
     ((2, 2, 192, 128), "float32", True),
     ((1, 3, 1000, 64), "bfloat16", True),  # bf16 at D=64 with a ragged causal tail
 )
-# Tolerances as in tests/test_ops.py: f32 absolute; bf16 relative to max|ref|.
-TOL = {"float32": {"out": 2e-5, "grad": 1e-4},
-       "bfloat16": {"out": 3e-2, "grad": 1e-1}}
+# Every element must satisfy |got - ref| <= rtol * |ref| + atol * s.
+# f32 as tests/test_ops.py: absolute (s = 1). bf16 o and grads: s is the rms
+# of ref's own row, since a causal row i averages i values and its scale
+# falls as 1/sqrt(i): one scale for the whole tensor, set by the first rows,
+# would let the late rows be anything. s is floored at ROW_FLOOR x the whole
+# tensor's rms for rows whose exact value cancels to zero (causal dq's row
+# 0: one visible key, so P = 1 and dP = delta). The bf16 o limit covers P
+# rounded against the running max (the kernel, as the Pallas one) rather
+# than the row's final max (the plain version). lse is f32 on both paths
+# and is held absolutely at either dtype.
+TOL = {  # kind -> (rtol, atol, atol scaled by the row's rms)
+    "float32": {"o": (0.0, 2e-5, False), "lse": (0.0, 2e-5, False),
+                "grad": (0.0, 1e-4, False)},
+    "bfloat16": {"o": (2e-2, 2e-2, True), "lse": (0.0, 1e-3, False),
+                 "grad": (5e-2, 2e-2, True)},
+}
+ROW_FLOOR = 1e-2
+# Broken kernel outputs that the check must reject at the trainer's shape:
+# (output, what is broken, how).
+MUTATIONS = (
+    ("o", "last half of rows zero", lambda x: _tail_rows(x, 0.0)),
+    ("o", "last half of rows x1.05", lambda x: _tail_rows(x, 1.05)),
+    ("lse", "+0.05", lambda x: x + 0.05),
+    ("dq", "last half of rows zero", lambda x: _tail_rows(x, 0.0)),
+    ("dk", "last half of rows zero", lambda x: _tail_rows(x, 0.0)),
+    ("dv", "last half of rows zero", lambda x: _tail_rows(x, 0.0)),
+)
 
 KERNELS = (
     ("flash_fwd", "fwd", "tf_operator_tpu/ops/flash_attention.py:51"),
@@ -132,17 +162,51 @@ def build_phase() -> float:
     return secs
 
 
-def _err(got, ref, rel: bool) -> float:
-    diff = (got.float() - ref.float()).abs().max().item()
-    if rel:
-        return diff / max(ref.float().abs().max().item(), 1e-30)
-    return diff
+def _tail_rows(x, factor: float):
+    """x with its last half of rows (dim 1, the sequence) scaled by factor."""
+    x = x.clone()
+    x[:, x.shape[1] // 2:] *= factor
+    return x
+
+
+def excess(got, ref, dtype_name: str, kind: str) -> float:
+    """The largest |got - ref| / (rtol * |ref| + atol * s) over the elements,
+    with TOL[dtype_name][kind]; the check passes at <= 1."""
+    import torch
+
+    rtol, atol, row_scaled = TOL[dtype_name][kind]
+    g, r = got.float(), ref.float()
+    scale = 1.0
+    if row_scaled:
+        floor = ROW_FLOOR * r.square().mean().sqrt().clamp_min(1e-30)
+        scale = torch.maximum(r.square().mean(dim=-1, keepdim=True).sqrt(), floor)
+    return ((g - r).abs() / (rtol * r.abs() + atol * scale)).max().item()
+
+
+def _kind(name: str) -> str:
+    """The TOL kind of a checked output: "o", "lse", or "grad" for the rest."""
+    return name if name in ("o", "lse") else "grad"
+
+
+def checker_self_test(outs: dict, refs: dict, dtype_name: str) -> dict:
+    """The check's verdict on each of MUTATIONS applied to the kernels'
+    outputs `outs` against `refs`: {label: excess}. Raises if the check
+    would accept one of them."""
+    verdicts = {}
+    for name, what, mutate in MUTATIONS:
+        label = f"{name} {what}"
+        verdicts[label] = excess(mutate(outs[name]), refs[name], dtype_name, _kind(name))
+    accepted = [label for label, e in verdicts.items() if not e > 1.0]
+    if accepted:
+        raise SmokeFailure(f"the {dtype_name} check accepts broken outputs: {accepted}")
+    return verdicts
 
 
 def check_phase(records: dict) -> None:
     """Each kernel against its plain version, on the same inputs, for every
-    case; the autograd bindings against the plain backward; timings at the
-    trainer's shape. Fills `records[name]` with max_abs_err and the times."""
+    case; the autograd bindings against the plain backward; at the trainer's
+    shape, the check's rejection of broken outputs and the timings. Fills
+    `records[name]` with max_abs_err and the times."""
     import torch
 
     from tf_operator_tpu_torch.ops import flash_attention as fa
@@ -154,33 +218,44 @@ def check_phase(records: dict) -> None:
     for shape, dtype_name, causal in CHECK_CASES:
         dtype = getattr(torch, dtype_name)
         b, h, t, d = shape
-        rel = dtype_name == "bfloat16"
-        tol = TOL[dtype_name]
+        main = shape == CHECK_CASES[0][0]
 
         def rnd(*s, dt=dtype):
             return torch.randn(*s, generator=gen, device=dev, dtype=torch.float32).to(dt)
 
         q, k, v, do = (rnd(b * h, t, d) for _ in range(4))
         g_lse = rnd(b * h, t, dt=torch.float32)
+        # name -> (max |got - ref| / max |ref|, excess); the first is the
+        # number reported, the second decides.
+        errs = {}
+
+        def hold(name, got, ref):
+            got = got.reshape(ref.shape)
+            diff = (got.float() - ref.float()).abs().max().item()
+            errs[name] = (diff / max(ref.float().abs().max().item(), 1e-30),
+                          excess(got, ref, dtype_name, _kind(name)))
+            return diff
 
         o, lse = fa.flash_fwd(q, k, v, causal)
         o_p, lse_p = fa.flash_fwd_plain(q, k, v, causal)
-        errs = {"o": _err(o, o_p, rel), "lse": _err(lse, lse_p, rel)}
-        abs_errs = {"fwd": (o.float() - o_p.float()).abs().max().item()}
-        lim = {"o": tol["out"], "lse": tol["out"]}
+        abs_errs = {"fwd": hold("o", o, o_p)}
+        hold("lse", lse, lse_p)
         for tag, gl in (("", None), ("+g_lse", g_lse)):
             dq = fa.flash_bwd_dq(q, k, v, o, lse, do, causal, gl)
             dq_p = fa._bwd_dq_plain(q, k, v, o, lse, do, causal, gl)
             dk, dv = fa.flash_bwd_dkv(q, k, v, o, lse, do, causal, gl)
             dk_p, dv_p = fa._bwd_dkv_plain(q, k, v, o, lse, do, causal, gl)
-            for name, got, ref in (("dq", dq, dq_p), ("dk", dk, dk_p), ("dv", dv, dv_p)):
-                errs[name + tag] = _err(got, ref, rel)
-                lim[name + tag] = tol["grad"]
+            diffs = [hold(name + tag, got, ref)
+                     for name, got, ref in (("dq", dq, dq_p), ("dk", dk, dk_p), ("dv", dv, dv_p))]
             if not tag:
-                abs_errs["bwd_dq"] = (dq.float() - dq_p.float()).abs().max().item()
-                abs_errs["bwd_dkv"] = max(
-                    (dk.float() - dk_p.float()).abs().max().item(),
-                    (dv.float() - dv_p.float()).abs().max().item())
+                abs_errs["bwd_dq"], abs_errs["bwd_dkv"] = diffs[0], max(diffs[1:])
+                if main:
+                    verdicts = checker_self_test(
+                        {"o": o, "lse": lse, "dq": dq, "dk": dk, "dv": dv},
+                        {"o": o_p, "lse": lse_p, "dq": dq_p, "dk": dk_p, "dv": dv_p},
+                        dtype_name)
+                    log(f"check {list(shape)} {dtype_name}: the check rejects broken "
+                        "outputs, excess " + ", ".join(f"{n}={e:.3g}" for n, e in verdicts.items()))
             del dq, dq_p, dk, dv, dk_p, dv_p
 
         # The autograd bindings over [B, H, T, D], against the plain
@@ -191,26 +266,24 @@ def check_phase(records: dict) -> None:
                                     (q4, k4, v4), do4)
         ref = fa.flash_bwd_plain(q, k, v, o_p, lse_p, do, causal)
         for name, got, r in zip(("dq", "dk", "dv"), grads, ref):
-            errs["FlashAttention." + name] = _err(got.reshape(r.shape), r, rel)
-            lim["FlashAttention." + name] = tol["grad"]
+            hold("FlashAttention." + name, got, r)
         o4, lse4 = fa.FlashAttentionWithLse.apply(q4, k4, v4, causal)
         grads = torch.autograd.grad((o4, lse4), (q4, k4, v4),
                                     (do4, g_lse.view(b, h, t)))
         ref = fa.flash_bwd_plain(q, k, v, o_p, lse_p, do, causal, g_lse)
         for name, got, r in zip(("dq", "dk", "dv"), grads, ref):
-            errs["FlashAttentionWithLse." + name] = _err(got.reshape(r.shape), r, rel)
-            lim["FlashAttentionWithLse." + name] = tol["grad"]
+            hold("FlashAttentionWithLse." + name, got, r)
         torch.cuda.synchronize()
         del grads, ref, o4, lse4
 
-        kind = "rel" if rel else "abs"
-        log(f"check {list(shape)} {dtype_name} causal={causal}: max {kind} err "
-            + ", ".join(f"{n}={e:.3g}" for n, e in errs.items()))
-        for n, e in errs.items():
-            if not e <= lim[n]:
-                failures.append(f"{list(shape)} {dtype_name} {n}: {e:.3g} > {lim[n]}")
+        log(f"check {list(shape)} {dtype_name} causal={causal}: max err / max|ref| "
+            + ", ".join(f"{n}={e[0]:.3g}" for n, e in errs.items()))
+        log(f"check {list(shape)} {dtype_name} causal={causal}: excess (<= 1 passes) "
+            + ", ".join(f"{n}={e[1]:.3g}" for n, e in errs.items()))
+        failures += [f"{list(shape)} {dtype_name} {n}: excess {e[1]:.3g}"
+                     for n, e in errs.items() if not e[1] <= 1.0]
 
-        if shape == CHECK_CASES[0][0]:
+        if main:
             for name, key, _ in KERNELS:
                 records[name] = {"max_abs_err": abs_errs[key]}
             _time_main_shape(records, q, k, v, o, lse, do, causal, shape, dtype_name)
@@ -275,35 +348,28 @@ def _time_main_shape(records, q, k, v, o, lse, do, causal, shape, dtype_name):
     del out, q4, k4, v4
 
 
-def train_phase(args, card: str) -> dict:
-    """The port's trainer at full width through its entry point; every
-    kernel must have launched at least layers x steps times in that run."""
-    import torch
-
+def run_trainer(steps: int) -> dict:
+    """python -m tf_operator_tpu_torch.models.train at the full-width
+    configuration for `steps` steps, in this process; returns its events by
+    name. Fails unless it exits 0 with a finite final loss."""
     from tf_operator_tpu_torch.models import train
-    from tf_operator_tpu_torch.ops import flash_attention as fa
 
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     events_path = OUT_DIR / "chip_smoke_events.jsonl"
     events_path.unlink(missing_ok=True)
-    argv = ["--model", "transformer-lm", "--steps", str(args.steps),
-            "--batch", str(args.batch), "--seq", "8192", "--layers", "12",
+    argv = ["--model", "transformer-lm", "--steps", str(steps),
+            "--batch", str(BATCH), "--seq", str(SEQ), "--layers", str(LAYERS),
             "--hidden", "768", "--heads", "6", "--moment-dtype", "bf16",
-            "--master-weights", "--log-every", str(args.log_every),
-            "--device", "cuda"]
+            "--master-weights", "--log-every", str(LOG_EVERY), "--device", "cuda"]
     log("train: python -m tf_operator_tpu_torch.models.train " + " ".join(argv))
-    torch.cuda.reset_peak_memory_stats()
     os.environ["TPUJOB_METRICS_FILE"] = str(events_path)
-    fa.reset_launches()
     try:
         rc = train.main(argv)
     finally:
-        launches = dict(fa.LAUNCHES)
         os.environ.pop("TPUJOB_METRICS_FILE", None)
     if rc != 0:
         raise SmokeFailure(f"trainer exited {rc}")
-    events = [json.loads(line) for line in events_path.read_text().splitlines()]
-    by = {e["event"]: e for e in events}
+    by = {e["event"]: e for e in map(json.loads, events_path.read_text().splitlines())}
     done = by.get("done")
     if done is None or not isinstance(done.get("final_loss"), float) \
             or not done["final_loss"] == done["final_loss"] \
@@ -311,98 +377,92 @@ def train_phase(args, card: str) -> dict:
         raise SmokeFailure(f"no done event with a finite final_loss: {done}")
     if not isinstance(by.get("first_step", {}).get("startup_s"), float):
         raise SmokeFailure("first_step event lacks a float startup_s")
-    need = 12 * args.steps
+    return by
+
+
+def train_phase(args, card: str) -> dict:
+    """The port's trainer at full width through its entry point; every
+    kernel must have launched at least layers x steps times in that run."""
+    import torch
+
+    from tf_operator_tpu_torch.ops import flash_attention as fa
+
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    by = run_trainer(args.steps)
+    launches = dict(fa.LAUNCHES)
+    need = LAYERS * args.steps
     short = {k: n for k, n in launches.items() if n < need}
     if short:
         raise SmokeFailure(f"kernels launched fewer than layers x steps = {need} "
                            f"times on the main path: {short}")
+    done = by["done"]
     eps = done.get("examples_per_sec")
-    tps = eps * 8192 if eps else None
+    tps = eps * SEQ if eps else None
     step_s = (done.get("step_time_s") or {}).get("mean")
-    mfu = (lm_flops_per_step(args.batch, 8192, 12, 768, 32000) * eps / args.batch
+    mfu = (lm_flops_per_step(BATCH, SEQ, LAYERS, 768, 32000) * eps / BATCH
            / PEAK_FLOPS["bfloat16"]) if eps else None
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     log(f"train: final_loss={done['final_loss']:.4f} tokens/s={tps} mfu={mfu} "
         f"step_time_mean_s={step_s} startup_s={by['first_step']['startup_s']} "
         f"max_memory_allocated={peak_gb:.2f} GB launches={launches} "
-        f"batch={args.batch} [{card}]")
+        f"batch={BATCH} [{card}]")
     return launches
 
 
 def profile_phase(args, card: str) -> None:
-    """Device time by kernel over `args.steps` steady training steps of the
-    full-width model, built from the trainer's own parts, under
-    torch.profiler; the Chrome trace goes to OUT_DIR."""
-    import torch
+    """The trainer's run, as the train phase drives it, under torch.profiler:
+    device time by kernel group over its steady steps, the steps after its
+    first chunk. Each step is cut at its first attention forward (the
+    kernel stream's (LAYERS * i)-th fwd_kernel), so the window holds whole
+    steps LOG_EVERY + 1 .. steps - 1 of device work and the gaps between
+    them. The Chrome trace goes to OUT_DIR."""
     from torch.profiler import DeviceType, ProfilerActivity, profile
 
-    from tf_operator_tpu_torch import optim as optim_lib
-    from tf_operator_tpu_torch.models import train
-    from tf_operator_tpu_torch.models import transformer as tfm
-    from tf_operator_tpu_torch.parallel.ring_attention import make_attention_fn
-    from tf_operator_tpu_torch.parallel.train_step import (
-        create_train_state,
-        make_chunked_train_step,
-    )
-
-    dev = torch.device("cuda")
-    seq = 8192
-    cfg = tfm.TransformerConfig(vocab_size=train.VOCAB, num_layers=12, hidden=768,
-                                num_heads=6, max_len=seq, causal=True)
-    model = tfm.TransformerLM(cfg, attn_fn=make_attention_fn(causal=True), device=dev,
-                              generator=torch.Generator(device=dev).manual_seed(0))
-    tx = optim_lib.make_optimizer(optim_lib.OptimizerConfig(
-        moment_dtype="bf16", master_weights=True))
-    state = create_train_state(model, tx)
-    step = make_chunked_train_step(
-        lambda m, b: tfm.lm_loss(m(b["tokens"]), b["tokens"]), tx,
-        lambda g: {"tokens": torch.randint(0, cfg.vocab_size, (args.batch, seq),
-                                           generator=g, device=dev)}, dev)
-    state, _ = step(state, 1)  # warm-up: allocator, cuBLAS handles
-    torch.cuda.synchronize()
+    if args.steps < LOG_EVERY + 2:
+        raise SmokeFailure(f"the profile needs --steps >= {LOG_EVERY + 2}")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        state, metrics = step(state, args.steps)
-        float(metrics["loss"])
-        wall_ms = (time.perf_counter() - t0) * 1e3
+        run_trainer(args.steps)
+    kernels = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+    fwd_starts = [e.time_range.start for e in kernels if "fwd_kernel" in e.name]
+    if len(fwd_starts) != LAYERS * args.steps:
+        raise SmokeFailure(f"the profiler saw {len(fwd_starts)} fwd_kernel launches, "
+                           f"not layers x steps = {LAYERS * args.steps}")
+    t0, t1 = fwd_starts[LAYERS * LOG_EVERY], fwd_starts[LAYERS * (args.steps - 1)]
     groups = {"flash_fwd": "fwd_kernel", "flash_bwd_dq": "bwd_dq_kernel",
               "flash_bwd_dkv": "bwd_dkv_kernel"}
     by_group: dict[str, float] = {}
     n_kernels = 0
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
+    for e in kernels:
+        if not t0 <= e.time_range.start < t1:
             continue
-        us = e.device_time_total if hasattr(e, "device_time_total") else e.cuda_time_total
-        name = e.name
-        group = next((g for g, key in groups.items() if key in name), None)
+        group = next((g for g, key in groups.items() if key in e.name), None)
         if group is None:
-            low = name.lower()
+            low = e.name.lower()
             # cuBLAS names its Hopper GEMMs nvjet_*, older ones *gemm*/*xmma*.
             is_mm = any(key in low for key in ("nvjet", "gemm", "xmma", "cutlass"))
             group = "matmul" if is_mm else "other"
+        us = min(e.time_range.end, t1) - e.time_range.start
         by_group[group] = by_group.get(group, 0.0) + us / 1e3
         n_kernels += 1
+    window_ms = (t1 - t0) / 1e3
     busy = sum(by_group.values())
     summary = {"profile": {
-        "steps": args.steps, "batch": args.batch, "wall_ms": wall_ms,
-        "device_busy_ms": busy, "idle_share": 1.0 - busy / wall_ms,
+        "steps": args.steps - 1 - LOG_EVERY, "batch": BATCH, "window_ms": window_ms,
+        "device_busy_ms": busy, "idle_share": 1.0 - busy / window_ms,
         "kernels": n_kernels,
         "device_ms_by_group": dict(sorted(by_group.items(), key=lambda kv: -kv[1])),
         "card": card}}
-    OUT_DIR.mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(OUT_DIR / "train_profile.trace.json"))
     log("profile: " + json.dumps(summary))
-    if busy <= 0:
-        raise SmokeFailure("the profiler saw no device time")
 
 
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="build,check,train",
                     help="comma-separated subset of build,check,train,profile")
-    ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--steps", type=int, default=6)
-    ap.add_argument("--log-every", type=int, default=2)
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -426,7 +486,7 @@ def main(argv: list[str] | None = None) -> int:
     log(f"card: {card} | torch.cuda.get_device_name: {torch.cuda.get_device_name(0)}"
         f" | torch {torch.__version__} cuda {torch.version.cuda}")
     records: dict = {}
-    launches: dict = {}
+    launches: dict | None = None  # filled only by the train phase
     try:
         build_phase()
         if "check" in phases:
@@ -445,7 +505,8 @@ def main(argv: list[str] | None = None) -> int:
         rec = records.get(name, {})
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": replaces, "launches": launches.get(key, 0),
+            "replaces": replaces,
+            "launches": launches[key] if launches is not None else None,
             "max_abs_err": rec.get("max_abs_err"), "ms": rec.get("ms"),
             "plain_ms": rec.get("plain_ms"), "bound_ms": rec.get("bound_ms"),
             "bound_by": rec.get("bound_by"), "library_ms": rec.get("library_ms"),
