@@ -6,17 +6,25 @@
 
 Phases, in order:
   1. identify the card (nvidia-smi name and power limit);
-  2. build the CUDA kernels from tf_operator_tpu_torch/csrc with nvcc;
-  3. hold each kernel against its plain PyTorch version on the card, at the
-     trainer's attention shape and three small ones (f32 with a ragged tail,
-     f32 causal, bf16 at head_dim 64 with a ragged causal tail), and time
-     the kernels at the trainer's shape beside their bound, their plain
-     version and PyTorch's scaled_dot_product_attention;
+  2. build the CUDA kernels from tf_operator_tpu_torch/csrc with nvcc, one
+     nvcc per source, all started together;
+  3. hold each kernel against its plain PyTorch version on the card: the
+     flash kernels at the LM trainer's attention shape and three small ones
+     (f32 with a ragged tail, f32 causal, bf16 at head_dim 64 with a ragged
+     causal tail), timed at the trainer's shape beside their bound, their
+     plain version and PyTorch's scaled_dot_product_attention; the fused
+     bottleneck at ResNet-50's stage-1 and stage-4 identity blocks (the
+     weights and input activations of the port's ResNet-50 at batch 256,
+     224x224) and a small f32 case, timed at both ResNet-50 shapes beside
+     its bound, its plain version and the port's unfused BottleneckBlock;
   4. train the full-width causal LM (12L x 768h, 6 heads x 128, vocab 32000,
      seq 8192) through tf_operator_tpu_torch.models.train for a few steps,
-     and check that every kernel ran on that path;
-  5. (only with --phases ...,profile) the same trainer run under
-     torch.profiler: device time by kernel group over its steady steps.
+     and check that every flash kernel ran on that path; then ResNet-50 at
+     batch 256, 224x224, and check its loss and batch-norm running
+     statistics (no hand-written kernel is on that path: the fused
+     bottleneck, as in the JAX package, is on no trainer path);
+  5. (only with --phases ...,profile) both trainers' runs under
+     torch.profiler: device time by kernel group over their steady steps.
 The last lines are the kernels' JSON record, the card, and
 {"ok": true, "device": {...}}. Any failed phase exits nonzero with no
 result line. Needs a CUDA device: it never runs on the CPU.
@@ -31,6 +39,7 @@ import subprocess
 import sys
 import time
 import traceback
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -87,6 +96,45 @@ KERNELS = (
     ("flash_bwd_dkv", "bwd_dkv", "tf_operator_tpu/ops/flash_attention.py:295"),
 )
 SOURCE = "tf_operator_tpu_torch/csrc/flash_attention.cu"
+K4 = ("fused_bottleneck_fwd", "tf_operator_tpu_torch/csrc/fused_bottleneck.cu",
+      "tf_operator_tpu/ops/fused_bottleneck.py:100")
+SOURCES = ("flash_attention", "fused_bottleneck")
+
+# The fused bottleneck's cases: (label, ResNet-50 block index or None for
+# random inputs, dtype). Block 1 is stage 1's first identity block
+# (56x56, Cw 256, Cn 64, tile 1), block 14 stage 4's (7x7, Cw 2048, Cn 512,
+# tile 64 = default_tile(7, 7, 256)). The small case is f32 at 7x7 with
+# tile 2, Cw 96 and Cn 24: ragged row blocks (98 rows a tile) and ragged
+# channel blocks (24 and 96 are not multiples of 64).
+RN_BATCH, RN_SIZE = 256, 224
+K4_CASES = (("stage1", 1, "bfloat16"), ("stage4", 14, "bfloat16"),
+            ("small", None, "float32"))
+K4_SMALL = (4, 7, 7, 96, 24, 2)  # B, H, W, Cw, Cn, tile_b
+# Per-element limits of the fused bottleneck against its plain version.
+# y: |got - ref| <= rtol |ref| + atol s, s the rms of ref. In bf16 the two
+# round y (and n1, n2 on the way) at the same points from f32 values that
+# differ by summation order, so an element may land one bf16 step away: up
+# to 2^-7 of |ref| (rtol 1e-2). And an n2 element rounded one step the other
+# way moves t3 by w3 x that step, which BN3 multiplies by its a3 (up to ~4
+# at these inputs): small elements of y then differ by up to ~2e-2 absolute,
+# as much as the f32 plain version differs from a float64 evaluation of the
+# same function (the check phase logs both distances), so atol is 4e-2 s.
+# In f32 the limit is absolute, as tests/test_ops.py (1e-4).
+# st (raw moments [tiles, 2, C]): the mean row within tol x the channel's
+# rms sqrt(E[t^2]), the mean-of-squares row within 2 tol x E[t^2], each
+# scale floored at ROW_FLOOR x its average over the tensor. They average
+# thousands of rows, so one-step rounding flips upstream barely move them:
+# 1e-3 in bf16, 1e-5 in f32.
+K4_TOL = {"bfloat16": {"y": (1e-2, 4e-2), "st": 1e-3},
+          "float32": {"y": (0.0, 1e-4), "st": 1e-5}}
+# Broken outputs the check must reject at the stage-1 shape: (output, what
+# is broken, how, given (outputs, x, tile_b)).
+K4_MUTATIONS = (
+    ("y", "last tile zero", lambda o, x, tb: _tail(o["y"], tb, 0.0)),
+    ("y", "last half x1.02", lambda o, x, tb: _tail(o["y"], o["y"].shape[0] // 2, 1.02)),
+    ("y", "relu(x): the block's path dropped", lambda o, x, tb: x.clamp_min(0)),
+    ("st2", "mean + 1e-2 x its rms", lambda o, x, tb: _shift_mean(o["st2"], 1e-2)),
+)
 
 
 class SmokeFailure(RuntimeError):
@@ -149,16 +197,21 @@ def lm_flops_per_step(batch: int, seq: int, layers: int, hidden: int,
 
 
 def build_phase() -> float:
-    from tf_operator_tpu_torch.ops import _build, flash_attention as fa
+    from tf_operator_tpu_torch.ops import _build
+    from tf_operator_tpu_torch.ops import flash_attention as fa
+    from tf_operator_tpu_torch.ops import fused_bottleneck as fb
 
     t0 = time.time()
-    _build.build("flash_attention")
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        list(pool.map(_build.build, SOURCES))
     fa._lib()
+    fb._lib()
     secs = time.time() - t0
-    log(f"build: flash_attention.cu in {secs:.1f} s")
-    for line in _build.build_logs.get("flash_attention", "").splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    log(f"build: {', '.join(n + '.cu' for n in SOURCES)} in parallel in {secs:.1f} s")
+    for name in SOURCES:
+        for line in _build.build_logs.get(name, "").splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas {name}: {line.strip()}")
     return secs
 
 
@@ -292,6 +345,7 @@ def check_phase(records: dict) -> None:
 
     if failures:
         raise SmokeFailure("kernel disagrees with its plain version: " + "; ".join(failures))
+    k4_check_phase(records)
 
 
 def _time_main_shape(records, q, k, v, o, lse, do, causal, shape, dtype_name):
@@ -347,24 +401,222 @@ def _time_main_shape(records, q, k, v, o, lse, do, causal, shape, dtype_name):
     log(f"time scaled_dot_product_attention fwd+bwd: {sdpa_fb:.3f} ms")
     del out, q4, k4, v4
 
+def _tail(x, n: int, factor: float):
+    """x with its last n entries along dim 0 scaled by factor."""
+    x = x.clone()
+    x[x.shape[0] - n:] *= factor
+    return x
 
-def run_trainer(steps: int) -> dict:
-    """python -m tf_operator_tpu_torch.models.train at the full-width
-    configuration for `steps` steps, in this process; returns its events by
-    name. Fails unless it exits 0 with a finite final loss."""
-    from tf_operator_tpu_torch.models import train
 
-    OUT_DIR.mkdir(parents=True, exist_ok=True)
-    events_path = OUT_DIR / "chip_smoke_events.jsonl"
-    events_path.unlink(missing_ok=True)
-    argv = ["--model", "transformer-lm", "--steps", str(steps),
+def _shift_mean(st, frac: float):
+    """Raw moments [tiles, 2, C] with every mean moved by frac x the
+    channel's rms."""
+    st = st.clone()
+    st[:, 0] += frac * st[:, 1].clamp_min(0).sqrt()
+    return st
+
+
+def k4_excess(got, ref, dtype_name: str, name: str) -> float:
+    """The largest error of the fused bottleneck's output `name` ("y" or a
+    moment "st1".."st3") over its K4_TOL limit; the check passes at <= 1."""
+    import torch
+
+    g, r = got.float(), ref.float()
+    tol = K4_TOL[dtype_name]
+    if name == "y":
+        rtol, atol = tol["y"]
+        s = r.square().mean().sqrt().clamp_min(1e-30)
+        return ((g - r).abs() / (rtol * r.abs() + atol * s)).max().item()
+    q = r[:, 1].clamp_min(0)
+    q_scale = torch.maximum(q, ROW_FLOOR * q.mean()).clamp_min(1e-30)
+    rms = q.sqrt()
+    m_scale = torch.maximum(rms, ROW_FLOOR * rms.mean()).clamp_min(1e-30)
+    e_m = ((g[:, 0] - r[:, 0]).abs() / (tol["st"] * m_scale)).max().item()
+    e_q = ((g[:, 1] - r[:, 1]).abs() / (2 * tol["st"] * q_scale)).max().item()
+    return max(e_m, e_q)
+
+
+def k4_checker_self_test(outs: dict, refs: dict, x, tile_b: int, dtype_name: str) -> dict:
+    """The check's verdict on each of K4_MUTATIONS applied to the kernel's
+    outputs: {label: excess}. Raises if the check would accept one."""
+    verdicts = {f"{name} {what}": k4_excess(mutate(outs, x, tile_b), refs[name],
+                                            dtype_name, name)
+                for name, what, mutate in K4_MUTATIONS}
+    accepted = [label for label, e in verdicts.items() if not e > 1.0]
+    if accepted:
+        raise SmokeFailure(f"the {dtype_name} fused-bottleneck check accepts "
+                           f"broken outputs: {accepted}")
+    return verdicts
+
+
+def k4_bound(b: int, h: int, w: int, cw: int, cn: int, tile_b: int, dtype: str):
+    """(bound_ms, bound_by) of one fused-bottleneck call: the larger of its
+    FLOPs (2 x rows x (Cw Cn + 9 Cn^2 + Cn Cw), every 3x3 tap counted) at
+    the dtype's dense peak, and reading x and the weights and writing y in
+    the dtype, plus the f32 BN vectors and moments, at the HBM rate."""
+    rows = b * h * w
+    flops = 2.0 * rows * (cw * cn + 9 * cn * cn + cn * cw)
+    item = 2 if dtype == "bfloat16" else 4
+    nbytes = (2 * rows * cw + 2 * cw * cn + 9 * cn * cn) * item \
+        + 4 * (4 * cn + 2 * cw) + 4 * 2 * (b // tile_b) * (2 * cn + cw)
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _resnet50_block_inputs(blocks):
+    """The port's ResNet-50 (seeded init, on the card) and the NHWC inputs
+    that its blocks `blocks` receive in a train-mode forward of a synthetic
+    batch of RN_BATCH RN_SIZE^2 images."""
+    import torch
+
+    from tf_operator_tpu_torch.models import resnet
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = resnet.ResNet50(device=dev, generator=gen)
+    seen = {}
+
+    def grab(i):
+        def hook(_mod, inputs):
+            seen[i] = inputs[0].permute(0, 2, 3, 1).contiguous()
+        return hook
+
+    hooks = [model.blocks[i].register_forward_pre_hook(grab(i)) for i in blocks]
+    x = torch.randn((RN_BATCH, RN_SIZE, RN_SIZE, 3), generator=gen, device=dev)
+    with torch.no_grad():
+        model.train()(x)
+    for hk in hooks:
+        hk.remove()
+    return model, seen
+
+
+def k4_check_phase(records: dict) -> None:
+    """The fused bottleneck against its plain version on every K4_CASES
+    case; at the stage-1 shape the check's rejection of broken outputs; at
+    both ResNet-50 shapes the timings. Fills records[K4[0]]."""
+    import torch
+
+    from tf_operator_tpu_torch.ops import fused_bottleneck as fb
+
+    dev = torch.device("cuda")
+    model, inputs = _resnet50_block_inputs([c[1] for c in K4_CASES if c[1] is not None])
+    gen = torch.Generator(device=dev).manual_seed(1)
+    rec = records.setdefault(K4[0], {})
+    failures = []
+    fb.reset_launches()
+    for label, block_idx, dtype_name in K4_CASES:
+        dtype = getattr(torch, dtype_name)
+
+        def rnd(*shape):
+            return torch.randn(shape, generator=gen, device=dev)
+
+        if block_idx is None:
+            b, h, w, cw, cn, tb = K4_SMALL
+            x = rnd(b, h, w, cw).to(dtype)
+            w1, w2, w3 = rnd(cw, cn) * 0.1, rnd(3, 3, cn, cn) * 0.1, rnd(cn, cw) * 0.1
+        else:
+            blk = model.blocks[block_idx]
+            x = inputs.pop(block_idx)
+            b, h, w, cw = x.shape
+            # The block's OIHW weights in the JAX layout.
+            w1 = blk.conv_0.weight[:, :, 0, 0].t()
+            w2 = blk.conv_1.weight.permute(2, 3, 1, 0)
+            w3 = blk.conv_2.weight[:, :, 0, 0].t()
+            cn = w1.shape[1]
+            tb = fb.default_tile(h, w, b)
+        w1, w2, w3 = (t.detach().to(dtype).contiguous() for t in (w1, w2, w3))
+        # BN scale and bias from the generator, never the model's init (its
+        # last BN has scale 0, so y = relu(x) whatever the block computes).
+        bn = (rnd(cn).abs() + 0.5, 0.1 * rnd(cn), rnd(cn).abs() + 0.5, 0.1 * rnd(cn),
+              rnd(cw).abs() + 0.5, 0.1 * rnd(cw))
+        args = (x, w1, w2, w3, *bn)
+        y, st = fb.fused_bottleneck(*args, tile_b=tb)
+        y_p, st_p = fb.fused_bottleneck_reference(*args, tile_b=tb)
+        torch.cuda.synchronize()
+        outs = {"y": y, "st1": st[0], "st2": st[1], "st3": st[2]}
+        refs = {"y": y_p, "st1": st_p[0], "st2": st_p[1], "st3": st_p[2]}
+        errs = {n: k4_excess(outs[n], refs[n], dtype_name, n) for n in outs}
+        rel = {n: (outs[n].float() - refs[n].float()).abs().max().item()
+               / max(refs[n].float().abs().max().item(), 1e-30) for n in outs}
+        tag = f"check fused_bottleneck {label} {[b, h, w, cw]} Cn {cn} tile {tb} {dtype_name}"
+        log(f"{tag}: max err / max|ref| " + ", ".join(f"{n}={e:.3g}" for n, e in rel.items()))
+        log(f"{tag}: excess (<= 1 passes) " + ", ".join(f"{n}={e:.3g}" for n, e in errs.items()))
+        failures += [f"{label} {n}: excess {e:.3g}" for n, e in errs.items() if not e <= 1.0]
+        if dtype_name == "bfloat16":
+            # How far f32 sums alone move y: kernel and plain version, each
+            # against the function evaluated with float64 sums.
+            y64 = fb.fused_bottleneck_reference(*args, tile_b=tb, acc_dtype=torch.float64)[0]
+            log(f"{tag}: y against float64 sums, excess at the same limit: kernel "
+                f"{k4_excess(y, y64, dtype_name, 'y'):.3g}, plain "
+                f"{k4_excess(y_p, y64, dtype_name, 'y'):.3g}")
+            del y64
+        if label == "stage1":
+            rec["max_abs_err"] = (y.float() - y_p.float()).abs().max().item()
+            verdicts = k4_checker_self_test(outs, refs, x, tb, dtype_name)
+            log(f"{tag}: the check rejects broken outputs, excess "
+                + ", ".join(f"{n}={e:.3g}" for n, e in verdicts.items()))
+        if block_idx is not None:
+            x_nchw = x.permute(0, 3, 1, 2)  # the block's own channels-last input
+
+            def unfused():
+                with torch.no_grad():
+                    blk(x_nchw)
+
+            ms = time_ms(lambda: fb.fused_bottleneck(*args, tile_b=tb))
+            plain_ms = time_ms(lambda: fb.fused_bottleneck_reference(*args, tile_b=tb), reps=3)
+            block_ms = time_ms(unfused)
+            bound_ms, bound_by = k4_bound(b, h, w, cw, cn, tb, dtype_name)
+            rec.setdefault("times", {})[label] = {
+                "shape": [b, h, w, cw, cn], "tile_b": tb, "ms": ms, "plain_ms": plain_ms,
+                "unfused_block_ms": block_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+            if label == "stage1":
+                rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                           library_ms=None)
+            log(f"time fused_bottleneck {label} {[b, h, w, cw]} Cn {cn} tile {tb} "
+                f"{dtype_name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+                f"{bound_ms:.4f} ms ({bound_by}), the port's unfused BottleneckBlock "
+                f"forward (train mode) {block_ms:.3f} ms")
+        del x, y, y_p, st, st_p, outs, refs, args
+        torch.cuda.empty_cache()
+    rec["launches"] = fb.LAUNCHES["fwd"]
+    del model
+    torch.cuda.empty_cache()
+    if failures:
+        raise SmokeFailure("fused bottleneck disagrees with its plain version: "
+                           + "; ".join(failures))
+
+
+def lm_argv(steps: int) -> list[str]:
+    """The LM trainer's full-width configuration."""
+    return ["--model", "transformer-lm", "--steps", str(steps),
             "--batch", str(BATCH), "--seq", str(SEQ), "--layers", str(LAYERS),
             "--hidden", "768", "--heads", "6", "--moment-dtype", "bf16",
             "--master-weights", "--log-every", str(LOG_EVERY), "--device", "cuda"]
+
+
+def resnet_argv(steps: int) -> list[str]:
+    """The JAX bench's ResNet-50 configuration (bench.py's workload 2), with
+    the trainer's default AdamW."""
+    return ["--model", "resnet50", "--batch", str(RN_BATCH), "--image-size",
+            str(RN_SIZE), "--steps", str(steps), "--log-every", str(LOG_EVERY),
+            "--device", "cuda"]
+
+
+def run_trainer(argv: list[str], state_out: dict | None = None) -> dict:
+    """python -m tf_operator_tpu_torch.models.train with `argv`, in this
+    process; returns its events by name (the final TrainState goes to
+    state_out["state"] when given). Fails unless it exits 0 with a finite
+    final loss."""
+    from tf_operator_tpu_torch.models import train
+
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    events_path = OUT_DIR / f"chip_smoke_events_{argv[1]}.jsonl"
+    events_path.unlink(missing_ok=True)
     log("train: python -m tf_operator_tpu_torch.models.train " + " ".join(argv))
     os.environ["TPUJOB_METRICS_FILE"] = str(events_path)
     try:
-        rc = train.main(argv)
+        rc = train.main(argv, state_out)
     finally:
         os.environ.pop("TPUJOB_METRICS_FILE", None)
     if rc != 0:
@@ -386,10 +638,12 @@ def train_phase(args, card: str) -> dict:
     import torch
 
     from tf_operator_tpu_torch.ops import flash_attention as fa
+    from tf_operator_tpu_torch.ops import fused_bottleneck as fb
 
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launches()
-    by = run_trainer(args.steps)
+    fb.reset_launches()
+    by = run_trainer(lm_argv(args.steps))
     launches = dict(fa.LAUNCHES)
     need = LAYERS * args.steps
     short = {k: n for k, n in launches.items() if n < need}
@@ -410,52 +664,144 @@ def train_phase(args, card: str) -> dict:
     return launches
 
 
-def profile_phase(args, card: str) -> None:
-    """The trainer's run, as the train phase drives it, under torch.profiler:
-    device time by kernel group over its steady steps, the steps after its
-    first chunk. Each step is cut at its first attention forward (the
-    kernel stream's (LAYERS * i)-th fwd_kernel), so the window holds whole
-    steps LOG_EVERY + 1 .. steps - 1 of device work and the gaps between
-    them. The Chrome trace goes to OUT_DIR."""
+def model_flops_per_example(model_fn, example_shape) -> float:
+    """Forward FLOPs of one example: 2 x the multiply-adds of every Conv and
+    Dense module of model_fn(device="meta"), from the shapes that a forward
+    of one example on the meta device gives them."""
+    import math
+
+    import torch
+
+    from tf_operator_tpu_torch.models.mnist import Conv
+    from tf_operator_tpu_torch.models.transformer import Dense
+
+    model = model_fn(device="meta")
+    total = 0
+
+    def count(mod, _inputs, out):
+        nonlocal total
+        total += 2 * out.numel() * math.prod(mod.weight.shape[1:])
+
+    for mod in model.modules():
+        if isinstance(mod, (Conv, Dense)):
+            mod.register_forward_hook(count)
+    with torch.no_grad():
+        model(torch.empty((1, *example_shape), device="meta"))
+    return float(total)
+
+
+def resnet_train_phase(args, card: str) -> dict:
+    """ResNet-50 through the trainer's entry point at the JAX bench's
+    configuration. Fails unless the loss is finite and every batch-norm
+    running statistic is finite, f32, and moved from its init. No
+    hand-written kernel is on this path: the launch counts, zeroed before
+    and read after, are logged."""
+    import torch
+
+    from tf_operator_tpu_torch.models import resnet
+    from tf_operator_tpu_torch.ops import flash_attention as fa
+    from tf_operator_tpu_torch.ops import fused_bottleneck as fb
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    fb.reset_launches()
+    out: dict = {}
+    by = run_trainer(resnet_argv(args.steps), out)
+    launches = {**fa.LAUNCHES, **{"fused_bottleneck_" + k: n for k, n in fb.LAUNCHES.items()}}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    bad, n_stats = [], 0
+    for name, buf in out["state"].model.named_buffers():
+        n_stats += 1
+        init = 0.0 if name.endswith("mean") else 1.0
+        if buf.dtype != torch.float32 or not bool(torch.isfinite(buf).all()) \
+                or bool((buf == init).all()):
+            bad.append(f"{name} {buf.dtype}")
+    if bad or n_stats != 2 * 53:
+        raise SmokeFailure(f"of {n_stats} batch-norm running statistics (106 expected), "
+                           f"these are not finite f32 moved from init: {bad}")
+    del out
+    done = by["done"]
+    ips = done.get("examples_per_sec")
+    step_s = (done.get("step_time_s") or {}).get("mean")
+    flops = 3 * model_flops_per_example(resnet.ResNet50, (RN_SIZE, RN_SIZE, 3))
+    mfu = flops * ips / PEAK_FLOPS["bfloat16"] if ips else None
+    log(f"train resnet50: final_loss={done['final_loss']:.4f} images/s={ips} "
+        f"mfu={mfu} (training FLOPs/image {flops:.4e}) step_time_mean_s={step_s} "
+        f"startup_s={by['first_step']['startup_s']} max_memory_allocated={peak_gb:.2f} GB "
+        f"running statistics: {n_stats} finite f32, all moved from init; "
+        f"launches={launches} batch={RN_BATCH} [{card}]")
+    return launches
+
+
+# Kernel groups of each profiled trainer: (group, substrings of the kernel's
+# lower-cased name), first match wins; the rest is "other". cuBLAS names
+# its Hopper GEMMs nvjet_*, older ones *gemm*/*xmma*; cuDNN's convolutions
+# carry fprop/dgrad/wgrad or implicit-GEMM names.
+LM_GROUPS = (("flash_fwd", ("fwd_kernel",)), ("flash_bwd_dq", ("bwd_dq_kernel",)),
+             ("flash_bwd_dkv", ("bwd_dkv_kernel",)),
+             ("matmul", ("nvjet", "gemm", "xmma", "cutlass")))
+RESNET_GROUPS = (("conv", ("fprop", "dgrad", "wgrad", "conv", "implicit", "winograd",
+                           "xmma")),
+                 ("matmul", ("nvjet", "gemm", "cutlass")),
+                 ("reduce", ("reduce",)), ("elementwise", ("elementwise",)))
+
+
+def _profile_trainer(argv, steps: int, marker: tuple, per_step: int, groups,
+                     batch: int, card: str, trace: str) -> None:
+    """One trainer run under torch.profiler: device time by kernel group
+    over its steady steps, the steps after its first chunk. Each step is
+    cut at its first kernel whose lower-cased name holds every substring of
+    `marker` (the kernel stream's (per_step * i)-th such kernel), so the
+    window holds whole steps of device work and the gaps between them."""
     from torch.profiler import DeviceType, ProfilerActivity, profile
 
-    if args.steps < LOG_EVERY + 2:
-        raise SmokeFailure(f"the profile needs --steps >= {LOG_EVERY + 2}")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run_trainer(args.steps)
+        run_trainer(argv)
     kernels = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
                      key=lambda e: e.time_range.start)
-    fwd_starts = [e.time_range.start for e in kernels if "fwd_kernel" in e.name]
-    if len(fwd_starts) != LAYERS * args.steps:
-        raise SmokeFailure(f"the profiler saw {len(fwd_starts)} fwd_kernel launches, "
-                           f"not layers x steps = {LAYERS * args.steps}")
-    t0, t1 = fwd_starts[LAYERS * LOG_EVERY], fwd_starts[LAYERS * (args.steps - 1)]
-    groups = {"flash_fwd": "fwd_kernel", "flash_bwd_dq": "bwd_dq_kernel",
-              "flash_bwd_dkv": "bwd_dkv_kernel"}
+    starts = [e.time_range.start for e in kernels
+              if all(k in e.name.lower() for k in marker)]
+    if len(starts) != per_step * steps:
+        raise SmokeFailure(f"the profiler saw {len(starts)} '{marker}' kernels, "
+                           f"not {per_step} x {steps} steps")
+    t0, t1 = starts[per_step * LOG_EVERY], starts[per_step * (steps - 1)]
     by_group: dict[str, float] = {}
+    by_name: dict[str, float] = {}
     n_kernels = 0
     for e in kernels:
         if not t0 <= e.time_range.start < t1:
             continue
-        group = next((g for g, key in groups.items() if key in e.name), None)
-        if group is None:
-            low = e.name.lower()
-            # cuBLAS names its Hopper GEMMs nvjet_*, older ones *gemm*/*xmma*.
-            is_mm = any(key in low for key in ("nvjet", "gemm", "xmma", "cutlass"))
-            group = "matmul" if is_mm else "other"
-        us = min(e.time_range.end, t1) - e.time_range.start
-        by_group[group] = by_group.get(group, 0.0) + us / 1e3
+        low = e.name.lower()
+        group = next((g for g, keys in groups if any(k in low for k in keys)), "other")
+        ms = (min(e.time_range.end, t1) - e.time_range.start) / 1e3
+        by_group[group] = by_group.get(group, 0.0) + ms
+        by_name[e.name[:100]] = by_name.get(e.name[:100], 0.0) + ms
         n_kernels += 1
     window_ms = (t1 - t0) / 1e3
     busy = sum(by_group.values())
     summary = {"profile": {
-        "steps": args.steps - 1 - LOG_EVERY, "batch": BATCH, "window_ms": window_ms,
-        "device_busy_ms": busy, "idle_share": 1.0 - busy / window_ms,
-        "kernels": n_kernels,
+        "model": argv[1], "steps": steps - 1 - LOG_EVERY, "batch": batch,
+        "window_ms": window_ms, "device_busy_ms": busy,
+        "idle_share": 1.0 - busy / window_ms, "kernels": n_kernels,
         "device_ms_by_group": dict(sorted(by_group.items(), key=lambda kv: -kv[1])),
+        "top_kernels_ms": dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:8]),
         "card": card}}
-    prof.export_chrome_trace(str(OUT_DIR / "train_profile.trace.json"))
+    prof.export_chrome_trace(str(OUT_DIR / trace))
     log("profile: " + json.dumps(summary))
+
+
+def profile_phase(args, card: str) -> None:
+    """Both trainers' runs, as the train phase drives them, under
+    torch.profiler. The LM's steps are cut at their first attention forward,
+    ResNet-50's at their loss's log-softmax forward. The Chrome traces go to
+    OUT_DIR."""
+    if args.steps < LOG_EVERY + 2:
+        raise SmokeFailure(f"the profile needs --steps >= {LOG_EVERY + 2}")
+    _profile_trainer(lm_argv(args.steps), args.steps, ("fwd_kernel",), LAYERS, LM_GROUPS,
+                     BATCH, card, "train_profile.trace.json")
+    _profile_trainer(resnet_argv(args.steps), args.steps, ("softmax", "forward"), 1,
+                     RESNET_GROUPS, RN_BATCH, card, "resnet50_profile.trace.json")
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -493,6 +839,7 @@ def main(argv: list[str] | None = None) -> int:
             check_phase(records)
         if "train" in phases:
             launches = train_phase(args, card)
+            resnet_train_phase(args, card)
         if "profile" in phases:
             profile_phase(args, card)
     except Exception as e:  # every phase failure ends the run without a result
@@ -511,6 +858,16 @@ def main(argv: list[str] | None = None) -> int:
             "plain_ms": rec.get("plain_ms"), "bound_ms": rec.get("bound_ms"),
             "bound_by": rec.get("bound_by"), "library_ms": rec.get("library_ms"),
         })
+    rec = records.get(K4[0], {})
+    kernels.append({
+        "name": K4[0], "route": "cuda", "source": K4[1], "replaces": K4[2],
+        "launches": rec.get("launches"), "max_abs_err": rec.get("max_abs_err"),
+        "ms": rec.get("ms"), "plain_ms": rec.get("plain_ms"),
+        "bound_ms": rec.get("bound_ms"), "bound_by": rec.get("bound_by"),
+        "library_ms": None,
+        "note": ("on no trainer path (as in the JAX package); launches counted in "
+                 "the check phase; times at ResNet-50 stage 1, batch 256"),
+    })
     log(f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -212,16 +212,23 @@ class TransformerLM(nn.Module):
 
 
 @torch.no_grad()
+def lecun_normal_(weight: torch.Tensor, generator: torch.Generator | None = None) -> None:
+    """flax's lecun_normal in place: a unit normal truncated at 2 sigma,
+    scaled to variance 1/fan_in, fan_in = every dimension but the first
+    (in for a [out, in] kernel, in x kh x kw for an OIHW one)."""
+    fan_in = math.prod(weight.shape[1:])
+    nn.init.trunc_normal_(weight, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    weight.mul_(math.sqrt(1.0 / fan_in) / 0.87962566103423978)
+
+
+@torch.no_grad()
 def init_flax_like(model: nn.Module, generator: torch.Generator | None = None) -> None:
     """Flax's default initialisers, in distribution: Dense kernels
     lecun-normal (truncated at 2 sigma), biases 0, embeddings normal with
     std 1/sqrt(features), LayerNorm scale 1 and bias 0."""
     for mod in model.modules():
         if isinstance(mod, Dense):
-            fan_in = mod.weight.shape[1]
-            std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-            nn.init.trunc_normal_(mod.weight, 0.0, 1.0, -2.0, 2.0, generator=generator)
-            mod.weight.mul_(std)
+            lecun_normal_(mod.weight, generator)
             if mod.bias is not None:
                 mod.bias.zero_()
         elif isinstance(mod, Embed):

@@ -1,10 +1,13 @@
 """Single-device train step: counterpart of tf_operator_tpu/parallel/train_step.py.
 
-`TrainState` holds the model (its parameters are the compute copy), the
+`TrainState` holds the model (its parameters are the compute copy, its
+buffers the model state, such as batch-norm running statistics), the
 optimizer state and the step. `train_step` runs loss, gradients, the
 optimizer update and the gradient norm; the optimizer's replacement
 parameters are copied into the model's parameters in place, so the step
-allocates no second parameter set. `make_chunked_train_step` is the
+allocates no second parameter set. The loss runs with the model in train
+mode, so a model with running statistics updates them once per step, as
+the JAX step's `mutable=["batch_stats"]` does. `make_chunked_train_step` is the
 `--log-every` loop: batches are made on the device from a generator seeded
 from (seed, global step), so how the steps are chunked does not change the
 stream. Sharding, meshes and torch.distributed are not ported yet.
@@ -39,11 +42,15 @@ def create_train_state(model: nn.Module,
                        tx: optim_lib.MixedPrecisionTransformation) -> TrainState:
     # Init BEFORE the compute cast: under master_weights the optimizer's f32
     # master copy comes from the full-precision init parameters, and the
-    # model then holds the bf16 compute copy.
+    # model then holds the bf16 compute copy. Only parameters are cast:
+    # buffers (running statistics) stay f32, as the JAX model_state does.
     opt_state = tx.init(list(model.parameters()))
     dtype = optim_lib.compute_dtype(tx)
     if dtype is not None:
-        model.to(dtype)
+        with torch.no_grad():
+            for p in model.parameters():
+                if p.is_floating_point():
+                    p.data = p.data.to(dtype)
     return TrainState(step=0, model=model, opt_state=opt_state)
 
 
@@ -56,6 +63,7 @@ def train_step(state: TrainState, batch, loss_fn: LossFn,
     """One optimizer step; returns (state, {"loss", "grad_norm"}) with the
     metrics as device scalars (no host sync)."""
     params = state.params
+    state.model.train()
     loss = loss_fn(state.model, batch)
     grads = torch.autograd.grad(loss, params)
     new_params, new_opt = tx.update(list(grads), state.opt_state, params)
