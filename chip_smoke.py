@@ -7,12 +7,17 @@
 Phases, in order:
   1. identify the card (nvidia-smi name and power limit);
   2. build the CUDA kernels from tf_operator_tpu_torch/csrc with nvcc, one
-     nvcc per source, all started together;
+     nvcc per source, all started together, and log each kernel's registers
+     and spills (ptxas) and its count of wgmma (HGMMA) instructions in the
+     built library's SASS;
   3. hold each kernel against its plain PyTorch version on the card: the
-     flash kernels at the LM trainer's attention shape and three small ones
-     (f32 with a ragged tail, f32 causal, bf16 at head_dim 64 with a ragged
-     causal tail), timed at the trainer's shape beside their bound, their
-     plain version and PyTorch's scaled_dot_product_attention; the fused
+     flash kernels and the backward's delta pass at the LM trainer's
+     attention shape and four small ones (f32 with a ragged tail, f32
+     causal, bf16 at head_dim 64 with a ragged causal tail, bf16 full
+     attention at head_dim 128 with a ragged tail), timed at the trainer's
+     shape at batch 1 beside their bound, their plain version and PyTorch's
+     scaled_dot_product_attention, and at the trainer's batch 4 beside their
+     bound and that call (the plain versions' f32 scores would not fit); the fused
      bottleneck at ResNet-50's stage-1 and stage-4 identity blocks (the
      weights and input activations of the port's ResNet-50 at batch 256,
      224x224) and a small f32 case, timed at both ResNet-50 shapes beside
@@ -35,6 +40,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -61,6 +67,7 @@ CHECK_CASES = (
     ((1, 2, 1000, 64), "float32", False),
     ((2, 2, 192, 128), "float32", True),
     ((1, 3, 1000, 64), "bfloat16", True),  # bf16 at D=64 with a ragged causal tail
+    ((2, 2, 1000, 128), "bfloat16", False),  # bf16 full attention, ragged tail
 )
 # Every element must satisfy |got - ref| <= rtol * |ref| + atol * s.
 # f32 as tests/test_ops.py: absolute (s = 1). bf16 o and grads: s is the rms
@@ -71,12 +78,14 @@ CHECK_CASES = (
 # 0: one visible key, so P = 1 and dP = delta). The bf16 o limit covers P
 # rounded against the running max (the kernel, as the Pallas one) rather
 # than the row's final max (the plain version). lse is f32 on both paths
-# and is held absolutely at either dtype.
+# and is held absolutely at either dtype. delta (the backward's
+# rowsum(dO o O) - g_lse) is f32 on both paths from the same inputs, each
+# product exact in f32: only the order of D sums differs.
 TOL = {  # kind -> (rtol, atol, atol scaled by the row's rms)
     "float32": {"o": (0.0, 2e-5, False), "lse": (0.0, 2e-5, False),
-                "grad": (0.0, 1e-4, False)},
+                "delta": (1e-4, 1e-4, False), "grad": (0.0, 1e-4, False)},
     "bfloat16": {"o": (2e-2, 2e-2, True), "lse": (0.0, 1e-3, False),
-                 "grad": (5e-2, 2e-2, True)},
+                 "delta": (1e-4, 1e-4, False), "grad": (5e-2, 2e-2, True)},
 }
 ROW_FLOOR = 1e-2
 # Broken kernel outputs that the check must reject at the trainer's shape:
@@ -94,7 +103,15 @@ KERNELS = (
     ("flash_fwd", "fwd", "tf_operator_tpu/ops/flash_attention.py:51"),
     ("flash_bwd_dq", "bwd_dq", "tf_operator_tpu/ops/flash_attention.py:222"),
     ("flash_bwd_dkv", "bwd_dkv", "tf_operator_tpu/ops/flash_attention.py:295"),
+    # A helper of K2/K3: the delta that both Pallas kernels compute in-block.
+    ("flash_bwd_delta", "bwd_delta", "tf_operator_tpu/ops/flash_attention.py:252"),
 )
+KERNEL_NOTES = {"flash_bwd_delta": "helper of flash_bwd_dq and flash_bwd_dkv, not the "
+                                   "port of a TPU kernel: the Pallas kernels compute "
+                                   "delta in-block (also :324); launched once a backward"}
+# The flash kernels are also timed at the trainer's batch (kernel, bound and
+# the library call only).
+TIME_BATCHES = (1, BATCH)
 SOURCE = "tf_operator_tpu_torch/csrc/flash_attention.cu"
 K4 = ("fused_bottleneck_fwd", "tf_operator_tpu_torch/csrc/fused_bottleneck.cu",
       "tf_operator_tpu/ops/fused_bottleneck.py:100")
@@ -209,10 +226,76 @@ def build_phase() -> float:
     secs = time.time() - t0
     log(f"build: {', '.join(n + '.cu' for n in SOURCES)} in parallel in {secs:.1f} s")
     for name in SOURCES:
-        for line in _build.build_logs.get(name, "").splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+        build_log = _build.build_logs.get(name, "")
+        for kernel, info in parse_ptxas(build_log).items():
+            log(f"  ptxas {name}: {kernel}: {info}")
+        for line in build_log.splitlines():
+            if "warning" in line.lower():
+                log(f"  nvcc {name}: {line.strip()}")
+    cuobjdump = Path(_build.find_nvcc()).with_name("cuobjdump")
+    for name in SOURCES:
+        sass = subprocess.run([str(cuobjdump), "--dump-sass", str(_build.library_path(name))],
+                              capture_output=True, text=True, timeout=300, check=True).stdout
+        counts = sass_counts(sass, "HGMMA")
+        log(f"  sass {name}: HGMMA instructions per kernel: "
+            + ", ".join(f"{k} {n}" for k, n in sorted(counts.items())))
+        missing = [k for k, n in counts.items() if "wgmma" in k and n == 0]
+        if missing:
+            raise SmokeFailure(f"wgmma kernels without HGMMA instructions: {missing}")
     return secs
+
+
+def kernel_label(mangled: str) -> str:
+    """A readable label for a mangled kernel name of this repo's sources,
+    e.g. bwd_dq_wgmma_kernel<128> or fwd_kernel<float, 64>: the
+    length-prefixed identifier that ends in "_kernel", and the dtype and
+    integers of its template arguments."""
+    i = 3 if mangled.startswith("_ZN") else 2
+    while (m := re.match(r"\d+", mangled[i:])) is not None:
+        start = i + len(m.group())
+        name = mangled[start:start + int(m.group())]
+        i = start + len(name)
+        if not name.endswith("_kernel"):
+            continue
+        rest = mangled[i:]
+        if not rest.startswith("I"):
+            return name
+        targs = rest[1:rest.find("EE")] if "EE" in rest else rest[1:]
+        dtype = "float" if targs.startswith("f") else ("bf16" if "bfloat16" in targs else "")
+        dims = re.findall(r"Li(\d+)", targs)
+        return f"{name}<{', '.join([dtype] * bool(dtype) + dims)}>"
+    return mangled
+
+
+def parse_ptxas(log_text: str) -> dict:
+    """{kernel label: "N registers, S bytes spill stores, L bytes spill
+    loads"} from nvcc's -Xptxas -v report."""
+    out, kernel, spills = {}, None, ""
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            kernel, spills = kernel_label(m.group(1)), ""
+        elif kernel and "spill" in line:
+            spills = ", ".join(p.strip() for p in line.split(",")[1:])
+        elif kernel and "Used" in line and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            out[kernel] = f"{regs} registers, {spills}"
+    return out
+
+
+def sass_counts(sass: str, opcode: str) -> dict:
+    """{kernel label: number of instructions with that opcode} from the
+    text of cuobjdump --dump-sass."""
+    counts: dict = {}
+    kernel = None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            kernel = kernel_label(m.group(1))
+            counts.setdefault(kernel, 0)
+        elif kernel and re.search(rf"\b{opcode}\b", line):
+            counts[kernel] += 1
+    return counts
 
 
 def _tail_rows(x, factor: float):
@@ -237,8 +320,9 @@ def excess(got, ref, dtype_name: str, kind: str) -> float:
 
 
 def _kind(name: str) -> str:
-    """The TOL kind of a checked output: "o", "lse", or "grad" for the rest."""
-    return name if name in ("o", "lse") else "grad"
+    """The TOL kind of a checked output: "o", "lse", "delta", or "grad" for
+    the rest."""
+    return name if name in ("o", "lse", "delta") else "grad"
 
 
 def checker_self_test(outs: dict, refs: dict, dtype_name: str) -> dict:
@@ -294,6 +378,10 @@ def check_phase(records: dict) -> None:
         abs_errs = {"fwd": hold("o", o, o_p)}
         hold("lse", lse, lse_p)
         for tag, gl in (("", None), ("+g_lse", g_lse)):
+            delta = fa.bwd_delta(o, do, gl)
+            diff = hold("delta" + tag, delta, fa._bwd_delta_plain(o, do, gl))
+            if not tag:
+                abs_errs["bwd_delta"] = diff
             dq = fa.flash_bwd_dq(q, k, v, o, lse, do, causal, gl)
             dq_p = fa._bwd_dq_plain(q, k, v, o, lse, do, causal, gl)
             dk, dv = fa.flash_bwd_dkv(q, k, v, o, lse, do, causal, gl)
@@ -309,7 +397,7 @@ def check_phase(records: dict) -> None:
                         dtype_name)
                     log(f"check {list(shape)} {dtype_name}: the check rejects broken "
                         "outputs, excess " + ", ".join(f"{n}={e:.3g}" for n, e in verdicts.items()))
-            del dq, dq_p, dk, dv, dk_p, dv_p
+            del dq, dq_p, dk, dv, dk_p, dv_p, delta
 
         # The autograd bindings over [B, H, T, D], against the plain
         # forward and backward.
@@ -349,6 +437,34 @@ def check_phase(records: dict) -> None:
 
 
 def _time_main_shape(records, q, k, v, o, lse, do, causal, shape, dtype_name):
+    """Times at the trainer's attention shape: at batch 1 (these inputs) each
+    kernel beside its bound, its plain version and the library call, and at
+    the trainer's batch each kernel beside its bound and the library call.
+    K2 and K3 are timed on a delta computed beforehand; the delta pass on
+    its own."""
+    import torch
+
+    from tf_operator_tpu_torch.ops import flash_attention as fa
+
+    for batch in TIME_BATCHES:
+        shp = (batch, *shape[1:])
+        if batch != shape[0]:
+            gen = torch.Generator(device=q.device).manual_seed(batch)
+            q, k, v, do = (torch.randn((batch * shape[1], *shape[2:]), generator=gen,
+                                       device=q.device).to(q.dtype) for _ in range(4))
+            o, lse = fa.flash_fwd(q, k, v, causal)
+        t = _time_kernels(q, k, v, o, lse, do, causal, shp, dtype_name,
+                          with_plain=batch == shape[0])
+        for name, rec in t.items():
+            if batch == shape[0]:
+                records[name].update(rec)
+            else:
+                records[name]["at_batch_%d" % batch] = {
+                    key: rec[key] for key in ("ms", "bound_ms", "bound_by", "library_ms")}
+    del q, k, v, o, lse, do
+
+
+def _time_kernels(q, k, v, o, lse, do, causal, shape, dtype_name, with_plain: bool) -> dict:
     import torch
     import torch.nn.functional as F
 
@@ -358,6 +474,7 @@ def _time_main_shape(records, q, k, v, o, lse, do, causal, shape, dtype_name):
     q4, k4, v4 = (x.view(b, h, t, d).detach().clone().requires_grad_() for x in (q, k, v))
     out = F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal)
     do4 = do.view(b, h, t, d)
+    delta = fa.bwd_delta(o, do)
 
     def sdpa_fwd():
         with torch.no_grad():
@@ -366,40 +483,49 @@ def _time_main_shape(records, q, k, v, o, lse, do, causal, shape, dtype_name):
     def sdpa_bwd():
         torch.autograd.grad(out, (q4, k4, v4), do4, retain_graph=True)
 
-    def sdpa_fwd_bwd():
-        o_ = F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal)
-        torch.autograd.grad(o_, (q4, k4, v4), do4)
+    def plain(fn):
+        return time_ms(fn, reps=3) if with_plain else None
 
+    sdpa_bwd_ms = time_ms(sdpa_bwd, reps=10)
+    # One library call computes the backward's dq, dk and dv together: it is
+    # the yardstick of both backward kernels. No single call computes delta.
     times = {
         "flash_fwd": (
             time_ms(lambda: fa.flash_fwd(q, k, v, causal)),
-            time_ms(lambda: fa.flash_fwd_plain(q, k, v, causal), reps=3),
+            plain(lambda: fa.flash_fwd_plain(q, k, v, causal)),
             time_ms(sdpa_fwd, reps=10),
             bound(shape, dtype_name, causal, 2, 3, 1, 1)),
         "flash_bwd_dq": (
-            time_ms(lambda: fa.flash_bwd_dq(q, k, v, o, lse, do, causal)),
-            time_ms(lambda: fa._bwd_dq_plain(q, k, v, o, lse, do, causal), reps=3),
-            time_ms(sdpa_bwd, reps=10),
-            bound(shape, dtype_name, causal, 3, 5, 1, 1)),
+            time_ms(lambda: fa.flash_bwd_dq(q, k, v, o, lse, do, causal, delta=delta)),
+            plain(lambda: fa._bwd_dq_plain(q, k, v, o, lse, do, causal, delta=delta)),
+            sdpa_bwd_ms,
+            bound(shape, dtype_name, causal, 3, 4, 1, 2)),
         "flash_bwd_dkv": (
-            time_ms(lambda: fa.flash_bwd_dkv(q, k, v, o, lse, do, causal)),
-            time_ms(lambda: fa._bwd_dkv_plain(q, k, v, o, lse, do, causal), reps=3),
+            time_ms(lambda: fa.flash_bwd_dkv(q, k, v, o, lse, do, causal, delta=delta)),
+            plain(lambda: fa._bwd_dkv_plain(q, k, v, o, lse, do, causal, delta=delta)),
+            sdpa_bwd_ms,
+            bound(shape, dtype_name, causal, 4, 4, 2, 2)),
+        "flash_bwd_delta": (
+            time_ms(lambda: fa.bwd_delta(o, do), reps=20),
+            plain(lambda: fa._bwd_delta_plain(o, do)),
             None,
-            bound(shape, dtype_name, causal, 4, 5, 2, 1)),
+            bound(shape, dtype_name, causal, 0, 2, 0, 1)),
     }
-    sdpa_fb = time_ms(sdpa_fwd_bwd, reps=10)
-    # One library call computes the backward's dq, dk and dv together: it is
-    # the yardstick of both backward kernels.
-    times["flash_bwd_dkv"] = times["flash_bwd_dkv"][:2] + (times["flash_bwd_dq"][2],) \
-        + times["flash_bwd_dkv"][3:]
+    recs = {}
     for name, (ms, plain_ms, lib_ms, (bound_ms, bound_by)) in times.items():
-        records[name].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                             bound_by=bound_by, library_ms=lib_ms)
-        log(f"time {name} {list(shape)} {dtype_name}: kernel {ms:.3f} ms, plain "
-            f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
-            f"scaled_dot_product_attention {lib_ms:.3f} ms")
-    log(f"time scaled_dot_product_attention fwd+bwd: {sdpa_fb:.3f} ms")
-    del out, q4, k4, v4
+        recs[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                          library_ms=lib_ms)
+        log(f"time {name} {list(shape)} {dtype_name}: kernel {ms:.4f} ms, plain "
+            + (f"{plain_ms:.3f} ms" if plain_ms is not None else "not timed")
+            + f", bound {bound_ms:.4f} ms ({bound_by}), scaled_dot_product_attention "
+            + (f"{lib_ms:.4f} ms" if lib_ms is not None else "none"))
+    pair = times["flash_bwd_dq"][0] + times["flash_bwd_dkv"][0]
+    log(f"time {list(shape)} {dtype_name}: K2 + K3 {pair:.4f} ms = "
+        f"{pair / sdpa_bwd_ms:.2f} x scaled_dot_product_attention's backward "
+        f"{sdpa_bwd_ms:.4f} ms")
+    del out, q4, k4, v4, delta
+    return recs
+
 
 def _tail(x, n: int, factor: float):
     """x with its last n entries along dim 0 scaled by factor."""
@@ -738,13 +864,22 @@ def resnet_train_phase(args, card: str) -> dict:
 # lower-cased name), first match wins; the rest is "other". cuBLAS names
 # its Hopper GEMMs nvjet_*, older ones *gemm*/*xmma*; cuDNN's convolutions
 # carry fprop/dgrad/wgrad or implicit-GEMM names.
-LM_GROUPS = (("flash_fwd", ("fwd_kernel",)), ("flash_bwd_dq", ("bwd_dq_kernel",)),
-             ("flash_bwd_dkv", ("bwd_dkv_kernel",)),
+LM_GROUPS = (("flash_fwd", ("fwd_kernel",)),
+             ("flash_bwd_dq", ("bwd_dq_kernel", "bwd_dq_wgmma_kernel")),
+             ("flash_bwd_dkv", ("bwd_dkv_kernel", "bwd_dkv_wgmma_kernel")),
+             ("flash_bwd_delta", ("bwd_delta_kernel",)),
              ("matmul", ("nvjet", "gemm", "xmma", "cutlass")))
 RESNET_GROUPS = (("conv", ("fprop", "dgrad", "wgrad", "conv", "implicit", "winograd",
                            "xmma")),
                  ("matmul", ("nvjet", "gemm", "cutlass")),
                  ("reduce", ("reduce",)), ("elementwise", ("elementwise",)))
+
+
+def kernel_group(name: str, groups) -> str:
+    """The group of a profiled kernel's name: the first of `groups` with a
+    substring in the lower-cased name, else "other"."""
+    low = name.lower()
+    return next((g for g, keys in groups if any(k in low for k in keys)), "other")
 
 
 def _profile_trainer(argv, steps: int, marker: tuple, per_step: int, groups,
@@ -772,8 +907,7 @@ def _profile_trainer(argv, steps: int, marker: tuple, per_step: int, groups,
     for e in kernels:
         if not t0 <= e.time_range.start < t1:
             continue
-        low = e.name.lower()
-        group = next((g for g, keys in groups if any(k in low for k in keys)), "other")
+        group = kernel_group(e.name, groups)
         ms = (min(e.time_range.end, t1) - e.time_range.start) / 1e3
         by_group[group] = by_group.get(group, 0.0) + ms
         by_name[e.name[:100]] = by_name.get(e.name[:100], 0.0) + ms
@@ -850,14 +984,19 @@ def main(argv: list[str] | None = None) -> int:
     kernels = []
     for name, key, replaces in KERNELS:
         rec = records.get(name, {})
-        kernels.append({
+        entry = {
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": replaces,
             "launches": launches[key] if launches is not None else None,
             "max_abs_err": rec.get("max_abs_err"), "ms": rec.get("ms"),
             "plain_ms": rec.get("plain_ms"), "bound_ms": rec.get("bound_ms"),
             "bound_by": rec.get("bound_by"), "library_ms": rec.get("library_ms"),
-        })
+        }
+        if f"at_batch_{BATCH}" in rec:
+            entry[f"at_batch_{BATCH}"] = rec[f"at_batch_{BATCH}"]
+        if name in KERNEL_NOTES:
+            entry["note"] = KERNEL_NOTES[name]
+        kernels.append(entry)
     rec = records.get(K4[0], {})
     kernels.append({
         "name": K4[0], "route": "cuda", "source": K4[1], "replaces": K4[2],

@@ -6,8 +6,13 @@ must reject an output whose late causal rows are wrong even though those
 rows are small beside the first ones, and must accept one bf16 rounding
 step. The fused bottleneck's check must accept y one bf16 step away and
 reject each of chip_smoke.K4_MUTATIONS. Here the plain versions stand in
-for the kernels' outputs.
+for the kernels' outputs. The build phase's readers of nvcc's and
+cuobjdump's reports, and the profile's kernel groups, are held against
+sample text and the kernels' own source.
 """
+
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -121,3 +126,86 @@ def test_k4_check_rejects_a_non_finite_output(k4_outputs):
     st = outs["st3"].clone()
     st[0, 0, 0] = float("nan")
     assert not chip_smoke.k4_excess(st, outs["st3"], "bfloat16", "st3") <= 1.0
+
+
+FLASH_CU = Path(chip_smoke.ROOT) / "tf_operator_tpu_torch" / "csrc" / "flash_attention.cu"
+
+
+def _flash_kernel_names():
+    src = FLASH_CU.read_text()
+    return re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(", src)
+
+
+def test_every_flash_kernel_has_an_lm_profile_group():
+    """Each __global__ kernel of flash_attention.cu falls in an LM profile
+    group other than "other", as the profiler names it, and the kernels of
+    each wrapper fall in that wrapper's group."""
+    names = _flash_kernel_names()
+    assert {"fwd_kernel", "bwd_dq_kernel", "bwd_dkv_kernel", "bwd_delta_kernel",
+            "bwd_dq_wgmma_kernel", "bwd_dkv_wgmma_kernel"} <= set(names)
+    want = {"fwd": "flash_fwd", "bwd_dq": "flash_bwd_dq", "bwd_dkv": "flash_bwd_dkv",
+            "bwd_delta": "flash_bwd_delta"}
+    for name in names:
+        profiled = f"void (anonymous namespace)::{name}<__nv_bfloat16, 128>(__nv_bfloat16 const*)"
+        group = chip_smoke.kernel_group(profiled, chip_smoke.LM_GROUPS)
+        assert group != "other", name
+        stem = re.sub(r"(_wgmma)?_kernel$", "", name)
+        assert group == want[stem], (name, group)
+
+
+def test_profile_step_marker_names_only_the_forward():
+    """The LM profile cuts steps at kernels that contain "fwd_kernel": only
+    the forward kernel may."""
+    assert [n for n in _flash_kernel_names() if "fwd_kernel" in n] == ["fwd_kernel"]
+
+
+def _mangled(name, targs=""):
+    ns = "_GLOBAL__N__e3b2a46e_18_flash_attention_cu_6df88d3d"
+    return f"_ZN{len(ns)}{ns}{len(name)}{name}{targs}Ev14CUtensorMap_stPKfi"
+
+
+@pytest.mark.parametrize("targs,label", [
+    ("ILi128EE", "bwd_dq_wgmma_kernel<128>"),
+    ("IfLi64EE", "bwd_dq_wgmma_kernel<float, 64>"),
+    ("I13__nv_bfloat16Li128EE", "bwd_dq_wgmma_kernel<bf16, 128>"),
+    ("", "bwd_dq_wgmma_kernel"),
+])
+def test_kernel_label(targs, label):
+    assert chip_smoke.kernel_label(_mangled("bwd_dq_wgmma_kernel", targs)) == label
+
+
+def test_kernel_label_keeps_a_name_it_cannot_read():
+    assert chip_smoke.kernel_label("_Z3foov") == "_Z3foov"
+
+
+def test_parse_ptxas_reads_registers_and_spills_per_kernel():
+    a, b = _mangled("bwd_dkv_wgmma_kernel", "ILi128EE"), _mangled("fwd_kernel", "IfLi64EE")
+    log = "\n".join([
+        f"ptxas info    : Compiling entry function '{a}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {a}",
+        "    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads",
+        "ptxas info    : Used 168 registers, used 1 barriers",
+        f"ptxas info    : Compiling entry function '{b}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {b}",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 64 registers, used 1 barriers",
+    ])
+    assert chip_smoke.parse_ptxas(log) == {
+        "bwd_dkv_wgmma_kernel<128>": "168 registers, 4 bytes spill stores, 4 bytes spill loads",
+        "fwd_kernel<float, 64>": "64 registers, 0 bytes spill stores, 0 bytes spill loads",
+    }
+
+
+def test_sass_counts_counts_an_opcode_per_kernel():
+    a, b = _mangled("bwd_dq_wgmma_kernel", "ILi128EE"), _mangled("fwd_kernel", "IfLi64EE")
+    sass = "\n".join([
+        "\tcode for sm_90a",
+        f"\t\tFunction : {a}",
+        "        /*0af0*/   HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT, gsb0 ;",
+        "        /*0b00*/   HGMMA.64x128x16.F32.BF16 R24, R120, gdesc[UR8].tnspB, R24 ;",
+        "        /*0b10*/   WARPGROUP.DEPBAR.LE gsb0, 0x0 ;",
+        f"\t\tFunction : {b}",
+        "        /*0000*/   FFMA R1, R2, R3, R4 ;",
+    ])
+    assert chip_smoke.sass_counts(sass, "HGMMA") == {
+        "bwd_dq_wgmma_kernel<128>": 2, "fwd_kernel<float, 64>": 0}

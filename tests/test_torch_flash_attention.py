@@ -9,6 +9,9 @@ The CUDA kernels themselves are held against the same plain versions on the
 card by chip_smoke.py.
 """
 
+import subprocess
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -174,6 +177,58 @@ class TestBackward:
             torch.testing.assert_close(a, b)
 
 
+class TestDeltaPass:
+    """The backward's delta pass, delta = rowsum(dO o O) - g_lse, and the
+    backward wrappers given that delta."""
+
+    @pytest.mark.parametrize("with_glse", [False, True])
+    def test_delta_plain_matches_numpy(self, with_glse):
+        o, do = _inputs(13, (3, 40, 64), n=2)
+        gl = np.random.default_rng(14).standard_normal((3, 40)).astype(np.float32)
+        expected = (do.astype(np.float64) * o).sum(-1) - (gl if with_glse else 0.0)
+        o_t, do_t = _torch([o, do])
+        got = fa.bwd_delta(o_t, do_t, torch.from_numpy(gl) if with_glse else None)
+        assert got.shape == (3, 40) and got.dtype == torch.float32
+        np.testing.assert_allclose(_np(got), expected, atol=1e-5, rtol=1e-5)
+
+    def test_delta_plain_of_bf16_is_f32_of_the_rounded_inputs(self):
+        o, do = _inputs(15, (2, 24, 128), n=2)
+        o_t, do_t = _torch([o, do], torch.bfloat16)
+        expected = (_np(do_t).astype(np.float64) * _np(o_t)).sum(-1)
+        got = fa._bwd_delta_plain(o_t, do_t)
+        assert got.dtype == torch.float32
+        np.testing.assert_allclose(_np(got), expected, atol=1e-5, rtol=1e-5)
+
+    @pytest.mark.parametrize("causal,with_glse", [(True, True), (False, False), (True, False)])
+    def test_given_delta_equals_own_delta_and_plain(self, causal, with_glse):
+        """flash_bwd_dq / flash_bwd_dkv with delta=bwd_delta(o, do, g_lse)
+        equal the same calls that compute it themselves, and flash_bwd_plain."""
+        q, k, v, do = _torch(_inputs(16, (2, 80, 64), n=4))
+        gl = (torch.from_numpy(np.random.default_rng(17).standard_normal((2, 80))
+                               .astype(np.float32)) if with_glse else None)
+        o, lse = fa.flash_fwd(q, k, v, causal)
+        delta = fa.bwd_delta(o, do, gl)
+        dq = fa.flash_bwd_dq(q, k, v, o, lse, do, causal, delta=delta)
+        dk, dv = fa.flash_bwd_dkv(q, k, v, o, lse, do, causal, delta=delta)
+        own = (fa.flash_bwd_dq(q, k, v, o, lse, do, causal, gl),
+               *fa.flash_bwd_dkv(q, k, v, o, lse, do, causal, gl))
+        plain = fa.flash_bwd_plain(q, k, v, o, lse, do, causal, gl)
+        for a, b, c in zip((dq, dk, dv), own, plain):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+            torch.testing.assert_close(a, c)
+
+    def test_given_delta_is_used_and_g_lse_ignored(self):
+        """A given delta replaces rowsum(dO o O) - g_lse: shifting it by s
+        shifts the result as an lse cotangent of -s would."""
+        q, k, v, do = _torch(_inputs(18, (1, 48, 32), n=4))
+        o, lse = fa.flash_fwd(q, k, v, True)
+        shift = torch.full((1, 48), 0.25)
+        got = fa.flash_bwd_dq(q, k, v, o, lse, do, True, g_lse=torch.zeros(1, 48),
+                              delta=fa.bwd_delta(o, do) + shift)
+        want = fa.flash_bwd_dq(q, k, v, o, lse, do, True, g_lse=-shift)
+        torch.testing.assert_close(got, want)
+
+
 class TestFullyMaskedRows:
     def test_empty_rows_give_zero_and_neg_inf(self):
         """With no key visible to any row, the plain version's guards give
@@ -191,7 +246,7 @@ class TestDispatch:
         fa.reset_launches()
         qkv = _torch(_inputs(3, (1, 2, 64, 32)), grad=True)
         (flash_attention(*qkv, causal=True) ** 2).sum().backward()
-        assert fa.LAUNCHES == {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 0}
+        assert fa.LAUNCHES == {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 0, "bwd_delta": 0}
 
     def test_dispatcher_matches_jax_reference(self):
         arrs = _inputs(3, (1, 1, 64, 32))
@@ -236,3 +291,44 @@ class TestBuild:
         p = _build.library_path("flash_attention")
         assert p.parent == _build.BUILD_DIR
         assert p.name.startswith("libflash_attention-") and p.suffix == ".so"
+
+    def test_library_name_follows_the_headers(self, monkeypatch, tmp_path):
+        """An edited, added or removed csrc/*.cuh renames every library,
+        so no stale build of an including source is loaded."""
+        (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+        (tmp_path / "h.cuh").write_text("// v1\n")
+        (tmp_path / "notes.txt").write_text("not a header\n")
+        monkeypatch.setattr(_build, "CSRC", tmp_path)
+        first = _build.library_path("k")
+        assert _build.library_path("k") == first
+        (tmp_path / "notes.txt").write_text("edited\n")
+        assert _build.library_path("k") == first
+        (tmp_path / "h.cuh").write_text("// v2\n")
+        second = _build.library_path("k")
+        assert second != first
+        (tmp_path / "g.cuh").write_text("// new\n")
+        third = _build.library_path("k")
+        assert third not in (first, second)
+        (tmp_path / "g.cuh").unlink()
+        assert _build.library_path("k") == second
+
+    def test_build_links_libcuda_after_the_source(self, monkeypatch, tmp_path):
+        """The tensor-map encoder lives in libcuda: -lcuda follows the
+        source on nvcc's command line (a linker that drops unneeded
+        libraries keeps only those named after their users)."""
+        seen = []
+
+        def fake_run(cmd, capture_output, text):
+            seen.append(cmd)
+            Path(cmd[cmd.index("-o") + 1]).write_bytes(b"")
+            return subprocess.CompletedProcess(cmd, 0, "", "")
+
+        monkeypatch.setattr(_build, "find_nvcc", lambda: "nvcc")
+        monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+        monkeypatch.setattr(_build.subprocess, "run", fake_run)
+        out = _build.build("flash_attention")
+        assert out.exists() and out.parent == tmp_path
+        cmd = seen[0]
+        src = cmd.index(str(_build.CSRC / "flash_attention.cu"))
+        assert cmd.index("-lcuda") > src
+        assert "arch=compute_90a,code=sm_90a" in cmd

@@ -6,10 +6,17 @@
 // file, loaded with ctypes by tf_operator_tpu_torch/ops/flash_attention.py.
 //
 // Operands are [BH, T, D] row-major (batch*heads flattened), D in {64, 128},
-// element type f32 or bf16; lse and the lse cotangent are [BH, T] f32. Every
-// sum, the softmax statistics and the accumulators are f32. Rounding follows
-// the TPU kernels exactly: P is rounded to the input type before P.V, dS
-// before dS.K and dS^T.Q; dV = P^T.dO takes the unrounded P (dO upcast).
+// element type f32 or bf16; lse, the lse cotangent and delta are [BH, T] f32.
+// Every sum, the softmax statistics and the accumulators are f32. Rounding
+// follows the TPU kernels exactly: P is rounded to the input type before
+// P.V, dS before dS.K and dS^T.Q; dV = P^T.dO takes the unrounded P (dO
+// upcast). The backward kernels read delta = rowsum(dO o O) - g_lse from a
+// pre-pass (bwd_delta_kernel), launched once for both.
+//
+// The bf16 backward (bwd_dq_wgmma_kernel, bwd_dkv_wgmma_kernel, at the end
+// of the file) runs its products on the tensor cores with wgmma, fed by TMA
+// through shared-memory rings; see the note above them. The forward and the
+// f32 backward are the first versions described below.
 //
 // Tiles are 64x64 and a block has 256 threads. Thread (ty, tx) = (tid / 16,
 // tid % 16) owns tile rows ty + 16*i (i < 4) and columns tx + 16*j, so row
@@ -21,16 +28,19 @@
 // What bounds these kernels on the H100: at the trainer's shape (T = 8192,
 // D = 128, causal, bf16) each is compute-bound; the HBM traffic (~0.2 GB a
 // call at batch 4) is an order of magnitude below the 989 TF/s tensor-core
-// bound. This first version multiplies with f32 FMA on the CUDA cores, so
-// its ceiling is the 67 TF/s FMA rate, and its inner loops issue one
-// shared-memory load for every two FMAs. It keeps the Q (or K/V) tile
-// resident and streams the other operand's tiles through shared memory, so
-// HBM traffic stays O(T*D) per tile row; moving the products to wgmma with
-// TMA-fed shared-memory rings is the next step.
+// bound. The first versions multiply with f32 FMA on the CUDA cores, so
+// their ceiling is the 67 TF/s FMA rate, and their inner loops issue one
+// shared-memory load for every two FMAs. They keep the Q (or K/V) tile
+// resident and stream the other operand's tiles through shared memory, so
+// HBM traffic stays O(T*D) per tile row. The forward is next to move to
+// the wgmma design of the bf16 backward.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -98,34 +108,51 @@ __device__ __forceinline__ float half_warp_max(float x) {
   return x;
 }
 
-// delta[r] = rowsum(dO * O) - g_lse[r] and lse[r] for the rows of one q-tile,
-// one warp per 8 rows. dO comes from its shared tile, O from global memory.
-// Rows past tq get lse = delta = 0 (their products are masked anyway).
-template <typename T, int D>
-__device__ __forceinline__ void row_stats(const T* dos, const T* __restrict__ ob,
-                                          const float* __restrict__ lseb,
-                                          const float* __restrict__ glseb,
+// lse and delta of the rows of one q-tile into shared memory; rows past tq
+// get 0 (their products are masked anyway).
+__device__ __forceinline__ void row_stats(const float* __restrict__ lseb,
+                                          const float* __restrict__ deltab,
                                           int q0, int tq, float* lse_s,
                                           float* delta_s) {
-  constexpr int LD = padded<T>(D);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int rr = 0; rr < kTile / (kThreads / 32); ++rr) {
-    const int r = warp * (kTile / (kThreads / 32)) + rr;
+  for (int r = threadIdx.x; r < kTile; r += kThreads) {
     const int qp = q0 + r;
-    float sum = 0.f;
-    if (qp < tq) {
-      for (int d = lane; d < D; d += 32) {
-        sum += to_f(dos[r * LD + d]) * to_f(ob[static_cast<size_t>(qp) * D + d]);
-      }
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-    if (lane == 0) {
-      const bool in = qp < tq;
-      lse_s[r] = in ? lseb[qp] : 0.f;
-      delta_s[r] = in ? sum - (glseb != nullptr ? glseb[qp] : 0.f) : 0.f;
-    }
+    lse_s[r] = qp < tq ? lseb[qp] : 0.f;
+    delta_s[r] = qp < tq ? deltab[qp] : 0.f;
   }
+}
+
+// ---------------------------------------------------------------------------
+// delta pre-pass: delta[row] = rowsum(dO o O)[row] - g_lse[row] in f32, one
+// warp per row with 16-byte loads. A helper of K2/K3, not the port of a TPU
+// kernel: the Pallas kernels compute delta in-block from O (and K3 did so
+// for every (k-tile, q-tile) pair); here it is read once, by one launch.
+// Bound: bytes (O and dO read once).
+// ---------------------------------------------------------------------------
+constexpr int kDeltaRows = 8;  // rows (warps) per block
+
+template <typename T, int D>
+__global__ void __launch_bounds__(32 * kDeltaRows)
+bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+                 const float* __restrict__ glse, float* __restrict__ delta,
+                 int rows) {
+  constexpr int VEC = 16 / sizeof(T);
+  constexpr int CHUNKS = D / VEC;
+  const int row = blockIdx.x * kDeltaRows + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;  // whole warps leave together
+  float sum = 0.f;
+  for (int c = lane; c < CHUNKS; c += 32) {
+    const size_t off = static_cast<size_t>(row) * D + c * VEC;
+    const uint4 a = *reinterpret_cast<const uint4*>(o + off);
+    const uint4 b = *reinterpret_cast<const uint4*>(dout + off);
+    const T* ea = reinterpret_cast<const T*>(&a);
+    const T* eb = reinterpret_cast<const T*>(&b);
+#pragma unroll
+    for (int x = 0; x < VEC; ++x) sum += to_f(eb[x]) * to_f(ea[x]);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+  if (lane == 0) delta[row] = sum - (glse != nullptr ? glse[row] : 0.f);
 }
 
 // ---------------------------------------------------------------------------
@@ -255,20 +282,18 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// K2: dQ. Replaces ops/flash_attention.py::_bwd_dq_kernel (launched in
-// _flash_bwd). One block per (bh, q-tile) walks the k-tiles:
+// K2: dQ, the f32 version. Replaces ops/flash_attention.py::_bwd_dq_kernel
+// (launched in _flash_bwd). One block per (bh, q-tile) walks the k-tiles:
 //   dQ_i = scale * sum_j [P_ij o (dO_i V_j^T - delta_i)] K_j,
-// P rebuilt from lse, delta = rowsum(dO o O) - g_lse recomputed in-block.
-// dQ accumulates in registers; causal skip as in K1. Bound: compute
-// (3 units: S, dP and dS.K).
+// P rebuilt from lse, delta from the pre-pass. dQ accumulates in registers;
+// causal skip as in K1. Bound: compute (3 units: S, dP and dS.K).
 // ---------------------------------------------------------------------------
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, const T* __restrict__ o,
-              const T* __restrict__ dout, const float* __restrict__ lse,
-              const float* __restrict__ glse, T* __restrict__ dq, int tq,
-              int tk, int causal, float scale) {
+              const T* __restrict__ v, const T* __restrict__ dout,
+              const float* __restrict__ lse, const float* __restrict__ delta,
+              T* __restrict__ dq, int tq, int tk, int causal, float scale) {
   constexpr int LD = padded<T>(D);
   constexpr int LDP = padded<T>(kTile);
   constexpr int CJ = D / 16;
@@ -290,9 +315,7 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   load_tile<T, D>(qs, q + qoff * D, q0, tq);
   load_tile<T, D>(dos, dout + qoff * D, q0, tq);
-  __syncthreads();
-  row_stats<T, D>(dos, o + qoff * D, lse + qoff,
-                  glse != nullptr ? glse + qoff : nullptr, q0, tq, lse_s, delta_s);
+  row_stats(lse + qoff, delta + qoff, q0, tq, lse_s, delta_s);
 
   float acc[4][CJ];
 #pragma unroll
@@ -378,8 +401,8 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// K3: dK/dV. Replaces ops/flash_attention.py::_bwd_dkv_kernel (launched in
-// _flash_bwd). One block per (bh, k-tile) walks the q-tiles, so each dK/dV
+// K3: dK/dV, the f32 version. Replaces ops/flash_attention.py::_bwd_dkv_kernel
+// (launched in _flash_bwd). One block per (bh, k-tile) walks the q-tiles, so each dK/dV
 // row has one writer and no atomics are needed:
 //   dV_j = sum_i P_ij^T dO_i,   dK_j = scale * sum_i dS_ij^T Q_i.
 // Causal: q-tiles wholly before the k-tile (q0 + kTile - 1 < k0) are never
@@ -389,10 +412,10 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-               const T* __restrict__ v, const T* __restrict__ o,
-               const T* __restrict__ dout, const float* __restrict__ lse,
-               const float* __restrict__ glse, T* __restrict__ dk,
-               T* __restrict__ dv, int tq, int tk, int causal, float scale) {
+               const T* __restrict__ v, const T* __restrict__ dout,
+               const float* __restrict__ lse, const float* __restrict__ delta,
+               T* __restrict__ dk, T* __restrict__ dv, int tq, int tk,
+               int causal, float scale) {
   constexpr int LD = padded<T>(D);
   constexpr int LDP = padded<T>(kTile);
   constexpr int LDF = padded<float>(kTile);
@@ -429,9 +452,7 @@ bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
     load_tile<T, D>(qs, q + qoff * D, q0, tq);
     load_tile<T, D>(dos, dout + qoff * D, q0, tq);
-    __syncthreads();
-    row_stats<T, D>(dos, o + qoff * D, lse + qoff,
-                    glse != nullptr ? glse + qoff : nullptr, q0, tq, lse_s, delta_s);
+    row_stats(lse + qoff, delta + qoff, q0, tq, lse_s, delta_s);
     __syncthreads();
 
     // Thread (ty, tx) holds k rows ty + 16*i and q columns tx + 16*j.
@@ -515,6 +536,448 @@ bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// K2 and K3 in bf16, on the tensor cores.
+//
+// Bound: at the trainer's shape both are compute-bound (S, dP and one
+// gradient product for K2; S^T, dP^T, dV and dK for K3), so every product is
+// a wgmma with f32 accumulation. dP = dO.V^T from bf16 operands is exact in
+// f32 as the TPU kernel's upcast product is. dV takes the unrounded f32 P as
+// the TPU kernel does: P = P_hi + P_lo with P_hi = bf16(P) and P_lo =
+// bf16(P - P_hi), two register-A products (relative error ~2^-16), so K3
+// does 5 product units against its 4-unit bound.
+//
+// Shape of both kernels: a block of three warpgroups, 2 consumers that each
+// own 64 rows of the block's 128 resident rows, and 1 producer whose first
+// warp issues every TMA load. The resident rows (K and V for K3, Q and dO
+// for K2) load once; the streamed operand's 64-row tiles pass through a ring
+// of kStages shared-memory stages, each guarded by a "full" mbarrier (TMA
+// bytes landed) and an "empty" one (all 8 consumer warps done with it).
+// setmaxnreg moves registers from the producer (24) to the consumers (240):
+// K3 holds dK and dV (64 x D f32 each) plus S^T and dP^T in registers.
+// Tensor maps are 3-D (D, T, BH) with 64 x 64 boxes: a ragged tail zero-fills
+// inside its own head, and every row past T is also masked by position.
+// Products read shared memory in place: S = Q.K^T and dP = dO.V^T take both
+// operands K-major; the gradient products take A from registers (the f32
+// accumulator fragment converted to bf16 pairs, which is already the A
+// fragment layout) and B MN-major through the descriptor's transpose bit,
+// so no tile is copied or transposed. Each output row has one writer (no
+// atomics), so reruns are bit-identical. Causal: tiles wholly masked are
+// never visited, and the heaviest blocks are launched first.
+// ---------------------------------------------------------------------------
+using bf16 = __nv_bfloat16;
+
+constexpr int kWgThreads = 128;
+constexpr int kConsumerWGs = 2;
+constexpr int kWsThreads = (kConsumerWGs + 1) * kWgThreads;
+constexpr int kStages = 3;
+constexpr int kBlockRows = 64 * kConsumerWGs;  // resident rows per block
+constexpr uint32_t kBoxBytes = 64 * 128;      // one 64-row, 64-column box
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Bytes of one 64-row tile of D bf16 columns (D / 64 boxes).
+template <int D>
+__host__ __device__ constexpr uint32_t tile_bytes() { return 64 * D * 2; }
+
+// Descriptor of k-step kk (16 reduction columns) of a 64-row tile read
+// K-major, and of k-step kk (16 reduction rows) of a tile read MN-major.
+__device__ __forceinline__ uint64_t desc_k_major(const bf16* tile, int kk) {
+  return hopper::desc_sw128(
+      hopper::smem_u32(tile) + (kk >> 2) * kBoxBytes + (kk & 3) * 32, 16, 1024);
+}
+__device__ __forceinline__ uint64_t desc_mn_major(const bf16* tile, int kk) {
+  return hopper::desc_sw128(hopper::smem_u32(tile) + kk * 2048, kBoxBytes, 1024);
+}
+
+// Rows [row0, row0 + 64) of head bh into a tile, one box per 64 columns.
+template <int D>
+__device__ __forceinline__ void tma_tile(bf16* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int row0, int bh) {
+#pragma unroll
+  for (int cb = 0; cb < D / 64; ++cb) {
+    hopper::tma_load_3d(dst + cb * 64 * 64, map, bar, cb * 64, row0, bh);
+  }
+}
+
+// acc = A_tile[64 x D] . B_tile[64 x D]^T, both K-major: the [64 x 64]
+// scores of one warpgroup.
+template <int D>
+__device__ __forceinline__ void scores(float (&acc)[32], const bf16* a, const bf16* b) {
+  hopper::wgmma_ss_m64n64_zero(acc, desc_k_major(a, 0), desc_k_major(b, 0));
+#pragma unroll
+  for (int kk = 1; kk < D / 16; ++kk) {
+    hopper::wgmma_ss_m64n64(acc, desc_k_major(a, kk), desc_k_major(b, kk));
+  }
+}
+
+// acc[64 x D] += A[64 x 64] . B_tile[64 x D], A as 16 bf16 pairs in the
+// fragment layout, B read MN-major.
+template <int D>
+__device__ __forceinline__ void grad_product(float (&acc)[D / 2], const uint32_t (&a)[16],
+                                             const bf16* b) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const uint64_t desc = desc_mn_major(b, k);
+    if constexpr (D == 64) {
+      hopper::wgmma_rs_m64n64_tb(acc, a[4 * k], a[4 * k + 1], a[4 * k + 2], a[4 * k + 3],
+                                 desc);
+    } else {
+      hopper::wgmma_rs_m64n128_tb(acc, a[4 * k], a[4 * k + 1], a[4 * k + 2], a[4 * k + 3],
+                                  desc);
+    }
+  }
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The rows of an accumulator fragment as bf16 into out[(row0 + r) * D + c]
+// for the warpgroup's rows r < 64 with row0 + r < n_rows.
+template <int N>
+__device__ __forceinline__ void store_rows(bf16* out, const float (&acc)[N / 2],
+                                           int row0, int n_rows) {
+  const int lane = threadIdx.x & 31;
+  const int r = 16 * ((threadIdx.x % kWgThreads) / 32) + (lane >> 2);
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + r + 8 * h;
+      if (row < n_rows) {
+        const int i = 4 * j + 2 * h;
+        *reinterpret_cast<uint32_t*>(out + static_cast<size_t>(row) * N + 8 * j +
+                                     2 * (lane & 3)) = pack_bf16(acc[i], acc[i + 1]);
+      }
+    }
+  }
+}
+
+template <int D>
+struct DkvSmem {
+  alignas(1024) bf16 k[kConsumerWGs][64 * D];  // resident rows [k0, k0 + 128)
+  alignas(1024) bf16 v[kConsumerWGs][64 * D];
+  alignas(1024) bf16 q[kStages][64 * D];  // the ring of q-tiles
+  alignas(1024) bf16 dout[kStages][64 * D];
+  float lse2[kStages][64];  // lse * log2(e); +inf for a row whose P is 0
+  float delta[kStages][64];
+  uint64_t full[kStages], empty[kStages], kv_full;
+};
+
+template <int D>
+struct DqSmem {
+  alignas(1024) bf16 q[kConsumerWGs][64 * D];  // resident rows [q0, q0 + 128)
+  alignas(1024) bf16 dout[kConsumerWGs][64 * D];
+  alignas(1024) bf16 k[kStages][64 * D];  // the ring of k-tiles
+  alignas(1024) bf16 v[kStages][64 * D];
+  uint64_t full[kStages], empty[kStages], q_full;
+};
+
+// The thread's warpgroup, read from lane 0 so that the compiler knows it is
+// warp-uniform: descriptors derived from it then live in uniform registers.
+__device__ __forceinline__ int warpgroup() {
+  return __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / kWgThreads, 0);
+}
+
+template <typename S>
+__device__ __forceinline__ S& smem_as() {
+  extern __shared__ unsigned char smem_raw[];
+  return *reinterpret_cast<S*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
+                               ~static_cast<uintptr_t>(1023));
+}
+
+__device__ __forceinline__ float pos_inf() { return __int_as_float(0x7f800000); }
+
+// K3 (dK/dV) in bf16. Replaces ops/flash_attention.py::_bwd_dkv_kernel. One
+// block per (bh, 128 k-rows) walks the q-tiles: blockIdx.x = bh, blockIdx.y
+// = the k-block, so the heaviest causal blocks (small k0) launch first.
+template <int D>
+__global__ void __launch_bounds__(kWsThreads, 1)
+bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                     const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v,
+                     const __grid_constant__ CUtensorMap tm_do,
+                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     bf16* __restrict__ dk, bf16* __restrict__ dv, int tq, int tk,
+                     int causal, float scale) {
+  auto& sm = smem_as<DkvSmem<D>>();
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * kBlockRows;
+  const int n_qt = (tq + 63) / 64;
+  const int qt0 = causal ? k0 / 64 : 0;  // q-tiles wholly before k0 are all masked
+  const int wg = warpgroup();
+  const int lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&sm.full[s], 1);
+      hopper::mbar_init(&sm.empty[s], kConsumerWGs * 4);
+    }
+    hopper::mbar_init(&sm.kv_full, 1);
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == kConsumerWGs) {
+    // Producer: its first warp fills the ring; lane 0 issues the TMA loads,
+    // all 32 lanes stage each q-tile's lse and delta.
+    hopper::regs_dealloc<24>();
+    if (threadIdx.x / 32 != kConsumerWGs * 4) return;
+    if (lane == 0) {
+      hopper::mbar_arrive_expect_tx(&sm.kv_full, 2 * kConsumerWGs * tile_bytes<D>());
+      for (int h = 0; h < kConsumerWGs; ++h) {
+        tma_tile<D>(sm.k[h], &tm_k, &sm.kv_full, k0 + 64 * h, bh);
+        tma_tile<D>(sm.v[h], &tm_v, &sm.kv_full, k0 + 64 * h, bh);
+      }
+    }
+    const float* lse_b = lse + static_cast<size_t>(bh) * tq;
+    const float* delta_b = delta + static_cast<size_t>(bh) * tq;
+    int s = 0;
+    uint32_t phase = 0;
+    for (int qt = qt0; qt < n_qt; ++qt) {
+      const int q0 = qt * 64;
+      hopper::mbar_wait(&sm.empty[s], phase ^ 1);
+      for (int r = lane; r < 64; r += 32) {
+        const int qp = q0 + r;
+        const float L = qp < tq ? lse_b[qp] : kNegInf;
+        sm.lse2[s][r] = L > kNegInf ? L * kLog2e : pos_inf();
+        sm.delta[s][r] = qp < tq ? delta_b[qp] : 0.f;
+      }
+      __syncwarp();
+      if (lane == 0) {
+        hopper::mbar_arrive_expect_tx(&sm.full[s], 2 * tile_bytes<D>());
+        tma_tile<D>(sm.q[s], &tm_q, &sm.full[s], q0, bh);
+        tma_tile<D>(sm.dout[s], &tm_do, &sm.full[s], q0, bh);
+      }
+      if (++s == kStages) {
+        s = 0;
+        phase ^= 1;
+      }
+    }
+    return;
+  }
+
+  // Consumers: warpgroup wg owns k rows [k0 + 64 wg, k0 + 64 wg + 64); this
+  // thread holds rows kp and kp + 8 of each fragment, q columns
+  // 8 j + cq + {0, 1}.
+  hopper::regs_alloc<240>();
+  const int kp = k0 + 64 * wg + 16 * ((threadIdx.x % kWgThreads) / 32) + (lane >> 2);
+  const int cq = 2 * (lane & 3);
+  const float sl2 = scale * kLog2e;
+  const bool k_tail = k0 + kBlockRows > tk;
+  float acc_dk[D / 2], acc_dv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc_dk[i] = acc_dv[i] = 0.f;
+  hopper::mbar_wait(&sm.kv_full, 0);
+
+  int s = 0;
+  uint32_t phase = 0;
+  for (int qt = qt0; qt < n_qt; ++qt) {
+    const int q0 = qt * 64;
+    hopper::mbar_wait(&sm.full[s], phase);
+
+    // S^T = K Q^T and dP^T = V dO^T for this warpgroup's 64 k rows.
+    float st[32], dpt[32];
+    hopper::wg_fence();
+    scores<D>(st, sm.k[wg], sm.q[s]);
+    scores<D>(dpt, sm.v[wg], sm.dout[s]);
+    hopper::wg_commit();
+    hopper::wg_wait<0>();
+    hopper::pin(st);
+    hopper::pin(dpt);
+
+    // P^T from lse (0 where lse2 is +inf: padded or fully-masked q rows)
+    // and dS^T = P^T o (dP^T - delta) * scale, masked by position where a
+    // k row may lie past tk or after a q column; each pair of columns is
+    // packed as bf16 as soon as it is done.
+    const bool mask = k_tail || (causal && q0 < k0 + kBlockRows);
+    uint32_t p_hi[16], p_lo[16], ds[16];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = 8 * j + cq;
+      const float2 L = *reinterpret_cast<const float2*>(&sm.lse2[s][c]);
+      const float2 dl = *reinterpret_cast<const float2*>(&sm.delta[s][c]);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float p[2], d2[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 4 * j + 2 * h + e;
+          p[e] = exp2f(st[i] * sl2 - (e ? L.y : L.x));
+          if (mask) {
+            const int kr = kp + 8 * h;
+            if (kr >= tk || (causal && q0 + c + e < kr)) p[e] = 0.f;
+          }
+          d2[e] = p[e] * (dpt[i] - (e ? dl.y : dl.x)) * scale;
+        }
+        const int m = 2 * j + h;  // the pair (st[2m], st[2m + 1])
+        p_hi[m] = pack_bf16(p[0], p[1]);
+        const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&p_hi[m]);
+        p_lo[m] = pack_bf16(p[0] - __low2float(hi), p[1] - __high2float(hi));
+        ds[m] = pack_bf16(d2[0], d2[1]);
+      }
+    }
+
+    // dV += P_hi^T dO + P_lo^T dO and dK += bf16(dS^T) Q.
+    hopper::wg_fence();
+    hopper::pin(acc_dv);
+    hopper::pin(acc_dk);
+    grad_product<D>(acc_dv, p_hi, sm.dout[s]);
+    grad_product<D>(acc_dv, p_lo, sm.dout[s]);
+    grad_product<D>(acc_dk, ds, sm.q[s]);
+    hopper::wg_commit();
+    hopper::wg_wait<0>();
+    hopper::pin(acc_dv);
+    hopper::pin(acc_dk);
+    hopper::pin(p_hi);
+    hopper::pin(p_lo);
+    hopper::pin(ds);
+
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&sm.empty[s]);
+    if (++s == kStages) {
+      s = 0;
+      phase ^= 1;
+    }
+  }
+
+  const size_t koff = static_cast<size_t>(bh) * tk;
+  store_rows<D>(dk + koff * D, acc_dk, k0 + 64 * wg, tk);
+  store_rows<D>(dv + koff * D, acc_dv, k0 + 64 * wg, tk);
+}
+
+// K2 (dQ) in bf16. Replaces ops/flash_attention.py::_bwd_dq_kernel. One
+// block per (bh, 128 q-rows) walks the k-tiles: blockIdx.x = bh, and causal
+// blocks run from the last q rows (the most k-tiles) to the first.
+template <int D>
+__global__ void __launch_bounds__(kWsThreads, 1)
+bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v,
+                    const __grid_constant__ CUtensorMap tm_do,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    bf16* __restrict__ dq, int tq, int tk, int causal, float scale) {
+  auto& sm = smem_as<DqSmem<D>>();
+  const int bh = blockIdx.x;
+  const int qb = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qb * kBlockRows;
+  int n_kt = (tk + 63) / 64;
+  if (causal) n_kt = min(n_kt, (q0 + kBlockRows - 1) / 64 + 1);
+  const int wg = warpgroup();
+  const int lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&sm.full[s], 1);
+      hopper::mbar_init(&sm.empty[s], kConsumerWGs * 4);
+    }
+    hopper::mbar_init(&sm.q_full, 1);
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == kConsumerWGs) {
+    // Producer: one thread issues every TMA load.
+    hopper::regs_dealloc<24>();
+    if (threadIdx.x != kConsumerWGs * kWgThreads) return;
+    hopper::mbar_arrive_expect_tx(&sm.q_full, 2 * kConsumerWGs * tile_bytes<D>());
+    for (int h = 0; h < kConsumerWGs; ++h) {
+      tma_tile<D>(sm.q[h], &tm_q, &sm.q_full, q0 + 64 * h, bh);
+      tma_tile<D>(sm.dout[h], &tm_do, &sm.q_full, q0 + 64 * h, bh);
+    }
+    int s = 0;
+    uint32_t phase = 0;
+    for (int kt = 0; kt < n_kt; ++kt) {
+      hopper::mbar_wait(&sm.empty[s], phase ^ 1);
+      hopper::mbar_arrive_expect_tx(&sm.full[s], 2 * tile_bytes<D>());
+      tma_tile<D>(sm.k[s], &tm_k, &sm.full[s], kt * 64, bh);
+      tma_tile<D>(sm.v[s], &tm_v, &sm.full[s], kt * 64, bh);
+      if (++s == kStages) {
+        s = 0;
+        phase ^= 1;
+      }
+    }
+    return;
+  }
+
+  // Consumers: warpgroup wg owns q rows [q0 + 64 wg, q0 + 64 wg + 64); this
+  // thread holds rows qp and qp + 8 of each fragment, k columns
+  // 8 j + ck + {0, 1}.
+  hopper::regs_alloc<240>();
+  const int row0 = q0 + 64 * wg;
+  const int qp = row0 + 16 * ((threadIdx.x % kWgThreads) / 32) + (lane >> 2);
+  const int ck = 2 * (lane & 3);
+  const float sl2 = scale * kLog2e;
+  float L2[2], dl[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = qp + 8 * h;
+    const size_t row = static_cast<size_t>(bh) * tq + r;
+    const float L = r < tq ? lse[row] : kNegInf;
+    L2[h] = L > kNegInf ? L * kLog2e : pos_inf();  // +inf: P = 0 on the row
+    dl[h] = r < tq ? delta[row] : 0.f;
+  }
+  float acc_dq[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc_dq[i] = 0.f;
+  hopper::mbar_wait(&sm.q_full, 0);
+
+  int s = 0;
+  uint32_t phase = 0;
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * 64;
+    hopper::mbar_wait(&sm.full[s], phase);
+
+    // S = Q K^T and dP = dO V^T for this warpgroup's 64 q rows.
+    float s_acc[32], dp[32];
+    hopper::wg_fence();
+    scores<D>(s_acc, sm.q[wg], sm.k[s]);
+    scores<D>(dp, sm.dout[wg], sm.v[s]);
+    hopper::wg_commit();
+    hopper::wg_wait<0>();
+    hopper::pin(s_acc);
+    hopper::pin(dp);
+
+    const bool mask = k0 + 64 > tk || (causal && k0 + 63 > row0);
+    uint32_t ds[16];
+#pragma unroll
+    for (int m = 0; m < 16; ++m) {
+      float v2[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int i = 2 * m + e;
+        const int h = (i >> 1) & 1;
+        float p = exp2f(s_acc[i] * sl2 - L2[h]);
+        if (mask) {
+          const int kc = k0 + 8 * (i >> 2) + ck + (i & 1);
+          if (kc >= tk || (causal && qp + 8 * h < kc)) p = 0.f;
+        }
+        v2[e] = p * (dp[i] - dl[h]) * scale;
+      }
+      ds[m] = pack_bf16(v2[0], v2[1]);
+    }
+
+    // dQ += bf16(dS) K.
+    hopper::wg_fence();
+    hopper::pin(acc_dq);
+    grad_product<D>(acc_dq, ds, sm.k[s]);
+    hopper::wg_commit();
+    hopper::wg_wait<0>();
+    hopper::pin(acc_dq);
+    hopper::pin(ds);
+
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&sm.empty[s]);
+    if (++s == kStages) {
+      s = 0;
+      phase ^= 1;
+    }
+  }
+
+  store_rows<D>(dq + static_cast<size_t>(bh) * tq * D, acc_dq, row0, tq);
+}
+
 // Dynamic shared memory of each kernel, in bytes.
 template <typename T, int D>
 constexpr size_t fwd_smem() {
@@ -553,48 +1016,128 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
+
+template <typename T, int D>
+cudaError_t launch_delta(const void* o, const void* dout, const void* glse,
+                         void* delta, int rows, cudaStream_t stream) {
+  const int blocks = (rows + kDeltaRows - 1) / kDeltaRows;
+  bwd_delta_kernel<T, D><<<blocks, 32 * kDeltaRows, 0, stream>>>(
+      static_cast<const T*>(o), static_cast<const T*>(dout),
+      static_cast<const float*>(glse), static_cast<float*>(delta), rows);
+  return cudaGetLastError();
+}
+
 template <typename T, int D>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
-                      const void* o, const void* dout, const void* lse,
-                      const void* glse, void* dq, int bh, int tq, int tk,
-                      int causal, cudaStream_t stream) {
+                      const void* dout, const void* lse, const void* delta,
+                      void* dq, int bh, int tq, int tk, int causal,
+                      cudaStream_t stream) {
   const size_t smem = dq_smem<T, D>();
   cudaError_t err = allow_smem(bwd_dq_kernel<T, D>, smem);
   if (err != cudaSuccess) return err;
   dim3 grid((tq + kTile - 1) / kTile, bh);
   bwd_dq_kernel<T, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(o),
-      static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(glse), static_cast<T*>(dq), tq, tk, causal,
-      1.0f / sqrtf(static_cast<float>(D)));
+      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<T*>(dq), tq, tk, causal, 1.0f / sqrtf(static_cast<float>(D)));
   return cudaGetLastError();
 }
 
 template <typename T, int D>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
-                       const void* o, const void* dout, const void* lse,
-                       const void* glse, void* dk, void* dv, int bh, int tq,
-                       int tk, int causal, cudaStream_t stream) {
+                       const void* dout, const void* lse, const void* delta,
+                       void* dk, void* dv, int bh, int tq, int tk, int causal,
+                       cudaStream_t stream) {
   const size_t smem = dkv_smem<T, D>();
   cudaError_t err = allow_smem(bwd_dkv_kernel<T, D>, smem);
   if (err != cudaSuccess) return err;
   dim3 grid((tk + kTile - 1) / kTile, bh);
   bwd_dkv_kernel<T, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(o),
-      static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(glse), static_cast<T*>(dk),
-      static_cast<T*>(dv), tq, tk, causal, 1.0f / sqrtf(static_cast<float>(D)));
+      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<T*>(dk), static_cast<T*>(dv), tq, tk, causal,
+      1.0f / sqrtf(static_cast<float>(D)));
+  return cudaGetLastError();
+}
+
+// Returned when cuTensorMapEncodeTiled refuses a map: kTensorMapError + CUresult.
+constexpr int kTensorMapError = 1000;
+
+// A 3-D tensor map (D, T, BH) over a [BH, T, D] bf16 tensor: 64 x 64 boxes,
+// 128-byte swizzle, rows past T read as zero. The map is built on the host
+// for each call and passed to the kernel by value (__grid_constant__).
+int encode_map(CUtensorMap* map, const void* base, int bh, int t, int d) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(t),
+                              static_cast<cuuint64_t>(bh)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d) * sizeof(bf16),
+                                 static_cast<cuuint64_t>(t) * d * sizeof(bf16)};
+  const cuuint32_t box[3] = {64, 64, 1};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  const CUresult r = cuTensorMapEncodeTiled(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
+      strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kTensorMapError + static_cast<int>(r);
+}
+
+// The four maps of a backward launch: q and dout over tq rows, k and v
+// over tk rows.
+int encode_maps(CUtensorMap (&m)[4], const void* q, const void* k, const void* v,
+                const void* dout, int bh, int tq, int tk, int d) {
+  int err = encode_map(&m[0], q, bh, tq, d);
+  if (err == 0) err = encode_map(&m[1], k, bh, tk, d);
+  if (err == 0) err = encode_map(&m[2], v, bh, tk, d);
+  if (err == 0) err = encode_map(&m[3], dout, bh, tq, d);
+  return err;
+}
+
+template <int D>
+int launch_dq_wgmma(const void* q, const void* k, const void* v, const void* dout,
+                    const void* lse, const void* delta, void* dq, int bh, int tq,
+                    int tk, int causal, cudaStream_t stream) {
+  CUtensorMap m[4];
+  const int map_err = encode_maps(m, q, k, v, dout, bh, tq, tk, D);
+  if (map_err != 0) return map_err;
+  const size_t smem = sizeof(DqSmem<D>) + 1024;  // + alignment slack
+  cudaError_t err = allow_smem(bwd_dq_wgmma_kernel<D>, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(bh, (tq + kBlockRows - 1) / kBlockRows);
+  bwd_dq_wgmma_kernel<D><<<grid, kWsThreads, smem, stream>>>(
+      m[0], m[1], m[2], m[3], static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dq), tq, tk, causal,
+      1.0f / sqrtf(static_cast<float>(D)));
+  return cudaGetLastError();
+}
+
+template <int D>
+int launch_dkv_wgmma(const void* q, const void* k, const void* v, const void* dout,
+                     const void* lse, const void* delta, void* dk, void* dv, int bh,
+                     int tq, int tk, int causal, cudaStream_t stream) {
+  CUtensorMap m[4];
+  const int map_err = encode_maps(m, q, k, v, dout, bh, tq, tk, D);
+  if (map_err != 0) return map_err;
+  const size_t smem = sizeof(DkvSmem<D>) + 1024;  // + alignment slack
+  cudaError_t err = allow_smem(bwd_dkv_wgmma_kernel<D>, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(bh, (tk + kBlockRows - 1) / kBlockRows);
+  bwd_dkv_wgmma_kernel<D><<<grid, kWsThreads, smem, stream>>>(
+      m[0], m[1], m[2], m[3], static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), tq, tk, causal, 1.0f / sqrtf(static_cast<float>(D)));
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Plain C interface. dtype: 0 = f32, 1 = bf16. lse (forward) and glse (both
-// backward passes) may be NULL. Each returns the launch's cudaGetLastError()
-// (cudaErrorInvalidValue for a shape or type outside the kernels' scope); it
-// never synchronises.
+// Plain C interface. dtype: 0 = f32, 1 = bf16. lse (forward) and glse (the
+// delta pass) may be NULL. Each returns the launch's cudaGetLastError(),
+// cudaErrorInvalidValue for a shape or type outside the kernels' scope, or
+// kTensorMapError + the CUresult of a refused cuTensorMapEncodeTiled; it
+// never synchronises. The backward passes take delta from tfo_flash_bwd_delta:
+// f32 runs the FMA kernels, bf16 the wgmma kernels.
 #define TFO_DISPATCH(DTYPE, D, CALL_F32_64, CALL_F32_128, CALL_BF16_64, CALL_BF16_128) \
   if ((DTYPE) == 0 && (D) == 64) return static_cast<int>(CALL_F32_64);                 \
   if ((DTYPE) == 0 && (D) == 128) return static_cast<int>(CALL_F32_128);               \
@@ -613,28 +1156,39 @@ extern "C" int tfo_flash_fwd(const void* q, const void* k, const void* v,
                (launch_fwd<__nv_bfloat16, 128>(q, k, v, o, lse, bh, tq, tk, causal, s)))
 }
 
-extern "C" int tfo_flash_bwd_dq(const void* q, const void* k, const void* v,
-                                const void* o, const void* dout,
-                                const void* lse, const void* glse, void* dq,
-                                int bh, int tq, int tk, int d, int dtype,
-                                int causal, void* stream) {
+extern "C" int tfo_flash_bwd_delta(const void* o, const void* dout,
+                                   const void* glse, void* delta, int rows,
+                                   int d, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   TFO_DISPATCH(dtype, d,
-               (launch_dq<float, 64>(q, k, v, o, dout, lse, glse, dq, bh, tq, tk, causal, s)),
-               (launch_dq<float, 128>(q, k, v, o, dout, lse, glse, dq, bh, tq, tk, causal, s)),
-               (launch_dq<__nv_bfloat16, 64>(q, k, v, o, dout, lse, glse, dq, bh, tq, tk, causal, s)),
-               (launch_dq<__nv_bfloat16, 128>(q, k, v, o, dout, lse, glse, dq, bh, tq, tk, causal, s)))
+               (launch_delta<float, 64>(o, dout, glse, delta, rows, s)),
+               (launch_delta<float, 128>(o, dout, glse, delta, rows, s)),
+               (launch_delta<__nv_bfloat16, 64>(o, dout, glse, delta, rows, s)),
+               (launch_delta<__nv_bfloat16, 128>(o, dout, glse, delta, rows, s)))
+}
+
+extern "C" int tfo_flash_bwd_dq(const void* q, const void* k, const void* v,
+                                const void* dout, const void* lse,
+                                const void* delta, void* dq, int bh, int tq,
+                                int tk, int d, int dtype, int causal,
+                                void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  TFO_DISPATCH(dtype, d,
+               (launch_dq<float, 64>(q, k, v, dout, lse, delta, dq, bh, tq, tk, causal, s)),
+               (launch_dq<float, 128>(q, k, v, dout, lse, delta, dq, bh, tq, tk, causal, s)),
+               (launch_dq_wgmma<64>(q, k, v, dout, lse, delta, dq, bh, tq, tk, causal, s)),
+               (launch_dq_wgmma<128>(q, k, v, dout, lse, delta, dq, bh, tq, tk, causal, s)))
 }
 
 extern "C" int tfo_flash_bwd_dkv(const void* q, const void* k, const void* v,
-                                 const void* o, const void* dout,
-                                 const void* lse, const void* glse, void* dk,
-                                 void* dv, int bh, int tq, int tk, int d,
-                                 int dtype, int causal, void* stream) {
+                                 const void* dout, const void* lse,
+                                 const void* delta, void* dk, void* dv, int bh,
+                                 int tq, int tk, int d, int dtype, int causal,
+                                 void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   TFO_DISPATCH(dtype, d,
-               (launch_dkv<float, 64>(q, k, v, o, dout, lse, glse, dk, dv, bh, tq, tk, causal, s)),
-               (launch_dkv<float, 128>(q, k, v, o, dout, lse, glse, dk, dv, bh, tq, tk, causal, s)),
-               (launch_dkv<__nv_bfloat16, 64>(q, k, v, o, dout, lse, glse, dk, dv, bh, tq, tk, causal, s)),
-               (launch_dkv<__nv_bfloat16, 128>(q, k, v, o, dout, lse, glse, dk, dv, bh, tq, tk, causal, s)))
+               (launch_dkv<float, 64>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, causal, s)),
+               (launch_dkv<float, 128>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, causal, s)),
+               (launch_dkv_wgmma<64>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, causal, s)),
+               (launch_dkv_wgmma<128>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, causal, s)))
 }

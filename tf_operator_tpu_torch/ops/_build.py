@@ -3,8 +3,10 @@
 Each source is compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared
 library with a plain C interface and loaded with ``ctypes``. The build runs
 at first use into ``build/torch_kernels/`` at the root of the checkout,
-keyed on a hash of the source and the flags, so an edited source rebuilds.
-A missing or failing ``nvcc`` raises: there is no fallback.
+keyed on a hash of the source, every ``csrc/*.cuh`` header and the flags,
+so an edited source or header rebuilds. The libraries link libcuda
+(``-lcuda``) for the TMA tensor-map encoder. A missing or failing
+``nvcc`` raises: there is no fallback.
 """
 
 from __future__ import annotations
@@ -23,6 +25,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# After the source, so the linker keeps the library that the object needs.
+LINK_FLAGS = ("-lcuda",)
 # Toolkit roots searched after PATH, $CUDA_HOME and $CUDA_PATH.
 NVCC_ROOTS = ("/usr/local/cuda",)
 
@@ -54,10 +58,13 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """The library of ``csrc/<name>.cu``, named by a hash of the source,
+    every header beside it and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Path:
@@ -68,7 +75,7 @@ def build(name: str) -> Path:
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".tmp{os.getpid()}.so")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu"), *LINK_FLAGS]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     build_logs[name] = proc.stderr
     if proc.returncode != 0:

@@ -7,6 +7,11 @@ kernels in ``csrc/flash_attention.cu`` replace the three Pallas kernels:
   dQ        ``_bwd_dq_kernel``   -> ``flash_bwd_dq``    (LAUNCHES["bwd_dq"])
   dK/dV     ``_bwd_dkv_kernel``  -> ``flash_bwd_dkv``   (LAUNCHES["bwd_dkv"])
 
+and a fourth, ``bwd_delta`` (LAUNCHES["bwd_delta"]), computes the backward's
+delta = rowsum(dO o O) - g_lse once for both backward kernels, which the
+Pallas kernels computed in-block. In bf16 the backward kernels run their
+products on the tensor cores (wgmma fed by TMA); in f32 on FMA units.
+
 Each wrapper takes ``[BH, T, D]`` operands (batch*heads flattened) and lse
 as ``[BH, T]`` f32; the TPU's ``[BH, T, 128]`` lane-broadcast lse layout was
 a Mosaic workaround, not part of the semantics. On a CUDA tensor a wrapper
@@ -36,7 +41,7 @@ SUPPORTED_DTYPES = (torch.float32, torch.bfloat16)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 # Launch counts of each kernel, incremented where the wrapper launches it.
-LAUNCHES = {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 0}
+LAUNCHES = {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 0, "bwd_delta": 0}
 
 _lib_handle = None
 
@@ -54,10 +59,11 @@ def _lib() -> ctypes.CDLL:
         lib = _build.load("flash_attention")
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.tfo_flash_fwd.argtypes = [ptr] * 5 + [i32] * 6 + [ptr]
-        lib.tfo_flash_bwd_dq.argtypes = [ptr] * 8 + [i32] * 6 + [ptr]
-        lib.tfo_flash_bwd_dkv.argtypes = [ptr] * 9 + [i32] * 6 + [ptr]
-        for fn in (lib.tfo_flash_fwd, lib.tfo_flash_bwd_dq,
-                   lib.tfo_flash_bwd_dkv):
+        lib.tfo_flash_bwd_delta.argtypes = [ptr] * 4 + [i32] * 3 + [ptr]
+        lib.tfo_flash_bwd_dq.argtypes = [ptr] * 7 + [i32] * 6 + [ptr]
+        lib.tfo_flash_bwd_dkv.argtypes = [ptr] * 8 + [i32] * 6 + [ptr]
+        for fn in (lib.tfo_flash_fwd, lib.tfo_flash_bwd_delta,
+                   lib.tfo_flash_bwd_dq, lib.tfo_flash_bwd_dkv):
             fn.restype = i32
         _lib_handle = lib
     return _lib_handle
@@ -101,26 +107,34 @@ def flash_fwd_plain(q, k, v, causal: bool = False):
     return (acc / safe_l[..., None]).to(q.dtype), lse
 
 
-def _bwd_p_ds(q, k, v, o, lse, do, causal, g_lse):
-    """P rebuilt from lse and dS = P o (dO V^T - delta) * scale, with
-    delta = rowsum(dO o O) - g_lse (FA-2 eq. 13 plus the lse cotangent)."""
-    s = _scores(q, k, causal)
-    lse = lse.float()[..., None]
-    p = torch.where(lse <= NEG_INF, 0.0, torch.exp(s - lse))
+def _bwd_delta_plain(o, do, g_lse=None):
+    """delta = rowsum(dO o O) - g_lse, [BH, T] f32 (FA-2 eq. 13 plus the
+    lse cotangent)."""
     delta = (do.float() * o.float()).sum(-1)
     if g_lse is not None:
         delta = delta - g_lse.float()
+    return delta
+
+
+def _bwd_p_ds(q, k, v, o, lse, do, causal, g_lse, delta=None):
+    """P rebuilt from lse and dS = P o (dO V^T - delta) * scale; delta,
+    when not given, from _bwd_delta_plain."""
+    s = _scores(q, k, causal)
+    lse = lse.float()[..., None]
+    p = torch.where(lse <= NEG_INF, 0.0, torch.exp(s - lse))
+    if delta is None:
+        delta = _bwd_delta_plain(o, do, g_lse)
     dp = torch.matmul(do.float(), v.float().transpose(-1, -2))
     return p, p * (dp - delta[..., None]) * sm_scale(q.shape[-1])
 
 
-def _bwd_dq_plain(q, k, v, o, lse, do, causal, g_lse=None):
-    _, ds = _bwd_p_ds(q, k, v, o, lse, do, causal, g_lse)
+def _bwd_dq_plain(q, k, v, o, lse, do, causal, g_lse=None, delta=None):
+    _, ds = _bwd_p_ds(q, k, v, o, lse, do, causal, g_lse, delta)
     return torch.matmul(ds.to(q.dtype).float(), k.float()).to(q.dtype)
 
 
-def _bwd_dkv_plain(q, k, v, o, lse, do, causal, g_lse=None):
-    p, ds = _bwd_p_ds(q, k, v, o, lse, do, causal, g_lse)
+def _bwd_dkv_plain(q, k, v, o, lse, do, causal, g_lse=None, delta=None):
+    p, ds = _bwd_p_ds(q, k, v, o, lse, do, causal, g_lse, delta)
     dk = torch.matmul(ds.to(q.dtype).float().transpose(-1, -2), q.float())
     # dV takes the unrounded P against dO upcast to f32, as the TPU kernel.
     dv = torch.matmul(p.transpose(-1, -2), do.float())
@@ -181,7 +195,9 @@ def _ptr(x) -> ctypes.c_void_p | None:
 
 def _raise_on(err: int, name: str) -> None:
     if err != 0:
-        raise RuntimeError(f"flash {name} kernel launch failed: cudaError {err}")
+        raise RuntimeError(
+            f"flash {name} kernel launch failed: error {err} (a cudaError, or "
+            "1000 + the CUresult of a refused cuTensorMapEncodeTiled)")
 
 
 def flash_fwd(q, k, v, causal: bool = False, save_lse: bool = True):
@@ -205,52 +221,76 @@ def flash_fwd(q, k, v, causal: bool = False, save_lse: bool = True):
     return o, lse
 
 
-def flash_bwd_dq(q, k, v, o, lse, do, causal: bool = False, g_lse=None):
-    """K2 on [BH, T, D]: dq."""
+def bwd_delta(o, do, g_lse=None):
+    """delta = rowsum(dO o O) - g_lse on [BH, T, D] operands: [BH, T] f32.
+    A helper of K2 and K3 (one launch for both), not a TPU kernel's port."""
+    if o.device.type == "cpu":
+        return _bwd_delta_plain(o, do, g_lse)
+    _check_cuda(o, o, o, do, rows=() if g_lse is None else (g_lse,))
+    bh, t, d = o.shape
+    delta = torch.empty((bh, t), dtype=torch.float32, device=o.device)
+    if t == 0:
+        return delta
+    with torch.cuda.device(o.device):
+        err = _lib().tfo_flash_bwd_delta(
+            _ptr(o), _ptr(do), _ptr(g_lse), _ptr(delta), bh * t, d,
+            _DTYPE_CODE[o.dtype], _stream(o))
+    _raise_on(err, "bwd_delta")
+    LAUNCHES["bwd_delta"] += 1
+    return delta
+
+
+def flash_bwd_dq(q, k, v, o, lse, do, causal: bool = False, g_lse=None, delta=None):
+    """K2 on [BH, T, D]: dq. delta, when given, is bwd_delta(o, do, g_lse)
+    (g_lse is then not read); without it the wrapper runs that pass."""
     if q.device.type == "cpu":
-        return _bwd_dq_plain(q, k, v, o, lse, do, causal, g_lse)
-    rows = (lse,) if g_lse is None else (lse, g_lse)
-    _check_cuda(q, k, v, o, do, rows=rows)
+        return _bwd_dq_plain(q, k, v, o, lse, do, causal, g_lse, delta)
+    if delta is None:
+        delta = bwd_delta(o, do, g_lse)
+    _check_cuda(q, k, v, do, rows=(lse, delta))
     bh, t, d = q.shape
     dq = torch.empty_like(q)
     if t == 0:
         return dq
     with torch.cuda.device(q.device):
         err = _lib().tfo_flash_bwd_dq(
-            _ptr(q), _ptr(k), _ptr(v), _ptr(o), _ptr(do), _ptr(lse),
-            _ptr(g_lse), _ptr(dq), bh, t, k.shape[1], d,
-            _DTYPE_CODE[q.dtype], int(causal), _stream(q))
+            _ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(delta),
+            _ptr(dq), bh, t, k.shape[1], d, _DTYPE_CODE[q.dtype], int(causal),
+            _stream(q))
     _raise_on(err, "bwd_dq")
     LAUNCHES["bwd_dq"] += 1
     return dq
 
 
-def flash_bwd_dkv(q, k, v, o, lse, do, causal: bool = False, g_lse=None):
-    """K3 on [BH, T, D]: (dk, dv)."""
+def flash_bwd_dkv(q, k, v, o, lse, do, causal: bool = False, g_lse=None, delta=None):
+    """K3 on [BH, T, D]: (dk, dv). delta as for flash_bwd_dq."""
     if q.device.type == "cpu":
-        return _bwd_dkv_plain(q, k, v, o, lse, do, causal, g_lse)
-    rows = (lse,) if g_lse is None else (lse, g_lse)
-    _check_cuda(q, k, v, o, do, rows=rows)
+        return _bwd_dkv_plain(q, k, v, o, lse, do, causal, g_lse, delta)
+    if delta is None:
+        delta = bwd_delta(o, do, g_lse)
+    _check_cuda(q, k, v, do, rows=(lse, delta))
     bh, t, d = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if k.shape[1] == 0:
         return dk, dv
     with torch.cuda.device(q.device):
         err = _lib().tfo_flash_bwd_dkv(
-            _ptr(q), _ptr(k), _ptr(v), _ptr(o), _ptr(do), _ptr(lse),
-            _ptr(g_lse), _ptr(dk), _ptr(dv), bh, t, k.shape[1], d,
-            _DTYPE_CODE[q.dtype], int(causal), _stream(q))
+            _ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(delta),
+            _ptr(dk), _ptr(dv), bh, t, k.shape[1], d, _DTYPE_CODE[q.dtype],
+            int(causal), _stream(q))
     _raise_on(err, "bwd_dkv")
     LAUNCHES["bwd_dkv"] += 1
     return dk, dv
 
 
 def flash_bwd(q, k, v, o, lse, do, causal: bool = False, g_lse=None):
-    """(dq, dk, dv): K2 then K3 on CUDA, the plain backward on CPU."""
+    """(dq, dk, dv): the delta pass, then K2 and K3, on CUDA; the plain
+    backward on CPU."""
     if q.device.type == "cpu":
         return flash_bwd_plain(q, k, v, o, lse, do, causal, g_lse)
-    dq = flash_bwd_dq(q, k, v, o, lse, do, causal, g_lse)
-    dk, dv = flash_bwd_dkv(q, k, v, o, lse, do, causal, g_lse)
+    delta = bwd_delta(o, do, g_lse)
+    dq = flash_bwd_dq(q, k, v, o, lse, do, causal, delta=delta)
+    dk, dv = flash_bwd_dkv(q, k, v, o, lse, do, causal, delta=delta)
     return dq, dk, dv
 
 
