@@ -11,13 +11,14 @@ Phases, in order:
      and spills (ptxas) and its count of wgmma (HGMMA) instructions in the
      built library's SASS;
   3. hold each kernel against its plain PyTorch version on the card: the
-     flash kernels and the backward's delta pass at the LM trainer's
-     attention shape and four small ones (f32 with a ragged tail, f32
-     causal, bf16 at head_dim 64 with a ragged causal tail, bf16 full
-     attention at head_dim 128 with a ragged tail), timed at the trainer's
-     shape at batch 1 beside their bound, their plain version and PyTorch's
-     scaled_dot_product_attention, and at the trainer's batch 4 beside their
-     bound and that call (the plain versions' f32 scores would not fit); the fused
+     flash kernels (the forward with and without its lse) and the
+     backward's delta pass at the LM trainer's attention shape and four
+     small ones (f32 with a ragged tail, f32 causal, bf16 at head_dim 64
+     with a ragged causal tail, bf16 full attention at head_dim 128 with a
+     ragged tail), timed at the trainer's shape at batch 1 beside their
+     bound, their plain version and PyTorch's scaled_dot_product_attention,
+     and at the trainer's batch 4 beside their bound and that call (the
+     plain versions' f32 scores would not fit); the fused
      bottleneck at ResNet-50's stage-1 and stage-4 identity blocks (the
      weights and input activations of the port's ResNet-50 at batch 256,
      224x224) and a small f32 case, timed at both ResNet-50 shapes beside
@@ -230,7 +231,8 @@ def build_phase() -> float:
         for kernel, info in parse_ptxas(build_log).items():
             log(f"  ptxas {name}: {kernel}: {info}")
         for line in build_log.splitlines():
-            if "warning" in line.lower():
+            # ptxas reports wgmma serialisation as "Potential Performance Loss".
+            if "warning" in line.lower() or "performance loss" in line.lower():
                 log(f"  nvcc {name}: {line.strip()}")
     cuobjdump = Path(_build.find_nvcc()).with_name("cuobjdump")
     for name in SOURCES:
@@ -320,9 +322,11 @@ def excess(got, ref, dtype_name: str, kind: str) -> float:
 
 
 def _kind(name: str) -> str:
-    """The TOL kind of a checked output: "o", "lse", "delta", or "grad" for
-    the rest."""
-    return name if name in ("o", "lse", "delta") else "grad"
+    """The TOL kind of a checked output, read from its name's first word
+    ("o(no lse)" is an "o", "delta+g_lse" a "delta"): "o", "lse", "delta",
+    or "grad" for the rest."""
+    base = re.match(r"\w*", name).group()
+    return base if base in ("o", "lse", "delta") else "grad"
 
 
 def checker_self_test(outs: dict, refs: dict, dtype_name: str) -> dict:
@@ -377,6 +381,14 @@ def check_phase(records: dict) -> None:
         o_p, lse_p = fa.flash_fwd_plain(q, k, v, causal)
         abs_errs = {"fwd": hold("o", o, o_p)}
         hold("lse", lse, lse_p)
+        # The forward without lse (the kernel gets NULL), as FlashAttention
+        # runs it when no input needs a gradient: the same o, bit for bit.
+        o_nl, lse_nl = fa.flash_fwd(q, k, v, causal, save_lse=False)
+        hold("o(no lse)", o_nl, o_p)
+        if lse_nl is not None or not torch.equal(o_nl, o):
+            failures.append(f"{list(shape)} {dtype_name}: flash_fwd(save_lse=False) gave "
+                            "an lse or another o than flash_fwd")
+        del o_nl
         for tag, gl in (("", None), ("+g_lse", g_lse)):
             delta = fa.bwd_delta(o, do, gl)
             diff = hold("delta" + tag, delta, fa._bwd_delta_plain(o, do, gl))
@@ -519,6 +531,9 @@ def _time_kernels(q, k, v, o, lse, do, causal, shape, dtype_name, with_plain: bo
             + (f"{plain_ms:.3f} ms" if plain_ms is not None else "not timed")
             + f", bound {bound_ms:.4f} ms ({bound_by}), scaled_dot_product_attention "
             + (f"{lib_ms:.4f} ms" if lib_ms is not None else "none"))
+    log(f"time {list(shape)} {dtype_name}: K1 {times['flash_fwd'][0]:.4f} ms = "
+        f"{times['flash_fwd'][0] / times['flash_fwd'][2]:.2f} x "
+        f"scaled_dot_product_attention's forward {times['flash_fwd'][2]:.4f} ms")
     pair = times["flash_bwd_dq"][0] + times["flash_bwd_dkv"][0]
     log(f"time {list(shape)} {dtype_name}: K2 + K3 {pair:.4f} ms = "
         f"{pair / sdpa_bwd_ms:.2f} x scaled_dot_product_attention's backward "
@@ -864,7 +879,7 @@ def resnet_train_phase(args, card: str) -> dict:
 # lower-cased name), first match wins; the rest is "other". cuBLAS names
 # its Hopper GEMMs nvjet_*, older ones *gemm*/*xmma*; cuDNN's convolutions
 # carry fprop/dgrad/wgrad or implicit-GEMM names.
-LM_GROUPS = (("flash_fwd", ("fwd_kernel",)),
+LM_GROUPS = (("flash_fwd", ("fwd_kernel", "fwd_wgmma_kernel")),
              ("flash_bwd_dq", ("bwd_dq_kernel", "bwd_dq_wgmma_kernel")),
              ("flash_bwd_dkv", ("bwd_dkv_kernel", "bwd_dkv_wgmma_kernel")),
              ("flash_bwd_delta", ("bwd_delta_kernel",)),
@@ -873,6 +888,10 @@ RESNET_GROUPS = (("conv", ("fprop", "dgrad", "wgrad", "conv", "implicit", "winog
                            "xmma")),
                  ("matmul", ("nvjet", "gemm", "cutlass")),
                  ("reduce", ("reduce",)), ("elementwise", ("elementwise",)))
+# The LM profile cuts its steps at the attention forward: a kernel whose
+# lower-cased name holds both substrings (fwd_kernel in f32,
+# fwd_wgmma_kernel in bf16; no other kernel of csrc/).
+LM_STEP_MARKER = ("fwd_", "_kernel")
 
 
 def kernel_group(name: str, groups) -> str:
@@ -932,7 +951,7 @@ def profile_phase(args, card: str) -> None:
     OUT_DIR."""
     if args.steps < LOG_EVERY + 2:
         raise SmokeFailure(f"the profile needs --steps >= {LOG_EVERY + 2}")
-    _profile_trainer(lm_argv(args.steps), args.steps, ("fwd_kernel",), LAYERS, LM_GROUPS,
+    _profile_trainer(lm_argv(args.steps), args.steps, LM_STEP_MARKER, LAYERS, LM_GROUPS,
                      BATCH, card, "train_profile.trace.json")
     _profile_trainer(resnet_argv(args.steps), args.steps, ("softmax", "forward"), 1,
                      RESNET_GROUPS, RN_BATCH, card, "resnet50_profile.trace.json")

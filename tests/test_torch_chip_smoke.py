@@ -62,6 +62,16 @@ def test_check_accepts_noise_on_a_row_that_cancels(plain_outputs):
     assert chip_smoke.excess(got, ref, "bfloat16", "grad") <= 1.0
 
 
+@pytest.mark.parametrize("name,kind", [
+    ("o", "o"), ("o(no lse)", "o"), ("lse", "lse"), ("delta", "delta"),
+    ("delta+g_lse", "delta"), ("dq+g_lse", "grad"), ("FlashAttention.dk", "grad"),
+])
+def test_kind_reads_the_first_word(name, kind):
+    """Each checked output is held to its own kind's limit: the lse-less o
+    to o's, delta with the lse cotangent to delta's (not the looser grad's)."""
+    assert chip_smoke._kind(name) == kind
+
+
 @pytest.mark.parametrize("mutation", chip_smoke.MUTATIONS, ids=lambda m: f"{m[0]} {m[1]}")
 def test_check_rejects_broken_output(plain_outputs, mutation):
     name, _, mutate = mutation
@@ -128,12 +138,13 @@ def test_k4_check_rejects_a_non_finite_output(k4_outputs):
     assert not chip_smoke.k4_excess(st, outs["st3"], "bfloat16", "st3") <= 1.0
 
 
-FLASH_CU = Path(chip_smoke.ROOT) / "tf_operator_tpu_torch" / "csrc" / "flash_attention.cu"
+CSRC = Path(chip_smoke.ROOT) / "tf_operator_tpu_torch" / "csrc"
+FLASH_CU = CSRC / "flash_attention.cu"
+KERNEL_RE = r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\("
 
 
 def _flash_kernel_names():
-    src = FLASH_CU.read_text()
-    return re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(", src)
+    return re.findall(KERNEL_RE, FLASH_CU.read_text())
 
 
 def test_every_flash_kernel_has_an_lm_profile_group():
@@ -142,7 +153,7 @@ def test_every_flash_kernel_has_an_lm_profile_group():
     each wrapper fall in that wrapper's group."""
     names = _flash_kernel_names()
     assert {"fwd_kernel", "bwd_dq_kernel", "bwd_dkv_kernel", "bwd_delta_kernel",
-            "bwd_dq_wgmma_kernel", "bwd_dkv_wgmma_kernel"} <= set(names)
+            "fwd_wgmma_kernel", "bwd_dq_wgmma_kernel", "bwd_dkv_wgmma_kernel"} <= set(names)
     want = {"fwd": "flash_fwd", "bwd_dq": "flash_bwd_dq", "bwd_dkv": "flash_bwd_dkv",
             "bwd_delta": "flash_bwd_delta"}
     for name in names:
@@ -154,9 +165,15 @@ def test_every_flash_kernel_has_an_lm_profile_group():
 
 
 def test_profile_step_marker_names_only_the_forward():
-    """The LM profile cuts steps at kernels that contain "fwd_kernel": only
-    the forward kernel may."""
-    assert [n for n in _flash_kernel_names() if "fwd_kernel" in n] == ["fwd_kernel"]
+    """The LM profile cuts steps at kernels whose name holds every
+    substring of LM_STEP_MARKER: of all the __global__ kernels of csrc/,
+    exactly the forward kernels (f32 and bf16), as the profiler names them."""
+    names = [n for src in sorted(CSRC.glob("*.cu")) for n in re.findall(KERNEL_RE, src.read_text())]
+    assert "gemm_kernel" in names  # fused_bottleneck.cu's kernels are read too
+    marked = {n for n in names
+              if all(k in f"void (anonymous namespace)::{n}<128>(CUtensorMap_st)".lower()
+                     for k in chip_smoke.LM_STEP_MARKER)}
+    assert marked == {"fwd_kernel", "fwd_wgmma_kernel"}
 
 
 def _mangled(name, targs=""):
@@ -169,9 +186,11 @@ def _mangled(name, targs=""):
     ("IfLi64EE", "bwd_dq_wgmma_kernel<float, 64>"),
     ("I13__nv_bfloat16Li128EE", "bwd_dq_wgmma_kernel<bf16, 128>"),
     ("", "bwd_dq_wgmma_kernel"),
+    ("ILi128EE", "fwd_wgmma_kernel<128>"),
 ])
 def test_kernel_label(targs, label):
-    assert chip_smoke.kernel_label(_mangled("bwd_dq_wgmma_kernel", targs)) == label
+    name = label.split("<")[0]
+    assert chip_smoke.kernel_label(_mangled(name, targs)) == label
 
 
 def test_kernel_label_keeps_a_name_it_cannot_read():

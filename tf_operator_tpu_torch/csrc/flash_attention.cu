@@ -13,10 +13,11 @@
 // upcast). The backward kernels read delta = rowsum(dO o O) - g_lse from a
 // pre-pass (bwd_delta_kernel), launched once for both.
 //
-// The bf16 backward (bwd_dq_wgmma_kernel, bwd_dkv_wgmma_kernel, at the end
-// of the file) runs its products on the tensor cores with wgmma, fed by TMA
-// through shared-memory rings; see the note above them. The forward and the
-// f32 backward are the first versions described below.
+// The bf16 kernels (fwd_wgmma_kernel, bwd_dq_wgmma_kernel and
+// bwd_dkv_wgmma_kernel, at the end of the file) run their products on the
+// tensor cores with wgmma, fed by TMA through shared-memory rings; see the
+// notes above them. The f32 kernels (fwd_kernel, bwd_dq_kernel and
+// bwd_dkv_kernel) are the first versions, on FMA units, described below.
 //
 // Tiles are 64x64 and a block has 256 threads. Thread (ty, tx) = (tid / 16,
 // tid % 16) owns tile rows ty + 16*i (i < 4) and columns tx + 16*j, so row
@@ -28,12 +29,11 @@
 // What bounds these kernels on the H100: at the trainer's shape (T = 8192,
 // D = 128, causal, bf16) each is compute-bound; the HBM traffic (~0.2 GB a
 // call at batch 4) is an order of magnitude below the 989 TF/s tensor-core
-// bound. The first versions multiply with f32 FMA on the CUDA cores, so
+// bound. The f32 versions multiply with f32 FMA on the CUDA cores, so
 // their ceiling is the 67 TF/s FMA rate, and their inner loops issue one
 // shared-memory load for every two FMAs. They keep the Q (or K/V) tile
 // resident and stream the other operand's tiles through shared memory, so
-// HBM traffic stays O(T*D) per tile row. The forward is next to move to
-// the wgmma design of the bf16 backward.
+// HBM traffic stays O(T*D) per tile row.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -61,10 +61,6 @@ template <typename T>
 __device__ __forceinline__ T from_f(float x);
 template <>
 __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 // Row stride (elements) of a shared tile with `cols` columns: one extra
 // 4-byte bank per row.
@@ -156,11 +152,11 @@ bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
 }
 
 // ---------------------------------------------------------------------------
-// K1: forward. Replaces ops/flash_attention.py::_fwd_kernel (launched by
-// _flash_fwd). One block per (bh, q-tile) walks the k-tiles itself, where the
-// TPU kernel walked a sequential grid axis and carried (m, l, acc) in VMEM
-// scratch between grid steps: here (m, l, acc) live in registers for the
-// whole walk. Causal: k-tiles wholly above the diagonal
+// K1: forward, the f32 version. Replaces ops/flash_attention.py::_fwd_kernel
+// (launched by _flash_fwd). One block per (bh, q-tile) walks the k-tiles
+// itself, where the TPU kernel walked a sequential grid axis and carried
+// (m, l, acc) in VMEM scratch between grid steps: here (m, l, acc) live in
+// registers for the whole walk. Causal: k-tiles wholly above the diagonal
 // (k0 > q0 + kTile - 1) are never visited. Bound: compute (2 units of
 // B*H*T^2*D FLOP causal); see the file header.
 // ---------------------------------------------------------------------------
@@ -575,27 +571,32 @@ constexpr int kBlockRows = 64 * kConsumerWGs;  // resident rows per block
 constexpr uint32_t kBoxBytes = 64 * 128;      // one 64-row, 64-column box
 constexpr float kLog2e = 1.4426950408889634f;
 
-// Bytes of one 64-row tile of D bf16 columns (D / 64 boxes).
-template <int D>
-__host__ __device__ constexpr uint32_t tile_bytes() { return 64 * D * 2; }
+// Bytes of one tile of R rows (64 unless given) and D bf16 columns (D / 64
+// boxes of R rows).
+template <int D, int R = 64>
+__host__ __device__ constexpr uint32_t tile_bytes() { return R * D * 2; }
 
-// Descriptor of k-step kk (16 reduction columns) of a 64-row tile read
-// K-major, and of k-step kk (16 reduction rows) of a tile read MN-major.
-__device__ __forceinline__ uint64_t desc_k_major(const bf16* tile, int kk) {
-  return hopper::desc_sw128(
-      hopper::smem_u32(tile) + (kk >> 2) * kBoxBytes + (kk & 3) * 32, 16, 1024);
+// Descriptor of k-step kk (16 reduction columns) of a tile read K-major, and
+// of k-step kk (16 reduction rows) of a tile read MN-major; `box` is the
+// bytes of one of the tile's boxes (64 columns of all its rows).
+__device__ __forceinline__ uint64_t desc_k_major(const bf16* tile, int kk,
+                                                 uint32_t box = kBoxBytes) {
+  return hopper::desc_advance(hopper::desc_sw128(hopper::smem_u32(tile), 16, 1024),
+                              (kk >> 2) * box + (kk & 3) * 32);
 }
-__device__ __forceinline__ uint64_t desc_mn_major(const bf16* tile, int kk) {
-  return hopper::desc_sw128(hopper::smem_u32(tile) + kk * 2048, kBoxBytes, 1024);
+__device__ __forceinline__ uint64_t desc_mn_major(const bf16* tile, int kk,
+                                                  uint32_t box = kBoxBytes) {
+  return hopper::desc_advance(hopper::desc_sw128(hopper::smem_u32(tile), box, 1024),
+                              kk * 2048);
 }
 
-// Rows [row0, row0 + 64) of head bh into a tile, one box per 64 columns.
-template <int D>
+// Rows [row0, row0 + R) of head bh into a tile, one box per 64 columns.
+template <int D, int R = 64>
 __device__ __forceinline__ void tma_tile(bf16* dst, const CUtensorMap* map,
                                          uint64_t* bar, int row0, int bh) {
 #pragma unroll
   for (int cb = 0; cb < D / 64; ++cb) {
-    hopper::tma_load_3d(dst + cb * 64 * 64, map, bar, cb * 64, row0, bh);
+    hopper::tma_load_3d(dst + cb * R * 64, map, bar, cb * 64, row0, bh);
   }
 }
 
@@ -610,14 +611,15 @@ __device__ __forceinline__ void scores(float (&acc)[32], const bf16* a, const bf
   }
 }
 
-// acc[64 x D] += A[64 x 64] . B_tile[64 x D], A as 16 bf16 pairs in the
-// fragment layout, B read MN-major.
-template <int D>
-__device__ __forceinline__ void grad_product(float (&acc)[D / 2], const uint32_t (&a)[16],
+// acc[64 x D] += A[64 x K] . B_tile[K x D], A as K / 4 bf16 pairs in the
+// fragment layout, B (K rows, 64 unless given) read MN-major: the gradient
+// products, and K1's P.V.
+template <int D, int K = 64>
+__device__ __forceinline__ void grad_product(float (&acc)[D / 2], const uint32_t (&a)[K / 4],
                                              const bf16* b) {
 #pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const uint64_t desc = desc_mn_major(b, k);
+  for (int k = 0; k < K / 16; ++k) {
+    const uint64_t desc = desc_mn_major(b, k, K * 128);
     if constexpr (D == 64) {
       hopper::wgmma_rs_m64n64_tb(acc, a[4 * k], a[4 * k + 1], a[4 * k + 2], a[4 * k + 3],
                                  desc);
@@ -978,6 +980,318 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   store_rows<D>(dq + static_cast<size_t>(bh) * tq * D, acc_dq, row0, tq);
 }
 
+// ---------------------------------------------------------------------------
+// K1 in bf16, on the tensor cores. Replaces ops/flash_attention.py::_fwd_kernel
+// (:51, launched by _flash_fwd). One block per (bh, 128 q-rows) walks the
+// k-tiles: blockIdx.x = bh, and causal blocks run from the last q rows (the
+// most k-tiles) to the first.
+//
+// Bound: compute. Two product units of B*H*T^2*D FLOP, halved by causal:
+// S = Q.K^T and O += P.V. Beside them the softmax takes one exponential per
+// visible score on the MUFU units (~3.9 T/s on the card against 989 TF/s of
+// bf16 products), which at D = 128 is about half the product time; and the
+// rest of the softmax (max, sum, rescale, rounding) runs on the CUDA cores.
+//
+// Design. The block and the ring are K2's, with k-tiles of kFwdN = 128 rows:
+// Q (two 64-row tiles) loads once by TMA, K and V tiles stream through the
+// kStages ring. Both products are wgmma with f32 accumulation: S = Q.K^T
+// takes Q from registers (read once from its tile) and K K-major, so S reads
+// only K from shared memory; P.V takes P from registers (the S fragment's
+// exponentials rounded to bf16 pairs are already the A layout) and V
+// MN-major. No tile is copied. The online softmax runs in the fragment: each
+// thread holds 32 scores of each of two rows, the row max is reduced over the
+// quad, l keeps the thread's partial sums of the unrounded P (reduced once, in
+// the epilogue), scale * log2(e) is folded into the one FFMA before each
+// exp2, and the O rescale is skipped while no row max of the warp moves.
+// The wide tile halves the per-score share of the per-tile work (waits,
+// shuffles, loop control). Overlap, on two levels: each warpgroup issues
+// S_j and P_{j-1}.V_{j-1} back to back and runs tile j's softmax while
+// P_{j-1}.V_{j-1} is on the tensor cores; and the two warpgroups take turns
+// to issue (named barriers), so one's softmax runs while the other's
+// products do. Masks apply only to the tiles that cross the diagonal or
+// hold the ragged tail; TMA zero-fills rows past T, so V's tail rows are 0
+// and never NaN.
+// ---------------------------------------------------------------------------
+constexpr int kFwdN = 128;            // k-tile rows of K1
+constexpr int kFwdS = kFwdN / 2;      // scores a thread holds per tile
+static_assert(kFwdN == kBlockRows, "both warpgroups of a block then walk the same k-tiles");
+
+template <int D>
+struct FwdSmem {
+  alignas(1024) bf16 q[kConsumerWGs][64 * D];  // resident rows [q0, q0 + 128)
+  alignas(1024) bf16 k[kStages][kFwdN * D];    // the ring of k-tiles
+  alignas(1024) bf16 v[kStages][kFwdN * D];
+  uint64_t full[kStages], empty[kStages], q_full;
+};
+
+// A 64-row tile of D columns, as written by TMA with 128-byte swizzle, read
+// into registers as the A fragment of a product over its columns: pairs
+// 4 kk .. 4 kk + 3 are k-step kk (columns 16 kk .. 16 kk + 15).
+template <int D>
+__device__ __forceinline__ void load_a_frag(uint32_t (&a)[D / 4], const bf16* tile) {
+  const int lane = threadIdx.x & 31;
+  const int r0 = 16 * ((threadIdx.x % kWgThreads) / 32) + (lane >> 2);
+  const char* base = reinterpret_cast<const char*>(tile);
+#pragma unroll
+  for (int i = 0; i < D / 4; ++i) {
+    const int r = r0 + 8 * (i & 1);
+    const int c = 16 * (i >> 2) + 8 * ((i >> 1) & 1) + 2 * (lane & 3);  // column
+    const int b = 2 * (c % 64);  // byte in the row of its box
+    a[i] = *reinterpret_cast<const uint32_t*>(
+        base + (c / 64) * kBoxBytes + r * 128 + (((b >> 4) ^ (r & 7)) << 4) + (b & 15));
+  }
+}
+
+// acc = A[64 x D] . B_tile[kFwdN x D]^T, A from registers (load_a_frag), B
+// K-major: the [64 x kFwdN] scores of one warpgroup.
+template <int D>
+__device__ __forceinline__ void scores_rs(float (&acc)[kFwdS], const uint32_t (&a)[D / 4],
+                                          const bf16* b) {
+  constexpr uint32_t box = kFwdN * 128;
+  hopper::wgmma_rs_m64n128<false>(acc, a[0], a[1], a[2], a[3], desc_k_major(b, 0, box));
+#pragma unroll
+  for (int kk = 1; kk < D / 16; ++kk) {
+    hopper::wgmma_rs_m64n128<true>(acc, a[4 * kk], a[4 * kk + 1], a[4 * kk + 2],
+                                   a[4 * kk + 3], desc_k_major(b, kk, box));
+  }
+}
+
+// 2^x as one MUFU.EX2 (exp2f adds a range check and two scalings around it
+// to keep subnormal results; here those flush to 0, ~1e-38 beside P <= 1).
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// One online-softmax step of a warpgroup over the 64 x kFwdN tile of raw
+// scores s = Q.K^T at k-column k0, in the fragment layout: this thread holds
+// rows qp and qp + 8, columns k0 + ck + 8 j + {0, 1}. m is each row's running
+// max of its visible raw scores (kNegInf while it has none), l the thread's
+// partial sums of the unrounded P. Leaves in s the tile's P = exp(scale (s -
+// m)) in f32, and in alpha the factor by which the accumulator's rows are to
+// be rescaled. Scores are masked by position only on a tile that may hold a
+// column past tk or after a row of the warpgroup (rows from row0).
+__device__ __forceinline__ void online_softmax(float (&s)[kFwdS], float (&m)[2], float (&l)[2],
+                                               float (&alpha)[2], float sl2, int qp, int ck,
+                                               int k0, int row0, int tk, int causal) {
+  if (k0 + kFwdN > tk || (causal && k0 + kFwdN - 1 > row0)) {
+#pragma unroll
+    for (int i = 0; i < kFwdS; ++i) {
+      const int c = k0 + ck + 8 * (i >> 2) + (i & 1);
+      const int r = qp + 8 * ((i >> 1) & 1);
+      if (c >= tk || (causal && r < c)) s[i] = kNegInf;
+    }
+  }
+  float off[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float mx = m[h];
+#pragma unroll
+    for (int j = 0; j < kFwdS / 4; ++j) {
+      mx = fmaxf(mx, fmaxf(s[4 * j + 2 * h], s[4 * j + 2 * h + 1]));
+    }
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    // alpha is 0 before the row's first visible key, and exactly 1 while
+    // the row's max stands (the rescale is then skipped).
+    alpha[h] = m[h] == kNegInf ? 0.f : (m[h] == mx ? 1.f : exp2_approx((m[h] - mx) * sl2));
+    // A row with no visible key yet (mx == kNegInf) takes offset 0, so its
+    // scores, all kNegInf, give exp2(kNegInf * sl2) = 0 and not exp2(0) = 1.
+    off[h] = mx == kNegInf ? 0.f : mx * sl2;
+    m[h] = mx;
+  }
+  float rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < kFwdS; ++i) {
+    const int h = (i >> 1) & 1;
+    s[i] = exp2_approx(fmaf(s[i], sl2, -off[h]));
+    rs[h] += s[i];
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) l[h] = alpha[h] * l[h] + rs[h];
+}
+
+// P rounded to bf16 pairs: the A fragment of P.V (pair j holds elements 2 j
+// and 2 j + 1 of the accumulator fragment).
+__device__ __forceinline__ void pack_p(const float (&pf)[kFwdS], uint32_t (&p)[kFwdS / 2]) {
+#pragma unroll
+  for (int j = 0; j < kFwdS / 2; ++j) p[j] = pack_bf16(pf[2 * j], pf[2 * j + 1]);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kWsThreads, 1)
+fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                 const __grid_constant__ CUtensorMap tm_k,
+                 const __grid_constant__ CUtensorMap tm_v, bf16* __restrict__ o,
+                 float* __restrict__ lse, int tq, int tk, int causal, float scale) {
+  auto& sm = smem_as<FwdSmem<D>>();
+  const int bh = blockIdx.x;
+  const int qb = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qb * kBlockRows;
+  int n_kt = (tk + kFwdN - 1) / kFwdN;
+  if (causal) n_kt = min(n_kt, (q0 + kBlockRows - 1) / kFwdN + 1);
+  const int wg = warpgroup();
+  const int lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&sm.full[s], 1);
+      hopper::mbar_init(&sm.empty[s], kConsumerWGs * 4);
+    }
+    hopper::mbar_init(&sm.q_full, 1);
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == kConsumerWGs) {
+    // Producer: one thread issues every TMA load.
+    hopper::regs_dealloc<24>();
+    if (threadIdx.x != kConsumerWGs * kWgThreads) return;
+    hopper::mbar_arrive_expect_tx(&sm.q_full, kConsumerWGs * tile_bytes<D>());
+    for (int h = 0; h < kConsumerWGs; ++h) {
+      tma_tile<D>(sm.q[h], &tm_q, &sm.q_full, q0 + 64 * h, bh);
+    }
+    int s = 0;
+    uint32_t phase = 0;
+    for (int kt = 0; kt < n_kt; ++kt) {
+      hopper::mbar_wait(&sm.empty[s], phase ^ 1);
+      hopper::mbar_arrive_expect_tx(&sm.full[s], 2 * tile_bytes<D, kFwdN>());
+      tma_tile<D, kFwdN>(sm.k[s], &tm_k, &sm.full[s], kt * kFwdN, bh);
+      tma_tile<D, kFwdN>(sm.v[s], &tm_v, &sm.full[s], kt * kFwdN, bh);
+      if (++s == kStages) {
+        s = 0;
+        phase ^= 1;
+      }
+    }
+    return;
+  }
+
+  // Consumers: warpgroup wg owns q rows [row0, row0 + 64). A warpgroup
+  // releases every stage but that of its last tile: no later load waits for
+  // it.
+  hopper::regs_alloc<240>();
+  const int row0 = q0 + 64 * wg;
+  const int qp = row0 + 16 * ((threadIdx.x % kWgThreads) / 32) + (lane >> 2);
+  const int ck = 2 * (lane & 3);
+  const float sl2 = scale * kLog2e;
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  hopper::mbar_wait(&sm.q_full, 0);
+  uint32_t qf[D / 4];  // Q as the A fragment of S
+  load_a_frag<D>(qf, sm.q[wg]);
+
+  // The pipeline: iteration kt issues S_kt = Q K_kt^T and then O += P_{kt-1}
+  // V_{kt-1}, waits for S_kt alone, and runs tile kt's softmax while P.V is
+  // still on the tensor cores; once that product is done, its stage goes
+  // back to the producer, O is rescaled by tile kt's alpha, and tile kt's P
+  // is packed into the A fragment. (Packing during the product, into
+  // registers that the next product reads, makes ptxas serialise every
+  // wgmma of the kernel: C7513.) The softmax's results are pinned before
+  // the wait, or the compiler sinks its exponentials below it, out of the
+  // overlap.
+  //
+  // Ping-pong: the two warpgroups take turns to issue their products.
+  // Before each issue a warpgroup waits at its own named barrier (1 + wg)
+  // for the other's arrival, and after it arrives at the other's (2 - wg);
+  // warpgroup 1 arrives once first, so that warpgroup 0 leads. Both take
+  // n_kt + 1 turns, and warpgroup 1 skips its last arrival, which no turn
+  // would wait for.
+  const int my_bar = 1 + wg, other_bar = 2 - wg;
+  constexpr int kPair = kConsumerWGs * kWgThreads;
+  if (wg == 1 && n_kt > 0) hopper::bar_arrive(other_bar, kPair);
+  uint32_t p[kFwdS / 2];
+  int s = 0;
+  uint32_t phase = 0;
+  if (n_kt > 0) {
+    hopper::mbar_wait(&sm.full[0], 0);
+    float sc[kFwdS], alpha[2];
+    hopper::bar_sync(my_bar, kPair);
+    hopper::wg_fence();
+    scores_rs<D>(sc, qf, sm.k[0]);
+    hopper::wg_commit();
+    hopper::bar_arrive(other_bar, kPair);
+    hopper::wg_wait<0>();
+    hopper::pin(sc);
+    online_softmax(sc, m, l, alpha, sl2, qp, ck, 0, row0, tk, causal);  // O is still 0
+    pack_p(sc, p);
+  }
+  for (int kt = 1; kt < n_kt; ++kt) {
+    const int prev = s;  // the stage of tile kt - 1
+    if (++s == kStages) {
+      s = 0;
+      phase ^= 1;
+    }
+    hopper::mbar_wait(&sm.full[s], phase);
+
+    float sc[kFwdS], alpha[2];
+    hopper::bar_sync(my_bar, kPair);
+    hopper::wg_fence();
+    scores_rs<D>(sc, qf, sm.k[s]);
+    hopper::wg_commit();
+    hopper::pin(acc);
+    hopper::pin(p);
+    hopper::wg_fence();
+    grad_product<D, kFwdN>(acc, p, sm.v[prev]);
+    hopper::wg_commit();
+    hopper::bar_arrive(other_bar, kPair);
+    hopper::wg_wait<1>();
+    hopper::pin(sc);
+    online_softmax(sc, m, l, alpha, sl2, qp, ck, kt * kFwdN, row0, tk, causal);
+    hopper::pin(sc);
+    hopper::pin(alpha);
+    hopper::pin(l);
+    hopper::wg_wait<0>();
+    hopper::pin(acc);
+    hopper::pin(p);
+
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&sm.empty[prev]);
+    if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+    }
+    pack_p(sc, p);
+  }
+  if (n_kt > 0) {  // O += P V of the last tile
+    hopper::pin(acc);
+    hopper::pin(p);
+    hopper::bar_sync(my_bar, kPair);
+    hopper::wg_fence();
+    grad_product<D, kFwdN>(acc, p, sm.v[s]);
+    hopper::wg_commit();
+    if (wg == 0) hopper::bar_arrive(other_bar, kPair);
+    hopper::wg_wait<0>();
+    hopper::pin(acc);
+    hopper::pin(p);
+  }
+
+  // o = acc / l (0 on a row with no visible key) and lse = m scale + log l.
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+  }
+  float inv[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) inv[h] = l[h] == 0.f ? 0.f : 1.f / l[h];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] *= inv[(i >> 1) & 1];
+  if (lse != nullptr && (lane & 3) == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = qp + 8 * h;
+      if (r < tq) {
+        lse[static_cast<size_t>(bh) * tq + r] =
+            l[h] == 0.f ? kNegInf : m[h] * scale + logf(l[h]);
+      }
+    }
+  }
+  store_rows<D>(o + static_cast<size_t>(bh) * tq * D, acc, row0, tq);
+}
+
 // Dynamic shared memory of each kernel, in bytes.
 template <typename T, int D>
 constexpr size_t fwd_smem() {
@@ -1065,15 +1379,15 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
 // Returned when cuTensorMapEncodeTiled refuses a map: kTensorMapError + CUresult.
 constexpr int kTensorMapError = 1000;
 
-// A 3-D tensor map (D, T, BH) over a [BH, T, D] bf16 tensor: 64 x 64 boxes,
-// 128-byte swizzle, rows past T read as zero. The map is built on the host
+// A 3-D tensor map (D, T, BH) over a [BH, T, D] bf16 tensor: boxes of 64
+// columns by box_rows rows, 128-byte swizzle, rows past T read as zero. The map is built on the host
 // for each call and passed to the kernel by value (__grid_constant__).
-int encode_map(CUtensorMap* map, const void* base, int bh, int t, int d) {
+int encode_map(CUtensorMap* map, const void* base, int bh, int t, int d, int box_rows = 64) {
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(t),
                               static_cast<cuuint64_t>(bh)};
   const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d) * sizeof(bf16),
                                  static_cast<cuuint64_t>(t) * d * sizeof(bf16)};
-  const cuuint32_t box[3] = {64, 64, 1};
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
   const cuuint32_t elem_strides[3] = {1, 1, 1};
   const CUresult r = cuTensorMapEncodeTiled(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
@@ -1092,6 +1406,24 @@ int encode_maps(CUtensorMap (&m)[4], const void* q, const void* k, const void* v
   if (err == 0) err = encode_map(&m[2], v, bh, tk, d);
   if (err == 0) err = encode_map(&m[3], dout, bh, tq, d);
   return err;
+}
+
+template <int D>
+int launch_fwd_wgmma(const void* q, const void* k, const void* v, void* o, void* lse,
+                     int bh, int tq, int tk, int causal, cudaStream_t stream) {
+  CUtensorMap m[3];
+  int map_err = encode_map(&m[0], q, bh, tq, D);
+  if (map_err == 0) map_err = encode_map(&m[1], k, bh, tk, D, kFwdN);
+  if (map_err == 0) map_err = encode_map(&m[2], v, bh, tk, D, kFwdN);
+  if (map_err != 0) return map_err;
+  const size_t smem = sizeof(FwdSmem<D>) + 1024;  // + alignment slack
+  cudaError_t err = allow_smem(fwd_wgmma_kernel<D>, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(bh, (tq + kBlockRows - 1) / kBlockRows);
+  fwd_wgmma_kernel<D><<<grid, kWsThreads, smem, stream>>>(
+      m[0], m[1], m[2], static_cast<bf16*>(o), static_cast<float*>(lse), tq, tk, causal,
+      1.0f / sqrtf(static_cast<float>(D)));
+  return cudaGetLastError();
 }
 
 template <int D>
@@ -1136,7 +1468,7 @@ int launch_dkv_wgmma(const void* q, const void* k, const void* v, const void* do
 // delta pass) may be NULL. Each returns the launch's cudaGetLastError(),
 // cudaErrorInvalidValue for a shape or type outside the kernels' scope, or
 // kTensorMapError + the CUresult of a refused cuTensorMapEncodeTiled; it
-// never synchronises. The backward passes take delta from tfo_flash_bwd_delta:
+// never synchronises. The backward passes take delta from tfo_flash_bwd_delta.
 // f32 runs the FMA kernels, bf16 the wgmma kernels.
 #define TFO_DISPATCH(DTYPE, D, CALL_F32_64, CALL_F32_128, CALL_BF16_64, CALL_BF16_128) \
   if ((DTYPE) == 0 && (D) == 64) return static_cast<int>(CALL_F32_64);                 \
@@ -1152,8 +1484,8 @@ extern "C" int tfo_flash_fwd(const void* q, const void* k, const void* v,
   TFO_DISPATCH(dtype, d,
                (launch_fwd<float, 64>(q, k, v, o, lse, bh, tq, tk, causal, s)),
                (launch_fwd<float, 128>(q, k, v, o, lse, bh, tq, tk, causal, s)),
-               (launch_fwd<__nv_bfloat16, 64>(q, k, v, o, lse, bh, tq, tk, causal, s)),
-               (launch_fwd<__nv_bfloat16, 128>(q, k, v, o, lse, bh, tq, tk, causal, s)))
+               (launch_fwd_wgmma<64>(q, k, v, o, lse, bh, tq, tk, causal, s)),
+               (launch_fwd_wgmma<128>(q, k, v, o, lse, bh, tq, tk, causal, s)))
 }
 
 extern "C" int tfo_flash_bwd_delta(const void* o, const void* dout,

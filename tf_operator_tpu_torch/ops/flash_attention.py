@@ -9,8 +9,9 @@ kernels in ``csrc/flash_attention.cu`` replace the three Pallas kernels:
 
 and a fourth, ``bwd_delta`` (LAUNCHES["bwd_delta"]), computes the backward's
 delta = rowsum(dO o O) - g_lse once for both backward kernels, which the
-Pallas kernels computed in-block. In bf16 the backward kernels run their
-products on the tensor cores (wgmma fed by TMA); in f32 on FMA units.
+Pallas kernels computed in-block. In bf16 the forward and backward kernels
+run their products on the tensor cores (wgmma fed by TMA); in f32 on FMA
+units.
 
 Each wrapper takes ``[BH, T, D]`` operands (batch*heads flattened) and lse
 as ``[BH, T]`` f32; the TPU's ``[BH, T, 128]`` lane-broadcast lse layout was
