@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                 # every phase, as a check of the port
     python3 chip_smoke.py --phases build,check   # kernels only
+    python3 chip_smoke.py --phases build,k4      # the fused bottleneck only
 
 Phases, in order:
   1. identify the card (nvidia-smi name and power limit);
@@ -19,10 +20,13 @@ Phases, in order:
      bound, their plain version and PyTorch's scaled_dot_product_attention,
      and at the trainer's batch 4 beside their bound and that call (the
      plain versions' f32 scores would not fit); the fused
-     bottleneck at ResNet-50's stage-1 and stage-4 identity blocks (the
+     bottleneck at ResNet-50's four stages' first identity blocks (the
      weights and input activations of the port's ResNet-50 at batch 256,
-     224x224) and a small f32 case, timed at both ResNet-50 shapes beside
-     its bound, its plain version and the port's unfused BottleneckBlock;
+     224x224), a small bf16 case with ragged multi-tile rows and a small
+     f32 case, timed at the four ResNet-50 shapes beside its bound, its
+     plain version, the port's unfused BottleneckBlock and the three
+     products alone through cuBLAS/cuDNN, with each launch's device time
+     at stages 1 and 4 (torch.profiler);
   4. train the full-width causal LM (12L x 768h, 6 heads x 128, vocab 32000,
      seq 8192) through tf_operator_tpu_torch.models.train for a few steps,
      and check that every flash kernel ran on that path; then ResNet-50 at
@@ -119,15 +123,22 @@ K4 = ("fused_bottleneck_fwd", "tf_operator_tpu_torch/csrc/fused_bottleneck.cu",
 SOURCES = ("flash_attention", "fused_bottleneck")
 
 # The fused bottleneck's cases: (label, ResNet-50 block index or None for
-# random inputs, dtype). Block 1 is stage 1's first identity block
-# (56x56, Cw 256, Cn 64, tile 1), block 14 stage 4's (7x7, Cw 2048, Cn 512,
-# tile 64 = default_tile(7, 7, 256)). The small case is f32 at 7x7 with
-# tile 2, Cw 96 and Cn 24: ragged row blocks (98 rows a tile) and ragged
-# channel blocks (24 and 96 are not multiples of 64).
+# random inputs, dtype). Blocks 1, 4, 8 and 14 are the first identity
+# blocks of stages 1-4 (56x56 Cw 256 Cn 64 tile 1, 28x28 Cw 512 Cn 128 tile
+# 4, 14x14 Cw 1024 Cn 256 tile 16, 7x7 Cw 2048 Cn 512 tile 64; tiles from
+# default_tile(h, w, 256)), so every output-tile width of the bf16 kernels
+# runs. The random cases (K4_RANDOM: B, H, W, Cw, Cn, tile_b): "ragged" is
+# bf16 at 7x7 with tile 2, 98 rows a tile, which straddle every 64- and
+# 128-row block, and each tile's x moved to x (1 + i) + i, so rows leaking
+# across a tile boundary move st and y visibly; "small" is f32 (the FMA
+# route) with ragged channel blocks (24 and 96 are not multiples of 64).
 RN_BATCH, RN_SIZE = 256, 224
-K4_CASES = (("stage1", 1, "bfloat16"), ("stage4", 14, "bfloat16"),
-            ("small", None, "float32"))
-K4_SMALL = (4, 7, 7, 96, 24, 2)  # B, H, W, Cw, Cn, tile_b
+K4_CASES = (("stage1", 1, "bfloat16"), ("stage2", 4, "bfloat16"),
+            ("stage3", 8, "bfloat16"), ("stage4", 14, "bfloat16"),
+            ("ragged", None, "bfloat16"), ("small", None, "float32"))
+K4_RANDOM = {"ragged": (6, 7, 7, 256, 64, 2), "small": (4, 7, 7, 96, 24, 2)}
+# Cases whose launches are split by kernel under torch.profiler.
+K4_SPLIT_CASES = ("stage1", "stage4")
 # Per-element limits of the fused bottleneck against its plain version.
 # y: |got - ref| <= rtol |ref| + atol s, s the rms of ref. In bf16 the two
 # round y (and n1, n2 on the way) at the same points from f32 values that
@@ -145,13 +156,16 @@ K4_SMALL = (4, 7, 7, 96, 24, 2)  # B, H, W, Cw, Cn, tile_b
 # 1e-3 in bf16, 1e-5 in f32.
 K4_TOL = {"bfloat16": {"y": (1e-2, 4e-2), "st": 1e-3},
           "float32": {"y": (0.0, 1e-4), "st": 1e-5}}
-# Broken outputs the check must reject at the stage-1 shape: (output, what
-# is broken, how, given (outputs, x, tile_b)).
+# Broken outputs the check must reject: (output, what is broken, how, given
+# (outputs, the call's arguments, tile_b), the case it is applied to).
 K4_MUTATIONS = (
-    ("y", "last tile zero", lambda o, x, tb: _tail(o["y"], tb, 0.0)),
-    ("y", "last half x1.02", lambda o, x, tb: _tail(o["y"], o["y"].shape[0] // 2, 1.02)),
-    ("y", "relu(x): the block's path dropped", lambda o, x, tb: x.clamp_min(0)),
-    ("st2", "mean + 1e-2 x its rms", lambda o, x, tb: _shift_mean(o["st2"], 1e-2)),
+    ("y", "last tile zero", lambda o, a, tb: _tail(o["y"], tb, 0.0), "stage1"),
+    ("y", "last half x1.02", lambda o, a, tb: _tail(o["y"], o["y"].shape[0] // 2, 1.02),
+     "stage1"),
+    ("y", "relu(x): the block's path dropped", lambda o, a, tb: a[0].clamp_min(0), "stage1"),
+    ("st2", "mean + 1e-2 x its rms", lambda o, a, tb: _shift_mean(o["st2"], 1e-2), "stage1"),
+    ("st1", "each tile's moments taken over its rows plus the next tile's first 64",
+     lambda o, a, tb: _leak_next_tile(o["st1"], a, 64), "ragged"),
 )
 
 
@@ -557,6 +571,30 @@ def _shift_mean(st, frac: float):
     return st
 
 
+def _leak_next_tile(st1, args, n: int):
+    """st1 with each tile's moments taken over its own rows plus the next
+    tile's first n rows of t1 = x . w1 (the last tile's as they are): what
+    a product block that straddles a tile boundary would give."""
+    import torch
+
+    x, w1 = args[0], args[1]
+    t1 = x.reshape(-1, x.shape[-1]).float() @ w1.float()
+    t = t1.view(st1.shape[0], -1, t1.shape[-1])
+    rows = torch.cat((t[:-1], t[1:, :n]), 1)
+    st = st1.clone()
+    st[:-1, 0] = rows.mean(1)
+    st[:-1, 1] = rows.square().mean(1)
+    return st
+
+
+def k4_tile_offset(x, tile_b: int):
+    """x [B, ...] with tile i's images (tile_b a tile) moved to x (1 + i) + i."""
+    tiles = x.shape[0] // tile_b
+    i = (x.new_tensor(range(tiles), dtype=x.dtype)
+         .repeat_interleave(tile_b).view(-1, *([1] * (x.dim() - 1))))
+    return x * (1 + i) + i
+
+
 def k4_excess(got, ref, dtype_name: str, name: str) -> float:
     """The largest error of the fused bottleneck's output `name` ("y" or a
     moment "st1".."st3") over its K4_TOL limit; the check passes at <= 1."""
@@ -577,12 +615,14 @@ def k4_excess(got, ref, dtype_name: str, name: str) -> float:
     return max(e_m, e_q)
 
 
-def k4_checker_self_test(outs: dict, refs: dict, x, tile_b: int, dtype_name: str) -> dict:
-    """The check's verdict on each of K4_MUTATIONS applied to the kernel's
-    outputs: {label: excess}. Raises if the check would accept one."""
-    verdicts = {f"{name} {what}": k4_excess(mutate(outs, x, tile_b), refs[name],
+def k4_checker_self_test(outs: dict, refs: dict, args, tile_b: int, dtype_name: str,
+                         case: str) -> dict:
+    """The check's verdict on each of K4_MUTATIONS of this case applied to
+    the kernel's outputs: {label: excess}. Raises if the check would accept
+    one."""
+    verdicts = {f"{name} {what}": k4_excess(mutate(outs, args, tile_b), refs[name],
                                             dtype_name, name)
-                for name, what, mutate in K4_MUTATIONS}
+                for name, what, mutate, where in K4_MUTATIONS if where == case}
     accepted = [label for label, e in verdicts.items() if not e > 1.0]
     if accepted:
         raise SmokeFailure(f"the {dtype_name} fused-bottleneck check accepts "
@@ -632,10 +672,55 @@ def _resnet50_block_inputs(blocks):
     return model, seen
 
 
+def k4_launch_split(args, tile_b: int) -> list:
+    """[kernel, device ms] of each kernel one fused-bottleneck call runs,
+    in launch order, from torch.profiler over that one call (after a
+    warm-up call); the weight transposes of the bf16 route included."""
+    import torch
+    from torch.profiler import DeviceType, ProfilerActivity, profile
+
+    from tf_operator_tpu_torch.ops import fused_bottleneck as fb
+
+    fb.fused_bottleneck(*args, tile_b=tile_b)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fb.fused_bottleneck(*args, tile_b=tile_b)
+        torch.cuda.synchronize()
+    kernels = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+    return [[re.sub(r"^void |\(anonymous namespace\)::", "", e.name).split("(")[0][:90],
+             (e.time_range.end - e.time_range.start) / 1e3] for e in kernels]
+
+
+def k4_products_ms(x, w1, w2, w3) -> float:
+    """A yardstick the port never calls: the block's three products alone
+    through cuBLAS and cuDNN on the same operands (channels-last conv2d for
+    the 3x3, matmul for the 1x1s), n1 and n2 made beforehand from x's own
+    reduce product (relu'd); CUDA-event time of the three together."""
+    import torch
+    import torch.nn.functional as F
+
+    b, h, w, cw = x.shape
+    cn = w1.shape[1]
+    flat = x.reshape(-1, cw)
+    n1 = (flat @ w1).relu().view(b, h, w, cn).permute(0, 3, 1, 2)  # channels-last
+    w2c = w2.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    n2 = F.conv2d(n1, w2c, padding=1).relu().permute(0, 2, 3, 1).reshape(-1, cn).contiguous()
+
+    def products():
+        flat @ w1
+        F.conv2d(n1, w2c, padding=1)
+        n2 @ w3
+
+    return time_ms(products)
+
+
 def k4_check_phase(records: dict) -> None:
     """The fused bottleneck against its plain version on every K4_CASES
-    case; at the stage-1 shape the check's rejection of broken outputs; at
-    both ResNet-50 shapes the timings. Fills records[K4[0]]."""
+    case; on the stage-1 and ragged cases the check's rejection of broken
+    outputs; at the ResNet-50 shapes the timings (kernel, plain, unfused
+    block, products alone) and, at K4_SPLIT_CASES, each launch's device
+    time. Fills records[K4[0]]."""
     import torch
 
     from tf_operator_tpu_torch.ops import fused_bottleneck as fb
@@ -653,8 +738,11 @@ def k4_check_phase(records: dict) -> None:
             return torch.randn(shape, generator=gen, device=dev)
 
         if block_idx is None:
-            b, h, w, cw, cn, tb = K4_SMALL
-            x = rnd(b, h, w, cw).to(dtype)
+            b, h, w, cw, cn, tb = K4_RANDOM[label]
+            x = rnd(b, h, w, cw)
+            if label == "ragged":
+                x = k4_tile_offset(x, tb)
+            x = x.to(dtype)
             w1, w2, w3 = rnd(cw, cn) * 0.1, rnd(3, 3, cn, cn) * 0.1, rnd(cn, cw) * 0.1
         else:
             blk = model.blocks[block_idx]
@@ -694,7 +782,8 @@ def k4_check_phase(records: dict) -> None:
             del y64
         if label == "stage1":
             rec["max_abs_err"] = (y.float() - y_p.float()).abs().max().item()
-            verdicts = k4_checker_self_test(outs, refs, x, tb, dtype_name)
+        if any(m[3] == label for m in K4_MUTATIONS):
+            verdicts = k4_checker_self_test(outs, refs, args, tb, dtype_name, label)
             log(f"{tag}: the check rejects broken outputs, excess "
                 + ", ".join(f"{n}={e:.3g}" for n, e in verdicts.items()))
         if block_idx is not None:
@@ -707,17 +796,26 @@ def k4_check_phase(records: dict) -> None:
             ms = time_ms(lambda: fb.fused_bottleneck(*args, tile_b=tb))
             plain_ms = time_ms(lambda: fb.fused_bottleneck_reference(*args, tile_b=tb), reps=3)
             block_ms = time_ms(unfused)
+            products_ms = k4_products_ms(x, w1, w2, w3)
             bound_ms, bound_by = k4_bound(b, h, w, cw, cn, tb, dtype_name)
-            rec.setdefault("times", {})[label] = {
-                "shape": [b, h, w, cw, cn], "tile_b": tb, "ms": ms, "plain_ms": plain_ms,
-                "unfused_block_ms": block_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+            times = {"shape": [b, h, w, cw, cn], "tile_b": tb, "ms": ms, "plain_ms": plain_ms,
+                     "unfused_block_ms": block_ms, "products_ms": products_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by}
+            rec.setdefault("times", {})[label] = times
             if label == "stage1":
                 rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                            library_ms=None)
             log(f"time fused_bottleneck {label} {[b, h, w, cw]} Cn {cn} tile {tb} "
-                f"{dtype_name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+                f"{dtype_name}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
                 f"{bound_ms:.4f} ms ({bound_by}), the port's unfused BottleneckBlock "
-                f"forward (train mode) {block_ms:.3f} ms")
+                f"forward (train mode) {block_ms:.4f} ms, the three products alone "
+                f"(cuBLAS/cuDNN) {products_ms:.4f} ms")
+            if label in K4_SPLIT_CASES:
+                split = k4_launch_split(args, tb)
+                times["launch_split_ms"] = split
+                log(f"time fused_bottleneck {label}: device ms by launch ("
+                    f"{sum(t for _, t in split):.4f} in all) "
+                    + "; ".join(f"{n} {t:.4f}" for n, t in split))
         del x, y, y_p, st, st_p, outs, refs, args
         torch.cuda.empty_cache()
     rec["launches"] = fb.LAUNCHES["fwd"]
@@ -960,7 +1058,8 @@ def profile_phase(args, card: str) -> None:
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="build,check,train",
-                    help="comma-separated subset of build,check,train,profile")
+                    help="comma-separated subset of build,check,train,profile; k4 "
+                         "for the fused bottleneck's checks alone")
     ap.add_argument("--steps", type=int, default=6)
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -990,6 +1089,8 @@ def main(argv: list[str] | None = None) -> int:
         build_phase()
         if "check" in phases:
             check_phase(records)
+        elif "k4" in phases:
+            k4_check_phase(records)
         if "train" in phases:
             launches = train_phase(args, card)
             resnet_train_phase(args, card)
@@ -1024,7 +1125,9 @@ def main(argv: list[str] | None = None) -> int:
         "bound_ms": rec.get("bound_ms"), "bound_by": rec.get("bound_by"),
         "library_ms": None,
         "note": ("on no trainer path (as in the JAX package); launches counted in "
-                 "the check phase; times at ResNet-50 stage 1, batch 256"),
+                 "the check phase; times at ResNet-50 stage 1, batch 256; every "
+                 "stage under times"),
+        "times": rec.get("times"),
     })
     log(f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

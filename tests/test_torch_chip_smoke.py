@@ -85,23 +85,42 @@ def test_self_test_passes_on_true_outputs(plain_outputs):
     assert min(verdicts.values()) > 1.0
 
 
-@pytest.fixture(scope="module")
-def k4_outputs():
-    """The fused bottleneck's plain outputs on a post-relu bf16 x, one
-    image a tile, with BN scale/bias as chip_smoke draws them."""
-    rng = np.random.default_rng(0)
-    b, h, w, cw, cn = 4, 14, 14, 64, 16
+def _k4_plain(b, h, w, cw, cn, tile_b, seed=0, offset=False):
+    """The fused bottleneck's plain outputs and arguments on a post-relu
+    bf16 x (moved per tile by chip_smoke.k4_tile_offset when `offset`),
+    with BN scale/bias as chip_smoke draws them."""
+    rng = np.random.default_rng(seed)
 
     def n(*shape, scale=1.0):
         return torch.from_numpy(scale * rng.standard_normal(shape).astype(np.float32))
 
-    x = n(b, h, w, cw).relu().to(torch.bfloat16)
+    x = n(b, h, w, cw).relu()
+    if offset:
+        x = chip_smoke.k4_tile_offset(x, tile_b)
+    x = x.to(torch.bfloat16)
     weights = [n(cw, cn, scale=cw ** -0.5), n(3, 3, cn, cn, scale=(9 * cn) ** -0.5),
                n(cn, cw, scale=cn ** -0.5)]
     bn = [n(cn).abs() + 0.5, n(cn, scale=0.1), n(cn).abs() + 0.5, n(cn, scale=0.1),
           n(cw).abs() + 0.5, n(cw, scale=0.1)]
-    y, st = fb.fused_bottleneck(x, *(t.to(torch.bfloat16) for t in weights), *bn, tile_b=1)
-    return {"y": y, "st1": st[0], "st2": st[1], "st3": st[2]}, x
+    args = (x, *(t.to(torch.bfloat16) for t in weights), *bn)
+    y, st = fb.fused_bottleneck(*args, tile_b=tile_b)
+    return {"y": y, "st1": st[0], "st2": st[1], "st3": st[2]}, args
+
+
+@pytest.fixture(scope="module")
+def k4_outputs():
+    """One image a tile, as the stage-1 case."""
+    return _k4_plain(4, 14, 14, 64, 16, 1)
+
+
+@pytest.fixture(scope="module")
+def k4_ragged_outputs():
+    """chip_smoke's ragged case: 98 rows a tile, tiles moved apart."""
+    return _k4_plain(*chip_smoke.K4_RANDOM["ragged"], offset=True)
+
+
+K4_FIXTURES = {"stage1": ("k4_outputs", 1),
+               "ragged": ("k4_ragged_outputs", chip_smoke.K4_RANDOM["ragged"][-1])}
 
 
 @pytest.mark.parametrize("name", ["y", "st1", "st2", "st3"])
@@ -118,17 +137,27 @@ def test_k4_check_accepts_one_bf16_step_of_y(k4_outputs):
 
 
 @pytest.mark.parametrize("mutation", chip_smoke.K4_MUTATIONS, ids=lambda m: f"{m[0]} {m[1]}")
-def test_k4_check_rejects_broken_output(k4_outputs, mutation):
-    outs, x = k4_outputs
-    name, _, mutate = mutation
-    assert chip_smoke.k4_excess(mutate(outs, x, 1), outs[name], "bfloat16", name) > 1.0
+def test_k4_check_rejects_broken_output(request, mutation):
+    name, _, mutate, case = mutation
+    fixture, tile_b = K4_FIXTURES[case]
+    outs, args = request.getfixturevalue(fixture)
+    assert chip_smoke.k4_excess(mutate(outs, args, tile_b), outs[name], "bfloat16", name) > 1.0
 
 
-def test_k4_self_test_passes_on_true_outputs(k4_outputs):
-    outs, x = k4_outputs
-    verdicts = chip_smoke.k4_checker_self_test(outs, outs, x, 1, "bfloat16")
-    assert len(verdicts) == len(chip_smoke.K4_MUTATIONS)
+def _self_test(request, case):
+    fixture, tile_b = K4_FIXTURES[case]
+    outs, args = request.getfixturevalue(fixture)
+    verdicts = chip_smoke.k4_checker_self_test(outs, outs, args, tile_b, "bfloat16", case)
+    assert len(verdicts) == sum(m[3] == case for m in chip_smoke.K4_MUTATIONS) > 0
     assert min(verdicts.values()) > 1.0
+
+
+def test_k4_self_test_passes_on_true_outputs(request):
+    _self_test(request, "stage1")
+
+
+def test_k4_self_test_passes_on_true_ragged_outputs(request):
+    _self_test(request, "ragged")
 
 
 def test_k4_check_rejects_a_non_finite_output(k4_outputs):
@@ -136,6 +165,38 @@ def test_k4_check_rejects_a_non_finite_output(k4_outputs):
     st = outs["st3"].clone()
     st[0, 0, 0] = float("nan")
     assert not chip_smoke.k4_excess(st, outs["st3"], "bfloat16", "st3") <= 1.0
+
+
+def test_k4_leak_without_leaked_rows_gives_the_true_moments(k4_ragged_outputs):
+    """The cross-tile mutation's moments are the plain version's when no
+    row leaks, so what the check rejects is the leak alone."""
+    outs, args = k4_ragged_outputs
+    st = chip_smoke._leak_next_tile(outs["st1"], args, 0)
+    assert chip_smoke.k4_excess(st, outs["st1"], "bfloat16", "st1") <= 1.0
+
+
+def test_k4_tile_offset_moves_each_tile_apart():
+    x = torch.ones(6, 2, 3, 4)
+    got = chip_smoke.k4_tile_offset(x, 2)
+    for i in range(3):
+        assert (got[2 * i:2 * i + 2] == 1 + 2 * i).all()
+    assert chip_smoke.k4_tile_offset(x.to(torch.bfloat16), 3).dtype == torch.bfloat16
+
+
+def test_k4_cases_cover_every_stage_and_both_routes():
+    """Every ResNet-50 stage's first identity block, a bf16 case that the
+    wgmma route takes with tiles straddling 64- and 128-row blocks, and an
+    f32 case on the FMA route."""
+    cases = {label: (idx, dt) for label, idx, dt in chip_smoke.K4_CASES}
+    assert [cases[f"stage{i}"][0] for i in range(1, 5)] == [1, 4, 8, 14]
+    b, h, w, cw, cn, tb = chip_smoke.K4_RANDOM["ragged"]
+    rows = tb * h * w
+    assert cases["ragged"] == (None, "bfloat16") and b // tb > 1
+    assert rows % 64 and rows % 128 and rows > 64
+    assert fb.route(torch.bfloat16, cw, cn) == "wgmma"
+    b, h, w, cw, cn, tb = chip_smoke.K4_RANDOM["small"]
+    assert cases["small"] == (None, "float32") and fb.route(torch.float32, cw, cn) == "fma"
+    assert set(chip_smoke.K4_SPLIT_CASES) <= set(cases)
 
 
 CSRC = Path(chip_smoke.ROOT) / "tf_operator_tpu_torch" / "csrc"

@@ -61,7 +61,10 @@ def test_f32_matches_pallas_interpret(shape, tile_b):
         np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("shape,tile_b", [((4, 8, 8, 32, 16), 2), ((2, 7, 7, 64, 32), 1)])
+@pytest.mark.parametrize("shape,tile_b", [
+    ((4, 8, 8, 32, 16), 2), ((2, 7, 7, 64, 32), 1),
+    ((4, 7, 7, 256, 64), 2),  # widths the wgmma route takes, 98 rows a tile
+])
 def test_bf16_matches_pallas_interpret(shape, tile_b):
     (yj, stj), (yt, stt) = _both(_args(*shape), tile_b, "bfloat16")
     np.testing.assert_allclose(yt, yj, rtol=1e-2, atol=1e-2)
@@ -120,3 +123,48 @@ def test_border_pixels_read_zero_padding_of_n1():
     t2 = torch.nn.functional.conv2d(torch.ones(1, cn, h, w), torch.full((cn, cn, 3, 3), 0.1),
                                     padding=1)
     assert t2[0, 0, 2, 2] > t2[0, 0, 0, 0] > 0
+
+
+@pytest.mark.parametrize("cw,cn", [(256, 64), (2048, 512), (320, 64), (64, 192)])
+def test_bf16_takes_the_wgmma_route(cw, cn):
+    assert fb.route(torch.bfloat16, cw, cn) == "wgmma"
+
+
+@pytest.mark.parametrize("cw,cn", [(96, 24), (256, 96), (200, 64), (256, 32)])
+def test_bf16_channels_off_the_wgmma_tiles_raise(cw, cn):
+    with pytest.raises(ValueError, match="multiples of 64"):
+        fb.route(torch.bfloat16, cw, cn)
+
+
+@pytest.mark.parametrize("cw,cn", [(96, 24), (256, 64)])
+def test_f32_takes_the_fma_route(cw, cn):
+    assert fb.route(torch.float32, cw, cn) == "fma"
+
+
+def test_other_dtypes_raise():
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        fb.route(torch.float16, 256, 64)
+
+
+@pytest.mark.parametrize("b,h,w,cw,cn,tile_b", [
+    (256, 56, 56, 256, 64, 1), (256, 7, 7, 2048, 512, 64), (6, 7, 7, 256, 64, 2)])
+def test_bf16_workspace_holds_no_wide_f32_buffer(b, h, w, cw, cn, tile_b):
+    """The wgmma route recomputes t3: no [rows, Cw] f32 buffer, one f32 t
+    and one bf16 n of [rows, Cn], and moment partials per 128-row block."""
+    rows = b * h * w
+    plan = fb.workspace_plan(b, h, w, cw, cn, tile_b, torch.bfloat16)
+    assert list(plan) == ["t", "n", "part", "mult"]
+    assert ((rows, cw), torch.float32) not in plan.values()
+    assert plan["t"] == ((rows, cn), torch.float32)
+    assert plan["n"] == ((rows, cn), torch.bfloat16)
+    blocks = -(-(tile_b * h * w) // 128)
+    assert plan["part"] == ((b // tile_b * blocks * 2 * max(cn, cw),), torch.float32)
+    assert max(s[0][0] * (s[0][1] if len(s[0]) > 1 else 1) * s[1].itemsize
+               for s in plan.values()) <= rows * cn * 4
+
+
+def test_f32_workspace_keeps_the_fma_buffers():
+    plan = fb.workspace_plan(4, 7, 7, 96, 24, 2, torch.float32)
+    assert list(plan) == ["t1", "t2", "t3", "part", "mult"]
+    assert plan["t3"] == ((4 * 49, 96), torch.float32)
+    assert plan["part"][0] == (2 * 2 * 2 * 96,)  # 98 rows: two 64-row blocks a tile

@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks for the hand-written kernels under csrc/:
-// mbarriers, named barriers, TMA tensor loads, wgmma descriptors and
-// products, and the warp-specialisation register hand-off. Every helper is
+// mbarriers, named barriers, TMA tensor loads, cp.async, wgmma descriptors
+// and products, and the warp-specialisation register hand-off. Every helper is
 // a thin wrapper of one PTX instruction (or a fixed short sequence of them).
 //
 // Shared-memory tiles are written by TMA with 128-byte swizzle: a box is 64
@@ -15,8 +15,9 @@
 //     (next 8 reduction rows), LBO = one box (next 64 columns), and a
 //     16-row k-step moves the start by 2048 bytes.
 //
-// Included by flash_attention.cu; the build hashes every csrc/*.cuh into the
-// library's name, so an edited header rebuilds its users.
+// Included by flash_attention.cu and fused_bottleneck.cu; the build hashes
+// every csrc/*.cuh into the library's name, so an edited header rebuilds its
+// users.
 
 #pragma once
 
@@ -93,6 +94,21 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// Store one box of shared memory to a 3-D tensor map at (c0, c1, c2);
+// elements outside the tensor are not written. Commit, and wait until the
+// shared memory has been read, before it is reused or the block exits.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void tma_store_commit_and_wait() {
+  asm volatile("cp.async.bulk.commit_group;\n"
+               "cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
 // ------------------------------------------------------ warp specialisation
 
 template <uint32_t N>
@@ -151,9 +167,11 @@ __device__ __forceinline__ void pin(uint32_t (&r)[N]) {
 // Products of one warpgroup, f32 accumulators in the wgmma fragment layout:
 // thread t (warp w = t / 32 of the group, lane l) holds, at index i, row
 // 16 w + l / 4 + 8 ((i >> 1) & 1) and column 8 (i >> 2) + 2 (l % 4) + (i & 1).
-//   wgmma_ss_m64n64:      D[64x64] += A[64x16] B[16x64], both from shared
-//                         memory, both K-major; the _zero form writes D = A B
-//                         (D's old values are no input, so not kept live).
+//   wgmma_ss_m64n{64,128}: D[64xN] += A[64x16] B[16xN], both from shared
+//                         memory, A K-major, B K-major or (template argument
+//                         kTnspB 1) MN-major; the m64n64 _zero form writes
+//                         D = A B (D's old values are no input, so not kept
+//                         live).
 //   wgmma_rs_m64n{64,128}_tb: D += A B with A from registers (a0..a3 are the
 //                         bf16 pairs of rows l/4 and l/4 + 8, columns 2 (l%4)
 //                         and 8 + 2 (l%4), of the warp's 16 rows) and B MN-major;
@@ -183,6 +201,7 @@ __device__ __forceinline__ void wgmma_ss_m64n64_zero(float (&d)[32], uint64_t de
       : "l"(desc_a), "l"(desc_b), "r"(0));
 }
 
+template <int kTnspB = 0>
 __device__ __forceinline__ void wgmma_ss_m64n64(float (&d)[32], uint64_t desc_a,
                                                 uint64_t desc_b) {
   asm volatile(
@@ -194,7 +213,7 @@ __device__ __forceinline__ void wgmma_ss_m64n64(float (&d)[32], uint64_t desc_a,
       "%8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -203,7 +222,7 @@ __device__ __forceinline__ void wgmma_ss_m64n64(float (&d)[32], uint64_t desc_a,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(1));
+      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(kTnspB));
 }
 
 // D[64 x 128] = A B (kAccumulate false: D's old values are no input) or
@@ -334,6 +353,70 @@ __device__ __forceinline__ void wgmma_rs_m64n128_tb(float (&d)[64], uint32_t a0,
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(1));
+}
+
+// D[64 x 128] += A[64 x 16] B[16 x 128], both from shared memory, A
+// K-major, B K-major or (kTnspB 1) MN-major.
+template <int kTnspB = 0>
+__device__ __forceinline__ void wgmma_ss_m64n128(float (&d)[64], uint64_t desc_a,
+                                                 uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(kTnspB));
+}
+
+// ------------------------------------------------------------------ cp.async
+
+// 16 bytes from global to shared memory; src_bytes 0 writes 16 zero bytes
+// and reads nothing.
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src, uint32_t src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(src_bytes) : "memory");
+}
+
+// One arrival on `bar` once every cp.async this thread issued before it has
+// landed; the barrier's expected count includes it (.noinc).
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Order this thread's view of shared memory written through the generic
+// proxy (cp.async, st.shared) before its async-proxy reads (wgmma, TMA).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 }  // namespace hopper

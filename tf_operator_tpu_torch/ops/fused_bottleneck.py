@@ -25,6 +25,12 @@ only for CPU tensors; on a CUDA tensor it launches the kernel (and counts
 the launch in ``LAUNCHES["fwd"]``) or raises. No model calls it: the JAX
 package keeps the kernel as a measured negative result, and the ResNet
 trainer runs the unfused block.
+
+Two routes (``route``): bf16 runs the tensor-core kernels (``wgmma``
+products over 128-row blocks, nine launches, t3 recomputed instead of
+stored; Cn and Cw must be multiples of 64, else ``ValueError``); f32 runs
+the first version's FMA kernels (64-row blocks, seven launches, t1, t2, t3
+in f32). ``workspace_plan`` lists each route's scratch buffers.
 """
 
 from __future__ import annotations
@@ -36,10 +42,12 @@ import torch.nn.functional as F
 
 EPS = 1e-5
 SUPPORTED_DTYPES = (torch.float32, torch.bfloat16)
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# Rows of a tile that one block of the kernel's products covers; the
-# wrapper sizes the per-block moment partials by it.
-ROWS_PER_BLOCK = 64
+# Rows of a tile in one moment partial of each route: the row block of its
+# products (a 128-row wgmma item, a 64-row FMA block).
+ROWS_PER_BLOCK = {"wgmma": 128, "fma": 64}
+# Channel counts of the wgmma route are multiples of this (one 128-byte
+# swizzle box of bf16, the depth of a k-tile).
+WGMMA_CHANNELS = 64
 
 # Launch count of the kernel, incremented where the wrapper launches it.
 LAUNCHES = {"fwd": 0}
@@ -59,8 +67,10 @@ def _lib() -> ctypes.CDLL:
 
         lib = _build.load("fused_bottleneck")
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.tfo_fused_bottleneck_fwd.argtypes = [ptr] * 19 + [i32] * 7 + [ptr]
+        lib.tfo_fused_bottleneck_fwd.argtypes = [ptr] * 19 + [i32] * 6 + [ptr]
         lib.tfo_fused_bottleneck_fwd.restype = i32
+        lib.tfo_fused_bottleneck_fwd_wgmma.argtypes = [ptr] * 18 + [i32] * 6 + [ptr]
+        lib.tfo_fused_bottleneck_fwd_wgmma.restype = i32
         _lib_handle = lib
     return _lib_handle
 
@@ -158,9 +168,39 @@ def _check_cuda(x, w1, w2, w3, vectors) -> None:
             raise ValueError("fused bottleneck operands must share one CUDA device")
 
 
+def route(dtype: torch.dtype, cw: int, cn: int) -> str:
+    """The kernel route of a CUDA call: "wgmma" for bf16 (Cn and Cw
+    multiples of 64, else ValueError), "fma" for f32."""
+    if dtype == torch.float32:
+        return "fma"
+    if dtype != torch.bfloat16:
+        raise ValueError(f"the fused bottleneck takes f32 or bf16, got {dtype}")
+    if cn % WGMMA_CHANNELS or cw % WGMMA_CHANNELS or cn < 1 or cw < 1:
+        raise ValueError(f"the bf16 fused bottleneck takes Cn and Cw in multiples of "
+                         f"{WGMMA_CHANNELS}, got Cn {cn}, Cw {cw}")
+    return "wgmma"
+
+
+def workspace_plan(b: int, h: int, w: int, cw: int, cn: int, tile_b: int,
+                   dtype: torch.dtype) -> dict:
+    """The scratch buffers of one CUDA call, {name: (shape, dtype)}, in the
+    order the C entry point takes them. The wgmma route keeps one f32 t
+    [rows, Cn] (t1, then t2) and one bf16 n [rows, Cn] (n1, then n2): t3 is
+    recomputed, never stored. The FMA route stores t1, t2 and t3 in f32."""
+    kind = route(dtype, cw, cn)
+    rows, tiles = b * h * w, b // tile_b
+    blocks = -(-(tile_b * h * w) // ROWS_PER_BLOCK[kind])
+    f32 = torch.float32
+    plan = ({"t": ((rows, cn), f32), "n": ((rows, cn), torch.bfloat16)} if kind == "wgmma"
+            else {"t1": ((rows, cn), f32), "t2": ((rows, cn), f32), "t3": ((rows, cw), f32)})
+    plan["part"] = ((tiles * blocks * 2 * max(cn, cw),), f32)
+    plan["mult"] = ((tiles * max(cn, cw),), f32)
+    return plan
+
+
 def fused_bottleneck(x, w1, w2, w3, s1, b1, s2, b2, s3, b3, tile_b: int):
     """K4 in the JAX layout: (y, (st1, st2, st3)). The plain version for
-    CPU tensors; the CUDA kernel (or an error) for CUDA tensors."""
+    CPU tensors; the CUDA kernels (or an error) for CUDA tensors."""
     b, h, w, cw = x.shape
     _check_tile(b, tile_b)
     if x.device.type == "cpu":
@@ -169,33 +209,29 @@ def fused_bottleneck(x, w1, w2, w3, s1, b1, s2, b2, s3, b3, tile_b: int):
     _check_cuda(x, w1, w2, w3, vectors)
     cn = w1.shape[-1]
     dt, dev = x.dtype, x.device
+    kind = route(dt, cw, cn)
     x = x.contiguous()
     w1, w2, w3 = (t.to(dt).contiguous() for t in (w1, w2, w3))
     s1, b1, s2, b2, s3, b3 = (t.float().contiguous() for t in vectors)
     tiles = b // tile_b
-    rows = b * h * w
-    blocks = -(-(tile_b * h * w) // ROWS_PER_BLOCK)
     f32 = dict(dtype=torch.float32, device=dev)
     y = torch.empty_like(x)
     st1 = torch.empty((tiles, 2, cn), **f32)
     st2 = torch.empty((tiles, 2, cn), **f32)
     st3 = torch.empty((tiles, 2, cw), **f32)
-    # f32 workspace: t1, t2 [rows, Cn], t3 [rows, Cw], the per-block moment
-    # partials and the per-tile BN multipliers.
-    t1 = torch.empty((rows, cn), **f32)
-    t2 = torch.empty((rows, cn), **f32)
-    t3 = torch.empty((rows, cw), **f32)
-    part = torch.empty((tiles * blocks * 2 * max(cn, cw),), **f32)
-    mult = torch.empty((tiles * max(cn, cw),), **f32)
-    if rows:
+    work = [torch.empty(shape, dtype=dtype, device=dev)
+            for shape, dtype in workspace_plan(b, h, w, cw, cn, tile_b, dt).values()]
+    if b * h * w:
         ptrs = [ctypes.c_void_p(t.data_ptr()) for t in (
-            x, w1, w2, w3, s1, b1, s2, b2, s3, b3, y, st1, st2, st3, t1, t2, t3,
-            part, mult)]
+            x, w1, w2, w3, s1, b1, s2, b2, s3, b3, y, st1, st2, st3, *work)]
+        stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
         with torch.cuda.device(dev):
-            err = _lib().tfo_fused_bottleneck_fwd(
-                *ptrs, b, h, w, cw, cn, tile_b, _DTYPE_CODE[dt],
-                ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+            if kind == "wgmma":
+                err = _lib().tfo_fused_bottleneck_fwd_wgmma(*ptrs, b, h, w, cw, cn, tile_b,
+                                                            stream)
+            else:
+                err = _lib().tfo_fused_bottleneck_fwd(*ptrs, b, h, w, cw, cn, tile_b, stream)
         if err != 0:
-            raise RuntimeError(f"fused bottleneck kernel launch failed: cudaError {err}")
+            raise RuntimeError(f"fused bottleneck kernel launch failed: error {err}")
         LAUNCHES["fwd"] += 1
     return y, (st1, st2, st3)
