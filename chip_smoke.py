@@ -4,6 +4,7 @@
     python3 chip_smoke.py                 # every phase, as a check of the port
     python3 chip_smoke.py --phases build,check   # kernels only
     python3 chip_smoke.py --phases build,k4      # the fused bottleneck only
+    python3 chip_smoke.py --phases build,train,ckpt  # the trainers and checkpoints
 
 Phases, in order:
   1. identify the card (nvidia-smi name and power limit);
@@ -16,13 +17,18 @@ Phases, in order:
      backward's delta pass at the LM trainer's attention shape and four
      small ones (f32 with a ragged tail, f32 causal, bf16 at head_dim 64
      with a ragged causal tail, bf16 full attention at head_dim 128 with a
-     ragged tail), timed at the trainer's shape at batch 1 beside their
+     ragged tail) and at the head widths the kernels reach zero-padded (32,
+     96, 192 and 256, f32 and bf16, causal and full, T = 1000; each of
+     MUTATIONS must be rejected there too, and each width is timed at
+     [1, 768 / D, 8192, D] bf16 causal beside SDPA), timed at the
+     trainer's shape at batch 1 beside their
      bound, their plain version and PyTorch's scaled_dot_product_attention,
      and at the trainer's batch 4 beside their bound and that call (the
      plain versions' f32 scores would not fit); the fused
      bottleneck at ResNet-50's four stages' first identity blocks (the
      weights and input activations of the port's ResNet-50 at batch 256,
-     224x224), a small bf16 case with ragged multi-tile rows and a small
+     224x224), a small bf16 case with ragged multi-tile rows, a bf16 case
+     whose Cn 40 and Cw 96 run zero-padded to 64 and 128, and a small
      f32 case, timed at the four ResNet-50 shapes beside its bound, its
      plain version, the port's unfused BottleneckBlock and the three
      products alone through cuBLAS/cuDNN, with each launch's device time
@@ -32,8 +38,16 @@ Phases, in order:
      and check that every flash kernel ran on that path; then ResNet-50 at
      batch 256, 224x224, and check its loss and batch-norm running
      statistics (no hand-written kernel is on that path: the fused
-     bottleneck, as in the JAX package, is on no trainer path);
-  5. (only with --phases ...,profile) both trainers' runs under
+     bottleneck, as in the JAX package, is on no trainer path); then the
+     LM at head width 32 (--hidden 128 --heads 4, seq 8192), which must
+     end finite and launch every flash kernel;
+  5. checkpoints (ckpt): the full-width LM saves every 2 steps to step 4
+     (async), a second run resumes it to step 6, and its step-6 loss must
+     equal the train phase's uninterrupted one (or, if not bit for bit,
+     stay within the spread of two uninterrupted runs); the checkpoint's
+     bytes, the snapshot and write seconds per save, hidden_fraction and
+     tokens/s beside the train phase's are logged;
+  6. (only with --phases ...,profile) both trainers' runs under
      torch.profiler: device time by kernel group over their steady steps.
 The last lines are the kernels' JSON record, the card, and
 {"ok": true, "device": {...}}. Any failed phase exits nonzero with no
@@ -74,6 +88,14 @@ CHECK_CASES = (
     ((1, 3, 1000, 64), "bfloat16", True),  # bf16 at D=64 with a ragged causal tail
     ((2, 2, 1000, 128), "bfloat16", False),  # bf16 full attention, ragged tail
 )
+# Head widths that run zero-padded (to 64, 128, 256, 256): each checked in
+# f32 and bf16, causal and full, at a T that is no multiple of any tile,
+# every MUTATIONS entry rejected; each timed once in bf16 causal at
+# [1, HEAD_WIDTH_HIDDEN / D, SEQ, D] beside SDPA.
+HEAD_WIDTHS = (32, 96, 192, 256)
+HEAD_WIDTH_HIDDEN = 768
+WIDTH_CASES = tuple(((1, 2, 1000, d), dt, causal) for d in HEAD_WIDTHS
+                    for dt in ("float32", "bfloat16") for causal in (True, False))
 # Every element must satisfy |got - ref| <= rtol * |ref| + atol * s.
 # f32 as tests/test_ops.py: absolute (s = 1). bf16 o and grads: s is the rms
 # of ref's own row, since a causal row i averages i values and its scale
@@ -135,8 +157,11 @@ SOURCES = ("flash_attention", "fused_bottleneck")
 RN_BATCH, RN_SIZE = 256, 224
 K4_CASES = (("stage1", 1, "bfloat16"), ("stage2", 4, "bfloat16"),
             ("stage3", 8, "bfloat16"), ("stage4", 14, "bfloat16"),
-            ("ragged", None, "bfloat16"), ("small", None, "float32"))
-K4_RANDOM = {"ragged": (6, 7, 7, 256, 64, 2), "small": (4, 7, 7, 96, 24, 2)}
+            ("ragged", None, "bfloat16"), ("padded", None, "bfloat16"),
+            ("small", None, "float32"))
+# "padded": bf16 with Cn 40 and Cw 96, which the wrapper pads to 64 and 128.
+K4_RANDOM = {"ragged": (6, 7, 7, 256, 64, 2), "padded": (4, 7, 7, 96, 40, 2),
+             "small": (4, 7, 7, 96, 24, 2)}
 # Cases whose launches are split by kernel under torch.profiler.
 K4_SPLIT_CASES = ("stage1", "stage4")
 # Per-element limits of the fused bottleneck against its plain version.
@@ -370,10 +395,11 @@ def check_phase(records: dict) -> None:
     gen = torch.Generator(device=dev).manual_seed(0)
     failures = []
 
-    for shape, dtype_name, causal in CHECK_CASES:
+    for shape, dtype_name, causal in CHECK_CASES + WIDTH_CASES:
         dtype = getattr(torch, dtype_name)
         b, h, t, d = shape
         main = shape == CHECK_CASES[0][0]
+        padded = d in HEAD_WIDTHS
 
         def rnd(*s, dt=dtype):
             return torch.randn(*s, generator=gen, device=dev, dtype=torch.float32).to(dt)
@@ -416,12 +442,13 @@ def check_phase(records: dict) -> None:
                      for name, got, ref in (("dq", dq, dq_p), ("dk", dk, dk_p), ("dv", dv, dv_p))]
             if not tag:
                 abs_errs["bwd_dq"], abs_errs["bwd_dkv"] = diffs[0], max(diffs[1:])
-                if main:
+                if main or padded:
                     verdicts = checker_self_test(
                         {"o": o, "lse": lse, "dq": dq, "dk": dk, "dv": dv},
                         {"o": o_p, "lse": lse_p, "dq": dq_p, "dk": dk_p, "dv": dv_p},
                         dtype_name)
-                    log(f"check {list(shape)} {dtype_name}: the check rejects broken "
+                    log(f"check {list(shape)} {dtype_name} causal={causal}: the check "
+                        "rejects broken "
                         "outputs, excess " + ", ".join(f"{n}={e:.3g}" for n, e in verdicts.items()))
             del dq, dq_p, dk, dv, dk_p, dv_p, delta
 
@@ -459,7 +486,34 @@ def check_phase(records: dict) -> None:
 
     if failures:
         raise SmokeFailure("kernel disagrees with its plain version: " + "; ".join(failures))
+    _time_head_widths(records)
     k4_check_phase(records)
+
+
+def _time_head_widths(records: dict) -> None:
+    """Each of HEAD_WIDTHS once at [1, HEAD_WIDTH_HIDDEN / D, SEQ, D] bf16
+    causal: K1-K3 and the delta pass beside their bound (of the unpadded
+    width's work) and SDPA's forward and backward. Fills
+    records[kernel]["head_widths"][D]."""
+    import torch
+
+    from tf_operator_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    for d in HEAD_WIDTHS:
+        h = HEAD_WIDTH_HIDDEN // d
+        shape = (1, h, SEQ, d)
+        gen = torch.Generator(device=dev).manual_seed(d)
+        q, k, v, do = (torch.randn((h, SEQ, d), generator=gen, device=dev).to(torch.bfloat16)
+                       for _ in range(4))
+        o, lse = fa.flash_fwd(q, k, v, True)
+        recs = _time_kernels(q, k, v, o, lse, do, True, shape, "bfloat16", with_plain=False)
+        for name, rec in recs.items():
+            records.setdefault(name, {}).setdefault("head_widths", {})[str(d)] = {
+                "shape": list(shape), "padded_to": fa.kernel_head_dim(d),
+                **{key: rec[key] for key in ("ms", "bound_ms", "bound_by", "library_ms")}}
+        del q, k, v, do, o, lse
+        torch.cuda.empty_cache()
 
 
 def _time_main_shape(records, q, k, v, o, lse, do, causal, shape, dtype_name):
@@ -826,12 +880,21 @@ def k4_check_phase(records: dict) -> None:
                            + "; ".join(failures))
 
 
-def lm_argv(steps: int) -> list[str]:
-    """The LM trainer's full-width configuration."""
+def lm_argv(steps: int, layers: int = LAYERS, hidden: int = 768, heads: int = 6) -> list[str]:
+    """The LM trainer's full-width configuration (or another width)."""
     return ["--model", "transformer-lm", "--steps", str(steps),
-            "--batch", str(BATCH), "--seq", str(SEQ), "--layers", str(LAYERS),
-            "--hidden", "768", "--heads", "6", "--moment-dtype", "bf16",
+            "--batch", str(BATCH), "--seq", str(SEQ), "--layers", str(layers),
+            "--hidden", str(hidden), "--heads", str(heads), "--moment-dtype", "bf16",
             "--master-weights", "--log-every", str(LOG_EVERY), "--device", "cuda"]
+
+
+# The LM at head width 32 (bench.py's CPU LM widths at the trainer's seq):
+# (layers, hidden, heads, steps).
+NARROW_LM = (2, 128, 4, 2)
+# The checkpoint phase's runs: A saves every CKPT_EVERY steps to CKPT_STEPS
+# (async); B resumes it to the train phase's step count.
+CKPT_STEPS, CKPT_EVERY = 4, 2
+CKPT_DIR = OUT_DIR / "ckpt"
 
 
 def resnet_argv(steps: int) -> list[str]:
@@ -842,7 +905,7 @@ def resnet_argv(steps: int) -> list[str]:
             "--device", "cuda"]
 
 
-def run_trainer(argv: list[str], state_out: dict | None = None) -> dict:
+def run_trainer(argv: list[str], state_out: dict | None = None, tag: str = "") -> dict:
     """python -m tf_operator_tpu_torch.models.train with `argv`, in this
     process; returns its events by name (the final TrainState goes to
     state_out["state"] when given). Fails unless it exits 0 with a finite
@@ -850,7 +913,7 @@ def run_trainer(argv: list[str], state_out: dict | None = None) -> dict:
     from tf_operator_tpu_torch.models import train
 
     OUT_DIR.mkdir(parents=True, exist_ok=True)
-    events_path = OUT_DIR / f"chip_smoke_events_{argv[1]}.jsonl"
+    events_path = OUT_DIR / f"chip_smoke_events_{argv[1]}{tag}.jsonl"
     events_path.unlink(missing_ok=True)
     log("train: python -m tf_operator_tpu_torch.models.train " + " ".join(argv))
     os.environ["TPUJOB_METRICS_FILE"] = str(events_path)
@@ -900,7 +963,114 @@ def train_phase(args, card: str) -> dict:
         f"step_time_mean_s={step_s} startup_s={by['first_step']['startup_s']} "
         f"max_memory_allocated={peak_gb:.2f} GB launches={launches} "
         f"batch={BATCH} [{card}]")
-    return launches
+    return launches, done
+
+
+def narrow_lm_phase(card: str) -> None:
+    """The LM at head width 32 through the trainer (the kernels run it
+    zero-padded to 64): a finite loss, and every flash kernel launched."""
+    from tf_operator_tpu_torch.ops import flash_attention as fa
+
+    layers, hidden, heads, steps = NARROW_LM
+    fa.reset_launches()
+    by = run_trainer(lm_argv(steps, layers, hidden, heads), tag="_narrow")
+    launches = dict(fa.LAUNCHES)
+    if not all(n > 0 for n in launches.values()):
+        raise SmokeFailure(f"the head-width-{hidden // heads} LM left a flash kernel "
+                           f"unlaunched: {launches}")
+    done = by["done"]
+    eps = done.get("examples_per_sec")
+    log(f"train narrow LM (--layers {layers} --hidden {hidden} --heads {heads}, head "
+        f"width {hidden // heads}, padded to {fa.kernel_head_dim(hidden // heads)}): "
+        f"final_loss={done['final_loss']:.4f} tokens/s={eps * SEQ if eps else None} "
+        f"launches={launches} [{card}]")
+
+
+def snapshot_split(state) -> list[float]:
+    """Seconds of three snapshot legs of `state` (the trainer's
+    _snapshot_state on one pinned pool, as its saves take them): the
+    first two fill a buffer set each for the first time (allocation and
+    copy), the third reuses the first set (copy only)."""
+    from tf_operator_tpu_torch.models import train
+
+    pool, times = train._PinnedPool(), []
+    for _ in range(3):
+        t0 = time.monotonic()
+        train._snapshot_state(str(CKPT_DIR), 0, state, False, 0, pool)
+        times.append(time.monotonic() - t0)
+    return times
+
+
+def ckpt_phase(args, card: str, uninterrupted: dict | None) -> dict:
+    """Run A saves the full-width LM every CKPT_EVERY steps to CKPT_STEPS
+    (async); run B resumes it to args.steps. B must emit `resumed` from
+    CKPT_STEPS with digests equal to the saved ones, and its final loss
+    must equal the uninterrupted run's (the train phase's done event, else
+    one run here) bit for bit, or else stay within the spread of two
+    uninterrupted runs. Logs the checkpoint's bytes, the snapshot and write
+    seconds per save, hidden_fraction, and tokens/s beside the
+    uninterrupted run's, and the snapshot leg's split (snapshot_split)."""
+    import shutil
+
+    import torch
+
+    from tf_operator_tpu_torch.models import checkpoint as ckpt
+    from tf_operator_tpu_torch.parallel.train_step import state_tensors
+
+    if args.steps <= CKPT_STEPS:
+        raise SmokeFailure(f"the ckpt phase needs --steps > {CKPT_STEPS}")
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    flags = ["--checkpoint-dir", str(CKPT_DIR), "--checkpoint-every", str(CKPT_EVERY),
+             "--checkpoint-mode", "async"]
+    torch.cuda.empty_cache()
+    out: dict = {}
+    run_a = run_trainer(lm_argv(CKPT_STEPS) + flags, out, tag="_ckpt_a")
+    state = out.pop("state")
+    nbytes = sum(t.numel() * t.element_size() for t in state_tensors(state).values()
+                 if isinstance(t, torch.Tensor))
+    split = snapshot_split(state)
+    del state
+    disk = sum(json.loads(Path(f"{CKPT_DIR}/{name}_{CKPT_STEPS}{ckpt.MANIFEST_SUFFIX}")
+                          .read_text())["total_bytes"] for name in ("step", "trainstate"))
+    torch.cuda.empty_cache()
+    run_b = run_trainer(lm_argv(args.steps) + flags, tag="_ckpt_b")
+    resumed = run_b.get("resumed")
+    if (resumed is None or resumed["from_step"] != CKPT_STEPS or resumed["params_only"]
+            or not resumed.get("digest") or resumed["digest"] != resumed.get("saved_digest")):
+        raise SmokeFailure(f"run B did not resume from step {CKPT_STEPS} with matching "
+                           f"digests: {resumed}")
+    if uninterrupted is None:
+        torch.cuda.empty_cache()
+        uninterrupted = run_trainer(lm_argv(args.steps), tag="_ckpt_u")["done"]
+    loss_b, loss_u = run_b["done"]["final_loss"], uninterrupted["final_loss"]
+    log(f"ckpt: step-{args.steps} loss resumed {loss_b!r}, uninterrupted {loss_u!r}, "
+        f"bit for bit: {loss_b == loss_u}")
+    if loss_b != loss_u:
+        torch.cuda.empty_cache()
+        loss_u2 = run_trainer(lm_argv(args.steps), tag="_ckpt_u2")["done"]["final_loss"]
+        spread = abs(loss_u2 - loss_u)
+        log(f"ckpt: two uninterrupted runs give {loss_u!r} and {loss_u2!r} (spread "
+            f"{spread!r}); resumed - uninterrupted = {loss_b - loss_u!r}")
+        if not abs(loss_b - loss_u) <= spread:
+            raise SmokeFailure(f"the resumed loss {loss_b!r} is off the uninterrupted "
+                               f"{loss_u!r} by more than the runs' spread {spread!r}")
+    block = run_a["done"]["checkpoint"]
+    saves = block["saves"]
+    eps_a, eps_u = run_a["done"].get("examples_per_sec"), uninterrupted.get("examples_per_sec")
+    result = {
+        "bytes": nbytes, "bytes_on_disk": disk, "saves": saves,
+        "snapshot_s_per_save": block["snapshot_s"] / saves,
+        "write_s_per_save": block["write_s"] / saves,
+        "snapshot_s_first_use_of_buffers": split[:2], "snapshot_s_reused_buffers": split[2],
+        "drains": block["drains"], "drain_wait_s": block["drain_wait_s"],
+        "hidden_fraction": block["hidden_fraction"],
+        "tokens_per_s_with_saves": eps_a * SEQ if eps_a else None,
+        "tokens_per_s_without": eps_u * SEQ if eps_u else None,
+        "resumed_loss": loss_b, "uninterrupted_loss": loss_u,
+        "digest": resumed["digest"], "card": card}
+    log("ckpt: " + json.dumps(result))
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    return result
 
 
 def model_flops_per_example(model_fn, example_shape) -> float:
@@ -1057,8 +1227,8 @@ def profile_phase(args, card: str) -> None:
 
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="build,check,train",
-                    help="comma-separated subset of build,check,train,profile; k4 "
+    ap.add_argument("--phases", default="build,check,train,ckpt",
+                    help="comma-separated subset of build,check,train,ckpt,profile; k4 "
                          "for the fused bottleneck's checks alone")
     ap.add_argument("--steps", type=int, default=6)
     args = ap.parse_args(argv)
@@ -1091,9 +1261,13 @@ def main(argv: list[str] | None = None) -> int:
             check_phase(records)
         elif "k4" in phases:
             k4_check_phase(records)
+        uninterrupted = None
         if "train" in phases:
-            launches = train_phase(args, card)
+            launches, uninterrupted = train_phase(args, card)
             resnet_train_phase(args, card)
+            narrow_lm_phase(card)
+        if "ckpt" in phases:
+            ckpt_phase(args, card, uninterrupted)
         if "profile" in phases:
             profile_phase(args, card)
     except Exception as e:  # every phase failure ends the run without a result
@@ -1112,8 +1286,9 @@ def main(argv: list[str] | None = None) -> int:
             "plain_ms": rec.get("plain_ms"), "bound_ms": rec.get("bound_ms"),
             "bound_by": rec.get("bound_by"), "library_ms": rec.get("library_ms"),
         }
-        if f"at_batch_{BATCH}" in rec:
-            entry[f"at_batch_{BATCH}"] = rec[f"at_batch_{BATCH}"]
+        for extra in (f"at_batch_{BATCH}", "head_widths"):
+            if extra in rec:
+                entry[extra] = rec[extra]
         if name in KERNEL_NOTES:
             entry["note"] = KERNEL_NOTES[name]
         kernels.append(entry)

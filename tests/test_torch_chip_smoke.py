@@ -289,3 +289,44 @@ def test_sass_counts_counts_an_opcode_per_kernel():
     ])
     assert chip_smoke.sass_counts(sass, "HGMMA") == {
         "bwd_dq_wgmma_kernel<128>": 2, "fwd_kernel<float, 64>": 0}
+
+
+def test_width_cases_cover_every_padded_width():
+    """Each of HEAD_WIDTHS in f32 and bf16, causal and full, at a T that no
+    tile divides; the timing shapes keep H x D at the LM's hidden width."""
+    cases = {(shape[3], dt, causal) for shape, dt, causal in chip_smoke.WIDTH_CASES}
+    assert cases == {(d, dt, c) for d in (32, 96, 192, 256)
+                     for dt in ("float32", "bfloat16") for c in (True, False)}
+    for shape, _, _ in chip_smoke.WIDTH_CASES:
+        assert all(shape[2] % tile for tile in (32, 64, 128))
+    for d in chip_smoke.HEAD_WIDTHS:
+        assert chip_smoke.HEAD_WIDTH_HIDDEN % d == 0
+        assert fa.kernel_head_dim(d) in fa.SUPPORTED_HEAD_DIMS
+
+
+@pytest.mark.parametrize("d,dtype_name", [(32, "bfloat16"), (96, "float32"),
+                                          (192, "bfloat16"), (256, "float32")])
+def test_self_test_rejects_every_mutation_at_a_padded_width(d, dtype_name):
+    """The check phase runs checker_self_test at every width case: the
+    mutations stay rejected there, and the true outputs pass."""
+    rng = np.random.default_rng(d)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((2, 200, d), dtype=np.float32))
+                   .to(getattr(torch, dtype_name)) for _ in range(4))
+    o, lse = fa.flash_fwd(q, k, v, True)
+    dq, dk, dv = fa.flash_bwd(q, k, v, o, lse, do, True)
+    outs = {"o": o, "lse": lse, "dq": dq, "dk": dk, "dv": dv}
+    o_p, lse_p = fa.flash_fwd_plain(q, k, v, True)
+    refs = dict(zip(("dq", "dk", "dv"), fa.flash_bwd_plain(q, k, v, o_p, lse_p, do, True)),
+                o=o_p, lse=lse_p)
+    for name in outs:
+        assert chip_smoke.excess(outs[name], refs[name], dtype_name,
+                                 chip_smoke._kind(name)) <= 1.0, name
+    verdicts = chip_smoke.checker_self_test(outs, refs, dtype_name)
+    assert len(verdicts) == len(chip_smoke.MUTATIONS) and min(verdicts.values()) > 1.0
+
+
+def test_k4_padded_case_takes_channels_off_the_wgmma_tiles():
+    cases = {label: (idx, dt) for label, idx, dt in chip_smoke.K4_CASES}
+    b, h, w, cw, cn, tb = chip_smoke.K4_RANDOM["padded"]
+    assert cases["padded"] == (None, "bfloat16") and (cn, cw) == (40, 96)
+    assert cn % fb.WGMMA_CHANNELS and cw % fb.WGMMA_CHANNELS and b % tb == 0

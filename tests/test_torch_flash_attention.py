@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from tf_operator_tpu.ops import attention as jattention
 from tf_operator_tpu.ops import flash_attention as jfa
 from tf_operator_tpu.parallel.ring_attention import (
     attention_reference as jax_attention_reference,
@@ -274,6 +275,78 @@ class TestDispatch:
             fa._check_cuda(q, k, v)
         with pytest.raises(ValueError, match="head_dim"):
             fa._check_cuda(q[..., :32], k[..., :32], v[..., :32])
+
+
+class TestHeadWidthPadding:
+    """Head widths the kernels are not built for run zero-padded to one
+    that they are (64, 128, 256), with the unpadded width's scale. The
+    plain versions on CPU reach the same padding and slicing as the
+    kernels on the card."""
+
+    @pytest.mark.parametrize("d", [32, 96, 160, 192])
+    @pytest.mark.parametrize("causal", [False, True])
+    def test_padded_path_equals_the_unpadded_plain_version(self, d, causal):
+        q, k, v, do = _torch(_inputs(20 + d, (3, 40, d), n=4))
+        g_lse = torch.from_numpy(_inputs(21, (3, 40), n=1)[0])
+        o, lse = fa.flash_fwd(q, k, v, causal)
+        o_p, lse_p = fa.flash_fwd_plain(q, k, v, causal)
+        assert o.shape == q.shape and o.is_contiguous()
+        torch.testing.assert_close(o, o_p, rtol=0, atol=1e-6)
+        torch.testing.assert_close(lse, lse_p, rtol=0, atol=1e-6)
+        got = fa.flash_bwd(q, k, v, o, lse, do, causal, g_lse)
+        want = fa.flash_bwd_plain(q, k, v, o_p, lse_p, do, causal, g_lse)
+        for g, w in zip(got, want):
+            assert g.shape == q.shape
+            torch.testing.assert_close(g, w, rtol=0, atol=1e-6)
+        torch.testing.assert_close(fa.bwd_delta(o, do, g_lse),
+                                   fa._bwd_delta_plain(o_p, do, g_lse), rtol=0, atol=1e-6)
+
+    @pytest.mark.parametrize("d", [32, 96, 160, 192])
+    def test_padded_columns_come_out_zero(self, d):
+        width = fa.kernel_head_dim(d)
+        q, k, v, do = (fa.pad_head(x, width) for x in _torch(_inputs(30 + d, (2, 48, d), n=4)))
+        scale = fa.sm_scale(d)
+        o, lse = fa.flash_fwd_plain(q, k, v, True, scale)
+        grads = fa.flash_bwd_plain(q, k, v, o, lse, do, True, scale=scale)
+        for x in (o, *grads):
+            assert x.shape[-1] == width and torch.all(x[..., d:] == 0)
+        torch.testing.assert_close(lse, fa.flash_fwd_plain(q[..., :d], k[..., :d],
+                                                           v[..., :d], True)[1])
+
+    @pytest.mark.parametrize("causal", [False, True])
+    def test_binding_at_d32_matches_the_jax_dispatcher(self, causal):
+        """The JAX dispatcher takes its reference attention at d = 32 (the
+        Pallas kernel wants d % 64 == 0); the port pads to 64."""
+        arrs = _inputs(40, (2, 2, 64, 32))
+        expected, vjp = jax.vjp(lambda *x: jattention.flash_attention(*x, causal=causal),
+                                *_jax(arrs))
+        qkv = _torch(arrs, grad=True)
+        got = flash_attention(*qkv, causal=causal)
+        np.testing.assert_allclose(_np(got), _np(expected), atol=F32_OUT)
+        g = _inputs(41, (2, 2, 64, 32), n=1)[0]
+        got_grads = torch.autograd.grad(got, qkv, torch.from_numpy(g))
+        for gt, gj in zip(got_grads, vjp(jnp.asarray(g))):
+            assert gt.shape == (2, 2, 64, 32)
+            np.testing.assert_allclose(_np(gt), _np(gj), atol=F32_GRAD)
+
+    def test_supported_head_dims_take_every_width_to_256(self):
+        assert fa.SUPPORTED_HEAD_DIMS == (64, 128, 256)
+        for d in range(1, 257):
+            width = fa.kernel_head_dim(d)
+            assert width in fa.SUPPORTED_HEAD_DIMS and d <= width
+            assert width == d or width // 2 < d or width == 64
+        for d in (0, 320):
+            with pytest.raises(ValueError, match="head_dim"):
+                fa.kernel_head_dim(d)
+        q = torch.zeros(1, 8, 320)
+        with pytest.raises(ValueError, match="head_dim"):
+            fa._check_cuda(q, q, q)
+
+    def test_a_built_width_is_passed_through_without_a_copy(self):
+        x = torch.randn(2, 8, 128)
+        assert fa.pad_head(x, 128) is x and fa.unpad_head(x, 128) is x
+        padded = fa.pad_head(x[..., :96].contiguous(), 128)
+        assert padded.shape == (2, 8, 128) and torch.all(padded[..., 96:] == 0)
 
 
 class TestBuild:

@@ -132,8 +132,41 @@ def test_bf16_takes_the_wgmma_route(cw, cn):
 
 @pytest.mark.parametrize("cw,cn", [(96, 24), (256, 96), (200, 64), (256, 32)])
 def test_bf16_channels_off_the_wgmma_tiles_raise(cw, cn):
-    with pytest.raises(ValueError, match="multiples of 64"):
-        fb.route(torch.bfloat16, cw, cn)
+    """They no longer raise: the call pads Cn and Cw up to multiples of
+    64 and takes the wgmma route (only a channel count below 1 raises)."""
+    assert fb.route(torch.bfloat16, cw, cn) == "wgmma"
+    padded = fb.pad_channels(*map(torch.from_numpy, _args(b=2, h=3, w=3, cw=cw, cn=cn)))
+    assert padded[1].shape == (-(-cw // 64) * 64, -(-cn // 64) * 64)
+    with pytest.raises(ValueError, match="positive"):
+        fb.route(torch.bfloat16, cw, 0)
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+def test_channel_padding_equals_the_plain_version_unpadded(dtype_name):
+    """Cn 40 and Cw 96 padded to 64 and 128 and sliced back: the plain
+    version on the padded operands equals it on the unpadded ones, f32 to
+    1e-5 (the zero channels add exact zeros; only the products' blocking
+    may change the summation order), bf16 within one bf16 step."""
+    targs = list(map(torch.from_numpy, _args(b=4, h=7, w=7, cw=96, cn=40, seed=3)))
+    if dtype_name == "bfloat16":
+        targs = [a.to(torch.bfloat16) if i < 4 else a for i, a in enumerate(targs)]
+    padded = fb.pad_channels(*targs)
+    assert padded[0].shape == (4, 7, 7, 128) and padded[2].shape == (3, 3, 64, 64)
+    for t, n in zip(padded[4:], (64, 64, 64, 64, 128, 128)):
+        assert t.shape == (n,)
+    y, st = fb.padded_call(fb.fused_bottleneck_reference, *targs, tile_b=2)
+    y_p, st_p = fb.fused_bottleneck_reference(*targs, tile_b=2)
+    assert y.shape == y_p.shape and y.dtype == y_p.dtype
+    rtol, atol = (1e-2, 1e-2) if dtype_name == "bfloat16" else (0.0, 1e-5)
+    torch.testing.assert_close(y.float(), y_p.float(), rtol=rtol, atol=atol)
+    for a, b in zip(st, st_p):
+        assert a.shape == b.shape
+        torch.testing.assert_close(a, b, rtol=1e-4 if dtype_name == "bfloat16" else 0.0,
+                                   atol=1e-5)
+    # The padded channels themselves come out zero.
+    y_full, st_full = fb.fused_bottleneck_reference(*padded, tile_b=2)
+    assert torch.all(y_full[..., 96:] == 0)
+    assert all(torch.all(s[..., c:] == 0) for s, c in zip(st_full, (40, 40, 96)))
 
 
 @pytest.mark.parametrize("cw,cn", [(96, 24), (256, 64)])

@@ -321,7 +321,7 @@ def test_trainer_refuses_cuda_without_a_device(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--checkpoint-dir", "/nonexistent"], ["--remat"], ["--data-dir", "/nonexistent"],
+    ["--model", "moe-lm"], ["--remat"], ["--data-dir", "/nonexistent"],
     ["--chaos", "kill:step=1"], ["--trace"], ["--eval"], ["--model", "bert-base"],
 ])
 def test_trainer_refuses_what_is_not_ported(flag, capsys):
@@ -340,7 +340,7 @@ def test_chip_smoke_fails_without_a_card():
     assert '"ok"' not in proc.stdout
 
 
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "tf_operator_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "tf_operator_tpu")
 
 
 def test_import_hygiene_in_a_fresh_process():

@@ -5,23 +5,30 @@
 // into a shared library with the plain C interface at the bottom of this
 // file, loaded with ctypes by tf_operator_tpu_torch/ops/flash_attention.py.
 //
-// Operands are [BH, T, D] row-major (batch*heads flattened), D in {64, 128},
-// element type f32 or bf16; lse, the lse cotangent and delta are [BH, T] f32.
+// Operands are [BH, T, D] row-major (batch*heads flattened), D in {64, 128,
+// 256}, element type f32 or bf16; lse, the lse cotangent and delta are
+// [BH, T] f32. Other head widths up to 256 reach these kernels zero-padded
+// by the wrapper (ops/flash_attention.py): zero columns leave Q.K^T, lse and
+// delta as they are, and come out of o, dQ, dK and dV as zeros, so long as
+// the softmax scale is that of the unpadded width, which every entry point
+// takes from the caller.
 // Every sum, the softmax statistics and the accumulators are f32. Rounding
 // follows the TPU kernels exactly: P is rounded to the input type before
 // P.V, dS before dS.K and dS^T.Q; dV = P^T.dO takes the unrounded P (dO
 // upcast). The backward kernels read delta = rowsum(dO o O) - g_lse from a
 // pre-pass (bwd_delta_kernel), launched once for both.
 //
-// The bf16 kernels (fwd_wgmma_kernel, bwd_dq_wgmma_kernel and
-// bwd_dkv_wgmma_kernel, at the end of the file) run their products on the
-// tensor cores with wgmma, fed by TMA through shared-memory rings; see the
-// notes above them. The f32 kernels (fwd_kernel, bwd_dq_kernel and
-// bwd_dkv_kernel) are the first versions, on FMA units, described below.
+// The bf16 kernels at D = 64 and 128 (fwd_wgmma_kernel, bwd_dq_wgmma_kernel
+// and bwd_dkv_wgmma_kernel, at the end of the file) run their products on
+// the tensor cores with wgmma, fed by TMA through shared-memory rings; see
+// the notes above them. The FMA kernels (fwd_kernel, bwd_dq_kernel and
+// bwd_dkv_kernel), the first versions, described below, run f32 at every
+// width and bf16 at D = 256.
 //
-// Tiles are 64x64 and a block has 256 threads. Thread (ty, tx) = (tid / 16,
-// tid % 16) owns tile rows ty + 16*i (i < 4) and columns tx + 16*j, so row
-// reductions are shuffles within a 16-lane half warp. Shared-memory rows are
+// Tiles are R x R (R = 64; 32 at D = 256, see fma_rows) and a block has 256
+// threads. Thread (ty, tx) = (tid / 16, tid % 16) owns tile rows ty + 16*i
+// (i < R / 16) and columns tx + 16*j, so row reductions are shuffles within
+// a 16-lane half warp. Shared-memory rows are
 // padded by one 4-byte bank so the column-strided reads hit 16 distinct
 // banks. Rows past the end of a sequence load as zero, never as garbage
 // (0 * NaN = NaN would poison an accumulator), and are masked by position.
@@ -45,7 +52,7 @@
 namespace {
 
 constexpr float kNegInf = -1e30f;  // fully-masked sentinel (NEG_INF)
-constexpr int kTile = 64;          // rows per q-tile and per k-tile
+constexpr int kTile = 64;          // rows per q-tile and per k-tile (see fma_rows)
 constexpr int kThreads = 256;
 
 template <typename T>
@@ -61,6 +68,10 @@ template <typename T>
 __device__ __forceinline__ T from_f(float x);
 template <>
 __device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
 
 // Row stride (elements) of a shared tile with `cols` columns: one extra
 // 4-byte bank per row.
@@ -69,15 +80,15 @@ __host__ __device__ constexpr int padded(int cols) {
   return cols + 4 / static_cast<int>(sizeof(T));
 }
 
-// Copy rows [row0, row0 + kTile) of a [n_rows, D] matrix into shared memory
+// Copy rows [row0, row0 + R) of a [n_rows, D] matrix into shared memory
 // with 16-byte global loads; rows at or past n_rows become zero.
-template <typename T, int D>
+template <typename T, int D, int R>
 __device__ __forceinline__ void load_tile(T* dst, const T* __restrict__ src,
                                           int row0, int n_rows) {
   constexpr int LD = padded<T>(D);
   constexpr int VEC = 16 / sizeof(T);
   constexpr int PER_ROW = D / VEC;
-  for (int idx = threadIdx.x; idx < kTile * PER_ROW; idx += kThreads) {
+  for (int idx = threadIdx.x; idx < R * PER_ROW; idx += kThreads) {
     const int r = idx / PER_ROW;
     const int c = (idx % PER_ROW) * VEC;
     const int gr = row0 + r;
@@ -106,11 +117,12 @@ __device__ __forceinline__ float half_warp_max(float x) {
 
 // lse and delta of the rows of one q-tile into shared memory; rows past tq
 // get 0 (their products are masked anyway).
+template <int R>
 __device__ __forceinline__ void row_stats(const float* __restrict__ lseb,
                                           const float* __restrict__ deltab,
                                           int q0, int tq, float* lse_s,
                                           float* delta_s) {
-  for (int r = threadIdx.x; r < kTile; r += kThreads) {
+  for (int r = threadIdx.x; r < R; r += kThreads) {
     const int qp = q0 + r;
     lse_s[r] = qp < tq ? lseb[qp] : 0.f;
     delta_s[r] = qp < tq ? deltab[qp] : 0.f;
@@ -157,75 +169,76 @@ bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
 // itself, where the TPU kernel walked a sequential grid axis and carried
 // (m, l, acc) in VMEM scratch between grid steps: here (m, l, acc) live in
 // registers for the whole walk. Causal: k-tiles wholly above the diagonal
-// (k0 > q0 + kTile - 1) are never visited. Bound: compute (2 units of
+// (k0 > q0 + R - 1) are never visited. Bound: compute (2 units of
 // B*H*T^2*D FLOP causal); see the file header.
 // ---------------------------------------------------------------------------
-template <typename T, int D>
+template <typename T, int D, int R>
 __global__ void __launch_bounds__(kThreads)
 fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
            const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
            int tq, int tk, int causal, float scale) {
   constexpr int LD = padded<T>(D);
-  constexpr int LDP = padded<T>(kTile);
+  constexpr int LDP = padded<T>(R);
   constexpr int CJ = D / 16;
+  constexpr int RI = R / 16;  // tile rows (and k columns) a thread owns
   extern __shared__ __align__(16) unsigned char smem[];
   T* qs = reinterpret_cast<T*>(smem);
-  T* ks = qs + kTile * LD;
-  T* vs = ks + kTile * LD;
-  T* ps = vs + kTile * LD;  // [kTile][LDP]: P rounded to T
+  T* ks = qs + R * LD;
+  T* vs = ks + R * LD;
+  T* ps = vs + R * LD;  // [R][LDP]: P rounded to T
 
   const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * kTile;
+  const int q0 = blockIdx.x * R;
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
   const T* qb = q + static_cast<size_t>(bh) * tq * D;
   const T* kb = k + static_cast<size_t>(bh) * tk * D;
   const T* vb = v + static_cast<size_t>(bh) * tk * D;
 
-  load_tile<T, D>(qs, qb, q0, tq);
+  load_tile<T, D, R>(qs, qb, q0, tq);
 
-  float acc[4][CJ];
-  float m[4], l[4];
+  float acc[RI][CJ];
+  float m[RI], l[RI];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RI; ++i) {
     m[i] = kNegInf;
     l[i] = 0.f;
 #pragma unroll
     for (int j = 0; j < CJ; ++j) acc[i][j] = 0.f;
   }
 
-  int n_kt = (tk + kTile - 1) / kTile;
-  if (causal) n_kt = min(n_kt, (q0 + kTile - 1) / kTile + 1);
+  int n_kt = (tk + R - 1) / R;
+  if (causal) n_kt = min(n_kt, (q0 + R - 1) / R + 1);
   for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kTile;
+    const int k0 = kt * R;
     __syncthreads();  // the previous step is done with ks, vs and ps
-    load_tile<T, D>(ks, kb, k0, tk);
-    load_tile<T, D>(vs, vb, k0, tk);
+    load_tile<T, D, R>(ks, kb, k0, tk);
+    load_tile<T, D, R>(vs, vb, k0, tk);
     __syncthreads();
 
-    float s[4][4];
+    float s[RI][RI];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RI; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+      for (int j = 0; j < RI; ++j) s[i][j] = 0.f;
 #pragma unroll 8
     for (int d = 0; d < D; ++d) {
-      float a[4], b[4];
+      float a[RI], b[RI];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = to_f(qs[(ty + 16 * i) * LD + d]);
+      for (int i = 0; i < RI; ++i) a[i] = to_f(qs[(ty + 16 * i) * LD + d]);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = to_f(ks[(tx + 16 * j) * LD + d]);
+      for (int j = 0; j < RI; ++j) b[j] = to_f(ks[(tx + 16 * j) * LD + d]);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RI; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
+        for (int j = 0; j < RI; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
     }
 
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < RI; ++i) {
       const int qp = q0 + ty + 16 * i;
       float mx = kNegInf;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < RI; ++j) {
         const int kp = k0 + tx + 16 * j;
         const bool ok = kp < tk && (!causal || qp >= kp);
         s[i][j] = ok ? s[i][j] * scale : kNegInf;
@@ -234,7 +247,7 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float m_new = fmaxf(m[i], half_warp_max(mx));
       float rs = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < RI; ++j) {
         // A fully-masked row keeps m == NEG_INF: its p is 0, not exp(0).
         const float p = m_new == kNegInf ? 0.f : expf(s[i][j] - m_new);
         rs += p;
@@ -250,21 +263,21 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
 
 #pragma unroll 8
-    for (int c = 0; c < kTile; ++c) {
-      float a[4], b[CJ];
+    for (int c = 0; c < R; ++c) {
+      float a[RI], b[CJ];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = to_f(ps[(ty + 16 * i) * LDP + c]);
+      for (int i = 0; i < RI; ++i) a[i] = to_f(ps[(ty + 16 * i) * LDP + c]);
 #pragma unroll
       for (int j = 0; j < CJ; ++j) b[j] = to_f(vs[c * LD + tx + 16 * j]);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RI; ++i)
 #pragma unroll
         for (int j = 0; j < CJ; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RI; ++i) {
     const int qp = q0 + ty + 16 * i;
     if (qp >= tq) continue;
     const size_t row = static_cast<size_t>(bh) * tq + qp;
@@ -284,85 +297,86 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // P rebuilt from lse, delta from the pre-pass. dQ accumulates in registers;
 // causal skip as in K1. Bound: compute (3 units: S, dP and dS.K).
 // ---------------------------------------------------------------------------
-template <typename T, int D>
+template <typename T, int D, int R>
 __global__ void __launch_bounds__(kThreads)
 bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, const T* __restrict__ dout,
               const float* __restrict__ lse, const float* __restrict__ delta,
               T* __restrict__ dq, int tq, int tk, int causal, float scale) {
   constexpr int LD = padded<T>(D);
-  constexpr int LDP = padded<T>(kTile);
+  constexpr int LDP = padded<T>(R);
   constexpr int CJ = D / 16;
+  constexpr int RI = R / 16;  // tile rows (and k columns) a thread owns
   extern __shared__ __align__(16) unsigned char smem[];
   T* qs = reinterpret_cast<T*>(smem);
-  T* dos = qs + kTile * LD;
-  T* ks = dos + kTile * LD;
-  T* vs = ks + kTile * LD;
-  T* dss = vs + kTile * LD;  // [kTile][LDP]: dS rounded to T
-  float* lse_s = reinterpret_cast<float*>(dss + kTile * LDP);
-  float* delta_s = lse_s + kTile;
+  T* dos = qs + R * LD;
+  T* ks = dos + R * LD;
+  T* vs = ks + R * LD;
+  T* dss = vs + R * LD;  // [R][LDP]: dS rounded to T
+  float* lse_s = reinterpret_cast<float*>(dss + R * LDP);
+  float* delta_s = lse_s + R;
 
   const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * kTile;
+  const int q0 = blockIdx.x * R;
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
   const size_t qoff = static_cast<size_t>(bh) * tq;
   const T* kb = k + static_cast<size_t>(bh) * tk * D;
   const T* vb = v + static_cast<size_t>(bh) * tk * D;
 
-  load_tile<T, D>(qs, q + qoff * D, q0, tq);
-  load_tile<T, D>(dos, dout + qoff * D, q0, tq);
-  row_stats(lse + qoff, delta + qoff, q0, tq, lse_s, delta_s);
+  load_tile<T, D, R>(qs, q + qoff * D, q0, tq);
+  load_tile<T, D, R>(dos, dout + qoff * D, q0, tq);
+  row_stats<R>(lse + qoff, delta + qoff, q0, tq, lse_s, delta_s);
 
-  float acc[4][CJ];
+  float acc[RI][CJ];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < RI; ++i)
 #pragma unroll
     for (int j = 0; j < CJ; ++j) acc[i][j] = 0.f;
 
-  int n_kt = (tk + kTile - 1) / kTile;
-  if (causal) n_kt = min(n_kt, (q0 + kTile - 1) / kTile + 1);
+  int n_kt = (tk + R - 1) / R;
+  if (causal) n_kt = min(n_kt, (q0 + R - 1) / R + 1);
   for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kTile;
+    const int k0 = kt * R;
     __syncthreads();
-    load_tile<T, D>(ks, kb, k0, tk);
-    load_tile<T, D>(vs, vb, k0, tk);
+    load_tile<T, D, R>(ks, kb, k0, tk);
+    load_tile<T, D, R>(vs, vb, k0, tk);
     __syncthreads();
 
-    float s[4][4], dp[4][4];
+    float s[RI][RI], dp[RI][RI];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RI; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+      for (int j = 0; j < RI; ++j) s[i][j] = dp[i][j] = 0.f;
 #pragma unroll 4
     for (int d = 0; d < D; ++d) {
-      float a[4], g[4], b[4], w[4];
+      float a[RI], g[RI], b[RI], w[RI];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < RI; ++i) {
         a[i] = to_f(qs[(ty + 16 * i) * LD + d]);
         g[i] = to_f(dos[(ty + 16 * i) * LD + d]);
       }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < RI; ++j) {
         b[j] = to_f(ks[(tx + 16 * j) * LD + d]);
         w[j] = to_f(vs[(tx + 16 * j) * LD + d]);
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RI; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < RI; ++j) {
           s[i][j] = fmaf(a[i], b[j], s[i][j]);
           dp[i][j] = fmaf(g[i], w[j], dp[i][j]);
         }
     }
 
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < RI; ++i) {
       const int r = ty + 16 * i;
       const int qp = q0 + r;
       const float L = lse_s[r];
       const float delta = delta_s[r];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < RI; ++j) {
         const int kp = k0 + tx + 16 * j;
         const bool ok = qp < tq && kp < tk && (!causal || qp >= kp) && L > kNegInf;
         const float p = ok ? expf(s[i][j] * scale - L) : 0.f;
@@ -372,21 +386,21 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
 
 #pragma unroll 8
-    for (int c = 0; c < kTile; ++c) {
-      float a[4], b[CJ];
+    for (int c = 0; c < R; ++c) {
+      float a[RI], b[CJ];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = to_f(dss[(ty + 16 * i) * LDP + c]);
+      for (int i = 0; i < RI; ++i) a[i] = to_f(dss[(ty + 16 * i) * LDP + c]);
 #pragma unroll
       for (int j = 0; j < CJ; ++j) b[j] = to_f(ks[c * LD + tx + 16 * j]);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RI; ++i)
 #pragma unroll
         for (int j = 0; j < CJ; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RI; ++i) {
     const int qp = q0 + ty + 16 * i;
     if (qp >= tq) continue;
 #pragma unroll
@@ -401,11 +415,11 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // (launched in _flash_bwd). One block per (bh, k-tile) walks the q-tiles, so each dK/dV
 // row has one writer and no atomics are needed:
 //   dV_j = sum_i P_ij^T dO_i,   dK_j = scale * sum_i dS_ij^T Q_i.
-// Causal: q-tiles wholly before the k-tile (q0 + kTile - 1 < k0) are never
+// Causal: q-tiles wholly before the k-tile (q0 + R - 1 < k0) are never
 // visited. Padded q rows and rows with lse == NEG_INF give P = 0. Bound:
 // compute (4 units: S^T, dP^T, P^T.dO and dS^T.Q).
 // ---------------------------------------------------------------------------
-template <typename T, int D>
+template <typename T, int D, int R>
 __global__ void __launch_bounds__(kThreads)
 bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                const T* __restrict__ v, const T* __restrict__ dout,
@@ -413,78 +427,79 @@ bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                T* __restrict__ dk, T* __restrict__ dv, int tq, int tk,
                int causal, float scale) {
   constexpr int LD = padded<T>(D);
-  constexpr int LDP = padded<T>(kTile);
-  constexpr int LDF = padded<float>(kTile);
+  constexpr int LDP = padded<T>(R);
+  constexpr int LDF = padded<float>(R);
   constexpr int CJ = D / 16;
+  constexpr int RI = R / 16;  // tile rows (and k columns) a thread owns
   extern __shared__ __align__(16) unsigned char smem[];
   T* ks = reinterpret_cast<T*>(smem);
-  T* vs = ks + kTile * LD;
-  T* qs = vs + kTile * LD;
-  T* dos = qs + kTile * LD;
-  T* dsts = dos + kTile * LD;  // [kTile][LDP]: dS^T rounded to T
-  float* pts = reinterpret_cast<float*>(dsts + kTile * LDP);  // P^T, f32
-  float* lse_s = pts + kTile * LDF;
-  float* delta_s = lse_s + kTile;
+  T* vs = ks + R * LD;
+  T* qs = vs + R * LD;
+  T* dos = qs + R * LD;
+  T* dsts = dos + R * LD;  // [R][LDP]: dS^T rounded to T
+  float* pts = reinterpret_cast<float*>(dsts + R * LDP);  // P^T, f32
+  float* lse_s = pts + R * LDF;
+  float* delta_s = lse_s + R;
 
   const int bh = blockIdx.y;
-  const int k0 = blockIdx.x * kTile;
+  const int k0 = blockIdx.x * R;
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
   const size_t qoff = static_cast<size_t>(bh) * tq;
   const size_t koff = static_cast<size_t>(bh) * tk;
 
-  load_tile<T, D>(ks, k + koff * D, k0, tk);
-  load_tile<T, D>(vs, v + koff * D, k0, tk);
+  load_tile<T, D, R>(ks, k + koff * D, k0, tk);
+  load_tile<T, D, R>(vs, v + koff * D, k0, tk);
 
-  float acc_k[4][CJ], acc_v[4][CJ];
+  float acc_k[RI][CJ], acc_v[RI][CJ];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < RI; ++i)
 #pragma unroll
     for (int j = 0; j < CJ; ++j) acc_k[i][j] = acc_v[i][j] = 0.f;
 
-  const int n_qt = (tq + kTile - 1) / kTile;
-  const int qt0 = causal ? k0 / kTile : 0;
+  const int n_qt = (tq + R - 1) / R;
+  const int qt0 = causal ? k0 / R : 0;
   for (int qt = qt0; qt < n_qt; ++qt) {
-    const int q0 = qt * kTile;
+    const int q0 = qt * R;
     __syncthreads();
-    load_tile<T, D>(qs, q + qoff * D, q0, tq);
-    load_tile<T, D>(dos, dout + qoff * D, q0, tq);
-    row_stats(lse + qoff, delta + qoff, q0, tq, lse_s, delta_s);
+    load_tile<T, D, R>(qs, q + qoff * D, q0, tq);
+    load_tile<T, D, R>(dos, dout + qoff * D, q0, tq);
+    row_stats<R>(lse + qoff, delta + qoff, q0, tq, lse_s, delta_s);
     __syncthreads();
 
     // Thread (ty, tx) holds k rows ty + 16*i and q columns tx + 16*j.
-    float st[4][4], dpt[4][4];
+    float st[RI][RI], dpt[RI][RI];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RI; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) st[i][j] = dpt[i][j] = 0.f;
+      for (int j = 0; j < RI; ++j) st[i][j] = dpt[i][j] = 0.f;
 #pragma unroll 4
     for (int d = 0; d < D; ++d) {
-      float a[4], w[4], b[4], g[4];
+      float a[RI], w[RI], b[RI], g[RI];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < RI; ++i) {
         a[i] = to_f(ks[(ty + 16 * i) * LD + d]);
         w[i] = to_f(vs[(ty + 16 * i) * LD + d]);
       }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < RI; ++j) {
         b[j] = to_f(qs[(tx + 16 * j) * LD + d]);
         g[j] = to_f(dos[(tx + 16 * j) * LD + d]);
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RI; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < RI; ++j) {
           st[i][j] = fmaf(a[i], b[j], st[i][j]);
           dpt[i][j] = fmaf(w[i], g[j], dpt[i][j]);
         }
     }
 
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < RI; ++i) {
       const int r = ty + 16 * i;
       const int kp = k0 + r;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < RI; ++j) {
         const int c = tx + 16 * j;
         const int qp = q0 + c;
         const float L = lse_s[c];
@@ -497,10 +512,10 @@ bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
 
 #pragma unroll 4
-    for (int c = 0; c < kTile; ++c) {
-      float pa[4], sa[4], gb[CJ], qb[CJ];
+    for (int c = 0; c < R; ++c) {
+      float pa[RI], sa[RI], gb[CJ], qb[CJ];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < RI; ++i) {
         pa[i] = pts[(ty + 16 * i) * LDF + c];
         sa[i] = to_f(dsts[(ty + 16 * i) * LDP + c]);
       }
@@ -510,7 +525,7 @@ bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         qb[j] = to_f(qs[c * LD + tx + 16 * j]);
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RI; ++i)
 #pragma unroll
         for (int j = 0; j < CJ; ++j) {
           acc_v[i][j] = fmaf(pa[i], gb[j], acc_v[i][j]);
@@ -520,7 +535,7 @@ bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RI; ++i) {
     const int kp = k0 + ty + 16 * i;
     if (kp >= tk) continue;
 #pragma unroll
@@ -1292,21 +1307,27 @@ fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   store_rows<D>(o + static_cast<size_t>(bh) * tq * D, acc, row0, tq);
 }
 
+// Tile rows of the FMA kernels at head width D: 64, and 32 at D = 256,
+// where four f32 tiles of 64 rows (K2's Q, dO, K and V) would need 263 KB of
+// shared memory against the 227 KB a block may have.
+template <int D>
+constexpr int fma_rows() { return D > 128 ? 32 : kTile; }
+
 // Dynamic shared memory of each kernel, in bytes.
-template <typename T, int D>
+template <typename T, int D, int R>
 constexpr size_t fwd_smem() {
-  return sizeof(T) * (3 * kTile * padded<T>(D) + kTile * padded<T>(kTile));
+  return sizeof(T) * (3 * R * padded<T>(D) + R * padded<T>(R));
 }
-template <typename T, int D>
+template <typename T, int D, int R>
 constexpr size_t dq_smem() {
-  return sizeof(T) * (4 * kTile * padded<T>(D) + kTile * padded<T>(kTile)) +
-         sizeof(float) * 2 * kTile;
+  return sizeof(T) * (4 * R * padded<T>(D) + R * padded<T>(R)) + sizeof(float) * 2 * R;
 }
-template <typename T, int D>
+template <typename T, int D, int R>
 constexpr size_t dkv_smem() {
-  return sizeof(T) * (4 * kTile * padded<T>(D) + kTile * padded<T>(kTile)) +
-         sizeof(float) * (kTile * padded<float>(kTile) + 2 * kTile);
+  return sizeof(T) * (4 * R * padded<T>(D) + R * padded<T>(R)) +
+         sizeof(float) * (R * padded<float>(R) + 2 * R);
 }
+static_assert(dkv_smem<float, 256, fma_rows<256>()>() <= 232448, "K3 at D = 256 fits");
 
 template <typename Kern>
 cudaError_t allow_smem(Kern kern, size_t bytes) {
@@ -1315,18 +1336,21 @@ cudaError_t allow_smem(Kern kern, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
+// The FMA launchers. scale is the softmax scale 1/sqrt(D) of the caller's
+// head width, which is less than D when the wrapper zero-padded the columns.
 template <typename T, int D>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
-                       void* lse, int bh, int tq, int tk, int causal,
+                       void* lse, int bh, int tq, int tk, int causal, float scale,
                        cudaStream_t stream) {
-  const size_t smem = fwd_smem<T, D>();
-  cudaError_t err = allow_smem(fwd_kernel<T, D>, smem);
+  constexpr int R = fma_rows<D>();
+  const size_t smem = fwd_smem<T, D, R>();
+  cudaError_t err = allow_smem(fwd_kernel<T, D, R>, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((tq + kTile - 1) / kTile, bh);
-  fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+  dim3 grid((tq + R - 1) / R, bh);
+  fwd_kernel<T, D, R><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
-      tq, tk, causal, 1.0f / sqrtf(static_cast<float>(D)));
+      tq, tk, causal, scale);
   return cudaGetLastError();
 }
 
@@ -1344,17 +1368,18 @@ cudaError_t launch_delta(const void* o, const void* dout, const void* glse,
 template <typename T, int D>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
-                      void* dq, int bh, int tq, int tk, int causal,
+                      void* dq, int bh, int tq, int tk, int causal, float scale,
                       cudaStream_t stream) {
-  const size_t smem = dq_smem<T, D>();
-  cudaError_t err = allow_smem(bwd_dq_kernel<T, D>, smem);
+  constexpr int R = fma_rows<D>();
+  const size_t smem = dq_smem<T, D, R>();
+  cudaError_t err = allow_smem(bwd_dq_kernel<T, D, R>, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((tq + kTile - 1) / kTile, bh);
-  bwd_dq_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+  dim3 grid((tq + R - 1) / R, bh);
+  bwd_dq_kernel<T, D, R><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dq), tq, tk, causal, 1.0f / sqrtf(static_cast<float>(D)));
+      static_cast<T*>(dq), tq, tk, causal, scale);
   return cudaGetLastError();
 }
 
@@ -1362,17 +1387,17 @@ template <typename T, int D>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* delta,
                        void* dk, void* dv, int bh, int tq, int tk, int causal,
-                       cudaStream_t stream) {
-  const size_t smem = dkv_smem<T, D>();
-  cudaError_t err = allow_smem(bwd_dkv_kernel<T, D>, smem);
+                       float scale, cudaStream_t stream) {
+  constexpr int R = fma_rows<D>();
+  const size_t smem = dkv_smem<T, D, R>();
+  cudaError_t err = allow_smem(bwd_dkv_kernel<T, D, R>, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((tk + kTile - 1) / kTile, bh);
-  bwd_dkv_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+  dim3 grid((tk + R - 1) / R, bh);
+  bwd_dkv_kernel<T, D, R><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dk), static_cast<T*>(dv), tq, tk, causal,
-      1.0f / sqrtf(static_cast<float>(D)));
+      static_cast<T*>(dk), static_cast<T*>(dv), tq, tk, causal, scale);
   return cudaGetLastError();
 }
 
@@ -1410,7 +1435,7 @@ int encode_maps(CUtensorMap (&m)[4], const void* q, const void* k, const void* v
 
 template <int D>
 int launch_fwd_wgmma(const void* q, const void* k, const void* v, void* o, void* lse,
-                     int bh, int tq, int tk, int causal, cudaStream_t stream) {
+                     int bh, int tq, int tk, int causal, float scale, cudaStream_t stream) {
   CUtensorMap m[3];
   int map_err = encode_map(&m[0], q, bh, tq, D);
   if (map_err == 0) map_err = encode_map(&m[1], k, bh, tk, D, kFwdN);
@@ -1422,14 +1447,14 @@ int launch_fwd_wgmma(const void* q, const void* k, const void* v, void* o, void*
   dim3 grid(bh, (tq + kBlockRows - 1) / kBlockRows);
   fwd_wgmma_kernel<D><<<grid, kWsThreads, smem, stream>>>(
       m[0], m[1], m[2], static_cast<bf16*>(o), static_cast<float*>(lse), tq, tk, causal,
-      1.0f / sqrtf(static_cast<float>(D)));
+      scale);
   return cudaGetLastError();
 }
 
 template <int D>
 int launch_dq_wgmma(const void* q, const void* k, const void* v, const void* dout,
                     const void* lse, const void* delta, void* dq, int bh, int tq,
-                    int tk, int causal, cudaStream_t stream) {
+                    int tk, int causal, float scale, cudaStream_t stream) {
   CUtensorMap m[4];
   const int map_err = encode_maps(m, q, k, v, dout, bh, tq, tk, D);
   if (map_err != 0) return map_err;
@@ -1439,15 +1464,14 @@ int launch_dq_wgmma(const void* q, const void* k, const void* v, const void* dou
   dim3 grid(bh, (tq + kBlockRows - 1) / kBlockRows);
   bwd_dq_wgmma_kernel<D><<<grid, kWsThreads, smem, stream>>>(
       m[0], m[1], m[2], m[3], static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<bf16*>(dq), tq, tk, causal,
-      1.0f / sqrtf(static_cast<float>(D)));
+      static_cast<const float*>(delta), static_cast<bf16*>(dq), tq, tk, causal, scale);
   return cudaGetLastError();
 }
 
 template <int D>
 int launch_dkv_wgmma(const void* q, const void* k, const void* v, const void* dout,
                      const void* lse, const void* delta, void* dk, void* dv, int bh,
-                     int tq, int tk, int causal, cudaStream_t stream) {
+                     int tq, int tk, int causal, float scale, cudaStream_t stream) {
   CUtensorMap m[4];
   const int map_err = encode_maps(m, q, k, v, dout, bh, tq, tk, D);
   if (map_err != 0) return map_err;
@@ -1458,69 +1482,77 @@ int launch_dkv_wgmma(const void* q, const void* k, const void* v, const void* do
   bwd_dkv_wgmma_kernel<D><<<grid, kWsThreads, smem, stream>>>(
       m[0], m[1], m[2], m[3], static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), tq, tk, causal, 1.0f / sqrtf(static_cast<float>(D)));
+      static_cast<bf16*>(dv), tq, tk, causal, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Plain C interface. dtype: 0 = f32, 1 = bf16. lse (forward) and glse (the
-// delta pass) may be NULL. Each returns the launch's cudaGetLastError(),
-// cudaErrorInvalidValue for a shape or type outside the kernels' scope, or
-// kTensorMapError + the CUresult of a refused cuTensorMapEncodeTiled; it
-// never synchronises. The backward passes take delta from tfo_flash_bwd_delta.
-// f32 runs the FMA kernels, bf16 the wgmma kernels.
-#define TFO_DISPATCH(DTYPE, D, CALL_F32_64, CALL_F32_128, CALL_BF16_64, CALL_BF16_128) \
-  if ((DTYPE) == 0 && (D) == 64) return static_cast<int>(CALL_F32_64);                 \
-  if ((DTYPE) == 0 && (D) == 128) return static_cast<int>(CALL_F32_128);               \
-  if ((DTYPE) == 1 && (D) == 64) return static_cast<int>(CALL_BF16_64);                \
-  if ((DTYPE) == 1 && (D) == 128) return static_cast<int>(CALL_BF16_128);              \
+// Plain C interface. dtype: 0 = f32, 1 = bf16; d, the head width, is 64,
+// 128 or 256 (the wrapper zero-pads narrower heads up to one of them). scale
+// is the softmax scale of the caller's unpadded width. lse (forward) and
+// glse (the delta pass) may be NULL. Each returns the launch's
+// cudaGetLastError(), cudaErrorInvalidValue for a shape or type outside the
+// kernels' scope, or kTensorMapError + the CUresult of a refused
+// cuTensorMapEncodeTiled; it never synchronises. The backward passes take
+// delta from tfo_flash_bwd_delta. f32 runs the FMA kernels; bf16 the wgmma
+// kernels at D = 64 and 128 and the FMA kernels at D = 256 (a 128-row Q
+// tile and a K/V ring of 256 columns do not fit K1's wgmma layout).
+#define TFO_DISPATCH(DTYPE, D, CALL_F32, CALL_BF16, CALL_BF16_FMA)           \
+  if ((DTYPE) == 0 && (D) == 64) return static_cast<int>(CALL_F32(float, 64));     \
+  if ((DTYPE) == 0 && (D) == 128) return static_cast<int>(CALL_F32(float, 128));   \
+  if ((DTYPE) == 0 && (D) == 256) return static_cast<int>(CALL_F32(float, 256));   \
+  if ((DTYPE) == 1 && (D) == 64) return static_cast<int>(CALL_BF16(64));           \
+  if ((DTYPE) == 1 && (D) == 128) return static_cast<int>(CALL_BF16(128));         \
+  if ((DTYPE) == 1 && (D) == 256) return static_cast<int>(CALL_BF16_FMA(bf16, 256)); \
   return static_cast<int>(cudaErrorInvalidValue);
 
 extern "C" int tfo_flash_fwd(const void* q, const void* k, const void* v,
                              void* o, void* lse, int bh, int tq, int tk, int d,
-                             int dtype, int causal, void* stream) {
+                             int dtype, int causal, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  TFO_DISPATCH(dtype, d,
-               (launch_fwd<float, 64>(q, k, v, o, lse, bh, tq, tk, causal, s)),
-               (launch_fwd<float, 128>(q, k, v, o, lse, bh, tq, tk, causal, s)),
-               (launch_fwd_wgmma<64>(q, k, v, o, lse, bh, tq, tk, causal, s)),
-               (launch_fwd_wgmma<128>(q, k, v, o, lse, bh, tq, tk, causal, s)))
+#define FMA(T, DD) launch_fwd<T, DD>(q, k, v, o, lse, bh, tq, tk, causal, scale, s)
+#define WG(DD) launch_fwd_wgmma<DD>(q, k, v, o, lse, bh, tq, tk, causal, scale, s)
+  TFO_DISPATCH(dtype, d, FMA, WG, FMA)
+#undef FMA
+#undef WG
 }
 
 extern "C" int tfo_flash_bwd_delta(const void* o, const void* dout,
                                    const void* glse, void* delta, int rows,
                                    int d, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  TFO_DISPATCH(dtype, d,
-               (launch_delta<float, 64>(o, dout, glse, delta, rows, s)),
-               (launch_delta<float, 128>(o, dout, glse, delta, rows, s)),
-               (launch_delta<__nv_bfloat16, 64>(o, dout, glse, delta, rows, s)),
-               (launch_delta<__nv_bfloat16, 128>(o, dout, glse, delta, rows, s)))
+#define FMA(T, DD) launch_delta<T, DD>(o, dout, glse, delta, rows, s)
+#define BF(DD) launch_delta<bf16, DD>(o, dout, glse, delta, rows, s)
+  TFO_DISPATCH(dtype, d, FMA, BF, FMA)
+#undef FMA
+#undef BF
 }
 
 extern "C" int tfo_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 const void* dout, const void* lse,
                                 const void* delta, void* dq, int bh, int tq,
-                                int tk, int d, int dtype, int causal,
+                                int tk, int d, int dtype, int causal, float scale,
                                 void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  TFO_DISPATCH(dtype, d,
-               (launch_dq<float, 64>(q, k, v, dout, lse, delta, dq, bh, tq, tk, causal, s)),
-               (launch_dq<float, 128>(q, k, v, dout, lse, delta, dq, bh, tq, tk, causal, s)),
-               (launch_dq_wgmma<64>(q, k, v, dout, lse, delta, dq, bh, tq, tk, causal, s)),
-               (launch_dq_wgmma<128>(q, k, v, dout, lse, delta, dq, bh, tq, tk, causal, s)))
+#define FMA(T, DD) launch_dq<T, DD>(q, k, v, dout, lse, delta, dq, bh, tq, tk, causal, scale, s)
+#define WG(DD) launch_dq_wgmma<DD>(q, k, v, dout, lse, delta, dq, bh, tq, tk, causal, scale, s)
+  TFO_DISPATCH(dtype, d, FMA, WG, FMA)
+#undef FMA
+#undef WG
 }
 
 extern "C" int tfo_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse,
                                  const void* delta, void* dk, void* dv, int bh,
                                  int tq, int tk, int d, int dtype, int causal,
-                                 void* stream) {
+                                 float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  TFO_DISPATCH(dtype, d,
-               (launch_dkv<float, 64>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, causal, s)),
-               (launch_dkv<float, 128>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, causal, s)),
-               (launch_dkv_wgmma<64>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, causal, s)),
-               (launch_dkv_wgmma<128>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, causal, s)))
+#define FMA(T, DD) \
+  launch_dkv<T, DD>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, causal, scale, s)
+#define WG(DD) \
+  launch_dkv_wgmma<DD>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, causal, scale, s)
+  TFO_DISPATCH(dtype, d, FMA, WG, FMA)
+#undef FMA
+#undef WG
 }

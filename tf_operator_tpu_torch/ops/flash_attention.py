@@ -21,23 +21,37 @@ version (``flash_fwd_plain`` / ``flash_bwd_plain``), written from the FA-2
 equations rather than through autograd, with the kernels' rounding points:
 P is rounded to the input dtype before P.V, dS before dS.K and dS^T.Q.
 
+The kernels are built for head widths 64, 128 and 256
+(``SUPPORTED_HEAD_DIMS``); the Pallas kernel took any multiple of 64 and
+Mosaic padded the lane dimension. Here the wrappers zero-pad any other
+width up to 256 to the next built one (``kernel_head_dim``), pass the
+softmax scale of the unpadded width, and slice o, dq, dk and dv back:
+zero columns change neither Q.K^T nor rowsum(dO o O), and come out as
+zeros. A built width is passed through without a copy. Past 256 a CUDA
+call raises ``ValueError``. The padding runs on either device, so the CPU
+tests reach it.
+
 ``FlashAttention`` and ``FlashAttentionWithLse`` are the autograd bindings
 (counterparts of ``flash_attention_pallas`` and ``flash_attention_with_lse``)
-over ``[B, H, T, D]`` inputs.
+over ``[B, H, T, D]`` inputs; they pad once in the forward and keep the
+padded operands for the backward.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
+import torch.nn.functional as F
 
 # Fully-masked sentinel, as in the JAX package: an lse of NEG_INF marks a row
 # with no visible key, and the kernels guard p = 0, alpha = 0 and o = 0 on it.
 NEG_INF = -1e30
 
-SUPPORTED_HEAD_DIMS = (64, 128)
+# Head widths the kernels are built for; kernel_head_dim pads up to one.
+SUPPORTED_HEAD_DIMS = (64, 128, 256)
 SUPPORTED_DTYPES = (torch.float32, torch.bfloat16)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -59,10 +73,11 @@ def _lib() -> ctypes.CDLL:
 
         lib = _build.load("flash_attention")
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.tfo_flash_fwd.argtypes = [ptr] * 5 + [i32] * 6 + [ptr]
+        f32 = ctypes.c_float
+        lib.tfo_flash_fwd.argtypes = [ptr] * 5 + [i32] * 6 + [f32, ptr]
         lib.tfo_flash_bwd_delta.argtypes = [ptr] * 4 + [i32] * 3 + [ptr]
-        lib.tfo_flash_bwd_dq.argtypes = [ptr] * 7 + [i32] * 6 + [ptr]
-        lib.tfo_flash_bwd_dkv.argtypes = [ptr] * 8 + [i32] * 6 + [ptr]
+        lib.tfo_flash_bwd_dq.argtypes = [ptr] * 7 + [i32] * 6 + [f32, ptr]
+        lib.tfo_flash_bwd_dkv.argtypes = [ptr] * 8 + [i32] * 6 + [f32, ptr]
         for fn in (lib.tfo_flash_fwd, lib.tfo_flash_bwd_delta,
                    lib.tfo_flash_bwd_dq, lib.tfo_flash_bwd_dkv):
             fn.restype = i32
@@ -70,19 +85,46 @@ def _lib() -> ctypes.CDLL:
     return _lib_handle
 
 
+@functools.lru_cache(maxsize=None)
 def sm_scale(d: int) -> float:
-    """1/sqrt(D), rounded to f32 as the kernels use it."""
+    """1/sqrt(D), rounded to f32 as the kernels use it (the wrappers pass
+    it on every call: cached per width)."""
     return float(torch.tensor(1.0 / math.sqrt(d), dtype=torch.float32))
+
+
+def kernel_head_dim(d: int) -> int:
+    """The built head width that a head of width d runs at: the smallest of
+    SUPPORTED_HEAD_DIMS that is >= d. ValueError past the largest."""
+    for width in SUPPORTED_HEAD_DIMS:
+        if 1 <= d <= width:
+            return width
+    raise ValueError(f"flash kernels take head_dim 1..{SUPPORTED_HEAD_DIMS[-1]} "
+                     f"(zero-padded to one of {SUPPORTED_HEAD_DIMS}), got {d}")
+
+
+def pad_head(x: torch.Tensor, width: int) -> torch.Tensor:
+    """x [..., D] with zero columns appended up to `width`; x itself when
+    D == width (no copy)."""
+    d = x.shape[-1]
+    return x if d == width else F.pad(x, (0, width - d))
+
+
+def unpad_head(x: torch.Tensor, d: int) -> torch.Tensor:
+    """The first d columns of x, contiguous; x itself when it has d."""
+    return x if x.shape[-1] == d else x[..., :d].contiguous()
 
 
 # ---------------------------------------------------------------------------
 # Plain versions
 # ---------------------------------------------------------------------------
 
-def _scores(q, k, causal: bool) -> torch.Tensor:
+def _scores(q, k, causal: bool, scale: float | None = None) -> torch.Tensor:
     """S = scale * Q K^T in f32 with invalid (q, k) pairs set to NEG_INF;
-    causal keeps k_pos <= q_pos, as the kernels index it."""
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * sm_scale(q.shape[-1])
+    causal keeps k_pos <= q_pos, as the kernels index it. scale defaults to
+    sm_scale of q's width (a zero-padded q passes its unpadded width's)."""
+    if scale is None:
+        scale = sm_scale(q.shape[-1])
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     if causal:
         tq, tk = q.shape[-2], k.shape[-2]
         q_pos = torch.arange(tq, device=q.device)[:, None]
@@ -91,10 +133,10 @@ def _scores(q, k, causal: bool) -> torch.Tensor:
     return s
 
 
-def flash_fwd_plain(q, k, v, causal: bool = False):
+def flash_fwd_plain(q, k, v, causal: bool = False, scale: float | None = None):
     """(o [BH, T, D] in q.dtype, lse [BH, T] f32) from the softmax
     equations; a row with no visible key gives o = 0 and lse = NEG_INF."""
-    s = _scores(q, k, causal)
+    s = _scores(q, k, causal, scale)
     if s.shape[-1]:
         m = s.amax(-1, keepdim=True)
     else:  # no keys at all
@@ -117,35 +159,37 @@ def _bwd_delta_plain(o, do, g_lse=None):
     return delta
 
 
-def _bwd_p_ds(q, k, v, o, lse, do, causal, g_lse, delta=None):
+def _bwd_p_ds(q, k, v, o, lse, do, causal, g_lse, delta=None, scale=None):
     """P rebuilt from lse and dS = P o (dO V^T - delta) * scale; delta,
     when not given, from _bwd_delta_plain."""
-    s = _scores(q, k, causal)
+    if scale is None:
+        scale = sm_scale(q.shape[-1])
+    s = _scores(q, k, causal, scale)
     lse = lse.float()[..., None]
     p = torch.where(lse <= NEG_INF, 0.0, torch.exp(s - lse))
     if delta is None:
         delta = _bwd_delta_plain(o, do, g_lse)
     dp = torch.matmul(do.float(), v.float().transpose(-1, -2))
-    return p, p * (dp - delta[..., None]) * sm_scale(q.shape[-1])
+    return p, p * (dp - delta[..., None]) * scale
 
 
-def _bwd_dq_plain(q, k, v, o, lse, do, causal, g_lse=None, delta=None):
-    _, ds = _bwd_p_ds(q, k, v, o, lse, do, causal, g_lse, delta)
+def _bwd_dq_plain(q, k, v, o, lse, do, causal, g_lse=None, delta=None, scale=None):
+    _, ds = _bwd_p_ds(q, k, v, o, lse, do, causal, g_lse, delta, scale)
     return torch.matmul(ds.to(q.dtype).float(), k.float()).to(q.dtype)
 
 
-def _bwd_dkv_plain(q, k, v, o, lse, do, causal, g_lse=None, delta=None):
-    p, ds = _bwd_p_ds(q, k, v, o, lse, do, causal, g_lse, delta)
+def _bwd_dkv_plain(q, k, v, o, lse, do, causal, g_lse=None, delta=None, scale=None):
+    p, ds = _bwd_p_ds(q, k, v, o, lse, do, causal, g_lse, delta, scale)
     dk = torch.matmul(ds.to(q.dtype).float().transpose(-1, -2), q.float())
     # dV takes the unrounded P against dO upcast to f32, as the TPU kernel.
     dv = torch.matmul(p.transpose(-1, -2), do.float())
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
-def flash_bwd_plain(q, k, v, o, lse, do, causal: bool = False, g_lse=None):
+def flash_bwd_plain(q, k, v, o, lse, do, causal: bool = False, g_lse=None, scale=None):
     """(dq, dk, dv) from the FA-2 backward equations."""
-    dq = _bwd_dq_plain(q, k, v, o, lse, do, causal, g_lse)
-    dk, dv = _bwd_dkv_plain(q, k, v, o, lse, do, causal, g_lse)
+    dq = _bwd_dq_plain(q, k, v, o, lse, do, causal, g_lse, scale=scale)
+    dk, dv = _bwd_dkv_plain(q, k, v, o, lse, do, causal, g_lse, scale=scale)
     return dq, dk, dv
 
 
@@ -156,12 +200,14 @@ def flash_bwd_plain(q, k, v, o, lse, do, causal: bool = False, g_lse=None):
 def _check_cuda(q, k, v, *rest_bhtd, rows=()) -> None:
     """Raise ValueError unless the operands are what the kernels take:
     contiguous 16-byte-aligned [BH, T, D] tensors of one supported dtype on
-    one CUDA device, D in SUPPORTED_HEAD_DIMS; `rows` are [BH, T] f32."""
+    one CUDA device, D in SUPPORTED_HEAD_DIMS (the wrappers pad to one);
+    `rows` are [BH, T] f32."""
     if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
         raise ValueError("flash kernels take [BH, T, D] operands")
     bh, t, d = q.shape
     if d not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"flash kernels take head_dim in {SUPPORTED_HEAD_DIMS}, got {d}")
+        raise ValueError(f"flash kernels take head_dim in {SUPPORTED_HEAD_DIMS} (a "
+                         f"narrower one padded up to them), got {d}")
     if q.dtype not in SUPPORTED_DTYPES:
         raise ValueError(f"flash kernels take f32 or bf16, got {q.dtype}")
     if k.shape != v.shape or k.shape[0] != bh or k.shape[2] != d:
@@ -201,11 +247,10 @@ def _raise_on(err: int, name: str) -> None:
             "1000 + the CUresult of a refused cuTensorMapEncodeTiled)")
 
 
-def flash_fwd(q, k, v, causal: bool = False, save_lse: bool = True):
-    """K1 on [BH, T, D]: (o, lse [BH, T] f32) — lse is None when
-    save_lse=False (the primal skips its writes)."""
+def _fwd_at(q, k, v, causal, save_lse, scale):
+    """K1 on operands of a width the kernels take (or any on the CPU)."""
     if q.device.type == "cpu":
-        o, lse = flash_fwd_plain(q, k, v, causal)
+        o, lse = flash_fwd_plain(q, k, v, causal, scale)
         return o, (lse if save_lse else None)
     _check_cuda(q, k, v)
     bh, t, d = q.shape
@@ -216,15 +261,13 @@ def flash_fwd(q, k, v, causal: bool = False, save_lse: bool = True):
     with torch.cuda.device(q.device):
         err = _lib().tfo_flash_fwd(
             _ptr(q), _ptr(k), _ptr(v), _ptr(o), _ptr(lse), bh, t, k.shape[1],
-            d, _DTYPE_CODE[q.dtype], int(causal), _stream(q))
+            d, _DTYPE_CODE[q.dtype], int(causal), scale, _stream(q))
     _raise_on(err, "fwd")
     LAUNCHES["fwd"] += 1
     return o, lse
 
 
-def bwd_delta(o, do, g_lse=None):
-    """delta = rowsum(dO o O) - g_lse on [BH, T, D] operands: [BH, T] f32.
-    A helper of K2 and K3 (one launch for both), not a TPU kernel's port."""
+def _delta_at(o, do, g_lse):
     if o.device.type == "cpu":
         return _bwd_delta_plain(o, do, g_lse)
     _check_cuda(o, o, o, do, rows=() if g_lse is None else (g_lse,))
@@ -241,13 +284,11 @@ def bwd_delta(o, do, g_lse=None):
     return delta
 
 
-def flash_bwd_dq(q, k, v, o, lse, do, causal: bool = False, g_lse=None, delta=None):
-    """K2 on [BH, T, D]: dq. delta, when given, is bwd_delta(o, do, g_lse)
-    (g_lse is then not read); without it the wrapper runs that pass."""
+def _dq_at(q, k, v, o, lse, do, causal, g_lse, delta, scale):
     if q.device.type == "cpu":
-        return _bwd_dq_plain(q, k, v, o, lse, do, causal, g_lse, delta)
+        return _bwd_dq_plain(q, k, v, o, lse, do, causal, g_lse, delta, scale)
     if delta is None:
-        delta = bwd_delta(o, do, g_lse)
+        delta = _delta_at(o, do, g_lse)
     _check_cuda(q, k, v, do, rows=(lse, delta))
     bh, t, d = q.shape
     dq = torch.empty_like(q)
@@ -257,18 +298,17 @@ def flash_bwd_dq(q, k, v, o, lse, do, causal: bool = False, g_lse=None, delta=No
         err = _lib().tfo_flash_bwd_dq(
             _ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(delta),
             _ptr(dq), bh, t, k.shape[1], d, _DTYPE_CODE[q.dtype], int(causal),
-            _stream(q))
+            scale, _stream(q))
     _raise_on(err, "bwd_dq")
     LAUNCHES["bwd_dq"] += 1
     return dq
 
 
-def flash_bwd_dkv(q, k, v, o, lse, do, causal: bool = False, g_lse=None, delta=None):
-    """K3 on [BH, T, D]: (dk, dv). delta as for flash_bwd_dq."""
+def _dkv_at(q, k, v, o, lse, do, causal, g_lse, delta, scale):
     if q.device.type == "cpu":
-        return _bwd_dkv_plain(q, k, v, o, lse, do, causal, g_lse, delta)
+        return _bwd_dkv_plain(q, k, v, o, lse, do, causal, g_lse, delta, scale)
     if delta is None:
-        delta = bwd_delta(o, do, g_lse)
+        delta = _delta_at(o, do, g_lse)
     _check_cuda(q, k, v, do, rows=(lse, delta))
     bh, t, d = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
@@ -278,21 +318,70 @@ def flash_bwd_dkv(q, k, v, o, lse, do, causal: bool = False, g_lse=None, delta=N
         err = _lib().tfo_flash_bwd_dkv(
             _ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(delta),
             _ptr(dk), _ptr(dv), bh, t, k.shape[1], d, _DTYPE_CODE[q.dtype],
-            int(causal), _stream(q))
+            int(causal), scale, _stream(q))
     _raise_on(err, "bwd_dkv")
     LAUNCHES["bwd_dkv"] += 1
     return dk, dv
 
 
-def flash_bwd(q, k, v, o, lse, do, causal: bool = False, g_lse=None):
+def _bwd_at(q, k, v, o, lse, do, causal, g_lse, scale):
     """(dq, dk, dv): the delta pass, then K2 and K3, on CUDA; the plain
     backward on CPU."""
     if q.device.type == "cpu":
-        return flash_bwd_plain(q, k, v, o, lse, do, causal, g_lse)
-    delta = bwd_delta(o, do, g_lse)
-    dq = flash_bwd_dq(q, k, v, o, lse, do, causal, delta=delta)
-    dk, dv = flash_bwd_dkv(q, k, v, o, lse, do, causal, delta=delta)
+        return flash_bwd_plain(q, k, v, o, lse, do, causal, g_lse, scale)
+    delta = _delta_at(o, do, g_lse)
+    dq = _dq_at(q, k, v, o, lse, do, causal, None, delta, scale)
+    dk, dv = _dkv_at(q, k, v, o, lse, do, causal, None, delta, scale)
     return dq, dk, dv
+
+
+def _padded(d, *xs):
+    """xs zero-padded to kernel_head_dim(d); as they are past the largest
+    built width (the plain versions take any width, a CUDA call then fails
+    _check_cuda)."""
+    width = kernel_head_dim(d) if 1 <= d <= SUPPORTED_HEAD_DIMS[-1] else d
+    return [pad_head(x, width) for x in xs]
+
+
+def flash_fwd(q, k, v, causal: bool = False, save_lse: bool = True):
+    """K1 on [BH, T, D]: (o, lse [BH, T] f32) — lse is None when
+    save_lse=False (the primal skips its writes)."""
+    d = q.shape[-1]
+    q, k, v = _padded(d, q, k, v)
+    o, lse = _fwd_at(q, k, v, causal, save_lse, sm_scale(d))
+    return unpad_head(o, d), lse
+
+
+def bwd_delta(o, do, g_lse=None):
+    """delta = rowsum(dO o O) - g_lse on [BH, T, D] operands: [BH, T] f32.
+    A helper of K2 and K3 (one launch for both), not a TPU kernel's port."""
+    o, do = _padded(o.shape[-1], o, do)
+    return _delta_at(o, do, g_lse)
+
+
+def flash_bwd_dq(q, k, v, o, lse, do, causal: bool = False, g_lse=None, delta=None):
+    """K2 on [BH, T, D]: dq. delta, when given, is bwd_delta(o, do, g_lse)
+    (g_lse is then not read); without it the wrapper runs that pass."""
+    d = q.shape[-1]
+    q, k, v, o, do = _padded(d, q, k, v, o, do)
+    return unpad_head(_dq_at(q, k, v, o, lse, do, causal, g_lse, delta, sm_scale(d)), d)
+
+
+def flash_bwd_dkv(q, k, v, o, lse, do, causal: bool = False, g_lse=None, delta=None):
+    """K3 on [BH, T, D]: (dk, dv). delta as for flash_bwd_dq."""
+    d = q.shape[-1]
+    q, k, v, o, do = _padded(d, q, k, v, o, do)
+    dk, dv = _dkv_at(q, k, v, o, lse, do, causal, g_lse, delta, sm_scale(d))
+    return unpad_head(dk, d), unpad_head(dv, d)
+
+
+def flash_bwd(q, k, v, o, lse, do, causal: bool = False, g_lse=None):
+    """(dq, dk, dv): the delta pass, then K2 and K3, on CUDA; the plain
+    backward on CPU."""
+    d = q.shape[-1]
+    q, k, v, o, do = _padded(d, q, k, v, o, do)
+    grads = _bwd_at(q, k, v, o, lse, do, causal, g_lse, sm_scale(d))
+    return tuple(unpad_head(g, d) for g in grads)
 
 
 # ---------------------------------------------------------------------------
@@ -304,6 +393,16 @@ def _flat(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(b * h, t, d).contiguous()
 
 
+def _binding_grads(ctx, qf, kf, vf, o, lse, g_o, g_lse):
+    """The bindings' backward on their saved (padded) operands: (dq, dk,
+    dv, None) as [B, H, T, D] at the caller's width."""
+    b, h = ctx.bh
+    g_o = torch.zeros_like(o) if g_o is None else pad_head(_flat(g_o), o.shape[-1])
+    grads = _bwd_at(qf, kf, vf, o, lse, g_o, ctx.causal, g_lse, sm_scale(ctx.d))
+    return tuple(unpad_head(g, ctx.d).view(b, h, *g.shape[1:-1], ctx.d)
+                 for g in grads) + (None,)
+
+
 class FlashAttention(torch.autograd.Function):
     """softmax(Q K^T / sqrt(D)) V over [B, H, T, D]. Without grad the
     forward skips the lse; with grad it saves (q, k, v, o, lse) flattened
@@ -312,22 +411,18 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal: bool = False):
         b, h, t, d = q.shape
-        qf, kf, vf = _flat(q), _flat(k), _flat(v)
+        qf, kf, vf = _padded(d, _flat(q), _flat(k), _flat(v))
         need_grad = any(ctx.needs_input_grad[:3])
-        o, lse = flash_fwd(qf, kf, vf, causal, save_lse=need_grad)
+        o, lse = _fwd_at(qf, kf, vf, causal, need_grad, sm_scale(d))
         if need_grad:
             ctx.save_for_backward(qf, kf, vf, o, lse)
-        ctx.causal = causal
-        ctx.bh = (b, h)
-        return o.view(b, h, t, d)
+        ctx.causal, ctx.bh, ctx.d = causal, (b, h), d
+        return unpad_head(o, d).view(b, h, t, d)
 
     @staticmethod
     def backward(ctx, g):
         qf, kf, vf, o, lse = ctx.saved_tensors
-        b, h = ctx.bh
-        dq, dk, dv = flash_bwd(qf, kf, vf, o, lse, _flat(g), ctx.causal)
-        return (dq.view(b, h, *dq.shape[1:]), dk.view(b, h, *dk.shape[1:]),
-                dv.view(b, h, *dv.shape[1:]), None)
+        return _binding_grads(ctx, qf, kf, vf, o, lse, g, None)
 
 
 class FlashAttentionWithLse(torch.autograd.Function):
@@ -338,20 +433,15 @@ class FlashAttentionWithLse(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal: bool = False):
         b, h, t, d = q.shape
-        qf, kf, vf = _flat(q), _flat(k), _flat(v)
-        o, lse = flash_fwd(qf, kf, vf, causal, save_lse=True)
+        qf, kf, vf = _padded(d, _flat(q), _flat(k), _flat(v))
+        o, lse = _fwd_at(qf, kf, vf, causal, True, sm_scale(d))
         ctx.save_for_backward(qf, kf, vf, o, lse)
-        ctx.causal = causal
-        ctx.bh = (b, h)
-        return o.view(b, h, t, d), lse.view(b, h, t)
+        ctx.causal, ctx.bh, ctx.d = causal, (b, h), d
+        return unpad_head(o, d).view(b, h, t, d), lse.view(b, h, t)
 
     @staticmethod
     def backward(ctx, g_o, g_lse):
         qf, kf, vf, o, lse = ctx.saved_tensors
-        b, h = ctx.bh
-        g_o = torch.zeros_like(o) if g_o is None else _flat(g_o)
         if g_lse is not None:
-            g_lse = g_lse.reshape(b * h, -1).float().contiguous()
-        dq, dk, dv = flash_bwd(qf, kf, vf, o, lse, g_o, ctx.causal, g_lse)
-        return (dq.view(b, h, *dq.shape[1:]), dk.view(b, h, *dk.shape[1:]),
-                dv.view(b, h, *dv.shape[1:]), None)
+            g_lse = g_lse.reshape(ctx.bh[0] * ctx.bh[1], -1).float().contiguous()
+        return _binding_grads(ctx, qf, kf, vf, o, lse, g_o, g_lse)

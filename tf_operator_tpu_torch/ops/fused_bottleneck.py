@@ -28,9 +28,13 @@ trainer runs the unfused block.
 
 Two routes (``route``): bf16 runs the tensor-core kernels (``wgmma``
 products over 128-row blocks, nine launches, t3 recomputed instead of
-stored; Cn and Cw must be multiples of 64, else ``ValueError``); f32 runs
-the first version's FMA kernels (64-row blocks, seven launches, t1, t2, t3
-in f32). ``workspace_plan`` lists each route's scratch buffers.
+stored), on Cn and Cw that are multiples of 64: other widths are
+zero-padded up to them first (``pad_channels``: zero weights and zero BN
+scale and bias keep the padded channels at zero through every BN, relu
+and product, so they add nothing to the real ones) and y and the moments
+sliced back; f32 runs the first version's FMA kernels (64-row blocks,
+seven launches, t1, t2, t3 in f32), which take any width.
+``workspace_plan`` lists each route's scratch buffers.
 """
 
 from __future__ import annotations
@@ -169,16 +173,46 @@ def _check_cuda(x, w1, w2, w3, vectors) -> None:
 
 
 def route(dtype: torch.dtype, cw: int, cn: int) -> str:
-    """The kernel route of a CUDA call: "wgmma" for bf16 (Cn and Cw
-    multiples of 64, else ValueError), "fma" for f32."""
+    """The kernel route of a CUDA call: "wgmma" for bf16 (Cn and Cw padded
+    to multiples of 64 first, pad_channels), "fma" for f32."""
     if dtype == torch.float32:
         return "fma"
     if dtype != torch.bfloat16:
         raise ValueError(f"the fused bottleneck takes f32 or bf16, got {dtype}")
-    if cn % WGMMA_CHANNELS or cw % WGMMA_CHANNELS or cn < 1 or cw < 1:
-        raise ValueError(f"the bf16 fused bottleneck takes Cn and Cw in multiples of "
-                         f"{WGMMA_CHANNELS}, got Cn {cn}, Cw {cw}")
+    if cn < 1 or cw < 1:
+        raise ValueError(f"channel counts must be positive, got Cn {cn}, Cw {cw}")
     return "wgmma"
+
+
+def _round_up(c: int) -> int:
+    return -(-c // WGMMA_CHANNELS) * WGMMA_CHANNELS
+
+
+def pad_channels(x, w1, w2, w3, s1, b1, s2, b2, s3, b3):
+    """The operands with Cw and Cn zero-padded up to multiples of 64: zero
+    input channels, weights and BN scale/bias. A padded channel's t is 0,
+    its ghost BN gives 0 * rsqrt(0 + eps) + 0 = 0, and its weights carry
+    nothing into the real channels."""
+    cw, cn = w1.shape
+    pw, pn = _round_up(cw) - cw, _round_up(cn) - cn
+    x = F.pad(x, (0, pw))
+    w1 = F.pad(w1, (0, pn, 0, pw))
+    w2 = F.pad(w2, (0, pn, 0, pn))
+    w3 = F.pad(w3, (0, pw, 0, pn))
+    s1, b1, s2, b2 = (F.pad(t, (0, pn)) for t in (s1, b1, s2, b2))
+    s3, b3 = (F.pad(t, (0, pw)) for t in (s3, b3))
+    return x, w1, w2, w3, s1, b1, s2, b2, s3, b3
+
+
+def padded_call(fn, x, w1, w2, w3, s1, b1, s2, b2, s3, b3, tile_b: int):
+    """fn (the kernel's launch, or the plain version) on the channel-padded
+    operands, its y and moments sliced back to Cw and Cn."""
+    cw, cn = w1.shape
+    y, (st1, st2, st3) = fn(*pad_channels(x, w1, w2, w3, s1, b1, s2, b2, s3, b3),
+                            tile_b=tile_b)
+    return (y[..., :cw].contiguous(),
+            (st1[..., :cn].contiguous(), st2[..., :cn].contiguous(),
+             st3[..., :cw].contiguous()))
 
 
 def workspace_plan(b: int, h: int, w: int, cw: int, cn: int, tile_b: int,
@@ -200,7 +234,8 @@ def workspace_plan(b: int, h: int, w: int, cw: int, cn: int, tile_b: int,
 
 def fused_bottleneck(x, w1, w2, w3, s1, b1, s2, b2, s3, b3, tile_b: int):
     """K4 in the JAX layout: (y, (st1, st2, st3)). The plain version for
-    CPU tensors; the CUDA kernels (or an error) for CUDA tensors."""
+    CPU tensors; the CUDA kernels (or an error) for CUDA tensors, a bf16
+    call whose Cn or Cw is not a multiple of 64 on zero-padded channels."""
     b, h, w, cw = x.shape
     _check_tile(b, tile_b)
     if x.device.type == "cpu":
@@ -208,8 +243,18 @@ def fused_bottleneck(x, w1, w2, w3, s1, b1, s2, b2, s3, b3, tile_b: int):
     vectors = (s1, b1, s2, b2, s3, b3)
     _check_cuda(x, w1, w2, w3, vectors)
     cn = w1.shape[-1]
+    if route(x.dtype, cw, cn) == "wgmma" and (cw % WGMMA_CHANNELS or cn % WGMMA_CHANNELS):
+        return padded_call(_launch, x, w1, w2, w3, *vectors, tile_b=tile_b)
+    return _launch(x, w1, w2, w3, *vectors, tile_b=tile_b)
+
+
+def _launch(x, w1, w2, w3, s1, b1, s2, b2, s3, b3, tile_b: int):
+    """One call of the kernels on checked CUDA operands."""
+    b, h, w, cw = x.shape
+    cn = w1.shape[-1]
     dt, dev = x.dtype, x.device
     kind = route(dt, cw, cn)
+    vectors = (s1, b1, s2, b2, s3, b3)
     x = x.contiguous()
     w1, w2, w3 = (t.to(dt).contiguous() for t in (w1, w2, w3))
     s1, b1, s2, b2, s3, b3 = (t.float().contiguous() for t in vectors)

@@ -16,6 +16,7 @@ to `new`. The trainer copies them into the model's parameters in place.
 
 Parameters, gradients and moments are flat lists of tensors in the model's
 parameter order. State field order (count, mu, nu, master) is kept.
+`state_from_jax` carries the JAX package's optimizer state across.
 """
 
 from __future__ import annotations
@@ -121,3 +122,22 @@ def compute_dtype(tx: MixedPrecisionTransformation) -> torch.dtype | None:
     """The dtype the model's parameters are held in under master_weights
     (None: they stay as initialised)."""
     return tx.config.compute_dtype if tx.config.master_weights else None
+
+
+def state_from_jax(count, mu, nu, master, to_named: Callable[[Any], dict],
+                   names: list[str], like: MixedAdamState) -> MixedAdamState:
+    """The port's optimizer state from the JAX package's MixedAdamState,
+    given as numpy trees in the params layout (count, then the mu, nu and
+    master trees; master None or empty without master weights). Each tree
+    goes through the model's `params_from_flax` (`to_named`, which renames
+    and transposes as for the parameters: Adam is elementwise) and is
+    listed in parameter order (`names`), each tensor at the dtype and on
+    the device of its counterpart in `like`, a freshly built state of the
+    same optimizer config."""
+    def carry(tree, template):
+        named = to_named(tree)
+        return [named[n].to(device=t.device, dtype=t.dtype) for n, t in zip(names, template)]
+
+    return MixedAdamState(
+        count=int(count), mu=carry(mu, like.mu), nu=carry(nu, like.nu),
+        master=carry(master, like.master) if like.master else [])

@@ -10,7 +10,9 @@ mode, so a model with running statistics updates them once per step, as
 the JAX step's `mutable=["batch_stats"]` does. `make_chunked_train_step` is the
 `--log-every` loop: batches are made on the device from a generator seeded
 from (seed, global step), so how the steps are chunked does not change the
-stream. Sharding, meshes and torch.distributed are not ported yet.
+stream. `state_tensors` and `load_state_tensors` turn a TrainState into a
+flat, named dict of tensors and back, for checkpoints. Sharding, meshes
+and torch.distributed are not ported yet.
 """
 
 from __future__ import annotations
@@ -52,6 +54,50 @@ def create_train_state(model: nn.Module,
                 if p.is_floating_point():
                     p.data = p.data.to(dtype)
     return TrainState(step=0, model=model, opt_state=opt_state)
+
+
+def state_tensors(state: TrainState) -> dict[str, Any]:
+    """The state as a flat dict: `params/<name>` (the compute copy),
+    `buffers/<name>` (e.g. batch-norm running statistics), `mu/<name>`,
+    `nu/<name>` and, under master weights, `master/<name>` under the
+    parameters' names, and the ints `count` and `step`. Tensors are the
+    live ones (detached), not copies."""
+    names = [n for n, _ in state.model.named_parameters()]
+    out: dict[str, Any] = {f"params/{n}": p.detach()
+                           for n, p in state.model.named_parameters()}
+    out.update({f"buffers/{n}": b for n, b in state.model.named_buffers()})
+    for field in ("mu", "nu", "master"):
+        out.update({f"{field}/{n}": t for n, t in zip(names, getattr(state.opt_state, field))})
+    out["count"] = int(state.opt_state.count)
+    out["step"] = int(state.step)
+    return out
+
+
+def load_state_tensors(state: TrainState, tensors: dict[str, Any]) -> TrainState:
+    """The inverse of state_tensors into a freshly built `state`: the
+    parameters and buffers are copied into the model in place, the
+    optimizer's tensors replaced, each cast to the dtype and device it has
+    in `state`. ValueError when the names differ from the state's (a
+    trainstate written without master weights, restored with them)."""
+    want = state_tensors(state)
+    if set(tensors) != set(want):
+        missing, extra = sorted(set(want) - set(tensors)), sorted(set(tensors) - set(want))
+        raise ValueError(f"the tensors do not match the train state: missing "
+                         f"{missing[:4]}{'...' if len(missing) > 4 else ''}, unexpected "
+                         f"{extra[:4]}{'...' if len(extra) > 4 else ''}")
+    with torch.no_grad():
+        for key, live in want.items():
+            if key.startswith(("params/", "buffers/")):
+                live.copy_(tensors[key])
+    names = [n for n, _ in state.model.named_parameters()]
+
+    def field(name):
+        return [tensors[f"{name}/{n}"].to(device=t.device, dtype=t.dtype)
+                for n, t in zip(names, getattr(state.opt_state, name))]
+
+    opt = optim_lib.MixedAdamState(int(tensors["count"]), field("mu"), field("nu"),
+                                   field("master"))
+    return TrainState(int(tensors["step"]), state.model, opt)
 
 
 def global_norm(tensors: list[torch.Tensor]) -> torch.Tensor:
