@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phases build,check   # kernels only
     python3 chip_smoke.py --phases build,k4      # the fused bottleneck only
     python3 chip_smoke.py --phases build,train,ckpt  # the trainers and checkpoints
+    python3 chip_smoke.py --phases build,longctx      # the 64k and 128k LM alone
 
 Phases, in order:
   1. identify the card (nvidia-smi name and power limit);
@@ -18,9 +19,9 @@ Phases, in order:
      small ones (f32 with a ragged tail, f32 causal, bf16 at head_dim 64
      with a ragged causal tail, bf16 full attention at head_dim 128 with a
      ragged tail) and at the head widths the kernels reach zero-padded (32,
-     96, 192 and 256, f32 and bf16, causal and full, T = 1000; each of
+     96, 192, 256, 320 and 512, f32 and bf16, causal and full, T = 1000; each of
      MUTATIONS must be rejected there too, and each width is timed at
-     [1, 768 / D, 8192, D] bf16 causal beside SDPA), timed at the
+     [1, 768 // D, 8192, D] bf16 causal beside SDPA), timed at the
      trainer's shape at batch 1 beside their
      bound, their plain version and PyTorch's scaled_dot_product_attention,
      and at the trainer's batch 4 beside their bound and that call (the
@@ -47,9 +48,29 @@ Phases, in order:
      stay within the spread of two uninterrupted runs); the checkpoint's
      bytes, the snapshot and write seconds per save, hidden_fraction and
      tokens/s beside the train phase's are logged;
-  6. (only with --phases ...,profile) both trainers' runs under
-     torch.profiler: device time by kernel group over their steady steps.
-The last lines are the kernels' JSON record, the card, and
+  6. the evaluator (eval): a subprocess `--eval` follows the ckpt phase's
+     directory to FINAL; its last eval_loss must equal the final
+     parameters' loss on the same batches, computed here;
+  7. the long-context LM (longctx): K1, the delta pass, K2 and K3 at
+     [1, 6, 65536, 128] bf16 causal held on three 128-row tiles against
+     their plain versions and timed; then bench.py's 64k point (12L x 768h,
+     batch 1) with --remat --remat-save-flash, with --remat alone and
+     without remat, and its 128k point with --remat
+     --remat-save-flash-layers 9: tokens/s, MFU, peak memory and launches
+     per step, which must be what each save policy gives; only the run
+     without remat may run out of memory (recorded with fits: false);
+  8. preemption (preempt): the full-width LM in a subprocess, async saves
+     every 2 steps, SIGTERMed at step 4 by --chaos, must exit 143 with one
+     `preempted` event and an emergency checkpoint; its restart must
+     resume from step 4 and end on the train phase's step-6 loss; their
+     --trace files must hold the checkpoint and step spans, the restart's
+     --profile-dir a trace; a run without periodic saves times the
+     synchronous emergency save;
+  9. (only with --phases ...,profile) both trainers' runs and the 64k LM
+     under torch.profiler: device time by kernel group over their steady
+     steps.
+The last lines are the eval, longctx and preempt phases' records as one
+JSON object ({"phases": ...}), the kernels' JSON record, the card, and
 {"ok": true, "device": {...}}. Any failed phase exits nonzero with no
 result line. Needs a CUDA device: it never runs on the CPU.
 """
@@ -60,6 +81,7 @@ import argparse
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -88,11 +110,11 @@ CHECK_CASES = (
     ((1, 3, 1000, 64), "bfloat16", True),  # bf16 at D=64 with a ragged causal tail
     ((2, 2, 1000, 128), "bfloat16", False),  # bf16 full attention, ragged tail
 )
-# Head widths that run zero-padded (to 64, 128, 256, 256): each checked in
-# f32 and bf16, causal and full, at a T that is no multiple of any tile,
-# every MUTATIONS entry rejected; each timed once in bf16 causal at
-# [1, HEAD_WIDTH_HIDDEN / D, SEQ, D] beside SDPA.
-HEAD_WIDTHS = (32, 96, 192, 256)
+# Head widths that run zero-padded (to 64, 128, 256, 256, 384, 512): each
+# checked in f32 and bf16, causal and full, at a T that is no multiple of
+# any tile, every MUTATIONS entry rejected; each timed once in bf16 causal
+# at [1, HEAD_WIDTH_HIDDEN // D, SEQ, D] beside SDPA.
+HEAD_WIDTHS = (32, 96, 192, 256, 320, 512)
 HEAD_WIDTH_HIDDEN = 768
 WIDTH_CASES = tuple(((1, 2, 1000, d), dt, causal) for d in HEAD_WIDTHS
                     for dt in ("float32", "bfloat16") for causal in (True, False))
@@ -1001,7 +1023,7 @@ def snapshot_split(state) -> list[float]:
     return times
 
 
-def ckpt_phase(args, card: str, uninterrupted: dict | None) -> dict:
+def ckpt_phase(args, card: str, uninterrupted: dict | None) -> tuple:
     """Run A saves the full-width LM every CKPT_EVERY steps to CKPT_STEPS
     (async); run B resumes it to args.steps. B must emit `resumed` from
     CKPT_STEPS with digests equal to the saved ones, and its final loss
@@ -1009,9 +1031,8 @@ def ckpt_phase(args, card: str, uninterrupted: dict | None) -> dict:
     one run here) bit for bit, or else stay within the spread of two
     uninterrupted runs. Logs the checkpoint's bytes, the snapshot and write
     seconds per save, hidden_fraction, and tokens/s beside the
-    uninterrupted run's, and the snapshot leg's split (snapshot_split)."""
-    import shutil
-
+    uninterrupted run's, and the snapshot leg's split (snapshot_split).
+    Returns (the logged record, run B's final TrainState)."""
     import torch
 
     from tf_operator_tpu_torch.models import checkpoint as ckpt
@@ -1033,7 +1054,8 @@ def ckpt_phase(args, card: str, uninterrupted: dict | None) -> dict:
     disk = sum(json.loads(Path(f"{CKPT_DIR}/{name}_{CKPT_STEPS}{ckpt.MANIFEST_SUFFIX}")
                           .read_text())["total_bytes"] for name in ("step", "trainstate"))
     torch.cuda.empty_cache()
-    run_b = run_trainer(lm_argv(args.steps) + flags, tag="_ckpt_b")
+    out_b: dict = {}
+    run_b = run_trainer(lm_argv(args.steps) + flags, out_b, tag="_ckpt_b")
     resumed = run_b.get("resumed")
     if (resumed is None or resumed["from_step"] != CKPT_STEPS or resumed["params_only"]
             or not resumed.get("digest") or resumed["digest"] != resumed.get("saved_digest")):
@@ -1069,8 +1091,9 @@ def ckpt_phase(args, card: str, uninterrupted: dict | None) -> dict:
         "resumed_loss": loss_b, "uninterrupted_loss": loss_u,
         "digest": resumed["digest"], "card": card}
     log("ckpt: " + json.dumps(result))
-    shutil.rmtree(CKPT_DIR, ignore_errors=True)
-    return result
+    # The directory stays for the eval phase, which follows it; main
+    # removes it.
+    return result, out_b["state"]
 
 
 def model_flops_per_example(model_fn, example_shape) -> float:
@@ -1157,6 +1180,320 @@ RESNET_GROUPS = (("conv", ("fprop", "dgrad", "wgrad", "conv", "implicit", "winog
                  ("matmul", ("nvjet", "gemm", "cutlass")),
                  ("reduce", ("reduce",)), ("elementwise", ("elementwise",)))
 # The LM profile cuts its steps at the attention forward: a kernel whose
+# The long-context LM (bench.py's 64k and 128k points): full width, batch 1.
+# Each run: (label, seq, steps, extra flags, K1 launches per step with 12
+# layers, whether it may not fit in memory). --remat also rematerialises
+# the loss, whose replay runs every block's forward (and K1) once more in
+# the backward; a block without the save policy then replays K1 once more
+# for its own backward. So K1 runs 12 (forward) + 12 (the loss replay) +
+# the blocks without save-flash. Only the run without remat is a question
+# of fit; the bench's two points and remat alone must fit.
+LONG_SEQ, LONGER_SEQ = 65536, 131072
+LONGCTX_RUNS = (
+    ("64k remat save-flash", LONG_SEQ, 4, ["--remat", "--remat-save-flash"], 24, False),
+    ("64k remat", LONG_SEQ, 4, ["--remat"], 36, False),
+    ("64k no remat", LONG_SEQ, 4, [], 12, True),
+    ("128k remat save-flash-layers 9", LONGER_SEQ, 3,
+     ["--remat", "--remat-save-flash-layers", "9"], 27, False),
+)
+# Rows (and key columns) of one head held against the plain versions at
+# T = LONG_SEQ: the first, a middle and the last 128-row tile.
+LONG_TILE = 128
+LONG_HEADS = 6
+
+
+def longctx_argv(seq: int, steps: int, extra: list[str]) -> list[str]:
+    return ["--model", "transformer-lm", "--steps", str(steps), "--batch", "1",
+            "--seq", str(seq), "--layers", str(LAYERS), "--hidden", "768", "--heads",
+            str(LONG_HEADS), "--moment-dtype", "bf16", "--master-weights",
+            "--log-every", "1", "--device", "cuda", *extra]
+
+
+def longctx_kernel_check(records: dict) -> None:
+    """K1 (o, lse), the delta pass, K2 and K3 at [1, 6, 65536, 128] bf16
+    causal, each held on LONG_TILE-row tiles (first, middle, last) of head 0
+    against its plain version computed for just those rows (K1, K2: the rows
+    against every key up to them) or key columns (K3: the keys against every
+    row from them on); then timed beside their bound and SDPA. Fills
+    records[name]["at_T_65536"]."""
+    import torch
+
+    from tf_operator_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    t, d, h = LONG_SEQ, 128, LONG_HEADS
+    gen = torch.Generator(device=dev).manual_seed(65536)
+    q, k, v, do = (torch.randn((h, t, d), generator=gen, device=dev).to(torch.bfloat16)
+                   for _ in range(4))
+    o, lse = fa.flash_fwd(q, k, v, True)
+    delta = fa.bwd_delta(o, do)
+    dq = fa.flash_bwd_dq(q, k, v, o, lse, do, True, delta=delta)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, o, lse, do, True, delta=delta)
+    torch.cuda.synchronize()
+    failures, worst = [], {}
+    for r0 in (0, t // 2, t - LONG_TILE):
+        rows = slice(r0, r0 + LONG_TILE)
+        keys = slice(0, r0 + LONG_TILE)
+        o_p, lse_p = fa.flash_fwd_plain(q[:1, rows], k[:1, keys], v[:1, keys], True,
+                                        q_offset=r0)
+        dq_p = fa._bwd_dq_plain(q[:1, rows], k[:1, keys], v[:1, keys], o[:1, rows],
+                                lse[:1, rows], do[:1, rows], True, delta=delta[:1, rows],
+                                q_offset=r0)
+        delta_p = fa._bwd_delta_plain(o[:1, rows], do[:1, rows])
+        # Key columns [r0, r0 + tile) against the rows from r0 on: both
+        # start at r0, so the causal rule needs no offset.
+        after = slice(r0, t)
+        dk_p, dv_p = fa._bwd_dkv_plain(q[:1, after], k[:1, rows], v[:1, rows], o[:1, after],
+                                       lse[:1, after], do[:1, after], True,
+                                       delta=delta[:1, after])
+        for name, got, ref in (("o", o[:1, rows], o_p), ("lse", lse[:1, rows], lse_p),
+                               ("delta", delta[:1, rows], delta_p),
+                               ("dq", dq[:1, rows], dq_p), ("dk", dk[:1, rows], dk_p),
+                               ("dv", dv[:1, rows], dv_p)):
+            e = excess(got, ref, "bfloat16", _kind(name))
+            diff = (got.float() - ref.float()).abs().max().item()
+            key = f"{name}@{r0}"
+            worst[key] = e
+            log(f"longctx check {name} rows {r0}..{r0 + LONG_TILE - 1}: max abs err "
+                f"{diff:.4g}, excess {e:.3g}")
+            if not e <= 1.0:
+                failures.append(f"{key}: excess {e:.3g}")
+            records.setdefault(_LONG_KERNEL[name], {}).setdefault(
+                "at_T_65536", {}).setdefault("max_abs_err", 0.0)
+            rec = records[_LONG_KERNEL[name]]["at_T_65536"]
+            rec["max_abs_err"] = max(rec["max_abs_err"], diff)
+    if failures:
+        raise SmokeFailure("a kernel at T = 65536 disagrees with its plain version: "
+                           + "; ".join(failures))
+    del dq, dk, dv
+    recs = _time_kernels(q, k, v, o, lse, do, True, (1, h, t, d), "bfloat16",
+                         with_plain=False)
+    for name, rec in recs.items():
+        records[name]["at_T_65536"].update(
+            shape=[1, h, t, d], **{key: rec[key] for key in
+                                   ("ms", "bound_ms", "bound_by", "library_ms")})
+    del q, k, v, do, o, lse, delta
+    torch.cuda.empty_cache()
+
+
+# Which kernel each checked output of longctx_kernel_check belongs to.
+_LONG_KERNEL = {"o": "flash_fwd", "lse": "flash_fwd", "delta": "flash_bwd_delta",
+                "dq": "flash_bwd_dq", "dk": "flash_bwd_dkv", "dv": "flash_bwd_dkv"}
+
+
+def longctx_phase(records: dict, card: str) -> list[dict]:
+    """The bench's long-context points through the trainer (LONGCTX_RUNS):
+    tokens/s, MFU, peak memory and launches per step of each run. Every run
+    must launch K2, K3 and the delta pass once per block a step and K1 as
+    its save policy says. A run marked as one that may not fit is recorded
+    as such when it runs out of memory; any other run that does fails."""
+    import gc
+
+    import torch
+
+    from tf_operator_tpu_torch.ops import flash_attention as fa
+
+    longctx_kernel_check(records)
+    results = []
+    for label, seq, steps, extra, k1_per_step, may_not_fit in LONGCTX_RUNS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launches()
+        tag = "_long_" + re.sub(r"\W+", "_", label)
+        try:
+            by = run_trainer(longctx_argv(seq, steps, extra), tag=tag)
+        except torch.cuda.OutOfMemoryError as e:
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            msg = (f"longctx {label}: does not fit: {str(e).splitlines()[0]} (peak "
+                   f"{peak_gb:.2f} GB before the failure) [{card}]")
+            if not may_not_fit:
+                raise SmokeFailure(msg) from e
+            log(msg)
+            results.append({"run": label, "fits": False, "peak_gb": peak_gb, "card": card})
+            continue
+        per_step = {key: n / steps for key, n in fa.LAUNCHES.items()}
+        want = {"fwd": k1_per_step, "bwd_dq": LAYERS, "bwd_dkv": LAYERS,
+                "bwd_delta": LAYERS}
+        if per_step != want:
+            raise SmokeFailure(f"longctx {label}: launches per step {per_step}, the "
+                               f"save policy gives {want}")
+        done = by["done"]
+        eps = done.get("examples_per_sec")
+        res = {
+            "run": label, "fits": True, "seq": seq, "steps": steps,
+            "tokens_per_s": eps * seq if eps else None,
+            "mfu": (lm_flops_per_step(1, seq, LAYERS, 768, 32000) * eps
+                    / PEAK_FLOPS["bfloat16"]) if eps else None,
+            "step_time_s": (done.get("step_time_s") or {}).get("mean"),
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches_per_step": per_step, "final_loss": done["final_loss"], "card": card}
+        log("longctx: " + json.dumps(res))
+        results.append(res)
+    return results
+
+
+# The preemption phase: the full-width LM as a pod runs it, in a
+# subprocess, SIGTERMed by its own chaos directive at PREEMPT_STEP.
+PREEMPT_STEP = 4
+PREEMPT_DIR = OUT_DIR / "preempt"
+# A child that runs the trainer's entry point and, at exit, writes its
+# kernels' launch counts to the file named by its first argument.
+_CHILD = (
+    "import atexit, json, runpy, sys\n"
+    "path = sys.argv.pop(1)\n"
+    "from tf_operator_tpu_torch.ops import flash_attention as fa\n"
+    "atexit.register(lambda: open(path, 'w').write(json.dumps(fa.LAUNCHES)))\n"
+    "runpy.run_module('tf_operator_tpu_torch.models.train', run_name='__main__', "
+    "alter_sys=True)\n"
+)
+
+
+def run_child(argv: list[str], tag: str, timeout: float = 600) -> tuple[int, list, dict]:
+    """python -m tf_operator_tpu_torch.models.train `argv` in a subprocess,
+    with its events in a metrics file: (exit code, events, the child's
+    kernel launch counts)."""
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    events_path = OUT_DIR / f"chip_smoke_events{tag}.jsonl"
+    counts_path = OUT_DIR / f"chip_smoke_launches{tag}.json"
+    for path in (events_path, counts_path):
+        path.unlink(missing_ok=True)
+    env = dict(os.environ, TPUJOB_METRICS_FILE=str(events_path),
+               PYTHONPATH=str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    log("child: python -m tf_operator_tpu_torch.models.train " + " ".join(argv))
+    proc = subprocess.run([sys.executable, "-c", _CHILD, str(counts_path), *argv],
+                          cwd=ROOT, env=env, capture_output=True, text=True, timeout=timeout)
+    for line in proc.stderr.strip().splitlines()[-5:]:
+        log(f"  child stderr: {line}")
+    events = ([json.loads(x) for x in events_path.read_text().splitlines()]
+              if events_path.exists() else [])
+    counts = json.loads(counts_path.read_text()) if counts_path.exists() else {}
+    return proc.returncode, events, counts
+
+
+# The flash kernels' launch counters (ops.flash_attention.LAUNCHES).
+FLASH_LAUNCH_KEYS = ("fwd", "bwd_dq", "bwd_dkv", "bwd_delta")
+# Span names a preempted run and its restart must have recorded together.
+PREEMPT_SPANS = ("step", "phase/dispatch", "phase/device_blocked", "phase/ckpt_snapshot",
+                 "checkpoint/ckpt_write", "checkpoint/save", "checkpoint/restore")
+
+
+def _spans(path: Path) -> set:
+    trace = json.loads(path.read_text())
+    return {e["name"] for e in trace["traceEvents"] if e.get("ph") == "X"}
+
+
+def preempt_phase(args, card: str, uninterrupted: dict | None) -> dict:
+    """The full-width LM in a subprocess, saving every 2 steps (async),
+    SIGTERMed at PREEMPT_STEP by --chaos: it must exit 143 with one
+    `preempted` event that says the emergency checkpoint is there. Its
+    restart must resume from that step and end on the uninterrupted run's
+    step-6 loss (bit for bit, else within two uninterrupted runs' spread).
+    The runs' traces must parse and hold PREEMPT_SPANS, and the restart's
+    profile_done must name a non-empty directory. A second preempted run
+    without periodic saves times the synchronous emergency save."""
+    shutil.rmtree(PREEMPT_DIR, ignore_errors=True)
+    ckpt_dir, trace_dir, prof_dir = (PREEMPT_DIR / n for n in ("ckpt", "traces", "profile"))
+    argv = lm_argv(args.steps)
+    argv[argv.index("--log-every") + 1] = "1"  # the restart's last step is profiled
+    flags = ["--checkpoint-dir", str(ckpt_dir), "--checkpoint-every", "2",
+             "--checkpoint-mode", "async", "--preempt-grace", "60",
+             "--chaos", f"kill:step={PREEMPT_STEP},signal=TERM", "--trace",
+             "--trace-dir", str(trace_dir), "--profile-dir", str(prof_dir)]
+    rc, events, counts_a = run_child(argv + flags, "_preempt_a")
+    pre = [e for e in events if e["event"] == "preempted"]
+    if rc != 143 or len(pre) != 1 or pre[0]["step"] != PREEMPT_STEP \
+            or not pre[0]["emergency_checkpoint"]:
+        raise SmokeFailure(f"the preempted run exited {rc} with preempted events {pre}")
+    spans = _spans(trace_dir / "local-0.trace.json")
+    rc, events_b, counts_b = run_child(argv + flags, "_preempt_b")
+    by = {e["event"]: e for e in events_b}
+    if rc != 0 or by.get("resumed", {}).get("from_step") != PREEMPT_STEP:
+        raise SmokeFailure(f"the restart exited {rc}, resumed {by.get('resumed')}")
+    spans |= _spans(trace_dir / "local-0.trace.json")
+    missing = [n for n in PREEMPT_SPANS if n not in spans]
+    if missing:
+        raise SmokeFailure(f"the preempted run and its restart traced no {missing}")
+    prof = by.get("profile_done")
+    if prof is None or not any(Path(prof["dir"]).rglob("*.json")):
+        raise SmokeFailure(f"no profile in the restart's profile_done {prof}")
+    if not all(counts.get(key, 0) > 0 for counts in (counts_a, counts_b)
+               for key in FLASH_LAUNCH_KEYS):
+        raise SmokeFailure(f"a flash kernel was not launched (or a child wrote no "
+                           f"counts): {counts_a}, {counts_b}")
+    loss_b = by["done"]["final_loss"]
+    if uninterrupted is None:
+        uninterrupted = run_trainer(lm_argv(args.steps), tag="_preempt_u")["done"]
+    loss_u = uninterrupted["final_loss"]
+    log(f"preempt: step-{args.steps} loss after the restart {loss_b!r}, uninterrupted "
+        f"{loss_u!r}, bit for bit: {loss_b == loss_u}")
+    if loss_b != loss_u:
+        loss_u2 = run_trainer(lm_argv(args.steps), tag="_preempt_u2")["done"]["final_loss"]
+        spread = abs(loss_u2 - loss_u)
+        if not abs(loss_b - loss_u) <= spread:
+            raise SmokeFailure(f"the restarted loss {loss_b!r} is off the uninterrupted "
+                               f"{loss_u!r} by more than the runs' spread {spread!r}")
+    # The synchronous emergency save: no periodic save to adopt.
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    sync_flags = ["--checkpoint-dir", str(ckpt_dir), "--preempt-grace", "60",
+                  "--chaos", f"kill:step={PREEMPT_STEP},signal=TERM"]
+    rc, events_s, _ = run_child(argv + sync_flags, "_preempt_sync")
+    pre_s = [e for e in events_s if e["event"] == "preempted"]
+    if rc != 143 or len(pre_s) != 1 or not pre_s[0]["emergency_checkpoint"] \
+            or pre_s[0].get("adopted_async_save"):
+        raise SmokeFailure(f"the sync-save preempted run exited {rc}: {pre_s}")
+    result = {"preempted": pre[0], "adopted_async_save": bool(pre[0].get("adopted_async_save")),
+              "drain_s": pre[0].get("drain_s"), "elapsed_s": pre[0]["elapsed_s"],
+              "emergency_sync_save_elapsed_s": pre_s[0]["elapsed_s"],
+              "restart_resumed": by["resumed"], "restart_loss": loss_b,
+              "uninterrupted_loss": loss_u, "spans": sorted(spans),
+              "profile_dir": prof["dir"], "launches_preempted_run": counts_a,
+              "launches_restart": counts_b, "card": card}
+    log("preempt: " + json.dumps(result))
+    shutil.rmtree(PREEMPT_DIR, ignore_errors=True)
+    return result
+
+
+EVAL_BATCHES = 2
+
+
+def eval_phase(args, card: str, final_state) -> dict:
+    """An evaluator subprocess on the card follows the ckpt phase's
+    directory to FINAL: one `eval` per checkpoint and `eval_done`; its last
+    eval_loss must equal the loss of the ckpt phase's final parameters on
+    the same batches, computed here (train.evaluate) with the same kernels
+    on the same card, after the event's own rounding to 6 decimals: the
+    two sides run the same code on the same bits, so only that rounding
+    may part them."""
+    import torch
+
+    from tf_operator_tpu_torch.models import checkpoint as ckpt
+    from tf_operator_tpu_torch.models import train
+
+    argv = lm_argv(EVAL_BATCHES)
+    rc, events, counts = run_child(argv + ["--eval", "--checkpoint-dir", str(CKPT_DIR),
+                                           "--eval-timeout", "60"], "_eval")
+    evals = [e for e in events if e["event"] == "eval"]
+    steps = ckpt.list_steps(str(CKPT_DIR))
+    if rc != 0 or [e["checkpoint_step"] for e in evals] != steps \
+            or not any(e["event"] == "eval_done" for e in events):
+        raise SmokeFailure(f"the evaluator exited {rc} with eval events {evals} over the "
+                           f"steps {steps}")
+    if counts.get("fwd", 0) != LAYERS * EVAL_BATCHES * len(steps):
+        raise SmokeFailure(f"the evaluator launched {counts}, not K1 once a block a batch")
+    t_args = train.build_parser().parse_args(argv)
+    _, loss_fn, make_batch = train._build_model(t_args, torch.device("cuda"))
+    here = train.evaluate(final_state.model, loss_fn, make_batch, torch.device("cuda"),
+                          EVAL_BATCHES)
+    got = evals[-1]["eval_loss"]
+    log(f"eval: last eval_loss {got!r} (step {evals[-1]['checkpoint_step']}), in-process "
+        f"{here!r}; evaluator launches {counts} [{card}]")
+    if got != round(here, 6):
+        raise SmokeFailure(f"the evaluator's loss {got!r} is off the final parameters' "
+                           f"{here!r}")
+    return {"evals": evals, "in_process_loss": here, "launches": counts, "card": card}
+
+
 # lower-cased name holds both substrings (fwd_kernel in f32,
 # fwd_wgmma_kernel in bf16; no other kernel of csrc/).
 LM_STEP_MARKER = ("fwd_", "_kernel")
@@ -1202,7 +1539,8 @@ def _profile_trainer(argv, steps: int, marker: tuple, per_step: int, groups,
     window_ms = (t1 - t0) / 1e3
     busy = sum(by_group.values())
     summary = {"profile": {
-        "model": argv[1], "steps": steps - 1 - LOG_EVERY, "batch": batch,
+        "model": argv[1], "seq": int(argv[argv.index("--seq") + 1]) if "--seq" in argv
+        else None, "steps": steps - 1 - LOG_EVERY, "batch": batch,
         "window_ms": window_ms, "device_busy_ms": busy,
         "idle_share": 1.0 - busy / window_ms, "kernels": n_kernels,
         "device_ms_by_group": dict(sorted(by_group.items(), key=lambda kv: -kv[1])),
@@ -1213,23 +1551,28 @@ def _profile_trainer(argv, steps: int, marker: tuple, per_step: int, groups,
 
 
 def profile_phase(args, card: str) -> None:
-    """Both trainers' runs, as the train phase drives them, under
-    torch.profiler. The LM's steps are cut at their first attention forward,
-    ResNet-50's at their loss's log-softmax forward. The Chrome traces go to
-    OUT_DIR."""
+    """Both trainers' runs, as the train phase drives them, and the 64k LM
+    with --remat --remat-save-flash (LONGCTX_RUNS' first, 5 steps), under
+    torch.profiler. The LM's steps are cut at their first attention forward
+    (24 a step at 64k: the forward's and the loss replay's), ResNet-50's at
+    their loss's log-softmax forward. The Chrome traces go to OUT_DIR."""
     if args.steps < LOG_EVERY + 2:
         raise SmokeFailure(f"the profile needs --steps >= {LOG_EVERY + 2}")
     _profile_trainer(lm_argv(args.steps), args.steps, LM_STEP_MARKER, LAYERS, LM_GROUPS,
                      BATCH, card, "train_profile.trace.json")
     _profile_trainer(resnet_argv(args.steps), args.steps, ("softmax", "forward"), 1,
                      RESNET_GROUPS, RN_BATCH, card, "resnet50_profile.trace.json")
+    _, seq, _, extra, k1_per_step, _ = LONGCTX_RUNS[0]
+    _profile_trainer(longctx_argv(seq, 5, extra), 5, LM_STEP_MARKER, k1_per_step,
+                     LM_GROUPS, 1, card, "longctx_profile.trace.json")
 
 
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="build,check,train,ckpt",
-                    help="comma-separated subset of build,check,train,ckpt,profile; k4 "
-                         "for the fused bottleneck's checks alone")
+    ap.add_argument("--phases", default="build,check,train,ckpt,eval,longctx,preempt",
+                    help="comma-separated subset of build,check,train,ckpt,eval,longctx,"
+                         "preempt,profile; k4 for the fused bottleneck's checks alone "
+                         "(eval follows the ckpt phase's directory)")
     ap.add_argument("--steps", type=int, default=6)
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -1255,6 +1598,7 @@ def main(argv: list[str] | None = None) -> int:
         f" | torch {torch.__version__} cuda {torch.version.cuda}")
     records: dict = {}
     launches: dict | None = None  # filled only by the train phase
+    results: dict = {}  # the eval, longctx and preempt phases' records
     try:
         build_phase()
         if "check" in phases:
@@ -1267,7 +1611,15 @@ def main(argv: list[str] | None = None) -> int:
             resnet_train_phase(args, card)
             narrow_lm_phase(card)
         if "ckpt" in phases:
-            ckpt_phase(args, card, uninterrupted)
+            _, final_state = ckpt_phase(args, card, uninterrupted)
+            if "eval" in phases:
+                results["eval"] = eval_phase(args, card, final_state)
+            del final_state
+            shutil.rmtree(CKPT_DIR, ignore_errors=True)
+        if "longctx" in phases:
+            results["longctx"] = longctx_phase(records, card)
+        if "preempt" in phases:
+            results["preempt"] = preempt_phase(args, card, uninterrupted)
         if "profile" in phases:
             profile_phase(args, card)
     except Exception as e:  # every phase failure ends the run without a result
@@ -1286,7 +1638,7 @@ def main(argv: list[str] | None = None) -> int:
             "plain_ms": rec.get("plain_ms"), "bound_ms": rec.get("bound_ms"),
             "bound_by": rec.get("bound_by"), "library_ms": rec.get("library_ms"),
         }
-        for extra in (f"at_batch_{BATCH}", "head_widths"):
+        for extra in (f"at_batch_{BATCH}", "head_widths", "at_T_65536"):
             if extra in rec:
                 entry[extra] = rec[extra]
         if name in KERNEL_NOTES:
@@ -1305,6 +1657,7 @@ def main(argv: list[str] | None = None) -> int:
         "times": rec.get("times"),
     })
     log(f"total {time.time() - t_start:.1f} s")
+    print(json.dumps({"phases": results}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -11,6 +11,7 @@ cuobjdump's reports, and the profile's kernel groups, are held against
 sample text and the kernels' own source.
 """
 
+import json
 import re
 from pathlib import Path
 
@@ -293,19 +294,22 @@ def test_sass_counts_counts_an_opcode_per_kernel():
 
 def test_width_cases_cover_every_padded_width():
     """Each of HEAD_WIDTHS in f32 and bf16, causal and full, at a T that no
-    tile divides; the timing shapes keep H x D at the LM's hidden width."""
+    tile divides; the timing shapes keep H x D at the LM's hidden width
+    where D divides it (H = 768 // D at 320 and 512)."""
     cases = {(shape[3], dt, causal) for shape, dt, causal in chip_smoke.WIDTH_CASES}
-    assert cases == {(d, dt, c) for d in (32, 96, 192, 256)
+    assert cases == {(d, dt, c) for d in (32, 96, 192, 256, 320, 512)
                      for dt in ("float32", "bfloat16") for c in (True, False)}
     for shape, _, _ in chip_smoke.WIDTH_CASES:
-        assert all(shape[2] % tile for tile in (32, 64, 128))
+        assert all(shape[2] % tile for tile in (16, 32, 64, 128))
     for d in chip_smoke.HEAD_WIDTHS:
-        assert chip_smoke.HEAD_WIDTH_HIDDEN % d == 0
+        assert chip_smoke.HEAD_WIDTH_HIDDEN // d >= 1
+        assert chip_smoke.HEAD_WIDTH_HIDDEN % d == 0 or d > 256
         assert fa.kernel_head_dim(d) in fa.SUPPORTED_HEAD_DIMS
 
 
 @pytest.mark.parametrize("d,dtype_name", [(32, "bfloat16"), (96, "float32"),
-                                          (192, "bfloat16"), (256, "float32")])
+                                          (192, "bfloat16"), (256, "float32"),
+                                          (320, "float32"), (512, "bfloat16")])
 def test_self_test_rejects_every_mutation_at_a_padded_width(d, dtype_name):
     """The check phase runs checker_self_test at every width case: the
     mutations stay rejected there, and the true outputs pass."""
@@ -330,3 +334,125 @@ def test_k4_padded_case_takes_channels_off_the_wgmma_tiles():
     b, h, w, cw, cn, tb = chip_smoke.K4_RANDOM["padded"]
     assert cases["padded"] == (None, "bfloat16") and (cn, cw) == (40, 96)
     assert cn % fb.WGMMA_CHANNELS and cw % fb.WGMMA_CHANNELS and b % tb == 0
+
+
+@pytest.mark.parametrize("r0", [0, 96, 448])
+def test_longctx_tile_checks_equal_the_full_plain_version(r0):
+    """longctx_kernel_check's references: a row tile against every key up to
+    it (with q_offset) and a key tile against every row from it on give the
+    full plain version's rows and key columns exactly."""
+    t, tile = 512, 64
+    rng = np.random.default_rng(r0)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((1, t, 32), dtype=np.float32))
+                   for _ in range(4))
+    o, lse = fa.flash_fwd_plain(q, k, v, True)
+    delta = fa._bwd_delta_plain(o, do)
+    dq, dk, dv = fa.flash_bwd_plain(q, k, v, o, lse, do, True)
+    rows, keys, after = slice(r0, r0 + tile), slice(0, r0 + tile), slice(r0, t)
+    o_p, lse_p = fa.flash_fwd_plain(q[:, rows], k[:, keys], v[:, keys], True, q_offset=r0)
+    torch.testing.assert_close(o_p, o[:, rows], rtol=0, atol=1e-6)
+    torch.testing.assert_close(lse_p, lse[:, rows], rtol=0, atol=1e-6)
+    dq_p = fa._bwd_dq_plain(q[:, rows], k[:, keys], v[:, keys], o[:, rows], lse[:, rows],
+                            do[:, rows], True, delta=delta[:, rows], q_offset=r0)
+    torch.testing.assert_close(dq_p, dq[:, rows], rtol=0, atol=1e-5)
+    dk_p, dv_p = fa._bwd_dkv_plain(q[:, after], k[:, rows], v[:, rows], o[:, after],
+                                   lse[:, after], do[:, after], True, delta=delta[:, after])
+    torch.testing.assert_close(dk_p, dk[:, rows], rtol=0, atol=1e-5)
+    torch.testing.assert_close(dv_p, dv[:, rows], rtol=0, atol=1e-5)
+
+
+def test_longctx_runs_expect_the_save_policys_launches():
+    """K1 a step: the forward's 12, the loss replay's 12, and one more for
+    each block whose residuals are not kept."""
+    for label, seq, steps, extra, k1, may_not_fit in chip_smoke.LONGCTX_RUNS:
+        layers = chip_smoke.LAYERS
+        # Only the run without remat may be recorded as not fitting.
+        assert may_not_fit == ("--remat" not in extra), label
+        if "--remat" not in extra:
+            assert k1 == layers
+            continue
+        saved = (layers if "--remat-save-flash" in extra else
+                 int(extra[extra.index("--remat-save-flash-layers") + 1])
+                 if "--remat-save-flash-layers" in extra else 0)
+        assert k1 == 2 * layers + (layers - saved), label
+        argv = chip_smoke.longctx_argv(seq, steps, extra)
+        assert argv[argv.index("--seq") + 1] == str(seq) and "--batch" in argv
+
+
+def test_child_runs_the_trainer_and_reports_its_launches(tmp_path, monkeypatch):
+    """run_child: the trainer's entry point in a subprocess, its events, and
+    the kernels' launch counts it wrote at exit (all zero on the CPU, where
+    the plain versions run), through a real SIGTERM from --chaos."""
+    monkeypatch.setattr(chip_smoke, "OUT_DIR", tmp_path)
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    rc, events, counts = chip_smoke.run_child(
+        ["--device", "cpu", "--model", "transformer-lm", "--batch", "1", "--seq", "32",
+         "--layers", "1", "--hidden", "32", "--heads", "1", "--steps", "3", "--log-every",
+         "1", "--chaos", "kill:step=2,signal=TERM", "--checkpoint-dir",
+         str(tmp_path / "ckpt")], "_t", timeout=120)
+    assert rc == 143 and counts == {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 0, "bwd_delta": 0}
+    assert [e["event"] for e in events][-1] == "preempted"
+
+
+@pytest.mark.parametrize("oom_run", [run[0] for run in chip_smoke.LONGCTX_RUNS])
+def test_longctx_fails_when_a_run_that_must_fit_runs_out_of_memory(monkeypatch, oom_run):
+    """longctx_phase with the trainer stood in for: the run named oom_run
+    runs out of memory, every other run launches what its policy gives.
+    Only a run marked as one that may not fit is recorded (fits: false);
+    for any other the phase fails."""
+    monkeypatch.setattr(chip_smoke, "longctx_kernel_check", lambda records: None)
+    for name in ("empty_cache", "reset_peak_memory_stats"):
+        monkeypatch.setattr(torch.cuda, name, lambda: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda: 0)
+    runs = {run[0]: run for run in chip_smoke.LONGCTX_RUNS}
+
+    def run_trainer(argv, tag=""):
+        label = next(lb for lb in runs if tag == "_long_" + re.sub(r"\W+", "_", lb))
+        if label == oom_run:
+            raise torch.cuda.OutOfMemoryError("CUDA out of memory")
+        _, _, steps, _, k1, _ = runs[label]
+        layers = chip_smoke.LAYERS
+        fa.LAUNCHES.update(fwd=k1 * steps, bwd_dq=layers * steps, bwd_dkv=layers * steps,
+                           bwd_delta=layers * steps)
+        return {"done": {"examples_per_sec": 1.0, "final_loss": 1.0}}
+
+    monkeypatch.setattr(chip_smoke, "run_trainer", run_trainer)
+    if not runs[oom_run][5]:
+        with pytest.raises(chip_smoke.SmokeFailure, match="does not fit"):
+            chip_smoke.longctx_phase({}, "card")
+        return
+    results = chip_smoke.longctx_phase({}, "card")
+    assert [r["run"] for r in results] == list(runs)
+    assert [r["fits"] for r in results] == [r != oom_run for r in runs]
+
+
+@pytest.mark.parametrize("counts", [
+    {}, {"fwd": 1, "bwd_dq": 1, "bwd_dkv": 1}, {"fwd": 1, "bwd_dq": 1, "bwd_dkv": 1,
+                                                 "bwd_delta": 0},
+], ids=["no-counts-file", "a-key-missing", "a-kernel-not-launched"])
+def test_preempt_phase_requires_every_flash_kernel_in_both_runs(tmp_path, monkeypatch,
+                                                                 counts):
+    """preempt_phase with its children stood in for: both runs behave, but
+    one reports launch counts without every flash kernel in them."""
+    monkeypatch.setattr(chip_smoke, "PREEMPT_DIR", tmp_path / "preempt")
+    full = dict.fromkeys(chip_smoke.FLASH_LAUNCH_KEYS, 1)
+    trace = {"traceEvents": [{"ph": "X", "name": n} for n in chip_smoke.PREEMPT_SPANS]}
+
+    def run_child(argv, tag, timeout=600):
+        trace_dir = Path(argv[argv.index("--trace-dir") + 1])
+        trace_dir.mkdir(parents=True, exist_ok=True)
+        (trace_dir / "local-0.trace.json").write_text(json.dumps(trace))
+        if tag == "_preempt_a":
+            return 143, [{"event": "preempted", "step": chip_smoke.PREEMPT_STEP,
+                          "emergency_checkpoint": True}], full
+        prof = Path(argv[argv.index("--profile-dir") + 1])
+        prof.mkdir(parents=True, exist_ok=True)
+        (prof / "t.json").write_text("{}")
+        return 0, [{"event": "resumed", "from_step": chip_smoke.PREEMPT_STEP},
+                   {"event": "profile_done", "dir": str(prof)},
+                   {"event": "done", "final_loss": 1.0}], counts
+
+    monkeypatch.setattr(chip_smoke, "run_child", run_child)
+    args = chip_smoke.argparse.Namespace(steps=6)
+    with pytest.raises(chip_smoke.SmokeFailure, match="was not launched"):
+        chip_smoke.preempt_phase(args, "card", {"final_loss": 1.0})

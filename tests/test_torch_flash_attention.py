@@ -33,6 +33,23 @@ from tf_operator_tpu_torch.parallel.ring_attention import (
 
 torch.set_num_threads(2)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """The module's tests and fixtures at one intra-op thread. On a loaded
+    machine the plain forward's first multi-threaded torch.exp in a fresh
+    process (torch 2.13, CPU, MKL and OpenMP) returns values up to 1.5e-4
+    relative off in 6 of 96 processes at 2 threads and in 0 of 96 at one; a
+    second call is exact (6.1e-8). That moved o by up to 3.6e-5 and failed
+    the f32 2e-5 check of test_matches_pallas_interpret[shape0-False]. A
+    module-level set_num_threads does not hold here: collecting the suite
+    imports every test module, and the last one imported sets the count for
+    all."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 F32_OUT, F32_GRAD = 2e-5, 1e-4
 BF16_OUT, BF16_GRAD = 3e-2, 1e-1
 
@@ -279,11 +296,11 @@ class TestDispatch:
 
 class TestHeadWidthPadding:
     """Head widths the kernels are not built for run zero-padded to one
-    that they are (64, 128, 256), with the unpadded width's scale. The
+    that they are (64, 128, 256, 384, 512), with the unpadded width's scale. The
     plain versions on CPU reach the same padding and slicing as the
     kernels on the card."""
 
-    @pytest.mark.parametrize("d", [32, 96, 160, 192])
+    @pytest.mark.parametrize("d", [32, 96, 160, 192, 320])
     @pytest.mark.parametrize("causal", [False, True])
     def test_padded_path_equals_the_unpadded_plain_version(self, d, causal):
         q, k, v, do = _torch(_inputs(20 + d, (3, 40, d), n=4))
@@ -301,7 +318,7 @@ class TestHeadWidthPadding:
         torch.testing.assert_close(fa.bwd_delta(o, do, g_lse),
                                    fa._bwd_delta_plain(o_p, do, g_lse), rtol=0, atol=1e-6)
 
-    @pytest.mark.parametrize("d", [32, 96, 160, 192])
+    @pytest.mark.parametrize("d", [32, 96, 160, 192, 320, 448])
     def test_padded_columns_come_out_zero(self, d):
         width = fa.kernel_head_dim(d)
         q, k, v, do = (fa.pad_head(x, width) for x in _torch(_inputs(30 + d, (2, 48, d), n=4)))
@@ -330,17 +347,35 @@ class TestHeadWidthPadding:
             np.testing.assert_allclose(_np(gt), _np(gj), atol=F32_GRAD)
 
     def test_supported_head_dims_take_every_width_to_256(self):
-        assert fa.SUPPORTED_HEAD_DIMS == (64, 128, 256)
-        for d in range(1, 257):
+        """Every width up to 512 pads to a built one (384 and 512 since the
+        FMA kernels run at 16-row tiles there); past 512 a CUDA call raises."""
+        assert fa.SUPPORTED_HEAD_DIMS == (64, 128, 256, 384, 512)
+        for d in range(1, 513):
             width = fa.kernel_head_dim(d)
             assert width in fa.SUPPORTED_HEAD_DIMS and d <= width
             assert width == d or width // 2 < d or width == 64
-        for d in (0, 320):
+        for d in (0, 513, 640):
             with pytest.raises(ValueError, match="head_dim"):
                 fa.kernel_head_dim(d)
-        q = torch.zeros(1, 8, 320)
+        q = torch.zeros(1, 8, 640)
         with pytest.raises(ValueError, match="head_dim"):
             fa._check_cuda(q, q, q)
+
+    @pytest.mark.parametrize("causal", [False, True])
+    def test_binding_at_d320_matches_the_pallas_kernel(self, causal):
+        """D = 320, a multiple of 64 that the Pallas kernel takes as it is;
+        the port pads it to 384 and slices the outputs back."""
+        arrs = _inputs(42, (1, 2, 128, 320))
+        expected, vjp = jax.vjp(
+            lambda *x: jfa.flash_attention_pallas(*x, causal, 128, 128, True), *_jax(arrs))
+        qkv = _torch(arrs, grad=True)
+        got = fa.FlashAttention.apply(*qkv, causal)
+        np.testing.assert_allclose(_np(got), _np(expected), atol=F32_OUT)
+        g = _inputs(43, (1, 2, 128, 320), n=1)[0]
+        got_grads = torch.autograd.grad(got, qkv, torch.from_numpy(g))
+        for gt, gj in zip(got_grads, vjp(jnp.asarray(g))):
+            assert gt.shape == (1, 2, 128, 320)
+            np.testing.assert_allclose(_np(gt), _np(gj), atol=F32_GRAD)
 
     def test_a_built_width_is_passed_through_without_a_copy(self):
         x = torch.randn(2, 8, 128)

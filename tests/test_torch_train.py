@@ -321,14 +321,16 @@ def test_trainer_refuses_cuda_without_a_device(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--model", "moe-lm"], ["--remat"], ["--data-dir", "/nonexistent"],
-    ["--chaos", "kill:step=1"], ["--trace"], ["--eval"], ["--model", "bert-base"],
+    ["--model", "moe-lm"], ["--model", "bert-tiny"], ["--data-dir", "/nonexistent"],
+    ["--input-staging", "staged"], ["--wire-dtype=uint8"], ["--moe-dispatch", "sparse"],
+    ["--model", "bert-base"],
 ])
 def test_trainer_refuses_what_is_not_ported(flag, capsys):
     with pytest.raises(SystemExit) as e:
         train.main([*TINY_ARGS, *flag])
     assert e.value.code == 2
-    assert "not ported" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "not ported" in err and flag[0].split("=")[0] in err
 
 
 def test_chip_smoke_fails_without_a_card():

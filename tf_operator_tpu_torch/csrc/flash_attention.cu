@@ -6,8 +6,8 @@
 // file, loaded with ctypes by tf_operator_tpu_torch/ops/flash_attention.py.
 //
 // Operands are [BH, T, D] row-major (batch*heads flattened), D in {64, 128,
-// 256}, element type f32 or bf16; lse, the lse cotangent and delta are
-// [BH, T] f32. Other head widths up to 256 reach these kernels zero-padded
+// 256, 384, 512}, element type f32 or bf16; lse, the lse cotangent and delta
+// are [BH, T] f32. Other head widths up to 512 reach these kernels zero-padded
 // by the wrapper (ops/flash_attention.py): zero columns leave Q.K^T, lse and
 // delta as they are, and come out of o, dQ, dK and dV as zeros, so long as
 // the softmax scale is that of the unpadded width, which every entry point
@@ -23,9 +23,10 @@
 // the tensor cores with wgmma, fed by TMA through shared-memory rings; see
 // the notes above them. The FMA kernels (fwd_kernel, bwd_dq_kernel and
 // bwd_dkv_kernel), the first versions, described below, run f32 at every
-// width and bf16 at D = 256.
+// width and bf16 at D = 256, 384 and 512.
 //
-// Tiles are R x R (R = 64; 32 at D = 256, see fma_rows) and a block has 256
+// Tiles are R x R (R = 64; 32 at D = 256, 16 at D = 384 and 512, see
+// fma_rows) and a block has 256
 // threads. Thread (ty, tx) = (tid / 16, tid % 16) owns tile rows ty + 16*i
 // (i < R / 16) and columns tx + 16*j, so row reductions are shuffles within
 // a 16-lane half warp. Shared-memory rows are
@@ -1307,11 +1308,14 @@ fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   store_rows<D>(o + static_cast<size_t>(bh) * tq * D, acc, row0, tq);
 }
 
-// Tile rows of the FMA kernels at head width D: 64, and 32 at D = 256,
-// where four f32 tiles of 64 rows (K2's Q, dO, K and V) would need 263 KB of
-// shared memory against the 227 KB a block may have.
+// Tile rows of the FMA kernels at head width D: 64; 32 at D = 256, where
+// four f32 tiles of 64 rows (K2's Q, dO, K and V) would need 263 KB of
+// shared memory against the 227 KB a block may have; 16 at D = 384 and 512,
+// where four f32 tiles of 32 rows would need 197 KB and 263 KB. At 16 rows
+// K3 in f32 takes 133,632 bytes at D = 512 and 100,864 at D = 384 (K2
+// 132,544 and 99,776, K1 99,584 and 75,008); a thread owns one tile row.
 template <int D>
-constexpr int fma_rows() { return D > 128 ? 32 : kTile; }
+constexpr int fma_rows() { return D > 256 ? 16 : (D > 128 ? 32 : kTile); }
 
 // Dynamic shared memory of each kernel, in bytes.
 template <typename T, int D, int R>
@@ -1328,6 +1332,8 @@ constexpr size_t dkv_smem() {
          sizeof(float) * (R * padded<float>(R) + 2 * R);
 }
 static_assert(dkv_smem<float, 256, fma_rows<256>()>() <= 232448, "K3 at D = 256 fits");
+static_assert(dkv_smem<float, 512, fma_rows<512>()>() <= 232448, "K3 at D = 512 fits");
+static_assert(dq_smem<float, 512, fma_rows<512>()>() <= 232448, "K2 at D = 512 fits");
 
 template <typename Kern>
 cudaError_t allow_smem(Kern kern, size_t bytes) {
@@ -1489,15 +1495,17 @@ int launch_dkv_wgmma(const void* q, const void* k, const void* v, const void* do
 }  // namespace
 
 // Plain C interface. dtype: 0 = f32, 1 = bf16; d, the head width, is 64,
-// 128 or 256 (the wrapper zero-pads narrower heads up to one of them). scale
+// 128, 256, 384 or 512 (the wrapper zero-pads other widths up to one of
+// them). scale
 // is the softmax scale of the caller's unpadded width. lse (forward) and
 // glse (the delta pass) may be NULL. Each returns the launch's
 // cudaGetLastError(), cudaErrorInvalidValue for a shape or type outside the
 // kernels' scope, or kTensorMapError + the CUresult of a refused
 // cuTensorMapEncodeTiled; it never synchronises. The backward passes take
 // delta from tfo_flash_bwd_delta. f32 runs the FMA kernels; bf16 the wgmma
-// kernels at D = 64 and 128 and the FMA kernels at D = 256 (a 128-row Q
-// tile and a K/V ring of 256 columns do not fit K1's wgmma layout).
+// kernels at D = 64 and 128 and the FMA kernels at D = 256, 384 and 512 (a
+// 128-row Q tile and a K/V ring of 256 columns do not fit K1's wgmma
+// layout).
 #define TFO_DISPATCH(DTYPE, D, CALL_F32, CALL_BF16, CALL_BF16_FMA)           \
   if ((DTYPE) == 0 && (D) == 64) return static_cast<int>(CALL_F32(float, 64));     \
   if ((DTYPE) == 0 && (D) == 128) return static_cast<int>(CALL_F32(float, 128));   \
@@ -1505,6 +1513,10 @@ int launch_dkv_wgmma(const void* q, const void* k, const void* v, const void* do
   if ((DTYPE) == 1 && (D) == 64) return static_cast<int>(CALL_BF16(64));           \
   if ((DTYPE) == 1 && (D) == 128) return static_cast<int>(CALL_BF16(128));         \
   if ((DTYPE) == 1 && (D) == 256) return static_cast<int>(CALL_BF16_FMA(bf16, 256)); \
+  if ((DTYPE) == 0 && (D) == 384) return static_cast<int>(CALL_F32(float, 384));   \
+  if ((DTYPE) == 0 && (D) == 512) return static_cast<int>(CALL_F32(float, 512));   \
+  if ((DTYPE) == 1 && (D) == 384) return static_cast<int>(CALL_BF16_FMA(bf16, 384)); \
+  if ((DTYPE) == 1 && (D) == 512) return static_cast<int>(CALL_BF16_FMA(bf16, 512)); \
   return static_cast<int>(cudaErrorInvalidValue);
 
 extern "C" int tfo_flash_fwd(const void* q, const void* k, const void* v,

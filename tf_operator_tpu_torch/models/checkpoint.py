@@ -38,6 +38,11 @@ params-only resume.
 
 Single process: the sharding manifest records one process, one device,
 the `{"dp": 1}` mesh and no PartitionSpec per leaf.
+
+Tracing: save_named and restore_named record the `checkpoint/save` and
+`checkpoint/restore` spans of the JAX module (telemetry/tracer.py; free
+when --trace is off). Chaos: `stall:ckpt=N,delay=S` holds the save of step
+N for S seconds between its finished tmp write and the publishing rename.
 """
 
 from __future__ import annotations
@@ -52,6 +57,8 @@ from typing import Any
 
 import numpy as np
 import torch
+
+from tf_operator_tpu_torch.telemetry import tracer
 
 _STEP_RE = re.compile(r"^step_(\d+)$")
 
@@ -320,15 +327,31 @@ def save_named(ckpt_dir: str, name: str, tree: Any) -> str:
     tmp = os.path.join(root, f"{name}{TMP_PUBLISH_MARKER}-publish")
     tensors: dict[str, torch.Tensor] = {}
     skeleton = _structure(tree, tensors)
-    if os.path.isdir(tmp):
-        shutil.rmtree(tmp)  # a killed generation's leftover
-    os.makedirs(tmp)
-    write_tensors(os.path.join(tmp, TREE_FILE), tensors, {"tree": json.dumps(skeleton)})
-    if os.path.isdir(path):
-        shutil.rmtree(path)
-    os.rename(tmp, path)
-    write_manifest(ckpt_dir, name)
+    with tracer.span("checkpoint/save", ckpt=name):
+        if os.path.isdir(tmp):
+            shutil.rmtree(tmp)  # a killed generation's leftover
+        os.makedirs(tmp)
+        write_tensors(os.path.join(tmp, TREE_FILE), tensors, {"tree": json.dumps(skeleton)})
+        _publish_stall(name)
+        if os.path.isdir(path):
+            shutil.rmtree(path)
+        os.rename(tmp, path)
+        write_manifest(ckpt_dir, name)
     return path
+
+
+def _publish_stall(name: str) -> None:
+    """The chaos window between the finished tmp write and the rename:
+    `stall:ckpt=N,delay=S` sleeps here while saving step N, so a kill that
+    lands in it leaves exactly one tmp dir."""
+    from tf_operator_tpu_torch import chaos
+
+    stalls = chaos.ckpt_stalls_from_env()
+    m = _STEP_RE.match(name)
+    if stalls and m is not None:
+        delay = chaos.ckpt_stall_delay(int(m.group(1)), stalls)
+        if delay > 0:
+            time.sleep(delay)
 
 
 def restore_named(ckpt_dir: str, name: str, template: Any | None = None) -> Any:
@@ -339,7 +362,8 @@ def restore_named(ckpt_dir: str, name: str, template: Any | None = None) -> Any:
     path = os.path.join(os.path.abspath(ckpt_dir), name)
     if not os.path.isdir(path):
         raise FileNotFoundError(path)
-    tensors, metadata = read_tensors(os.path.join(path, TREE_FILE))
+    with tracer.span("checkpoint/restore", ckpt=name):
+        tensors, metadata = read_tensors(os.path.join(path, TREE_FILE))
     try:
         skeleton = json.loads(metadata["tree"])
     except (KeyError, ValueError) as e:

@@ -30,6 +30,19 @@ newest first past torn or foreign ones (`resume_fallback`), resumes at the
 step it finds (`resumed`), and replays the batch stream from there, since
 batches are a function of (seed, global step).
 
+The rest of the JAX trainer's pod contract: `--remat` rematerialises the
+loss and each LM block, `--remat-save-flash[-layers]` keeps the flash
+forward's (o, lse) in all (or the first K) blocks; a SIGTERM, SIGINT or
+SIGUSR1 is latched (utils/preemption.py) and handled at the next chunk
+boundary: drain the in-flight async save and adopt it when it is this
+step's, else save synchronously when `--preempt-grace` still covers it,
+emit `preempted` and exit 128+signum. `--chaos` (or TPUJOB_CHAOS) injects
+kill / hang / torn / stall:ckpt faults (chaos/). `--trace` records host
+spans and writes `<rank>.trace.json` under `--trace-dir`; `--profile-dir`
+keeps a torch.profiler trace of the last steady chunk, outside the
+throughput window. `--eval` makes this process the Evaluator: it follows
+`--checkpoint-dir` to FINAL and evaluates each step on fixed batches.
+
 It runs on CUDA unless `--device cpu` asks for the CPU, and exits nonzero
 when CUDA is asked for and absent. Flags and models of the JAX trainer
 that this one does not handle yet are refused, never ignored.
@@ -54,7 +67,12 @@ MODELS = ("mnist-mlp", "mnist-conv", "resnet18", "resnet50", "transformer-lm",
           "bert-base", "bert-tiny", "moe-lm")
 PORTED_MODELS = ("mnist-mlp", "mnist-conv", "resnet18", "resnet50", "transformer-lm")
 # Flags of the JAX trainer this trainer refuses until their feature is ported.
-UNPORTED_FLAGS = ("remat", "data_dir", "chaos", "trace", "eval")
+UNPORTED_FLAGS = ("data_dir",)
+# Flags of the JAX trainer this parser does not define, refused by name:
+# the --data-dir ingest path's staging and wire flags, and MoE dispatch.
+UNPORTED_JAX_ARGS = ("--input-staging", "--staging-depth", "--staging-chunks",
+                     "--staging-lanes", "--staging-tune", "--wire-codec", "--wire-dtype",
+                     "--moe-dispatch")
 # Per-device f32 logits bytes at which the loss switches to the chunked head
 # (the JAX trainer's cutover).
 CHUNKED_LOSS_BYTES = 6e9
@@ -121,20 +139,93 @@ def build_parser() -> argparse.ArgumentParser:
                          "step checkpoints (params + trainstate + manifests) "
                          "and prune the rest; 0 (default) keeps everything. "
                          "Orphaned tmp dirs are swept at startup either way")
-    # Refused until ported (see UNPORTED_FLAGS).
-    ap.add_argument("--remat", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--remat", action="store_true",
+                    help="activation checkpointing: rematerialize the loss, "
+                         "and (transformer-lm) each block; the forward keeps "
+                         "only block inputs for the backward")
+    ap.add_argument("--remat-save-flash", action="store_true",
+                    help="with --remat (transformer-lm): keep the flash "
+                         "kernel's (o, lse) in every block so the backward "
+                         "replays only linear ops, never the O(T^2) kernel")
+    ap.add_argument("--remat-save-flash-layers", type=int, default=0,
+                    help="with --remat (transformer-lm): keep the flash "
+                         "residuals in the FIRST K blocks only (memory->speed "
+                         "dial where saving all layers does not fit)")
+    ap.add_argument("--preempt-grace", type=float, default=30.0,
+                    help="graceful-preemption budget in seconds from "
+                         "SIGTERM/SIGINT/SIGUSR1: the trainer finishes the "
+                         "in-flight chunk and writes an emergency checkpoint "
+                         "only when the estimated save still fits; 0 never "
+                         "attempts it. Exit is 128+signum either way "
+                         "(143/130/138, retryable under ExitCode)")
+    ap.add_argument("--chaos", default=None, metavar="SPEC",
+                    help="fault-injection spec (grammar of TPUJOB_CHAOS, "
+                         "which it overrides): e.g. 'kill:step=12,signal=TERM' "
+                         "or 'torn:step=8;stall:ckpt=4,delay=0.2'")
+    ap.add_argument("--eval", action="store_true",
+                    help="evaluator mode: poll --checkpoint-dir, restore and "
+                         "evaluate each new checkpoint until FINAL")
+    ap.add_argument("--eval-timeout", type=float, default=600.0)
+    ap.add_argument("--profile-dir", default=None,
+                    help="write a torch.profiler trace of the last steady "
+                         "chunk (outside the throughput window) under "
+                         "this directory")
+    ap.add_argument("--trace", action="store_true",
+                    help="record host-side spans (step phases, checkpoint "
+                         "IO, eval) and write Chrome trace-event JSON at exit")
+    ap.add_argument("--trace-dir", default=None,
+                    help="directory for the trace file (<replica rank>"
+                         ".trace.json; default ./traces)")
+    ap.add_argument("--trace-steps", type=int, default=0,
+                    help="stop recording after this many steady steps "
+                         "(0 = the whole run, bounded by the tracer's ring)")
+    # Refused until ported (see UNPORTED_FLAGS): the on-disk dataset.
     ap.add_argument("--data-dir", default=None, help=argparse.SUPPRESS)
-    ap.add_argument("--chaos", default=None, help=argparse.SUPPRESS)
-    ap.add_argument("--trace", action="store_true", help=argparse.SUPPRESS)
-    ap.add_argument("--eval", action="store_true", help=argparse.SUPPRESS)
     return ap
 
 
-def main(argv: list[str] | None = None, state_out: dict | None = None) -> int:
-    """Parse, check and train. When `state_out` is a dict, the final
-    TrainState is left in it under "state" for an in-process caller."""
-    ap = build_parser()
-    args = ap.parse_args(argv)
+def parse_args(ap: argparse.ArgumentParser, argv: list[str] | None):
+    """ap's arguments; a flag of UNPORTED_JAX_ARGS is refused by name, any
+    other unknown argument as argparse refuses it (exit 2 either way)."""
+    args, rest = ap.parse_known_args(argv)
+    for arg in rest:
+        if arg.split("=", 1)[0] in UNPORTED_JAX_ARGS:
+            ap.error(f"{arg.split('=', 1)[0]} is not ported to the PyTorch trainer yet")
+    if rest:
+        ap.error(f"unrecognized arguments: {' '.join(rest)}")
+    return args
+
+
+def check_flags(ap: argparse.ArgumentParser, args) -> None:
+    """The JAX trainer's flag-only checks, with its messages (ap.error:
+    exit 2), then what this trainer does not handle yet."""
+    if ((args.remat_save_flash or args.remat_save_flash_layers)
+            and not args.remat):
+        ap.error("--remat-save-flash[-layers] requires --remat (it selects "
+                 "WHICH residuals per-layer remat keeps)")
+    if args.remat_save_flash and args.remat_save_flash_layers:
+        ap.error("--remat-save-flash (all layers) conflicts with "
+                 "--remat-save-flash-layers K (a subset): pick one — the "
+                 "all-layers flag would silently win and can OOM exactly "
+                 "where the K dial was chosen to fit")
+    if args.remat_save_flash_layers < 0:
+        ap.error("--remat-save-flash-layers must be >= 0")
+    if (args.trace_dir is not None or args.trace_steps) and not args.trace:
+        ap.error("--trace-dir/--trace-steps shape the span trace; pass "
+                 "--trace to enable it (they would otherwise be silently "
+                 "ignored)")
+    if args.trace_steps < 0:
+        ap.error("--trace-steps must be >= 0")
+    if args.preempt_grace < 0:
+        ap.error("--preempt-grace must be >= 0")
+    if args.keep_checkpoints < 0:
+        ap.error("--keep-checkpoints must be >= 0")
+    if args.keep_checkpoints and not args.checkpoint_dir:
+        ap.error("--keep-checkpoints prunes --checkpoint-dir; without one "
+                 "there is nothing to retain")
+    if args.allow_reshape and not args.checkpoint_dir:
+        ap.error("--allow-reshape shapes the --checkpoint-dir resume walk; "
+                 "without one there is nothing to restore")
     for name in UNPORTED_FLAGS:
         if getattr(args, name):
             ap.error(f"--{name.replace('_', '-')} is not ported to the PyTorch "
@@ -150,16 +241,109 @@ def main(argv: list[str] | None = None, state_out: dict | None = None) -> int:
         ap.error("--checkpoint-every must be >= 0")
     if args.hidden % args.heads:
         ap.error("--hidden must be a multiple of --heads")
+
+
+def main(argv: list[str] | None = None, state_out: dict | None = None) -> int:
+    """Parse, check and train (or evaluate). When `state_out` is a dict, the
+    final TrainState is left in it under "state" for an in-process caller."""
+    ap = build_parser()
+    args = parse_args(ap, argv)
+    check_flags(ap, args)
     if args.device == "cuda" and not torch.cuda.is_available():
         print("error: --device cuda was asked for but no CUDA device is "
               "available; pass --device cpu to run on the CPU", file=sys.stderr)
         return 1
 
-    from tf_operator_tpu_torch.utils.preemption import HeartbeatWriter
+    from tf_operator_tpu_torch import chaos as chaos_lib
+    from tf_operator_tpu_torch.telemetry import tracer
+    from tf_operator_tpu_torch.utils.preemption import HeartbeatWriter, PreemptionGuard
 
+    chaos_env_prev = os.environ.get(chaos_lib.ENV_CHAOS)
+    try:
+        if args.chaos is not None:
+            # Validate before touching the env: a typo'd spec fails here.
+            chaos_lib.parse_chaos(args.chaos)
+            os.environ[chaos_lib.ENV_CHAOS] = args.chaos
+        chaos = chaos_lib.TrainerChaos.from_env()
+    except ValueError as e:
+        ap.error(str(e))
+    if args.trace:
+        # A fresh window: clear() also restarts the ts epoch, so an
+        # in-process re-run does not carry a previous run's spans.
+        tracer.configure(enabled=True).clear()
+    # Installed after the flag checks, so ap.error never touches the
+    # process's signal disposition; restored in the finally below.
+    guard = PreemptionGuard()
+    guard.install()
     heartbeat = HeartbeatWriter.from_env()
     heartbeat.write(0, force=True)
-    return _run_trainer(args, torch.device(args.device), heartbeat, state_out)
+    try:
+        return _run_trainer(args, torch.device(args.device), heartbeat, guard, chaos,
+                            state_out)
+    finally:
+        # The trace goes out on every exit path (done, preempted, the
+        # evaluator's returns, an exception), after the writer's spans.
+        _maybe_export_trace(args)
+        guard.uninstall()
+        chaos_lib.reset_ckpt_stall_state()
+        if args.chaos is not None:
+            if chaos_env_prev is None:
+                os.environ.pop(chaos_lib.ENV_CHAOS, None)
+            else:
+                os.environ[chaos_lib.ENV_CHAOS] = chaos_env_prev
+
+
+def _rank() -> str:
+    """Replica identity for per-pod trace and profile files."""
+    return (f"{os.environ.get('TPUJOB_REPLICA_TYPE') or 'local'}-"
+            f"{os.environ.get('TPUJOB_REPLICA_INDEX', '0')}")
+
+
+def _trace_window_check(args, steps_done: int) -> None:
+    """Close the --trace-steps window: once N steps are recorded the tracer
+    disables, so the ring holds the window and not the run's tail."""
+    if args.trace and args.trace_steps and steps_done >= args.trace_steps:
+        from tf_operator_tpu_torch.telemetry import tracer
+
+        tracer.get_tracer().enabled = False
+
+
+def _maybe_export_trace(args) -> None:
+    """Write the Chrome trace-event JSON (Perfetto, chrome://tracing) and
+    emit trace_done with its path."""
+    if not args.trace:
+        return
+    from tf_operator_tpu_torch.telemetry import tracer
+
+    t = tracer.get_tracer()
+    t.enabled = False  # the export is not part of the trace
+    path = os.path.join(args.trace_dir or "traces", f"{_rank()}.trace.json")
+    n = t.export(path)
+    _emit({"event": "trace_done", "path": path, "events": n,
+           "dropped_events": t.dropped_events})
+
+
+class _Profile:
+    """A torch.profiler trace of the host and (on CUDA) the device, written
+    as Chrome trace JSON under <profile_dir>/<rank>/ when stopped."""
+
+    def __init__(self, profile_dir: str, device: torch.device) -> None:
+        from torch.profiler import ProfilerActivity, profile
+
+        self.dir = os.path.join(profile_dir, _rank())
+        activities = [ProfilerActivity.CPU]
+        if device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        self._prof = profile(activities=activities)
+        self._prof.start()
+        _emit({"event": "profile_start", "dir": self.dir})
+
+    def stop(self) -> str:
+        self._prof.stop()
+        os.makedirs(self.dir, exist_ok=True)
+        path = os.path.join(self.dir, "trace.json")
+        self._prof.export_chrome_trace(path)
+        return path
 
 
 def _build_model(args, device: torch.device):
@@ -173,6 +357,10 @@ def _build_model(args, device: torch.device):
         cfg = tfm.TransformerConfig(
             vocab_size=VOCAB, num_layers=args.layers, hidden=args.hidden,
             num_heads=args.heads, max_len=args.seq, causal=True,
+            # --remat also remats per block; save-flash keeps the flash
+            # residuals of every block (or of the first K).
+            remat_layers=args.remat, remat_save_flash=args.remat_save_flash,
+            remat_save_flash_layers=args.remat_save_flash_layers,
         )
         model = tfm.TransformerLM(cfg, attn_fn=make_attention_fn(causal=True),
                                   device=device, generator=gen)
@@ -317,29 +505,39 @@ def _snapshot_state(ckpt_dir: str, step: int, state, final: bool, keep: int,
                      host_aux=host_aux, info=info, final=final, keep=keep)
 
 
-def _write_snapshot(item: _SaveItem, digest: bool, heartbeat=None) -> None:
+def _write_snapshot(item: _SaveItem, digest: bool, heartbeat=None, chaos=None) -> None:
     """Write leg: the trainstate first (so any visible step_<N> has its
     resume payload beside it), then the params, the sharding manifest with
-    digests, FINAL, the `checkpoint` event and retention, and only then the
-    forced heartbeat: progress counts from a durable save. Runs on the
-    writer thread in async mode and inline in sync mode; it only writes
-    files."""
+    digests, FINAL, the `checkpoint` event, retention and a `torn:step=N`
+    chaos directive's damage, and only then the forced heartbeat: progress
+    counts from a durable save. Runs on the writer thread in async mode and
+    inline in sync mode; it only writes files."""
     from tf_operator_tpu_torch.models import checkpoint as ckpt
+    from tf_operator_tpu_torch.telemetry import tracer
 
-    ckpt.save_named(item.ckpt_dir, f"trainstate_{item.step}", item.host_aux)
-    path = ckpt.save(item.ckpt_dir, item.step, item.host_params)
-    info = dict(item.info)
-    if digest:
-        info["digest"] = {"params": ckpt.tree_digest(item.host_params),
-                          "trainstate": ckpt.tree_digest(item.host_aux)}
-    ckpt.write_sharding_manifest(item.ckpt_dir, f"step_{item.step}", info)
-    if item.final:
-        ckpt.mark_final(item.ckpt_dir, item.step)
-    _emit({"event": "checkpoint", "step": item.step, "path": path, "final": item.final})
-    if item.keep:
-        pruned = ckpt.prune_checkpoints(item.ckpt_dir, item.keep)
-        if pruned:
-            _emit({"event": "checkpoint_pruned", "steps": pruned, "keep": item.keep})
+    with tracer.span("checkpoint/ckpt_write", step=item.step, final=item.final):
+        ckpt.save_named(item.ckpt_dir, f"trainstate_{item.step}", item.host_aux)
+        path = ckpt.save(item.ckpt_dir, item.step, item.host_params)
+        info = dict(item.info)
+        if digest:
+            info["digest"] = {"params": ckpt.tree_digest(item.host_params),
+                              "trainstate": ckpt.tree_digest(item.host_aux)}
+        ckpt.write_sharding_manifest(item.ckpt_dir, f"step_{item.step}", info)
+        if item.final:
+            ckpt.mark_final(item.ckpt_dir, item.step)
+        _emit({"event": "checkpoint", "step": item.step, "path": path, "final": item.final})
+        if item.keep:
+            pruned = ckpt.prune_checkpoints(item.ckpt_dir, item.keep)
+            if pruned:
+                _emit({"event": "checkpoint_pruned", "steps": pruned, "keep": item.keep})
+        torn = chaos.tear_for_step(item.step) if chaos is not None else None
+        if torn is not None:
+            from tf_operator_tpu_torch import chaos as chaos_lib
+
+            chaos.state.mark(torn)
+            damaged = chaos_lib.tear_checkpoint(item.ckpt_dir, item.step,
+                                                torn.params.get("mode", "truncate"))
+            _emit({"event": "chaos_torn_checkpoint", "step": item.step, "path": damaged})
     if heartbeat is not None:
         heartbeat.write(item.step, force=True)
 
@@ -368,6 +566,7 @@ def _ckpt_writer_main(writer: "_CkptWriter") -> None:
         with writer._cond:
             writer.write_s += dt
             writer.saves += 1
+            writer.last_step = item.step
             writer._item = None
             writer._cond.notify_all()
 
@@ -386,6 +585,7 @@ class _CkptWriter:
         self._item: _SaveItem | None = None
         self._stop = False
         self._error: BaseException | None = None
+        self.last_step: int | None = None  # newest durable step
         self.saves = 0
         self.write_s = 0.0
         self.snapshot_s = 0.0
@@ -394,6 +594,11 @@ class _CkptWriter:
         self._thread = threading.Thread(target=_ckpt_writer_main, args=(self,),
                                         name="ckpt-writer", daemon=True)
         self._thread.start()
+
+    @property
+    def error(self) -> BaseException | None:
+        with self._cond:
+            return self._error
 
     def _raise_pending(self) -> None:
         if self._error is not None:
@@ -427,6 +632,16 @@ class _CkptWriter:
             if raise_error:
                 self._raise_pending()
         return time.monotonic() - t0
+
+    def mean_write_s(self) -> float:
+        with self._cond:
+            return self.write_s / self.saves if self.saves else 0.0
+
+    def mean_save_s(self) -> float:
+        """Mean full save cost (snapshot + write) over completed saves: what
+        a synchronous emergency save is expected to cost."""
+        with self._cond:
+            return (self.snapshot_s + self.write_s) / self.saves if self.saves else 0.0
 
     def note_snapshot(self, seconds: float) -> None:
         with self._cond:
@@ -466,13 +681,14 @@ class _Checkpointing:
     keep: int
     digest: bool
     heartbeat: Any = None
+    chaos: Any = None
     writer: _CkptWriter | None = None
     pool: _PinnedPool = dataclasses.field(default_factory=_PinnedPool)
     sync_stats: dict = dataclasses.field(
         default_factory=lambda: {"saves": 0, "snapshot_s": 0.0, "write_s": 0.0})
 
     def write(self, item: _SaveItem) -> None:
-        _write_snapshot(item, self.digest, self.heartbeat)
+        _write_snapshot(item, self.digest, self.heartbeat, self.chaos)
 
 
 def _ckpt_done_stats(ck: _Checkpointing | None) -> dict | None:
@@ -491,23 +707,26 @@ def _ckpt_done_stats(ck: _Checkpointing | None) -> dict | None:
 
 
 def _save_checkpoint(ck: _Checkpointing, step: int, state, final: bool = False,
-                     st=None) -> None:
+                     st=None, sync: bool = False) -> float:
     """step_<N> holds the params only, trainstate_<N> the resume payload.
     Async (a writer exists): only the snapshot and any backpressure wait
     block the step loop (phase `ckpt_snapshot`); a final save drains before
-    returning, since job completion is durable completion. Sync: both legs
-    inline under the `checkpoint` phase."""
+    returning, since job completion is durable completion. Sync (no writer,
+    or sync=True for the preemption fast path): both legs inline under the
+    `checkpoint` phase. Returns the estimated seconds of a synchronous save,
+    the preemption guard's estimate against the grace budget."""
     writer = ck.writer
     t0 = time.monotonic()
-    if writer is None:
+    if writer is None or sync:
         with st.phase("checkpoint") if st is not None else contextlib.nullcontext():
             item = _snapshot_state(ck.ckpt_dir, step, state, final, ck.keep, ck.pool)
             snap_s = time.monotonic() - t0
             ck.write(item)
+        total = time.monotonic() - t0
         ck.sync_stats["saves"] += 1
         ck.sync_stats["snapshot_s"] += snap_s
-        ck.sync_stats["write_s"] += time.monotonic() - t0 - snap_s
-        return None
+        ck.sync_stats["write_s"] += total - snap_s
+        return total
     with st.phase("ckpt_snapshot") if st is not None else contextlib.nullcontext():
         # The phase covers the snapshot and any backpressure wait inside
         # submit; the done block keeps the two apart (snapshot_s, and the
@@ -518,6 +737,7 @@ def _save_checkpoint(ck: _Checkpointing, step: int, state, final: bool = False,
     writer.note_snapshot(snap_s)
     if final:
         writer.drain()
+    return snap_s + writer.mean_write_s()
 
 
 def _try_resume(ckpt_dir: str | None, state, tx, allow_reshape: bool = False):
@@ -665,7 +885,117 @@ def _params_only_state(state, tx, params: dict, step: int):
     return TrainState(step, state.model, opt_state)
 
 
-def _run_trainer(args, device: torch.device, heartbeat, state_out=None) -> int:
+def _preempt_exit(args, guard, state, done: int, ck: _Checkpointing | None,
+                  last_save_s: float, last_ckpt_step: int, st=None) -> int:
+    """Graceful-preemption teardown at a chunk boundary: drain the in-flight
+    async write first (its seconds burn the grace budget through
+    guard.elapsed()), adopt the drained save as the emergency checkpoint
+    when it is this boundary's step or newer, else save synchronously when
+    the remaining budget still covers the estimated save. Emits `preempted`
+    and returns 128+signum for the operator's ExitCode policy."""
+    saved = False
+    skipped = None
+    drain_s = None
+    adopted = False
+    emergency_s = None
+    if ck is not None:
+        writer = ck.writer
+        if writer is not None:
+            # Drain, don't abandon: the write is mostly on disk already, and
+            # a clean drain turns it into a usable emergency checkpoint.
+            # Errors degrade to the fast path.
+            drain_s = writer.drain(raise_error=False)
+            # The estimate taken at submit time did not know the in-flight
+            # write's cost; the means now include it.
+            last_save_s = max(last_save_s, writer.mean_save_s())
+            if (writer.error is None and writer.last_step is not None
+                    and writer.last_step >= done):
+                saved = adopted = True
+        if not saved:
+            if writer is None and done == last_ckpt_step:
+                saved = True  # this boundary's periodic sync save landed
+            elif guard.within_grace(last_save_s, args.preempt_grace):
+                emergency_s = _save_checkpoint(ck, done, state, st=st, sync=True)
+                saved = True
+            else:
+                skipped = "grace_budget"
+    event = {
+        "event": "preempted",
+        "step": done,
+        "signal": guard.signal_name,
+        "exit_code": guard.exit_code,
+        "emergency_checkpoint": saved,
+        "grace_s": args.preempt_grace,
+        "elapsed_s": round(guard.elapsed(), 3),
+    }
+    if drain_s is not None:
+        event["drain_s"] = round(drain_s, 3)
+    if adopted:
+        event["adopted_async_save"] = True
+    if emergency_s is not None:
+        event["emergency_save_s"] = round(emergency_s, 3)
+    if skipped:
+        event["save_skipped"] = skipped
+    _emit(event)
+    return guard.exit_code
+
+
+def evaluate(model, loss_fn, make_batch, device: torch.device, n_batches: int) -> float:
+    """Mean loss of `model` over the evaluator's fixed batches: batch i is
+    make_batch of a generator seeded 10_000 + i, so every round sees the
+    same batches (made one at a time, never all held). The loss runs as
+    the train step runs it (model in train mode), without gradients."""
+    model.train()
+    losses = []
+    with torch.no_grad():
+        for i in range(n_batches):
+            batch = make_batch(torch.Generator(device=device).manual_seed(10_000 + i))
+            losses.append(float(loss_fn(model, batch)))
+    return sum(losses) / len(losses)
+
+
+def _run_evaluator(args, model, loss_fn, make_batch, device: torch.device, guard) -> int:
+    """Evaluator replica: follow the checkpoint stream until FINAL,
+    evaluating each new step's parameters on fixed batches."""
+    from tf_operator_tpu_torch.models import checkpoint as ckpt
+    from tf_operator_tpu_torch.telemetry import tracer
+
+    if not args.checkpoint_dir:
+        print("--eval requires --checkpoint-dir", file=sys.stderr)
+        return 2
+    template = {name: p.dtype for name, p in model.named_parameters()}
+    seen: set[int] = set()
+    evaluated = 0
+    while True:
+        step = ckpt.wait_for_new_step(args.checkpoint_dir, seen, timeout=args.eval_timeout,
+                                      should_stop=lambda: guard.triggered)
+        if guard.triggered:
+            _emit({"event": "preempted", "role": "evaluator",
+                   "signal": guard.signal_name, "exit_code": guard.exit_code,
+                   "checkpoints_evaluated": evaluated})
+            return guard.exit_code
+        if step is None:
+            final = ckpt.final_step(args.checkpoint_dir)
+            if final is not None and final in seen:
+                break  # stream complete
+            print(f"evaluator: no new checkpoint in {args.eval_timeout}s", file=sys.stderr)
+            return 1 if evaluated == 0 else 0
+        seen.add(step)
+        params = ckpt.restore(args.checkpoint_dir, step, template=template)
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                p.copy_(params[name])
+        with tracer.span("eval", checkpoint_step=step, n_batches=args.steps):
+            loss = evaluate(model, loss_fn, make_batch, device, args.steps)
+        evaluated += 1
+        _emit({"event": "eval", "checkpoint_step": step, "eval_loss": round(loss, 6),
+               "n_batches": args.steps})
+    _emit({"event": "eval_done", "checkpoints_evaluated": evaluated})
+    return 0
+
+
+def _run_trainer(args, device: torch.device, heartbeat, guard, chaos=None,
+                 state_out=None) -> int:
     from tf_operator_tpu_torch import optim as optim_lib
     from tf_operator_tpu_torch.models import checkpoint as ckpt_lib
     from tf_operator_tpu_torch.parallel.train_step import (
@@ -680,6 +1010,10 @@ def _run_trainer(args, device: torch.device, heartbeat, state_out=None) -> int:
         torch.cuda.init()
     _emit({"event": "jax_ready", "t": time.time(), "backend": device.type})
     heartbeat.write(0, force=True)
+
+    if args.eval:
+        model, loss_fn, make_batch = _build_model(args, device)
+        return _run_evaluator(args, model, loss_fn, make_batch, device, guard)
 
     saver = bool(args.checkpoint_dir) and _is_checkpoint_writer()
     allow_reshape = args.allow_reshape or os.environ.get("TPUJOB_ALLOW_RESHAPE") == "1"
@@ -719,25 +1053,46 @@ def _run_trainer(args, device: torch.device, heartbeat, state_out=None) -> int:
         # reshape.
         ck = _Checkpointing(args.checkpoint_dir, args.keep_checkpoints,
                             digest=allow_reshape or args.checkpoint_mode == "async",
-                            heartbeat=heartbeat)
+                            heartbeat=heartbeat, chaos=chaos)
         if args.checkpoint_mode == "async":
             ck.writer = _CkptWriter(ck.write)
     try:
-        step_chunk = make_chunked_train_step(loss_fn, tx, make_batch, device, seed=0)
+        step_chunk = make_chunked_train_step(loss_fn, tx, make_batch, device, seed=0,
+                                             remat=args.remat)
         chunk = max(1, min(args.log_every, args.steps - start_step))
         if args.checkpoint_dir and args.checkpoint_every:
             # Chunk boundaries land on every multiple of --checkpoint-every.
             chunk = max(1, math.gcd(chunk, args.checkpoint_every))
         ckpt_marks = start_step // args.checkpoint_every if args.checkpoint_every else 0
+        last_save_s, last_ckpt_step = 0.0, -1
 
         def maybe_checkpoint(done: int, st=None) -> None:
-            nonlocal ckpt_marks
+            nonlocal ckpt_marks, last_save_s, last_ckpt_step
             if ck is None or not args.checkpoint_every or done >= args.steps:
                 return  # the final save (marked FINAL) comes after the loop
             marks = done // args.checkpoint_every
             if marks > ckpt_marks:
                 ckpt_marks = marks
-                _save_checkpoint(ck, done, state, st=st)
+                last_save_s = _save_checkpoint(ck, done, state, st=st)
+                last_ckpt_step = done
+
+        def check_boundary(done: int, st=None) -> int | None:
+            """Heartbeat, chaos hang-then-kill, and preemption after a chunk:
+            the exit code to leave with, or None to go on training."""
+            heartbeat.write(done)
+            if chaos is not None:
+                d = chaos.hang_at(done, start_step)
+                if d is not None:
+                    from tf_operator_tpu_torch import chaos as chaos_lib
+
+                    duration = d.params.get("duration")
+                    _emit({"event": "chaos_hang", "step": done, "duration": duration})
+                    chaos_lib.hang(duration)
+                chaos.maybe_kill(done, start_step)
+            if guard.triggered:
+                return _preempt_exit(args, guard, state, done, ck, last_save_s,
+                                     last_ckpt_step, st)
+            return None
 
         state, metrics = step_chunk(state, chunk)
         # The loss fetch waits for the first chunk's device work: startup_s
@@ -757,18 +1112,27 @@ def _run_trainer(args, device: torch.device, heartbeat, state_out=None) -> int:
                             if device.type == "cuda" else "cpu"),
             "n_devices": 1,
         })
-        heartbeat.write(done)
         maybe_checkpoint(done)
+        rc = check_boundary(done)
+        if rc is not None:
+            return rc
 
         # Steady window: full chunks only. Chunk i+1 is enqueued before chunk
         # i's loss is fetched, so the fetch waits under the next chunk's work;
-        # progress events lag one chunk and carry their own step.
+        # progress events lag one chunk and carry their own step. A profiled
+        # chunk sits outside the window when there are two or more.
         full_chunks = (args.steps - done) // chunk
         tail = (args.steps - done) % chunk
+        profiling = bool(args.profile_dir) and full_chunks > 0
+        profile_last_chunk = profiling and full_chunks >= 2
+        timed_chunks = full_chunks - 1 if profile_last_chunk else full_chunks
+        prof = _Profile(args.profile_dir, device) if profiling and not profile_last_chunk \
+            else None
         t0 = time.time()
         pending = None
         acct = make_step_accounting()
-        for _ in range(full_chunks):
+        for _ in range(timed_chunks):
+            _trace_window_check(args, done - start_step - chunk)
             with acct.step(done + chunk, n_steps=chunk) as st:
                 with st.phase("dispatch"):
                     state, metrics = step_chunk(state, chunk)
@@ -781,14 +1145,36 @@ def _run_trainer(args, device: torch.device, heartbeat, state_out=None) -> int:
                         _emit({"event": "progress", "step": pstep, "loss": ploss})
                 pending = (done, metrics)
                 maybe_checkpoint(done, st)
-                heartbeat.write(done)
+                rc = check_boundary(done, st)
+                if rc is not None:
+                    return rc
         if pending is not None:
             pstep, pmetrics = pending
             closing_loss = float(pmetrics["loss"])  # the window's closing sync
         dt = time.time() - t0
         if pending is not None and (pstep % args.log_every == 0 or pstep == args.steps):
             _emit({"event": "progress", "step": pstep, "loss": closing_loss})
-        steady = full_chunks * chunk
+        steady = timed_chunks * chunk
+        if prof is not None:
+            prof.stop()
+            _emit({"event": "profile_done", "dir": args.profile_dir,
+                   "steps_traced": steady, "in_timed_window": True})
+        if profile_last_chunk:
+            prof = _Profile(args.profile_dir, device)
+            state, metrics = step_chunk(state, chunk)
+            done += chunk
+            # The loss fetch waits for the chunk's device work before the
+            # trace stops.
+            chunk_loss = float(metrics["loss"])
+            if done % args.log_every == 0 or done == args.steps:
+                _emit({"event": "progress", "step": done, "loss": chunk_loss})
+            prof.stop()
+            _emit({"event": "profile_done", "dir": args.profile_dir,
+                   "steps_traced": chunk, "in_timed_window": False})
+            maybe_checkpoint(done)
+            rc = check_boundary(done)
+            if rc is not None:
+                return rc
 
         if tail:
             state, metrics = step_chunk(state, tail)

@@ -14,8 +14,15 @@ flax kernels are ``[in, out]`` and are transposed on the way in.
 
 The attention function is injectable (``attn_fn``); the trainer passes the
 flash kernels from ``parallel.ring_attention.make_attention_fn``.
-Per-layer remat (``remat_layers``, ``remat_save_flash[_layers]``),
-dropout, BERT, the classifier and the MLM head are not ported yet.
+
+Per-layer remat (``remat_layers``) runs each block under a non-reentrant
+``torch.utils.checkpoint``: the forward keeps only the block's input and
+the backward replays the block. ``remat_save_flash`` gives every block, and
+``remat_save_flash_layers`` = K the first K blocks, the selective policy
+``ops.flash_attention.flash_save_context``, which keeps the flash
+forward's (o, lse) so the replay skips the O(T^2) kernel; as the JAX
+``save_only_these_names("flash_o", "flash_lse")`` policy. Dropout, BERT,
+the classifier and the MLM head are not ported yet.
 """
 
 from __future__ import annotations
@@ -29,8 +36,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, noop_context_fn
 
+from tf_operator_tpu_torch.ops.flash_attention import flash_save_context
 from tf_operator_tpu_torch.parallel.ring_attention import attention_reference
 
 LN_EPS = 1e-6  # flax nn.LayerNorm's default
@@ -65,10 +73,6 @@ class TransformerConfig:
                 "remat_save_flash_layers (a subset): pick one")
         if self.remat_save_flash_layers < 0:
             raise ValueError("remat_save_flash_layers must be >= 0")
-        if self.remat_layers:
-            raise NotImplementedError(
-                "per-layer remat (remat_layers, remat_save_flash[_layers]) is "
-                "not ported to the PyTorch package yet")
         if self.dropout_rate:
             raise NotImplementedError(
                 "dropout is not ported to the PyTorch package yet")
@@ -184,10 +188,19 @@ class Transformer(nn.Module):
         self.ln_f = LayerNorm(cfg.hidden, cfg.dtype, device=device)
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
         pos = torch.arange(tokens.shape[1], device=tokens.device)
         x = self.embed(tokens) + self.pos_embed(pos)[None]
-        for layer in self.layers:
-            x = layer(x)
+        remat = cfg.remat_layers and torch.is_grad_enabled()
+        for i, layer in enumerate(self.layers):
+            if not remat:
+                x = layer(x)
+                continue
+            # The first remat_save_flash_layers blocks (every block under
+            # remat_save_flash) keep the flash residuals; the rest replay all.
+            save = cfg.remat_save_flash or i < cfg.remat_save_flash_layers
+            x = checkpoint(layer, x, use_reentrant=False,
+                           context_fn=flash_save_context if save else noop_context_fn)
         return self.ln_f(x)
 
 

@@ -21,27 +21,35 @@ version (``flash_fwd_plain`` / ``flash_bwd_plain``), written from the FA-2
 equations rather than through autograd, with the kernels' rounding points:
 P is rounded to the input dtype before P.V, dS before dS.K and dS^T.Q.
 
-The kernels are built for head widths 64, 128 and 256
-(``SUPPORTED_HEAD_DIMS``); the Pallas kernel took any multiple of 64 and
-Mosaic padded the lane dimension. Here the wrappers zero-pad any other
-width up to 256 to the next built one (``kernel_head_dim``), pass the
-softmax scale of the unpadded width, and slice o, dq, dk and dv back:
-zero columns change neither Q.K^T nor rowsum(dO o O), and come out as
-zeros. A built width is passed through without a copy. Past 256 a CUDA
-call raises ``ValueError``. The padding runs on either device, so the CPU
-tests reach it.
+The kernels are built for head widths 64, 128, 256, 384 and 512
+(``SUPPORTED_HEAD_DIMS``; 384 and 512 on the FMA kernels in both dtypes);
+the Pallas kernel took any multiple of 64 and Mosaic padded the lane
+dimension. Here the wrappers zero-pad any other width up to 512 to the next
+built one (``kernel_head_dim``), pass the softmax scale of the unpadded
+width, and slice o, dq, dk and dv back: zero columns change neither Q.K^T
+nor rowsum(dO o O), and come out as zeros. A built width is passed through
+without a copy. Past 512 a CUDA call raises ``ValueError``. The padding
+runs on either device, so the CPU tests reach it.
 
 ``FlashAttention`` and ``FlashAttentionWithLse`` are the autograd bindings
 (counterparts of ``flash_attention_pallas`` and ``flash_attention_with_lse``)
 over ``[B, H, T, D]`` inputs; they pad once in the forward and keep the
-padded operands for the backward.
+padded operands for the backward. Inside ``flash_save_context`` their
+forward with lse runs as the dispatcher op ``tfo_torch::flash_fwd``, so the
+selective-checkpoint policy there can see it and keep its (o, lse), the
+residuals the JAX package tags ``flash_o`` and ``flash_lse`` for its remat
+policy; a rematerialised block then replays no forward kernel in its
+backward. Everywhere else the forward launches directly, without the
+dispatcher's cost.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import math
+import threading
 
 import torch
 import torch.nn.functional as F
@@ -51,7 +59,7 @@ import torch.nn.functional as F
 NEG_INF = -1e30
 
 # Head widths the kernels are built for; kernel_head_dim pads up to one.
-SUPPORTED_HEAD_DIMS = (64, 128, 256)
+SUPPORTED_HEAD_DIMS = (64, 128, 256, 384, 512)
 SUPPORTED_DTYPES = (torch.float32, torch.bfloat16)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -118,25 +126,28 @@ def unpad_head(x: torch.Tensor, d: int) -> torch.Tensor:
 # Plain versions
 # ---------------------------------------------------------------------------
 
-def _scores(q, k, causal: bool, scale: float | None = None) -> torch.Tensor:
+def _scores(q, k, causal: bool, scale: float | None = None, q_offset: int = 0) -> torch.Tensor:
     """S = scale * Q K^T in f32 with invalid (q, k) pairs set to NEG_INF;
     causal keeps k_pos <= q_pos, as the kernels index it. scale defaults to
-    sm_scale of q's width (a zero-padded q passes its unpadded width's)."""
+    sm_scale of q's width (a zero-padded q passes its unpadded width's).
+    q_offset is the position of q's first row, for a slice of the rows."""
     if scale is None:
         scale = sm_scale(q.shape[-1])
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     if causal:
         tq, tk = q.shape[-2], k.shape[-2]
-        q_pos = torch.arange(tq, device=q.device)[:, None]
+        q_pos = q_offset + torch.arange(tq, device=q.device)[:, None]
         k_pos = torch.arange(tk, device=q.device)[None, :]
         s = s.masked_fill(q_pos < k_pos, NEG_INF)
     return s
 
 
-def flash_fwd_plain(q, k, v, causal: bool = False, scale: float | None = None):
+def flash_fwd_plain(q, k, v, causal: bool = False, scale: float | None = None,
+                    q_offset: int = 0):
     """(o [BH, T, D] in q.dtype, lse [BH, T] f32) from the softmax
-    equations; a row with no visible key gives o = 0 and lse = NEG_INF."""
-    s = _scores(q, k, causal, scale)
+    equations; a row with no visible key gives o = 0 and lse = NEG_INF.
+    q_offset: q holds the rows from that position on (a slice)."""
+    s = _scores(q, k, causal, scale, q_offset)
     if s.shape[-1]:
         m = s.amax(-1, keepdim=True)
     else:  # no keys at all
@@ -159,12 +170,12 @@ def _bwd_delta_plain(o, do, g_lse=None):
     return delta
 
 
-def _bwd_p_ds(q, k, v, o, lse, do, causal, g_lse, delta=None, scale=None):
+def _bwd_p_ds(q, k, v, o, lse, do, causal, g_lse, delta=None, scale=None, q_offset=0):
     """P rebuilt from lse and dS = P o (dO V^T - delta) * scale; delta,
     when not given, from _bwd_delta_plain."""
     if scale is None:
         scale = sm_scale(q.shape[-1])
-    s = _scores(q, k, causal, scale)
+    s = _scores(q, k, causal, scale, q_offset)
     lse = lse.float()[..., None]
     p = torch.where(lse <= NEG_INF, 0.0, torch.exp(s - lse))
     if delta is None:
@@ -173,8 +184,9 @@ def _bwd_p_ds(q, k, v, o, lse, do, causal, g_lse, delta=None, scale=None):
     return p, p * (dp - delta[..., None]) * scale
 
 
-def _bwd_dq_plain(q, k, v, o, lse, do, causal, g_lse=None, delta=None, scale=None):
-    _, ds = _bwd_p_ds(q, k, v, o, lse, do, causal, g_lse, delta, scale)
+def _bwd_dq_plain(q, k, v, o, lse, do, causal, g_lse=None, delta=None, scale=None,
+                  q_offset=0):
+    _, ds = _bwd_p_ds(q, k, v, o, lse, do, causal, g_lse, delta, scale, q_offset)
     return torch.matmul(ds.to(q.dtype).float(), k.float()).to(q.dtype)
 
 
@@ -335,6 +347,62 @@ def _bwd_at(q, k, v, o, lse, do, causal, g_lse, scale):
     return dq, dk, dv
 
 
+# ---------------------------------------------------------------------------
+# The forward as a dispatcher op, on padded [BH, T, D] operands. A launch
+# inside an autograd.Function is invisible to torch.utils.checkpoint's
+# policies, which see dispatcher ops only; the bindings call the op only
+# inside flash_save_context, where a policy looks for it.
+# ---------------------------------------------------------------------------
+
+@torch.library.custom_op(
+    "tfo_torch::flash_fwd", mutates_args=(),
+    schema="(Tensor q, Tensor k, Tensor v, bool causal, float scale) -> (Tensor, Tensor)")
+def flash_fwd_op(q, k, v, causal, scale):
+    """K1 with its lse: (o, lse [BH, T] f32)."""
+    return _fwd_at(q, k, v, causal, True, scale)
+
+
+# Set while a flash_save_context (its forward or its recompute) is entered
+# on this thread; the recompute runs on the thread of the backward.
+_SAVE_CONTEXT = threading.local()
+
+
+def _fwd_bound(q, k, v, causal, with_lse, scale):
+    """The bindings' forward: through the dispatcher op when it keeps an
+    lse inside flash_save_context, else launched directly (_fwd_at)."""
+    if with_lse and getattr(_SAVE_CONTEXT, "depth", 0):
+        return flash_fwd_op(q, k, v, causal, scale)
+    return _fwd_at(q, k, v, causal, with_lse, scale)
+
+
+@contextlib.contextmanager
+def _marked(context):
+    _SAVE_CONTEXT.depth = getattr(_SAVE_CONTEXT, "depth", 0) + 1
+    try:
+        with context:
+            yield
+    finally:
+        _SAVE_CONTEXT.depth -= 1
+
+
+def _flash_save_policy(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    if op is torch.ops.tfo_torch.flash_fwd.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def flash_save_context():
+    """The `context_fn` of a non-reentrant torch.utils.checkpoint that keeps
+    the flash forward's (o, lse) and recomputes everything else: the JAX
+    package's save_only_these_names("flash_o", "flash_lse") policy."""
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+
+    forward, recompute = create_selective_checkpoint_contexts(_flash_save_policy)
+    return _marked(forward), _marked(recompute)
+
+
 def _padded(d, *xs):
     """xs zero-padded to kernel_head_dim(d); as they are past the largest
     built width (the plain versions take any width, a CUDA call then fails
@@ -413,7 +481,7 @@ class FlashAttention(torch.autograd.Function):
         b, h, t, d = q.shape
         qf, kf, vf = _padded(d, _flat(q), _flat(k), _flat(v))
         need_grad = any(ctx.needs_input_grad[:3])
-        o, lse = _fwd_at(qf, kf, vf, causal, need_grad, sm_scale(d))
+        o, lse = _fwd_bound(qf, kf, vf, causal, need_grad, sm_scale(d))
         if need_grad:
             ctx.save_for_backward(qf, kf, vf, o, lse)
         ctx.causal, ctx.bh, ctx.d = causal, (b, h), d
@@ -434,7 +502,7 @@ class FlashAttentionWithLse(torch.autograd.Function):
     def forward(ctx, q, k, v, causal: bool = False):
         b, h, t, d = q.shape
         qf, kf, vf = _padded(d, _flat(q), _flat(k), _flat(v))
-        o, lse = _fwd_at(qf, kf, vf, causal, True, sm_scale(d))
+        o, lse = _fwd_bound(qf, kf, vf, causal, True, sm_scale(d))
         ctx.save_for_backward(qf, kf, vf, o, lse)
         ctx.causal, ctx.bh, ctx.d = causal, (b, h), d
         return unpad_head(o, d).view(b, h, t, d), lse.view(b, h, t)

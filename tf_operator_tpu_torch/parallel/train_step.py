@@ -10,13 +10,18 @@ mode, so a model with running statistics updates them once per step, as
 the JAX step's `mutable=["batch_stats"]` does. `make_chunked_train_step` is the
 `--log-every` loop: batches are made on the device from a generator seeded
 from (seed, global step), so how the steps are chunked does not change the
-stream. `state_tensors` and `load_state_tensors` turn a TrainState into a
+stream. With `remat=True` the loss runs under a non-reentrant
+torch.utils.checkpoint (the JAX step's `jax.checkpoint(loss_fn)`): the
+forward keeps only its inputs and the backward replays it; a model that
+also remats per block (TransformerConfig.remat_layers) nests its blocks'
+checkpoints inside it, as the JAX trainer's --remat does. `state_tensors` and `load_state_tensors` turn a TrainState into a
 flat, named dict of tensors and back, for checkpoints. Sharding, meshes
 and torch.distributed are not ported yet.
 """
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import Any, Callable
 
@@ -127,11 +132,41 @@ def batch_generator(seed: int, step: int, device) -> torch.Generator:
         (seed * 0x9E3779B97F4A7C15 + step) % (1 << 63))
 
 
+@contextlib.contextmanager
+def _buffers_kept(model: nn.Module):
+    """Restore the model's buffers on exit: the replay of a rematerialised
+    loss must not move batch-norm running statistics a second time (the JAX
+    step returns them from the checkpointed function, computed once)."""
+    saved = [b.clone() for b in model.buffers()]
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            for b, s in zip(model.buffers(), saved):
+                b.copy_(s)
+
+
+def remat_loss(loss_fn: LossFn) -> LossFn:
+    """loss_fn under a non-reentrant checkpoint: its activations are
+    recomputed in the backward instead of kept."""
+    from torch.utils.checkpoint import checkpoint
+
+    def rematted(model: nn.Module, batch) -> torch.Tensor:
+        def contexts():
+            return contextlib.nullcontext(), _buffers_kept(model)
+
+        return checkpoint(loss_fn, model, batch, use_reentrant=False, context_fn=contexts)
+
+    return rematted
+
+
 def make_chunked_train_step(loss_fn: LossFn,
                             tx: optim_lib.MixedPrecisionTransformation,
                             make_batch: Callable[[torch.Generator], Any],
-                            device, seed: int = 0):
+                            device, seed: int = 0, remat: bool = False):
     """run(state, n) -> (state, metrics of the last of its n steps)."""
+    if remat:
+        loss_fn = remat_loss(loss_fn)
 
     def run(state: TrainState, n: int):
         metrics = None

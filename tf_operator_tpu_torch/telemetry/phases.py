@@ -1,8 +1,9 @@
 """Per-step phase accounting: where every second of a training step went.
 
 Own copy of tf_operator_tpu/telemetry/phases.py for the PyTorch package,
-without its hook into the span tracer (the --trace spans are not ported
-yet). It fills the done event's `step_time_s` and `phase_breakdown`.
+with its hook into the span tracer (telemetry/tracer.py): each step and
+phase is also a `step` / `phase/<name>` span when --trace enables it. It
+fills the done event's `step_time_s` and `phase_breakdown`.
 
 The trainer's headline has been a single steady-state mean
 (steady_steps_per_sec); a p99 stall — a checkpoint save, a transfer
@@ -69,6 +70,8 @@ import math
 import os
 import time
 
+from tf_operator_tpu_torch.telemetry import tracer as _tracer_mod
+
 __all__ = [
     "PHASES", "StepAccounting", "NullStepAccounting",
     "make_step_accounting", "weighted_percentile",
@@ -100,37 +103,43 @@ class _Step:
     """One step (or chunk of n_steps) being accounted. Not reentrant; one
     step at a time per accountant (the train loop is sequential)."""
 
-    __slots__ = ("_acct", "_index", "_n", "_t0", "_attributed")
+    __slots__ = ("_acct", "_index", "_n", "_t0", "_attributed", "_span")
 
     def __init__(self, acct: "StepAccounting", index: int, n_steps: int):
         self._acct = acct
         self._index = index
         self._n = n_steps
         self._attributed = 0.0
+        self._span = None
 
     def __enter__(self):
+        self._span = self._acct._tracer.begin(
+            "step", step=self._index, n_steps=self._n)
         self._t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc):
         wall = time.perf_counter() - self._t0
+        self._acct._tracer.end(self._span)
         self._acct._close_step(wall, self._n, self._attributed)
         return False
 
     def phase(self, name: str, **attrs):
-        """`with st.phase("data_wait"):` — times the block and attributes
-        it to `name`."""
+        """`with st.phase("data_wait"):` — times the block, attributes it
+        to `name`, and emits a tracer span `phase/<name>`."""
         if name not in self._acct.phase_totals:
             raise ValueError(f"unknown phase {name!r} (not in {PHASES})")
-        return _Phase(self, name)
+        return _Phase(self, name, attrs)
 
 
 class _Phase:
-    __slots__ = ("_step", "_name", "_t0")
+    __slots__ = ("_step", "_name", "_t0", "_span")
 
-    def __init__(self, step: _Step, name: str):
+    def __init__(self, step: _Step, name: str, attrs: dict):
         self._step = step
         self._name = name
+        self._span = step._acct._tracer.begin(f"phase/{name}", **attrs) \
+            if step._acct._tracer.enabled else None
 
     def __enter__(self):
         self._t0 = time.perf_counter()
@@ -139,6 +148,7 @@ class _Phase:
     def __exit__(self, *exc):
         dt = time.perf_counter() - self._t0
         acct = self._step._acct
+        acct._tracer.end(self._span)
         acct.phase_totals[self._name] += dt
         self._step._attributed += dt
         return False
@@ -148,7 +158,8 @@ class StepAccounting:
     """Accumulates per-step wall-clock samples + phase totals; summary()
     renders the done-event payload (percentiles + phase_breakdown)."""
 
-    def __init__(self):
+    def __init__(self, tracer: "_tracer_mod.Tracer | None" = None):
+        self._tracer = tracer if tracer is not None else _tracer_mod.get_tracer()
         # (per-step wall seconds, weight in steps) — one entry per step()
         # call, so a chunked loop stays O(chunks) however long the run.
         self.samples: list[tuple[float, int]] = []
@@ -210,11 +221,11 @@ class NullStepAccounting:
         return None
 
 
-def make_step_accounting():
+def make_step_accounting(tracer=None):
     """StepAccounting, or the no-op variant when TPUJOB_TELEMETRY=off."""
     if os.environ.get("TPUJOB_TELEMETRY", "").lower() in ("off", "0", "false"):
         return NullStepAccounting()
-    return StepAccounting()
+    return StepAccounting(tracer)
 
 
 def weighted_percentile(samples: list[tuple[float, int]], q: float) -> float:
