@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phases build,k4      # the fused bottleneck only
     python3 chip_smoke.py --phases build,train,ckpt  # the trainers and checkpoints
     python3 chip_smoke.py --phases build,longctx      # the 64k and 128k LM alone
+    python3 chip_smoke.py --phases build,bert,data    # BERT and the --data-dir path
 
 Phases, in order:
   1. identify the card (nvidia-smi name and power limit);
@@ -66,11 +67,30 @@ Phases, in order:
      --trace files must hold the checkpoint and step spans, the restart's
      --profile-dir a trace; a run without periodic saves times the
      synchronous emergency save;
-  9. (only with --phases ...,profile) both trainers' runs and the 64k LM
-     under torch.profiler: device time by kernel group over their steady
-     steps.
-The last lines are the eval, longctx and preempt phases' records as one
-JSON object ({"phases": ...}), the kernels' JSON record, the card, and
+  9. BERT (bert): K1 (with and without lse), the delta pass, K2 and K3 in
+     bf16, full attention, at BERT-base's pretraining shapes [32, 12, 512,
+     64] and [128, 12, 128, 64], held on the whole tensors against their
+     plain versions (every MUTATIONS entry rejected at each) and timed
+     beside their bound, plain version and SDPA; then BERT-base (12L x
+     768h, 12 heads x 64, vocab 30522) through the trainer at seq 512 /
+     batch 32 and seq 128 / batch 128, and bert-tiny at seq 512, each
+     finite with every flash kernel launched once a layer a step: tokens/s,
+     MFU (bert_flops_per_step), peak memory; then a BERT-base chief saving
+     every 2 steps with an Evaluator subprocess following it, whose last
+     eval_loss must equal the final parameters' loss computed here;
+ 10. the on-disk input path (data): a uint8 ImageNet-shaped shard set
+     (2560 x 224 x 224 x 3, from the seed) and ResNet-50 at batch 256 for 8
+     steps from it through the prefetch thread and the staging ring (uint8
+     and f32 wires, zlib with --staging-tune, 1, 2 and 4 lanes), cuDNN held
+     deterministic: the staged uint8 runs must give the prefetch run's
+     losses bit for bit, the f32 wire within rtol 1e-3; images/s, transfer
+     MB/s, overlap and consumer wait beside the synthetic-batch images/s;
+ 11. (only with --phases ...,profile) both trainers' runs, the 64k LM and
+     BERT-base at seq 512 under torch.profiler: device time by kernel group
+     over their steady steps.
+The last lines are the eval, longctx, preempt, bert and data phases'
+records as one JSON object ({"phases": ...}), the kernels' JSON record,
+the card, and
 {"ok": true, "device": {...}}. Any failed phase exits nonzero with no
 result line. Needs a CUDA device: it never runs on the CPU.
 """
@@ -404,6 +424,94 @@ def checker_self_test(outs: dict, refs: dict, dtype_name: str) -> dict:
     return verdicts
 
 
+def check_case(shape, dtype_name: str, causal: bool, gen, self_test: bool):
+    """Each flash kernel against its plain version on one case: K1 with and
+    without lse, the delta pass and K2/K3 (with and without an lse
+    cotangent), and the autograd bindings; with self_test, the check's
+    rejection of every MUTATIONS entry there. Returns ({output: (max err /
+    max |ref|, excess)}, {kernel key: max abs err}, (q, k, v, o, lse, do))."""
+    import torch
+
+    from tf_operator_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    dtype = getattr(torch, dtype_name)
+    b, h, t, d = shape
+
+    def rnd(*s, dt=dtype):
+        return torch.randn(*s, generator=gen, device=dev, dtype=torch.float32).to(dt)
+
+    q, k, v, do = (rnd(b * h, t, d) for _ in range(4))
+    g_lse = rnd(b * h, t, dt=torch.float32)
+    # name -> (max |got - ref| / max |ref|, excess); the first is the
+    # number reported, the second decides.
+    errs = {}
+
+    def hold(name, got, ref):
+        got = got.reshape(ref.shape)
+        diff = (got.float() - ref.float()).abs().max().item()
+        errs[name] = (diff / max(ref.float().abs().max().item(), 1e-30),
+                      excess(got, ref, dtype_name, _kind(name)))
+        return diff
+
+    o, lse = fa.flash_fwd(q, k, v, causal)
+    o_p, lse_p = fa.flash_fwd_plain(q, k, v, causal)
+    abs_errs = {"fwd": hold("o", o, o_p)}
+    hold("lse", lse, lse_p)
+    # The forward without lse (the kernel gets NULL), as FlashAttention
+    # runs it when no input needs a gradient: the same o, bit for bit.
+    o_nl, lse_nl = fa.flash_fwd(q, k, v, causal, save_lse=False)
+    hold("o(no lse)", o_nl, o_p)
+    if lse_nl is not None or not torch.equal(o_nl, o):
+        errs["o(no lse) equals o"] = (float("inf"), float("inf"))
+    del o_nl
+    for tag, gl in (("", None), ("+g_lse", g_lse)):
+        delta = fa.bwd_delta(o, do, gl)
+        diff = hold("delta" + tag, delta, fa._bwd_delta_plain(o, do, gl))
+        if not tag:
+            abs_errs["bwd_delta"] = diff
+        dq = fa.flash_bwd_dq(q, k, v, o, lse, do, causal, gl)
+        dq_p = fa._bwd_dq_plain(q, k, v, o, lse, do, causal, gl)
+        dk, dv = fa.flash_bwd_dkv(q, k, v, o, lse, do, causal, gl)
+        dk_p, dv_p = fa._bwd_dkv_plain(q, k, v, o, lse, do, causal, gl)
+        diffs = [hold(name + tag, got, ref)
+                 for name, got, ref in (("dq", dq, dq_p), ("dk", dk, dk_p), ("dv", dv, dv_p))]
+        if not tag:
+            abs_errs["bwd_dq"], abs_errs["bwd_dkv"] = diffs[0], max(diffs[1:])
+            if self_test:
+                verdicts = checker_self_test(
+                    {"o": o, "lse": lse, "dq": dq, "dk": dk, "dv": dv},
+                    {"o": o_p, "lse": lse_p, "dq": dq_p, "dk": dk_p, "dv": dv_p},
+                    dtype_name)
+                log(f"check {list(shape)} {dtype_name} causal={causal}: the check "
+                    "rejects broken "
+                    "outputs, excess " + ", ".join(f"{n}={e:.3g}" for n, e in verdicts.items()))
+        del dq, dq_p, dk, dv, dk_p, dv_p, delta
+
+    # The autograd bindings over [B, H, T, D], against the plain forward
+    # and backward.
+    q4, k4, v4 = (x.view(b, h, t, d).clone().requires_grad_() for x in (q, k, v))
+    do4 = do.view(b, h, t, d)
+    grads = torch.autograd.grad(fa.FlashAttention.apply(q4, k4, v4, causal),
+                                (q4, k4, v4), do4)
+    ref = fa.flash_bwd_plain(q, k, v, o_p, lse_p, do, causal)
+    for name, got, r in zip(("dq", "dk", "dv"), grads, ref):
+        hold("FlashAttention." + name, got, r)
+    o4, lse4 = fa.FlashAttentionWithLse.apply(q4, k4, v4, causal)
+    grads = torch.autograd.grad((o4, lse4), (q4, k4, v4), (do4, g_lse.view(b, h, t)))
+    ref = fa.flash_bwd_plain(q, k, v, o_p, lse_p, do, causal, g_lse)
+    for name, got, r in zip(("dq", "dk", "dv"), grads, ref):
+        hold("FlashAttentionWithLse." + name, got, r)
+    torch.cuda.synchronize()
+    del grads, ref, o4, lse4, o_p, lse_p, g_lse
+
+    log(f"check {list(shape)} {dtype_name} causal={causal}: max err / max|ref| "
+        + ", ".join(f"{n}={e[0]:.3g}" for n, e in errs.items()))
+    log(f"check {list(shape)} {dtype_name} causal={causal}: excess (<= 1 passes) "
+        + ", ".join(f"{n}={e[1]:.3g}" for n, e in errs.items()))
+    return errs, abs_errs, (q, k, v, o, lse, do)
+
+
 def check_phase(records: dict) -> None:
     """Each kernel against its plain version, on the same inputs, for every
     case; the autograd bindings against the plain backward; at the trainer's
@@ -411,99 +519,21 @@ def check_phase(records: dict) -> None:
     `records[name]` with max_abs_err and the times."""
     import torch
 
-    from tf_operator_tpu_torch.ops import flash_attention as fa
-
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     failures = []
 
     for shape, dtype_name, causal in CHECK_CASES + WIDTH_CASES:
-        dtype = getattr(torch, dtype_name)
-        b, h, t, d = shape
         main = shape == CHECK_CASES[0][0]
-        padded = d in HEAD_WIDTHS
-
-        def rnd(*s, dt=dtype):
-            return torch.randn(*s, generator=gen, device=dev, dtype=torch.float32).to(dt)
-
-        q, k, v, do = (rnd(b * h, t, d) for _ in range(4))
-        g_lse = rnd(b * h, t, dt=torch.float32)
-        # name -> (max |got - ref| / max |ref|, excess); the first is the
-        # number reported, the second decides.
-        errs = {}
-
-        def hold(name, got, ref):
-            got = got.reshape(ref.shape)
-            diff = (got.float() - ref.float()).abs().max().item()
-            errs[name] = (diff / max(ref.float().abs().max().item(), 1e-30),
-                          excess(got, ref, dtype_name, _kind(name)))
-            return diff
-
-        o, lse = fa.flash_fwd(q, k, v, causal)
-        o_p, lse_p = fa.flash_fwd_plain(q, k, v, causal)
-        abs_errs = {"fwd": hold("o", o, o_p)}
-        hold("lse", lse, lse_p)
-        # The forward without lse (the kernel gets NULL), as FlashAttention
-        # runs it when no input needs a gradient: the same o, bit for bit.
-        o_nl, lse_nl = fa.flash_fwd(q, k, v, causal, save_lse=False)
-        hold("o(no lse)", o_nl, o_p)
-        if lse_nl is not None or not torch.equal(o_nl, o):
-            failures.append(f"{list(shape)} {dtype_name}: flash_fwd(save_lse=False) gave "
-                            "an lse or another o than flash_fwd")
-        del o_nl
-        for tag, gl in (("", None), ("+g_lse", g_lse)):
-            delta = fa.bwd_delta(o, do, gl)
-            diff = hold("delta" + tag, delta, fa._bwd_delta_plain(o, do, gl))
-            if not tag:
-                abs_errs["bwd_delta"] = diff
-            dq = fa.flash_bwd_dq(q, k, v, o, lse, do, causal, gl)
-            dq_p = fa._bwd_dq_plain(q, k, v, o, lse, do, causal, gl)
-            dk, dv = fa.flash_bwd_dkv(q, k, v, o, lse, do, causal, gl)
-            dk_p, dv_p = fa._bwd_dkv_plain(q, k, v, o, lse, do, causal, gl)
-            diffs = [hold(name + tag, got, ref)
-                     for name, got, ref in (("dq", dq, dq_p), ("dk", dk, dk_p), ("dv", dv, dv_p))]
-            if not tag:
-                abs_errs["bwd_dq"], abs_errs["bwd_dkv"] = diffs[0], max(diffs[1:])
-                if main or padded:
-                    verdicts = checker_self_test(
-                        {"o": o, "lse": lse, "dq": dq, "dk": dk, "dv": dv},
-                        {"o": o_p, "lse": lse_p, "dq": dq_p, "dk": dk_p, "dv": dv_p},
-                        dtype_name)
-                    log(f"check {list(shape)} {dtype_name} causal={causal}: the check "
-                        "rejects broken "
-                        "outputs, excess " + ", ".join(f"{n}={e:.3g}" for n, e in verdicts.items()))
-            del dq, dq_p, dk, dv, dk_p, dv_p, delta
-
-        # The autograd bindings over [B, H, T, D], against the plain
-        # forward and backward.
-        q4, k4, v4 = (x.view(b, h, t, d).clone().requires_grad_() for x in (q, k, v))
-        do4 = do.view(b, h, t, d)
-        grads = torch.autograd.grad(fa.FlashAttention.apply(q4, k4, v4, causal),
-                                    (q4, k4, v4), do4)
-        ref = fa.flash_bwd_plain(q, k, v, o_p, lse_p, do, causal)
-        for name, got, r in zip(("dq", "dk", "dv"), grads, ref):
-            hold("FlashAttention." + name, got, r)
-        o4, lse4 = fa.FlashAttentionWithLse.apply(q4, k4, v4, causal)
-        grads = torch.autograd.grad((o4, lse4), (q4, k4, v4),
-                                    (do4, g_lse.view(b, h, t)))
-        ref = fa.flash_bwd_plain(q, k, v, o_p, lse_p, do, causal, g_lse)
-        for name, got, r in zip(("dq", "dk", "dv"), grads, ref):
-            hold("FlashAttentionWithLse." + name, got, r)
-        torch.cuda.synchronize()
-        del grads, ref, o4, lse4
-
-        log(f"check {list(shape)} {dtype_name} causal={causal}: max err / max|ref| "
-            + ", ".join(f"{n}={e[0]:.3g}" for n, e in errs.items()))
-        log(f"check {list(shape)} {dtype_name} causal={causal}: excess (<= 1 passes) "
-            + ", ".join(f"{n}={e[1]:.3g}" for n, e in errs.items()))
+        errs, abs_errs, tensors = check_case(shape, dtype_name, causal, gen,
+                                             self_test=main or shape[-1] in HEAD_WIDTHS)
         failures += [f"{list(shape)} {dtype_name} {n}: excess {e[1]:.3g}"
                      for n, e in errs.items() if not e[1] <= 1.0]
-
         if main:
             for name, key, _ in KERNELS:
                 records[name] = {"max_abs_err": abs_errs[key]}
-            _time_main_shape(records, q, k, v, o, lse, do, causal, shape, dtype_name)
-        del q, k, v, do, o, lse, o_p, lse_p, g_lse
+            _time_main_shape(records, *tensors, causal, shape, dtype_name)
+        del tensors
         torch.cuda.empty_cache()
 
     if failures:
@@ -927,11 +957,12 @@ def resnet_argv(steps: int) -> list[str]:
             "--device", "cuda"]
 
 
-def run_trainer(argv: list[str], state_out: dict | None = None, tag: str = "") -> dict:
+def run_trainer(argv: list[str], state_out: dict | None = None, tag: str = "",
+                all_events: bool = False):
     """python -m tf_operator_tpu_torch.models.train with `argv`, in this
-    process; returns its events by name (the final TrainState goes to
-    state_out["state"] when given). Fails unless it exits 0 with a finite
-    final loss."""
+    process; returns its events by name, or all of them in order with
+    all_events (the final TrainState goes to state_out["state"] when
+    given). Fails unless it exits 0 with a finite final loss."""
     from tf_operator_tpu_torch.models import train
 
     OUT_DIR.mkdir(parents=True, exist_ok=True)
@@ -945,7 +976,8 @@ def run_trainer(argv: list[str], state_out: dict | None = None, tag: str = "") -
         os.environ.pop("TPUJOB_METRICS_FILE", None)
     if rc != 0:
         raise SmokeFailure(f"trainer exited {rc}")
-    by = {e["event"]: e for e in map(json.loads, events_path.read_text().splitlines())}
+    events = [json.loads(x) for x in events_path.read_text().splitlines()]
+    by = {e["event"]: e for e in events}
     done = by.get("done")
     if done is None or not isinstance(done.get("final_loss"), float) \
             or not done["final_loss"] == done["final_loss"] \
@@ -953,7 +985,7 @@ def run_trainer(argv: list[str], state_out: dict | None = None, tag: str = "") -
         raise SmokeFailure(f"no done event with a finite final_loss: {done}")
     if not isinstance(by.get("first_step", {}).get("startup_s"), float):
         raise SmokeFailure("first_step event lacks a float startup_s")
-    return by
+    return events if all_events else by
 
 
 def train_phase(args, card: str) -> dict:
@@ -1122,12 +1154,12 @@ def model_flops_per_example(model_fn, example_shape) -> float:
     return float(total)
 
 
-def resnet_train_phase(args, card: str) -> dict:
+def resnet_train_phase(args, card: str) -> float | None:
     """ResNet-50 through the trainer's entry point at the JAX bench's
     configuration. Fails unless the loss is finite and every batch-norm
     running statistic is finite, f32, and moved from its init. No
     hand-written kernel is on this path: the launch counts, zeroed before
-    and read after, are logged."""
+    and read after, are logged. Returns images/s."""
     import torch
 
     from tf_operator_tpu_torch.models import resnet
@@ -1163,7 +1195,7 @@ def resnet_train_phase(args, card: str) -> dict:
         f"startup_s={by['first_step']['startup_s']} max_memory_allocated={peak_gb:.2f} GB "
         f"running statistics: {n_stats} finite f32, all moved from init; "
         f"launches={launches} batch={RN_BATCH} [{card}]")
-    return launches
+    return ips
 
 
 # Kernel groups of each profiled trainer: (group, substrings of the kernel's
@@ -1179,7 +1211,6 @@ RESNET_GROUPS = (("conv", ("fprop", "dgrad", "wgrad", "conv", "implicit", "winog
                            "xmma")),
                  ("matmul", ("nvjet", "gemm", "cutlass")),
                  ("reduce", ("reduce",)), ("elementwise", ("elementwise",)))
-# The LM profile cuts its steps at the attention forward: a kernel whose
 # The long-context LM (bench.py's 64k and 128k points): full width, batch 1.
 # Each run: (label, seq, steps, extra flags, K1 launches per step with 12
 # layers, whether it may not fit in memory). --remat also rematerialises
@@ -1349,10 +1380,10 @@ _CHILD = (
 )
 
 
-def run_child(argv: list[str], tag: str, timeout: float = 600) -> tuple[int, list, dict]:
-    """python -m tf_operator_tpu_torch.models.train `argv` in a subprocess,
-    with its events in a metrics file: (exit code, events, the child's
-    kernel launch counts)."""
+def start_child(argv: list[str], tag: str):
+    """python -m tf_operator_tpu_torch.models.train `argv` started in a
+    subprocess, with its events in a metrics file; pass the result to
+    finish_child."""
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     events_path = OUT_DIR / f"chip_smoke_events{tag}.jsonl"
     counts_path = OUT_DIR / f"chip_smoke_launches{tag}.json"
@@ -1361,14 +1392,33 @@ def run_child(argv: list[str], tag: str, timeout: float = 600) -> tuple[int, lis
     env = dict(os.environ, TPUJOB_METRICS_FILE=str(events_path),
                PYTHONPATH=str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", ""))
     log("child: python -m tf_operator_tpu_torch.models.train " + " ".join(argv))
-    proc = subprocess.run([sys.executable, "-c", _CHILD, str(counts_path), *argv],
-                          cwd=ROOT, env=env, capture_output=True, text=True, timeout=timeout)
-    for line in proc.stderr.strip().splitlines()[-5:]:
+    proc = subprocess.Popen([sys.executable, "-c", _CHILD, str(counts_path), *argv],
+                            cwd=ROOT, env=env, stdout=subprocess.DEVNULL,
+                            stderr=subprocess.PIPE, text=True)
+    return proc, events_path, counts_path
+
+
+def finish_child(child, timeout: float = 600) -> tuple[int, list, dict]:
+    """Wait for a start_child process (killed past `timeout`): (exit code,
+    events, the child's kernel launch counts)."""
+    proc, events_path, counts_path = child
+    try:
+        _, stderr = proc.communicate(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    for line in stderr.strip().splitlines()[-5:]:
         log(f"  child stderr: {line}")
     events = ([json.loads(x) for x in events_path.read_text().splitlines()]
               if events_path.exists() else [])
     counts = json.loads(counts_path.read_text()) if counts_path.exists() else {}
     return proc.returncode, events, counts
+
+
+def run_child(argv: list[str], tag: str, timeout: float = 600) -> tuple[int, list, dict]:
+    """start_child then finish_child."""
+    return finish_child(start_child(argv, tag), timeout)
 
 
 # The flash kernels' launch counters (ops.flash_attention.LAUNCHES).
@@ -1494,6 +1544,233 @@ def eval_phase(args, card: str, final_state) -> dict:
     return {"evals": evals, "in_process_loss": here, "launches": counts, "card": card}
 
 
+# BERT (BASELINE.md workload 4, BERT-base at full width): the kernels at its
+# two pretraining shapes, full attention, then the trainer.
+BERT_SHAPES = ((32, 12, 512, 64), (128, 12, 128, 64))
+# (model, seq, batch, layers): seq 512 is BERT pretraining's last 10% of
+# steps, seq 128 its first phase (Devlin et al. 2018, appendix A.2);
+# bert-tiny's heads of 32 run zero-padded to 64.
+BERT_RUNS = (("bert-base", 512, 32, 12), ("bert-base", 128, 128, 12),
+             ("bert-tiny", 512, 32, 2))
+BERT_STEPS = 6
+# The chief with checkpoints and its Evaluator (the JAX example's shape).
+BERT_CKPT = ("bert-base", 128, 8)
+BERT_CKPT_DIR = OUT_DIR / "bert_ckpt"
+
+
+def bert_flops_per_step(batch: int, seq: int, layers: int = 12, hidden: int = 768,
+                        vocab: int = 30522, mlp_ratio: int = 4) -> float:
+    """Model FLOPs of one BERT MLM training step: 6 x the dense weights per
+    token (each layer's 4 h^2 + 2 mlp h^2, the MLM transform's h^2 and the
+    h x vocab decoder over every position, as BertMLM computes it) plus
+    full attention's QK^T and PV, 12 x layers x T x h per token for forward
+    and backward."""
+    dense = layers * (4 + 2 * mlp_ratio) * hidden * hidden + hidden * hidden + hidden * vocab
+    return batch * seq * (6.0 * dense + 12.0 * layers * seq * hidden)
+
+
+def bert_argv(model: str, seq: int, batch: int, steps: int) -> list[str]:
+    """The trainer's BERT configuration: f32 moments, no master weights, as
+    examples/bert-gang.yaml."""
+    return ["--model", model, "--seq", str(seq), "--batch", str(batch), "--steps",
+            str(steps), "--log-every", str(LOG_EVERY), "--device", "cuda"]
+
+
+def bert_kernel_check(records: dict) -> None:
+    """K1 (with and without lse), the delta pass, K2 and K3 in bf16, full
+    attention, at BERT_SHAPES, held on the whole tensors against their
+    plain versions with the check phase's tolerances, every MUTATIONS entry
+    rejected at each; then timed beside their bound, their plain version and
+    SDPA's forward and backward. Fills records[kernel]["bert"][shape]."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(512)
+    failures = []
+    for shape in BERT_SHAPES:
+        errs, abs_errs, tensors = check_case(shape, "bfloat16", False, gen, self_test=True)
+        failures += [f"{list(shape)} {n}: excess {e[1]:.3g}" for n, e in errs.items()
+                     if not e[1] <= 1.0]
+        recs = _time_kernels(*tensors, False, shape, "bfloat16", with_plain=True)
+        key = "x".join(map(str, shape))
+        for name, key_l, _ in KERNELS:
+            records.setdefault(name, {}).setdefault("bert", {})[key] = {
+                "shape": list(shape), "causal": False, "max_abs_err": abs_errs[key_l],
+                **recs[name]}
+        del tensors
+        torch.cuda.empty_cache()
+    if failures:
+        raise SmokeFailure("a kernel at a BERT shape disagrees with its plain version: "
+                           + "; ".join(failures))
+
+
+def bert_train_run(model: str, seq: int, batch: int, layers: int, card: str) -> dict:
+    """One BERT run through the trainer: a finite loss, and K1, K2, K3 and
+    the delta pass launched once a layer a step."""
+    import torch
+
+    from tf_operator_tpu_torch.ops import flash_attention as fa
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    by = run_trainer(bert_argv(model, seq, batch, BERT_STEPS), tag=f"_{seq}_{batch}")
+    launches = dict(fa.LAUNCHES)
+    want = {key: layers * BERT_STEPS for key in FLASH_LAUNCH_KEYS}
+    if launches != want:
+        raise SmokeFailure(f"{model} seq {seq}: launches {launches}, not one a layer a "
+                           f"step {want}")
+    done = by["done"]
+    eps = done.get("examples_per_sec")
+    hidden, heads = (768, 12) if model == "bert-base" else (128, 4)
+    vocab = 30522 if model == "bert-base" else 1024
+    res = {"model": model, "seq": seq, "batch": batch, "steps": BERT_STEPS,
+           "tokens_per_s": eps * seq if eps else None,
+           "mfu": (bert_flops_per_step(batch, seq, layers, hidden, vocab) * eps / batch
+                   / PEAK_FLOPS["bfloat16"]) if eps else None,
+           "step_time_s": (done.get("step_time_s") or {}).get("mean"),
+           "startup_s": by["first_step"]["startup_s"],
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches_per_step": {k: n / BERT_STEPS for k, n in launches.items()},
+           "first_loss": by["first_step"]["loss"], "final_loss": done["final_loss"],
+           "head_width": hidden // heads, "card": card}
+    log("bert: " + json.dumps(res))
+    return res
+
+
+def bert_eval_run(card: str) -> dict:
+    """A BERT-base chief saving every 2 steps (BERT_CKPT's shape) with an
+    Evaluator subprocess following its directory from the start: the
+    evaluator must reach FINAL, and its last eval_loss must equal the final
+    parameters' MLM loss on the same batches computed here, after the
+    event's rounding to 6 decimals."""
+    import torch
+
+    from tf_operator_tpu_torch.models import train
+
+    model, seq, batch = BERT_CKPT
+    shutil.rmtree(BERT_CKPT_DIR, ignore_errors=True)
+    argv = bert_argv(model, seq, batch, BERT_STEPS)
+    eval_argv = bert_argv(model, seq, batch, EVAL_BATCHES)
+    child = start_child(eval_argv + ["--eval", "--checkpoint-dir", str(BERT_CKPT_DIR),
+                                     "--eval-timeout", "300"], "_bert_eval")
+    try:
+        out: dict = {}
+        run_trainer(argv + ["--checkpoint-dir", str(BERT_CKPT_DIR), "--checkpoint-every",
+                            "2"], out, tag="_bert_chief")
+    finally:
+        rc, events, counts = finish_child(child, timeout=600)
+    evals = [e for e in events if e["event"] == "eval"]
+    if rc != 0 or not evals or evals[-1]["checkpoint_step"] != BERT_STEPS \
+            or not any(e["event"] == "eval_done" for e in events):
+        raise SmokeFailure(f"the BERT evaluator exited {rc} with eval events {evals}")
+    t_args = train.build_parser().parse_args(eval_argv)
+    dev = torch.device(t_args.device)
+    _, loss_fn, make_batch = train._build_model(t_args, dev)
+    here = train.evaluate(out["state"].model, loss_fn, make_batch, dev, EVAL_BATCHES)
+    got = evals[-1]["eval_loss"]
+    log(f"bert eval: last eval_loss {got!r} (step {evals[-1]['checkpoint_step']}), "
+        f"in-process {here!r}; evaluated steps {[e['checkpoint_step'] for e in evals]}; "
+        f"evaluator launches {counts} [{card}]")
+    if got != round(here, 6):
+        raise SmokeFailure(f"the BERT evaluator's loss {got!r} is off the final "
+                           f"parameters' {here!r}")
+    shutil.rmtree(BERT_CKPT_DIR, ignore_errors=True)
+    return {"evals": evals, "in_process_loss": here, "launches": counts, "card": card}
+
+
+def bert_phase(records: dict, card: str) -> dict:
+    bert_kernel_check(records)
+    runs = [bert_train_run(*run, card) for run in BERT_RUNS]
+    return {"runs": runs, "eval": bert_eval_run(card)}
+
+
+# The --data-dir path: a uint8 ImageNet-shaped shard set (x [N, 224, 224, 3]
+# uint8, y int32) and ResNet-50 at batch 256 trained from it.
+DATA_SAMPLES, DATA_SHARDS, DATA_STEPS = 2560, 10, 8
+DATA_IMAGE, DATA_CLASSES = (RN_SIZE, RN_SIZE, 3), 1000
+DATA_DIR = OUT_DIR / "imagenet_u8"
+# (label, ingest flags); (b) and (d) must equal (a) bit for bit, (c) stay
+# within rtol 1e-3 of it; the lane runs are (b) at 1 and 4 lanes.
+STAGED = ["--input-staging", "staged", "--staging-depth", "2", "--staging-lanes", "2",
+          "--staging-chunks", "2"]
+DATA_RUNS = (
+    ("a prefetch uint8", ["--input-staging", "prefetch", "--wire-dtype", "uint8"]),
+    ("b staged uint8", STAGED + ["--wire-dtype", "uint8"]),
+    ("c staged f32", STAGED + ["--wire-dtype", "f32"]),
+    ("d staged uint8 zlib tuned", STAGED + ["--wire-dtype", "uint8", "--wire-codec", "zlib",
+                                            "--staging-tune"]),
+    ("b at 1 lane", ["--input-staging", "staged", "--staging-depth", "2", "--staging-lanes",
+                     "1", "--staging-chunks", "2", "--wire-dtype", "uint8"]),
+    ("b at 4 lanes", ["--input-staging", "staged", "--staging-depth", "4", "--staging-lanes",
+                      "4", "--staging-chunks", "2", "--wire-dtype", "uint8"]),
+)
+
+
+def write_image_shards(seed: int = 0) -> float:
+    """DATA_DIR's shard set from `seed` (the port's write_array_shards);
+    returns its bytes."""
+    import numpy as np
+
+    from tf_operator_tpu_torch.data.dataset import write_array_shards
+
+    shutil.rmtree(DATA_DIR, ignore_errors=True)
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, 256, size=(DATA_SAMPLES, *DATA_IMAGE), dtype=np.uint8)
+    y = rng.integers(0, DATA_CLASSES, size=(DATA_SAMPLES,)).astype(np.int32)
+    write_array_shards(str(DATA_DIR), {"x": x, "y": y}, DATA_SHARDS)
+    return float(x.nbytes + y.nbytes)
+
+
+def data_phase(card: str, synthetic_ips: float | None) -> dict:
+    """ResNet-50 at batch 256 from DATA_DIR for DATA_STEPS steps, each of
+    DATA_RUNS, with cuDNN held to deterministic algorithms so that runs fed
+    the same bytes run the same device ops: (b) and (d) must give (a)'s
+    losses bit for bit and (c) stay within rtol 1e-3 of them. Logs images/s
+    beside the synthetic-batch ResNet-50's (the train phase's, and one run
+    here under the same cuDNN setting), and each run's ingest block."""
+    import torch
+
+    t0 = time.time()
+    nbytes = write_image_shards()
+    log(f"data: wrote {nbytes / 1e6:.1f} MB of uint8 shards in {time.time() - t0:.1f} s")
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        torch.cuda.empty_cache()
+        synth = run_trainer(resnet_argv(DATA_STEPS), tag="_det")["done"]["examples_per_sec"]
+        results, losses = [], {}
+        for label, flags in DATA_RUNS:
+            torch.cuda.empty_cache()
+            argv = resnet_argv(DATA_STEPS) + ["--data-dir", str(DATA_DIR), *flags]
+            argv[argv.index("--log-every") + 1] = "1"
+            tag = "_data_" + re.sub(r"\W+", "_", label)
+            by_list = run_trainer(argv, tag=tag, all_events=True)
+            losses[label] = [e["loss"] for e in by_list if e["event"] in ("first_step",
+                                                                           "progress")]
+            done = [e for e in by_list if e["event"] == "done"][-1]
+            block = done.get("staging") or done.get("prefetch")
+            res = {"run": label, "images_per_s": done["examples_per_sec"],
+                   "step_time_s": (done.get("step_time_s") or {}).get("mean"),
+                   "data_wait_s": (done.get("phase_breakdown") or {}).get("data_wait"),
+                   "losses": losses[label], "ingest": block, "card": card}
+            log("data: " + json.dumps(res))
+            results.append(res)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    a, b, c, d = (losses[label] for label, _ in DATA_RUNS[:4])
+    if not (len(a) == DATA_STEPS and b == a and d == a):
+        raise SmokeFailure(f"staged ingest changed the losses: (a) {a}, (b) {b}, (d) {d}")
+    if not all(abs(x - y) <= 1e-3 * abs(y) for x, y in zip(c, a)) or len(c) != len(a):
+        raise SmokeFailure(f"the f32 wire's losses {c} are off the uint8 wire's {a}")
+    log(f"data: images/s synthetic {synthetic_ips} (train phase), {synth} (deterministic "
+        f"cuDNN, here); from disk " + ", ".join(f"{r['run']} {r['images_per_s']}"
+                                                for r in results) + f" [{card}]")
+    shutil.rmtree(DATA_DIR, ignore_errors=True)
+    return {"synthetic_images_per_s": synthetic_ips, "synthetic_deterministic_images_per_s":
+            synth, "runs": results, "dataset_bytes": nbytes, "card": card}
+
+
+# The LM profile cuts its steps at the attention forward: a kernel whose
 # lower-cased name holds both substrings (fwd_kernel in f32,
 # fwd_wgmma_kernel in bf16; no other kernel of csrc/).
 LM_STEP_MARKER = ("fwd_", "_kernel")
@@ -1551,9 +1828,9 @@ def _profile_trainer(argv, steps: int, marker: tuple, per_step: int, groups,
 
 
 def profile_phase(args, card: str) -> None:
-    """Both trainers' runs, as the train phase drives them, and the 64k LM
-    with --remat --remat-save-flash (LONGCTX_RUNS' first, 5 steps), under
-    torch.profiler. The LM's steps are cut at their first attention forward
+    """Both trainers' runs, as the train phase drives them, the 64k LM
+    with --remat --remat-save-flash (LONGCTX_RUNS' first, 5 steps) and
+    BERT-base at seq 512 (BERT_RUNS' first), under torch.profiler. The LM's steps are cut at their first attention forward
     (24 a step at 64k: the forward's and the loss replay's), ResNet-50's at
     their loss's log-softmax forward. The Chrome traces go to OUT_DIR."""
     if args.steps < LOG_EVERY + 2:
@@ -1565,14 +1842,18 @@ def profile_phase(args, card: str) -> None:
     _, seq, _, extra, k1_per_step, _ = LONGCTX_RUNS[0]
     _profile_trainer(longctx_argv(seq, 5, extra), 5, LM_STEP_MARKER, k1_per_step,
                      LM_GROUPS, 1, card, "longctx_profile.trace.json")
+    model, seq, batch, layers = BERT_RUNS[0]
+    _profile_trainer(bert_argv(model, seq, batch, args.steps), args.steps, LM_STEP_MARKER,
+                     layers, LM_GROUPS, batch, card, "bert_profile.trace.json")
 
 
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="build,check,train,ckpt,eval,longctx,preempt",
+    ap.add_argument("--phases",
+                    default="build,check,train,ckpt,eval,longctx,preempt,bert,data",
                     help="comma-separated subset of build,check,train,ckpt,eval,longctx,"
-                         "preempt,profile; k4 for the fused bottleneck's checks alone "
-                         "(eval follows the ckpt phase's directory)")
+                         "preempt,bert,data,profile; k4 for the fused bottleneck's checks "
+                         "alone (eval follows the ckpt phase's directory)")
     ap.add_argument("--steps", type=int, default=6)
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -1605,10 +1886,10 @@ def main(argv: list[str] | None = None) -> int:
             check_phase(records)
         elif "k4" in phases:
             k4_check_phase(records)
-        uninterrupted = None
+        uninterrupted = synthetic_ips = None
         if "train" in phases:
             launches, uninterrupted = train_phase(args, card)
-            resnet_train_phase(args, card)
+            synthetic_ips = resnet_train_phase(args, card)
             narrow_lm_phase(card)
         if "ckpt" in phases:
             _, final_state = ckpt_phase(args, card, uninterrupted)
@@ -1620,6 +1901,10 @@ def main(argv: list[str] | None = None) -> int:
             results["longctx"] = longctx_phase(records, card)
         if "preempt" in phases:
             results["preempt"] = preempt_phase(args, card, uninterrupted)
+        if "bert" in phases:
+            results["bert"] = bert_phase(records, card)
+        if "data" in phases:
+            results["data"] = data_phase(card, synthetic_ips)
         if "profile" in phases:
             profile_phase(args, card)
     except Exception as e:  # every phase failure ends the run without a result
@@ -1638,7 +1923,7 @@ def main(argv: list[str] | None = None) -> int:
             "plain_ms": rec.get("plain_ms"), "bound_ms": rec.get("bound_ms"),
             "bound_by": rec.get("bound_by"), "library_ms": rec.get("library_ms"),
         }
-        for extra in (f"at_batch_{BATCH}", "head_widths", "at_T_65536"):
+        for extra in (f"at_batch_{BATCH}", "head_widths", "at_T_65536", "bert"):
             if extra in rec:
                 entry[extra] = rec[extra]
         if name in KERNEL_NOTES:

@@ -456,3 +456,108 @@ def test_preempt_phase_requires_every_flash_kernel_in_both_runs(tmp_path, monkey
     args = chip_smoke.argparse.Namespace(steps=6)
     with pytest.raises(chip_smoke.SmokeFailure, match="was not launched"):
         chip_smoke.preempt_phase(args, "card", {"final_loss": 1.0})
+
+
+def test_bert_flops_per_step_is_the_count():
+    """6 x 108,965,376 dense weights per token plus 12 L T h of full
+    attention: 7.104e8 FLOP a token at T = 512, 1.164e13 a step at batch
+    32."""
+    dense = 12 * 7_077_888 + 589_824 + 768 * 30522
+    assert dense == 108_965_376
+    per_token = 6 * dense + 12 * 12 * 512 * 768
+    assert chip_smoke.bert_flops_per_step(1, 1, vocab=30522) == pytest.approx(
+        6 * dense + 12 * 12 * 768)
+    assert chip_smoke.bert_flops_per_step(32, 512) == pytest.approx(32 * 512 * per_token)
+    assert per_token == pytest.approx(7.104e8, rel=1e-3)
+    assert chip_smoke.bert_flops_per_step(32, 512) == pytest.approx(1.164e13, rel=1e-3)
+
+
+def test_bert_shapes_are_the_runs_attention():
+    """The kernels are checked at the attention shapes of the BERT-base
+    runs ([batch, 12 heads, seq, 64]), and the runs are full width."""
+    from tf_operator_tpu_torch.models import transformer as tfm
+
+    base = tfm.BERT_BASE
+    runs = [(b, base.num_heads, t, base.hidden // base.num_heads)
+            for model, t, b, layers in chip_smoke.BERT_RUNS if model == "bert-base"]
+    assert sorted(runs) == sorted(chip_smoke.BERT_SHAPES)
+    assert all(layers == (12 if model == "bert-base" else 2)
+               for model, _, _, layers in chip_smoke.BERT_RUNS)
+
+
+@pytest.mark.parametrize("t", [512, 128])
+def test_self_test_rejects_every_mutation_full_attention(t):
+    """Each MUTATIONS entry is rejected on BERT's full attention at its
+    sequence lengths (two (b, h) rows stand in for the whole tensor)."""
+    rng = np.random.default_rng(t)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((2, t, 64), dtype=np.float32))
+                   .to(torch.bfloat16) for _ in range(4))
+    o, lse = fa.flash_fwd_plain(q, k, v, False)
+    dq, dk, dv = fa.flash_bwd_plain(q, k, v, o, lse, do, False)
+    outs = {"o": o, "lse": lse, "dq": dq, "dk": dk, "dv": dv}
+    verdicts = chip_smoke.checker_self_test(outs, outs, "bfloat16")
+    assert len(verdicts) == len(chip_smoke.MUTATIONS)
+    assert all(e > 1.0 for e in verdicts.values())
+
+
+def test_data_runs_are_the_four_ways_and_the_lane_runs():
+    labels = [label for label, _ in chip_smoke.DATA_RUNS]
+    assert [label[0] for label in labels[:4]] == ["a", "b", "c", "d"]
+    flags = dict(chip_smoke.DATA_RUNS)
+    assert chip_smoke.DATA_DIR.is_relative_to(chip_smoke.OUT_DIR)
+    assert "--staging-tune" in flags["d staged uint8 zlib tuned"]
+    assert flags["c staged f32"][-1] == "f32"
+    lanes = {label: f[f.index("--staging-lanes") + 1] for label, f in chip_smoke.DATA_RUNS
+             if "--staging-lanes" in f}
+    depth = {label: int(f[f.index("--staging-depth") + 1]) for label, f in chip_smoke.DATA_RUNS
+             if "--staging-depth" in f}
+    assert {lanes["b at 1 lane"], lanes["b staged uint8"], lanes["b at 4 lanes"]} == {
+        "1", "2", "4"}
+    assert all(int(lanes[k]) <= depth[k] for k in lanes)  # no lane capped away
+
+
+def test_data_phase_runs_on_cpu_at_a_tiny_size(tmp_path, monkeypatch):
+    """The data phase's own logic end to end, with the MNIST MLP on 28x28
+    uint8 images on the CPU in place of ResNet-50 at 224x224 on the card:
+    the shards, the seven runs, the bit-equality and rtol checks and the
+    record."""
+    monkeypatch.setattr(chip_smoke, "OUT_DIR", tmp_path)
+    monkeypatch.setattr(chip_smoke, "DATA_DIR", tmp_path / "u8")
+    monkeypatch.setattr(chip_smoke, "DATA_SAMPLES", 48)
+    monkeypatch.setattr(chip_smoke, "DATA_SHARDS", 3)
+    monkeypatch.setattr(chip_smoke, "DATA_STEPS", 4)
+    monkeypatch.setattr(chip_smoke, "DATA_IMAGE", (28, 28))
+    monkeypatch.setattr(chip_smoke, "DATA_CLASSES", 10)
+    monkeypatch.setattr(chip_smoke, "resnet_argv", lambda steps: [
+        "--model", "mnist-mlp", "--batch", "8", "--steps", str(steps), "--log-every", "2",
+        "--device", "cpu"])
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        rec = chip_smoke.data_phase("cpu", None)
+    finally:
+        torch.set_num_threads(n)
+    runs = {r["run"]: r for r in rec["runs"]}
+    assert len(runs) == len(chip_smoke.DATA_RUNS)
+    assert runs["b staged uint8"]["losses"] == runs["a prefetch uint8"]["losses"]
+    assert len(runs["a prefetch uint8"]["losses"]) == 4
+    assert runs["d staged uint8 zlib tuned"]["ingest"]["tune"]["table"]
+    assert runs["b at 4 lanes"]["ingest"]["lanes_effective"] == 4
+    assert runs["a prefetch uint8"]["ingest"]["batches"] == 4
+    assert not (tmp_path / "u8").exists()
+
+
+def test_bert_eval_run_follows_the_chief_on_cpu(tmp_path, monkeypatch):
+    """The BERT chief and its Evaluator subprocess, as the bert phase runs
+    them, with bert-tiny at seq 16 on the CPU."""
+    monkeypatch.setattr(chip_smoke, "OUT_DIR", tmp_path)
+    monkeypatch.setattr(chip_smoke, "BERT_CKPT_DIR", tmp_path / "ck")
+    monkeypatch.setattr(chip_smoke, "BERT_CKPT", ("bert-tiny", 16, 2))
+    monkeypatch.setattr(chip_smoke, "BERT_STEPS", 4)
+    argv = chip_smoke.bert_argv
+    monkeypatch.setattr(chip_smoke, "bert_argv", lambda *a: [
+        *argv(*a)[:-2], "--device", "cpu"])
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    rec = chip_smoke.bert_eval_run("cpu")
+    assert rec["evals"][-1]["checkpoint_step"] == 4
+    assert rec["evals"][-1]["eval_loss"] == round(rec["in_process_loss"], 6)

@@ -9,7 +9,7 @@ checkpoint before the timeout it exits 1. On the same numpy parameters and
 batches its eval_loss (train.evaluate, rounded to 6 places as the event
 carries it) is the JAX evaluator's (the mean of the JAX loss over the
 batches) at the f32 tolerance of the models' parity tests (atol 1e-5 for
-MNIST, 1e-4 for the LM).
+MNIST, 1e-4 for the LM and BERT).
 """
 
 import dataclasses
@@ -130,7 +130,13 @@ def _jax_lm(params, batches, cfg):
             for (t,) in batches]
 
 
-@pytest.mark.parametrize("model_name", ["mnist-mlp", "transformer-lm"])
+def _jax_bert(params, batches, cfg):
+    model = jtfm.BertMLM(cfg)
+    return [float(jtfm.mlm_loss(model.apply({"params": params}, jnp.asarray(t)),
+                                jnp.asarray(tg), jnp.asarray(m))) for t, tg, m in batches]
+
+
+@pytest.mark.parametrize("model_name", ["mnist-mlp", "transformer-lm", "bert-tiny"])
 def test_eval_loss_is_the_jax_evaluators(model_name):
     rng = np.random.default_rng(7)
     if model_name == "mnist-mlp":
@@ -147,6 +153,26 @@ def test_eval_loss_is_the_jax_evaluators(model_name):
         def to_batch(b):
             return {"x": torch.from_numpy(b[0]), "y": torch.from_numpy(b[1]).long()}
         atol = 1e-5
+    elif model_name == "bert-tiny":
+        jcfg = dataclasses.replace(jtfm.TINY, dtype=jnp.float32, max_len=64)
+        params = jtfm.BertMLM(jcfg).init(jax.random.key(3),
+                                         jnp.zeros((1, 64), jnp.int32))["params"]
+        batches = []
+        for _ in range(3):
+            targets = rng.integers(0, 1024, (2, 64)).astype(np.int32)
+            mask = (rng.random((2, 64)) < 0.15).astype(np.float32)
+            batches.append((np.where(mask > 0, 103, targets).astype(np.int32), targets, mask))
+        want = _jax_bert(params, batches, jcfg)
+        model = tfm.BertMLM(dataclasses.replace(tfm.TINY, dtype=torch.float32, max_len=64))
+        model.load_state_dict(tfm.params_from_flax(jax.tree.map(np.array, params)))
+
+        def loss_fn(m, b):
+            return tfm.mlm_loss(m(b["tokens"]), b["targets"], b["mask"])
+
+        def to_batch(b):
+            return {"tokens": torch.from_numpy(b[0]).long(), "targets": torch.from_numpy(b[1]),
+                    "mask": torch.from_numpy(b[2])}
+        atol = 1e-4
     else:
         jcfg = dataclasses.replace(jtfm.TINY_LM, dtype=jnp.float32, max_len=64)
         params = jtfm.TransformerLM(jcfg).init(jax.random.key(3),

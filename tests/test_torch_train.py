@@ -321,16 +321,40 @@ def test_trainer_refuses_cuda_without_a_device(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--model", "moe-lm"], ["--model", "bert-tiny"], ["--data-dir", "/nonexistent"],
-    ["--input-staging", "staged"], ["--wire-dtype=uint8"], ["--moe-dispatch", "sparse"],
-    ["--model", "bert-base"],
+    ["--model", "moe-lm"], ["--moe-dispatch", "sparse"],
+    ["JAX_NUM_PROCESSES", "2"], ["TPUJOB_NUM_SLICES", "2"],
 ])
-def test_trainer_refuses_what_is_not_ported(flag, capsys):
+def test_trainer_refuses_what_is_not_ported(flag, capsys, monkeypatch):
+    """MoE by name, and a job of more than one process by the operator's
+    env (multi-process training waits for torch.distributed, ROADMAP A9):
+    exit 2, the name in the message."""
+    argv = list(TINY_ARGS)
+    if flag[0].startswith("--"):
+        argv += flag
+    else:
+        monkeypatch.setenv(*flag)
     with pytest.raises(SystemExit) as e:
-        train.main([*TINY_ARGS, *flag])
+        train.main(argv)
     assert e.value.code == 2
     err = capsys.readouterr().err
     assert "not ported" in err and flag[0].split("=")[0] in err
+    if not flag[0].startswith("--"):
+        assert "torch.distributed" in err and "A9" in err
+
+
+def test_multi_process_job_exits_2_before_any_event(tmp_path):
+    """A Worker of a two-process job, as the operator starts it: exit 2
+    with the refusal, no event file, no heartbeat; a one-process job's
+    JAX_NUM_PROCESSES=1 trains."""
+    proc = _run_trainer(tmp_path, TINY_ARGS + ["--steps", "1"],
+                        {"JAX_NUM_PROCESSES": "2", "JAX_PROCESS_ID": "1"})
+    assert proc.returncode == 2
+    assert "JAX_NUM_PROCESSES=2" in proc.stderr and "A9" in proc.stderr
+    assert not (tmp_path / "events.jsonl").exists() and not (tmp_path / "hb.json").exists()
+    proc = _run_trainer(tmp_path, ["--model", "mnist-mlp", "--device", "cpu", "--steps", "1",
+                                   "--batch", "4"],
+                        {"JAX_NUM_PROCESSES": "1", "JAX_PROCESS_ID": "0"})
+    assert proc.returncode == 0, proc.stderr
 
 
 def test_chip_smoke_fails_without_a_card():
@@ -350,8 +374,11 @@ def test_import_hygiene_in_a_fresh_process():
         "import json, pkgutil, sys\n"
         f"sys.path.insert(0, {str(ROOT)!r})\n"
         "import tf_operator_tpu_torch, tf_operator_tpu_torch.models.train, chip_smoke\n"
-        "for m in pkgutil.walk_packages(tf_operator_tpu_torch.__path__, 'tf_operator_tpu_torch.'):\n"
-        "    __import__(m.name)\n"
+        "names = [m.name for m in pkgutil.walk_packages(tf_operator_tpu_torch.__path__,\n"
+        "                                                 'tf_operator_tpu_torch.')]\n"
+        "assert 'tf_operator_tpu_torch.data.staging' in names, names\n"
+        "for name in names:\n"
+        "    __import__(name)\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "print(json.dumps(bad))\n"
     )
@@ -364,6 +391,8 @@ def test_import_hygiene_in_a_fresh_process():
 def test_import_hygiene_ast_scan():
     files = sorted((ROOT / "tf_operator_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
+    for name in ("dataset", "prefetch", "staging"):
+        assert ROOT / "tf_operator_tpu_torch" / "data" / f"{name}.py" in files
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):

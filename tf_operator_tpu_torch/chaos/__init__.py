@@ -8,6 +8,7 @@ parsed whole. The PyTorch trainer acts on its own kinds only:
     TPUJOB_CHAOS="hang:step=4,duration=2"              # go quiet at step 4
     TPUJOB_CHAOS="torn:step=8;kill:step=8,signal=KILL" # tear then die
     TPUJOB_CHAOS="stall:ckpt=4,delay=5"                # hold the save of step 4
+    TPUJOB_CHAOS="stall:lane=0,delay=0.05"             # slow staging lane 0
 
 Injection points, each one hook at its subsystem's boundary and free when
 the spec is unset:
@@ -15,10 +16,10 @@ the spec is unset:
   * trainer step boundary     models/train.py -> TrainerChaos.hang_at, maybe_kill
   * checkpoint write leg      models/train.py -> tear_checkpoint
   * checkpoint publish        models/checkpoint.py -> ckpt_stall_delay
+  * staging-ring transfer leg data/staging.py -> staging_stall_delay
 
-The other kinds (apiserver, preempt, capacity, the staging ring's stalls)
-are the operator's or the input pipeline's; the trainer parses and ignores
-them.
+The other kinds (apiserver, preempt, capacity) are the operator's; the
+trainer parses and ignores them.
 """
 
 from __future__ import annotations
@@ -38,8 +39,9 @@ from tf_operator_tpu_torch.chaos.spec import (
 __all__ = [
     "ENV_CHAOS", "ENV_CHAOS_STATE", "Directive", "OneShotState",
     "from_env", "parse_chaos", "parse_signal", "replica_matches",
-    "TrainerChaos", "hang", "tear_checkpoint", "ckpt_stalls_from_env",
-    "ckpt_stall_delay", "reset_ckpt_stall_state",
+    "TrainerChaos", "hang", "tear_checkpoint", "staging_stalls_from_env",
+    "staging_stall_delay", "ckpt_stalls_from_env", "ckpt_stall_delay",
+    "reset_ckpt_stall_state",
 ]
 
 
@@ -154,6 +156,37 @@ def tear_checkpoint(ckpt_dir: str, step: int, mode: str = "truncate") -> str:
         with open(target, "r+b") as f:
             f.truncate(os.path.getsize(target) // 2)
     return target
+
+
+def staging_stalls_from_env(env: dict | None = None) -> list[Directive]:
+    """`stall:` directives for the staging ring's transfer lanes; [] without
+    a spec. ckpt-targeted stalls belong to the checkpoint publish."""
+    e = os.environ if env is None else env
+    if not e.get(ENV_CHAOS):
+        return []
+    return [d for d in from_env(e) if d.kind == "stall" and "ckpt" not in d.params]
+
+
+def staging_stall_delay(index: int, stalls: list[Directive],
+                        lane: int | None = None) -> float:
+    """Seconds to hold staged batch `index` (0-based) carried by transfer
+    lane `lane`: a `lane=L` directive fires only in that lane (every batch
+    it carries unless it names batch= or every=); batch=N holds batch N,
+    every=K every K-th batch."""
+    total = 0.0
+    for d in stalls:
+        want_lane = d.params.get("lane")
+        if want_lane is not None and lane != want_lane:
+            continue
+        if "batch" in d.params:
+            if index == d.params["batch"]:
+                total += d.params["delay"]
+        elif "every" in d.params:
+            if index % d.params["every"] == 0:
+                total += d.params["delay"]
+        else:
+            total += d.params["delay"]
+    return total
 
 
 def ckpt_stalls_from_env(env: dict | None = None) -> list[Directive]:

@@ -6,12 +6,20 @@
     python -m tf_operator_tpu_torch.models.train --model resnet50 \\
         --batch 256 --image-size 224 --steps 6 --log-every 2
 
+    python -m tf_operator_tpu_torch.models.train --model bert-base \
+        --seq 128 --batch 8 --steps 6 --checkpoint-dir /ckpt
+    python -m tf_operator_tpu_torch.models.train --model resnet50 \
+        --data-dir /data --input-staging staged --staging-lanes 2
+
 Counterpart of tf_operator_tpu/models/train.py for the models ported so
 far: `mnist-mlp` (the default, as there), `mnist-conv`, `resnet18`,
-`resnet50` and `transformer-lm`. Synthetic batches are made on the device
+`resnet50`, `transformer-lm` and BERT's masked LM (`bert-base`,
+`bert-tiny`: their own widths, --layers/--hidden/--heads ignored, full
+attention, max_len max(seq, 8)). Synthetic batches are made on the device
 (x ~ N(0, 1) images of [B, 28, 28] or [B, S, S, 3] with uniform labels;
-uniform tokens for the LM), the LM runs through the flash kernels, the
-optimizer is mixed-precision Adam/AdamW, and the JSON events are the JAX
+uniform tokens for the LM; BERT's 15% [MASK] batches), attention runs
+through the flash kernels, the optimizer is mixed-precision Adam/AdamW,
+and the JSON events are the JAX
 trainer's (`start`, `jax_ready` — kept by name for the bench's segment
 reader, `model_ready`, `first_step`, `progress`, `done`) on stdout and
 appended to `TPUJOB_METRICS_FILE`, plus the `TPUJOB_HEARTBEAT_FILE`
@@ -43,6 +51,19 @@ keeps a torch.profiler trace of the last steady chunk, outside the
 throughput window. `--eval` makes this process the Evaluator: it follows
 `--checkpoint-dir` to FINAL and evaluates each step on fixed batches.
 
+`--data-dir` trains on a sharded on-disk dataset (data/dataset.py) one
+step at a time, its batches fed by the copy thread of data/prefetch.py
+(`--input-staging prefetch`) or the staging ring of data/staging.py
+(`staged`, with `--staging-{depth,chunks,lanes,tune}` and
+`--wire-codec`); `--wire-dtype` picks the wire (uint8 images are
+normalised on the device, on the step's thread). A resumed run continues
+the batch sequence, and the done event carries the ingest's `prefetch` or
+`staging` block.
+
+The trainer is one process: a job whose env says it has more (the
+operator's JAX_NUM_PROCESSES, TPUJOB_NUM_SLICES) is refused with exit 2
+until torch.distributed is ported.
+
 It runs on CUDA unless `--device cpu` asks for the CPU, and exits nonzero
 when CUDA is asked for and absent. Flags and models of the JAX trainer
 that this one does not handle yet are refused, never ignored.
@@ -65,14 +86,13 @@ import torch
 
 MODELS = ("mnist-mlp", "mnist-conv", "resnet18", "resnet50", "transformer-lm",
           "bert-base", "bert-tiny", "moe-lm")
-PORTED_MODELS = ("mnist-mlp", "mnist-conv", "resnet18", "resnet50", "transformer-lm")
-# Flags of the JAX trainer this trainer refuses until their feature is ported.
-UNPORTED_FLAGS = ("data_dir",)
-# Flags of the JAX trainer this parser does not define, refused by name:
-# the --data-dir ingest path's staging and wire flags, and MoE dispatch.
-UNPORTED_JAX_ARGS = ("--input-staging", "--staging-depth", "--staging-chunks",
-                     "--staging-lanes", "--staging-tune", "--wire-codec", "--wire-dtype",
-                     "--moe-dispatch")
+PORTED_MODELS = ("mnist-mlp", "mnist-conv", "resnet18", "resnet50", "transformer-lm",
+                 "bert-base", "bert-tiny")
+# Flags of the JAX trainer this parser does not define, refused by name.
+UNPORTED_JAX_ARGS = ("--moe-dispatch",)
+# The operator's process-count env (cluster_spec/tpu_env.py): a job of more
+# than one process needs torch.distributed, which is not ported yet.
+PROCESS_COUNT_ENV = ("JAX_NUM_PROCESSES", "TPUJOB_NUM_SLICES")
 # Per-device f32 logits bytes at which the loss switches to the chunked head
 # (the JAX trainer's cutover).
 CHUNKED_LOSS_BYTES = 6e9
@@ -179,8 +199,42 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--trace-steps", type=int, default=0,
                     help="stop recording after this many steady steps "
                          "(0 = the whole run, bounded by the tracer's ring)")
-    # Refused until ported (see UNPORTED_FLAGS): the on-disk dataset.
-    ap.add_argument("--data-dir", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--data-dir", default=None,
+                    help="train on a sharded on-disk dataset (data/dataset.py "
+                         "layout; keys must match the model's batch keys) "
+                         "instead of synthetic data")
+    ap.add_argument("--input-staging", default="prefetch", choices=["prefetch", "staged"],
+                    help="with --data-dir: host->device ingest. 'prefetch' = "
+                         "one copy thread on a side stream (the continuity "
+                         "baseline); 'staged' = the staging ring "
+                         "(data/staging.py): K batch slots, chunked copies, "
+                         "N lanes and transfer/overlap accounting")
+    ap.add_argument("--staging-depth", type=int, default=2,
+                    help="staging ring size K: batches staged ahead of the "
+                         "consumer (2 = double buffering)")
+    ap.add_argument("--staging-chunks", type=int, default=1,
+                    help="copies per staged array (split along the batch "
+                         "dim, reassembled on the device); degraded per "
+                         "array, see the done event's staging.chunks_effective")
+    ap.add_argument("--staging-lanes", type=int, default=1,
+                    help="transfer threads feeding the ring concurrently, each "
+                         "on its own CUDA stream; exact batch order kept; "
+                         "capped at --staging-depth")
+    ap.add_argument("--staging-tune", action="store_true",
+                    help="probe {lanes x chunks} against the live link on one "
+                         "batch at startup and lock the best (overrides "
+                         "--staging-lanes/--staging-chunks); the batch is "
+                         "chained back, so the trajectory is an untuned run's")
+    ap.add_argument("--wire-codec", default="none", choices=["none", "zlib"],
+                    help="lossless wire compression for staged ingest: encoded "
+                         "on the producer leg, decoded by the lane before its "
+                         "copy (numerics bit-identical); measures what a "
+                         "compressed remote wire would save")
+    ap.add_argument("--wire-dtype", default="auto", choices=["auto", "uint8", "f32"],
+                    help="with --data-dir: the host->device wire. auto = arrays "
+                         "as stored (uint8 images normalised on the device); "
+                         "uint8 = assert the cheap wire; f32 = normalise on "
+                         "the host (the parity reference)")
     return ap
 
 
@@ -198,7 +252,8 @@ def parse_args(ap: argparse.ArgumentParser, argv: list[str] | None):
 
 def check_flags(ap: argparse.ArgumentParser, args) -> None:
     """The JAX trainer's flag-only checks, with its messages (ap.error:
-    exit 2), then what this trainer does not handle yet."""
+    exit 2), then what this trainer does not handle yet: a job of more than
+    one process (PROCESS_COUNT_ENV) and the models outside PORTED_MODELS."""
     if ((args.remat_save_flash or args.remat_save_flash_layers)
             and not args.remat):
         ap.error("--remat-save-flash[-layers] requires --remat (it selects "
@@ -210,6 +265,32 @@ def check_flags(ap: argparse.ArgumentParser, args) -> None:
                  "where the K dial was chosen to fit")
     if args.remat_save_flash_layers < 0:
         ap.error("--remat-save-flash-layers must be >= 0")
+    if args.staging_depth < 1:
+        ap.error("--staging-depth must be >= 1")
+    if args.staging_chunks < 1:
+        ap.error("--staging-chunks must be >= 1")
+    if args.staging_lanes < 1:
+        ap.error("--staging-lanes must be >= 1")
+    if not args.data_dir and (args.input_staging != "prefetch"
+                              or args.wire_dtype != "auto"
+                              or args.wire_codec != "none"
+                              or args.staging_depth != 2
+                              or args.staging_chunks != 1
+                              or args.staging_lanes != 1
+                              or args.staging_tune):
+        ap.error("--input-staging/--wire-dtype/--wire-codec/"
+                 "--staging-depth/--staging-chunks/--staging-lanes/"
+                 "--staging-tune shape the --data-dir ingest path; "
+                 "without --data-dir batches are synthesized on device "
+                 "and there is no wire to shape")
+    if (args.input_staging == "prefetch"
+            and (args.staging_depth != 2 or args.staging_chunks != 1
+                 or args.staging_lanes != 1 or args.staging_tune
+                 or args.wire_codec != "none")):
+        ap.error("--staging-depth/--staging-chunks/--staging-lanes/"
+                 "--staging-tune/--wire-codec configure the staging "
+                 "RING; with --input-staging prefetch they would be "
+                 "silently ignored — pass --input-staging staged")
     if (args.trace_dir is not None or args.trace_steps) and not args.trace:
         ap.error("--trace-dir/--trace-steps shape the span trace; pass "
                  "--trace to enable it (they would otherwise be silently "
@@ -226,10 +307,17 @@ def check_flags(ap: argparse.ArgumentParser, args) -> None:
     if args.allow_reshape and not args.checkpoint_dir:
         ap.error("--allow-reshape shapes the --checkpoint-dir resume walk; "
                  "without one there is nothing to restore")
-    for name in UNPORTED_FLAGS:
-        if getattr(args, name):
-            ap.error(f"--{name.replace('_', '-')} is not ported to the PyTorch "
-                     f"trainer yet")
+    for name in PROCESS_COUNT_ENV:
+        value = os.environ.get(name, "").strip()
+        try:
+            count = int(value or "1")
+        except ValueError:
+            ap.error(f"{name}={value!r} is not a process count")
+        if count > 1:
+            ap.error(f"{name}={count}: multi-process training is not ported to the "
+                     f"PyTorch trainer yet; it waits for torch.distributed (ROADMAP "
+                     f"A9; across slices also A12), and one process per pod training "
+                     f"its own model would not be the job's result")
     if args.model not in PORTED_MODELS:
         ap.error(f"--model {args.model} is not ported to the PyTorch trainer "
                  f"yet ({', '.join(PORTED_MODELS)} are)")
@@ -380,6 +468,28 @@ def _build_model(args, device: torch.device):
 
         return model, loss_fn, make_batch
 
+    if args.model in ("bert-base", "bert-tiny"):
+        from tf_operator_tpu_torch.models import transformer as tfm
+        from tf_operator_tpu_torch.parallel.ring_attention import make_attention_fn
+
+        # The JAX trainer's branch: the config's own widths (--layers,
+        # --hidden and --heads do not apply), full attention, and only the
+        # loss-level --remat.
+        base = tfm.BERT_BASE if args.model == "bert-base" else tfm.TINY
+        cfg = tfm.TransformerConfig(
+            vocab_size=base.vocab_size, num_layers=base.num_layers, hidden=base.hidden,
+            num_heads=base.num_heads, max_len=max(args.seq, 8), causal=False)
+        model = tfm.BertMLM(cfg, attn_fn=make_attention_fn(causal=False), device=device,
+                            generator=gen)
+
+        def loss_fn(model, batch):
+            return tfm.mlm_loss(model(batch["tokens"]), batch["targets"], batch["mask"])
+
+        def make_batch(g):
+            return tfm.make_mlm_batch(g, args.batch, args.seq, cfg.vocab_size)
+
+        return model, loss_fn, make_batch
+
     from tf_operator_tpu_torch.models import mnist
 
     if args.model in ("mnist-mlp", "mnist-conv"):
@@ -393,9 +503,17 @@ def _build_model(args, device: torch.device):
         shape = (args.batch, args.image_size, args.image_size, 3)
         cls = resnet.ResNet50 if args.model == "resnet50" else resnet.ResNet18
         model = cls(num_classes=classes, device=device, generator=gen)
+    resnet_loss = args.model.startswith("resnet")
 
     def loss_fn(model, batch):
-        return mnist.cross_entropy_loss(model(batch["x"]), batch["y"])
+        x = batch["x"]
+        if resnet_loss and x.dtype == torch.uint8:
+            # The JAX ResNet loss's branch for callers that hand it raw
+            # uint8 pixels (the --data-dir path normalises before the loss).
+            from tf_operator_tpu_torch.data.staging import normalize_uint8
+
+            x = normalize_uint8(x)
+        return mnist.cross_entropy_loss(model(x), batch["y"])
 
     def make_batch(g):
         return {"x": torch.randn(shape, generator=g, device=device),
@@ -994,6 +1112,170 @@ def _run_evaluator(args, model, loss_fn, make_batch, device: torch.device, guard
     return 0
 
 
+def _device_kind(device: torch.device) -> str:
+    return torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+
+
+def _train_on_dataset(args, device: torch.device, state, start_step: int, loss_fn, tx,
+                      t_start: float, maybe_checkpoint, check_boundary, finish) -> int:
+    """The --data-dir loop: host batches from the sharded dataset (this
+    process's shards, from start_step on, so a resumed run continues the
+    uninterrupted sequence), fed through the prefetch thread or the staging
+    ring, one step at a time. The uint8 wire is normalised here, on the
+    step's thread, before the loss. The done event gets the ingest's
+    `prefetch` or `staging` block."""
+    import itertools
+
+    from tf_operator_tpu_torch.data import dataset as dataset_lib
+    from tf_operator_tpu_torch.data import prefetch as prefetch_lib
+    from tf_operator_tpu_torch.data import staging as staging_lib
+    from tf_operator_tpu_torch.parallel.train_step import remat_loss, train_step
+    from tf_operator_tpu_torch.telemetry.phases import make_step_accounting
+
+    reader, readers = dataset_lib.shard_from_env()
+    ds = dataset_lib.ShardedDataset(args.data_dir, reader, readers)
+    host_it = ds.batches(args.batch, seed=0, start_batch=start_step)
+    prefetch_stats: dict = {}
+    staging_stats: dict = {}
+    tune = None
+    lanes, chunks = args.staging_lanes, args.staging_chunks
+    if args.input_staging == "staged":
+        if args.staging_tune:
+            # Peek one host batch, probe the ring's geometries with copies of
+            # it, chain it back in front: the trajectory is an untuned run's.
+            first = next(host_it)
+            tune = staging_lib.autotune_staging(first, device=device,
+                                                wire_dtype=args.wire_dtype,
+                                                codec=args.wire_codec,
+                                                depth=args.staging_depth)
+            lanes, chunks = tune["lanes"], tune["chunks"]
+            host_it = itertools.chain([first], host_it)
+            _emit({"event": "staging_tuned", "lanes": lanes, "chunks": chunks,
+                   "mb_per_s": tune["mb_per_s"], "probe_s": tune["probe_s"]})
+        it = staging_lib.stage_to_device(host_it, depth=args.staging_depth, device=device,
+                                         chunks=chunks, wire_dtype=args.wire_dtype,
+                                         stats=staging_stats, lanes=lanes,
+                                         codec=args.wire_codec)
+    else:
+        it = prefetch_lib.prefetch_to_device(
+            (staging_lib.to_wire(b, args.wire_dtype) for b in host_it), depth=2,
+            device=device, stats=prefetch_stats)
+    preprocess = staging_lib.make_preprocess_fn()
+    loss = remat_loss(loss_fn) if args.remat else loss_fn
+
+    def step(state, batch):
+        return train_step(state, preprocess(batch), loss, tx)
+
+    try:
+        state, metrics = step(state, next(it))
+        first_loss = float(metrics["loss"])
+        t_first = time.time()
+        done = start_step + 1
+        _emit({
+            "event": "first_step", "t": t_first, "startup_s": round(t_first - t_start, 3),
+            "steps_in_first_call": 1, "loss": first_loss, "mesh": {"dp": 1},
+            "backend": device.type, "device_kind": _device_kind(device), "n_devices": 1,
+            "data_dir": args.data_dir, "local_samples": ds.num_samples,
+        })
+        maybe_checkpoint(done, state)
+        rc = check_boundary(done, state)
+        if rc is not None:
+            return rc
+        prof = _Profile(args.profile_dir, device) if args.profile_dir and done < args.steps \
+            else None
+        # Step i's loss is fetched after step i+1 is enqueued; every steady
+        # step's wall clock splits into data_wait / dispatch /
+        # device_blocked / checkpoint phases.
+        t0 = time.time()
+        pending = None
+        acct = make_step_accounting()
+        while done < args.steps:
+            _trace_window_check(args, done - start_step - 1)
+            with acct.step(done + 1) as st:
+                with st.phase("data_wait"):
+                    batch = next(it)
+                with st.phase("dispatch"):
+                    state, metrics = step(state, batch)
+                done += 1
+                if pending is not None:
+                    pstep, pmetrics = pending
+                    if pstep % args.log_every == 0:
+                        with st.phase("device_blocked"):
+                            ploss = float(pmetrics["loss"])
+                        _emit({"event": "progress", "step": pstep, "loss": ploss})
+                pending = (done, metrics)
+                maybe_checkpoint(done, state, st)
+                rc = check_boundary(done, state, st)
+                if rc is not None:
+                    return rc
+        if pending is not None:
+            pstep, pmetrics = pending
+            closing_loss = float(pmetrics["loss"])
+        dt = time.time() - t0
+        if pending is not None:
+            _emit({"event": "progress", "step": pstep, "loss": closing_loss})
+        if prof is not None:
+            prof.stop()
+            _emit({"event": "profile_done", "dir": args.profile_dir,
+                   "steps_traced": args.steps - start_step - 1, "in_timed_window": True})
+    finally:
+        it.close()
+    return finish(state, metrics, args.steps - start_step - 1, dt, acct,
+                  _ingest_block(args, prefetch_stats, staging_stats, lanes, chunks, tune))
+
+
+def _ingest_block(args, prefetch_stats: dict, staging_stats: dict, lanes: int, chunks: int,
+                  tune: dict | None) -> dict:
+    """The done event's `staging` block (the ring's transfer and overlap
+    accounting, the codec's ledger, the tuner's table) or `prefetch` block,
+    with the JAX trainer's keys."""
+    from tf_operator_tpu_torch.data import prefetch as prefetch_lib
+    from tf_operator_tpu_torch.data import staging as staging_lib
+
+    if args.input_staging != "staged":
+        overlap = prefetch_lib.overlap_efficiency(prefetch_stats)
+        return {"prefetch": {
+            "batches": prefetch_stats.get("batches_consumed"),
+            "input_s": round(prefetch_stats.get("input_s", 0.0), 3),
+            "consumer_wait_s": round(prefetch_stats.get("consumer_wait_s", 0.0), 3),
+            "overlap_efficiency": round(overlap, 4) if overlap is not None else None,
+        }}
+    s = staging_stats
+    rate = staging_lib.transfer_mb_per_s(s)
+    overlap = staging_lib.input_overlap_fraction(s)
+    block = {
+        "depth": args.staging_depth,
+        "chunks": chunks,
+        "chunks_effective": s.get("chunks_effective"),
+        "lanes": lanes,
+        "lanes_effective": s.get("lanes_effective"),
+        "wire_dtype": args.wire_dtype,
+        "codec": args.wire_codec,
+        "batches": s.get("batches_consumed"),
+        # staged >= consumed: the ring reads ahead up to `depth` batches.
+        "batches_staged": s.get("batches_staged"),
+        "bytes_staged_mb": round(s.get("bytes_staged", 0) / 1e6, 3),
+        "transfer_s": round(s.get("transfer_s", 0.0), 3),
+        "transfer_busy_s": round(s.get("transfer_busy_s", 0.0), 3),
+        "transfer_mb_per_s": round(rate, 2) if rate is not None else None,
+        "input_overlap_fraction": round(overlap, 4) if overlap is not None else None,
+        "wall_s": round(s.get("wall_s", 0.0), 3),
+        "consumer_wait_s": round(s.get("consumer_wait_s", 0.0), 3),
+        "consumer_busy_s": round(s.get("consumer_busy_s", 0.0), 3),
+    }
+    if args.wire_codec != "none":
+        enc, raw = s.get("bytes_encoded", 0), s.get("bytes_staged", 0)
+        block.update({
+            "bytes_encoded_mb": round(enc / 1e6, 3),
+            "codec_ratio": round(raw / enc, 3) if enc else None,
+            "encode_s": round(s.get("encode_s", 0.0), 3),
+            "decode_s": round(s.get("decode_s", 0.0), 3),
+        })
+    if tune is not None:
+        block["tune"] = tune
+    return {"staging": block}
+
+
 def _run_trainer(args, device: torch.device, heartbeat, guard, chaos=None,
                  state_out=None) -> int:
     from tf_operator_tpu_torch import optim as optim_lib
@@ -1066,7 +1348,7 @@ def _run_trainer(args, device: torch.device, heartbeat, guard, chaos=None,
         ckpt_marks = start_step // args.checkpoint_every if args.checkpoint_every else 0
         last_save_s, last_ckpt_step = 0.0, -1
 
-        def maybe_checkpoint(done: int, st=None) -> None:
+        def maybe_checkpoint(done: int, state, st=None) -> None:
             nonlocal ckpt_marks, last_save_s, last_ckpt_step
             if ck is None or not args.checkpoint_every or done >= args.steps:
                 return  # the final save (marked FINAL) comes after the loop
@@ -1076,7 +1358,7 @@ def _run_trainer(args, device: torch.device, heartbeat, guard, chaos=None,
                 last_save_s = _save_checkpoint(ck, done, state, st=st)
                 last_ckpt_step = done
 
-        def check_boundary(done: int, st=None) -> int | None:
+        def check_boundary(done: int, state, st=None) -> int | None:
             """Heartbeat, chaos hang-then-kill, and preemption after a chunk:
             the exit code to leave with, or None to go on training."""
             heartbeat.write(done)
@@ -1094,6 +1376,40 @@ def _run_trainer(args, device: torch.device, heartbeat, guard, chaos=None,
                                      last_ckpt_step, st)
             return None
 
+        def finish(state, metrics, steady: int, dt: float, acct, extra: dict) -> int:
+            """The final save, the last heartbeat and the done event (with
+            `extra`'s blocks) after the last step."""
+            if ck is not None:
+                _save_checkpoint(ck, args.steps, state, final=True)
+            heartbeat.write(args.steps, force=True)
+            telem = acct.summary()
+            done_event = {
+                "event": "done",
+                "t": time.time(),
+                "steps": args.steps,
+                "steady_steps_per_sec": round(steady / dt, 4) if steady > 0 else None,
+                "examples_per_sec": round(steady * args.batch / dt, 4) if steady > 0 else None,
+                "final_loss": float(metrics["loss"]),
+                "total_s": round(time.time() - t_start, 3),
+                "step_time_s": telem["step_time_s"] if telem else None,
+                "phase_breakdown": telem["phase_breakdown"] if telem else None,
+            }
+            ckpt_block = _ckpt_done_stats(ck)
+            if ckpt_block:
+                # The step loop paid snapshot_s (+ drain_wait_s of
+                # backpressure); write_s rode the writer thread,
+                # hidden_fraction says how much of it training covered.
+                done_event["checkpoint"] = ckpt_block
+            done_event.update(extra)
+            _emit(done_event)
+            if state_out is not None:
+                state_out["state"] = state
+            return 0
+
+        if args.data_dir:
+            return _train_on_dataset(args, device, state, start_step, loss_fn, tx, t_start,
+                                     maybe_checkpoint, check_boundary, finish)
+
         state, metrics = step_chunk(state, chunk)
         # The loss fetch waits for the first chunk's device work: startup_s
         # includes it.
@@ -1108,12 +1424,11 @@ def _run_trainer(args, device: torch.device, heartbeat, guard, chaos=None,
             "loss": first_loss,
             "mesh": {"dp": 1},
             "backend": device.type,
-            "device_kind": (torch.cuda.get_device_name(device)
-                            if device.type == "cuda" else "cpu"),
+            "device_kind": _device_kind(device),
             "n_devices": 1,
         })
-        maybe_checkpoint(done)
-        rc = check_boundary(done)
+        maybe_checkpoint(done, state)
+        rc = check_boundary(done, state)
         if rc is not None:
             return rc
 
@@ -1144,8 +1459,8 @@ def _run_trainer(args, device: torch.device, heartbeat, guard, chaos=None,
                             ploss = float(pmetrics["loss"])
                         _emit({"event": "progress", "step": pstep, "loss": ploss})
                 pending = (done, metrics)
-                maybe_checkpoint(done, st)
-                rc = check_boundary(done, st)
+                maybe_checkpoint(done, state, st)
+                rc = check_boundary(done, state, st)
                 if rc is not None:
                     return rc
         if pending is not None:
@@ -1171,8 +1486,8 @@ def _run_trainer(args, device: torch.device, heartbeat, guard, chaos=None,
             prof.stop()
             _emit({"event": "profile_done", "dir": args.profile_dir,
                    "steps_traced": chunk, "in_timed_window": False})
-            maybe_checkpoint(done)
-            rc = check_boundary(done)
+            maybe_checkpoint(done, state)
+            rc = check_boundary(done, state)
             if rc is not None:
                 return rc
 
@@ -1180,31 +1495,7 @@ def _run_trainer(args, device: torch.device, heartbeat, guard, chaos=None,
             state, metrics = step_chunk(state, tail)
             done += tail
             _emit({"event": "progress", "step": done, "loss": float(metrics["loss"])})
-        if ck is not None:
-            _save_checkpoint(ck, args.steps, state, final=True)
-        heartbeat.write(args.steps, force=True)
-        telem = acct.summary()
-        done_event = {
-            "event": "done",
-            "t": time.time(),
-            "steps": args.steps,
-            "steady_steps_per_sec": round(steady / dt, 4) if steady > 0 else None,
-            "examples_per_sec": round(steady * args.batch / dt, 4) if steady > 0 else None,
-            "final_loss": float(metrics["loss"]),
-            "total_s": round(time.time() - t_start, 3),
-            "step_time_s": telem["step_time_s"] if telem else None,
-            "phase_breakdown": telem["phase_breakdown"] if telem else None,
-        }
-        ckpt_block = _ckpt_done_stats(ck)
-        if ckpt_block:
-            # The step loop paid snapshot_s (+ drain_wait_s of backpressure);
-            # write_s rode the writer thread, hidden_fraction says how much of
-            # it training covered.
-            done_event["checkpoint"] = ckpt_block
-        _emit(done_event)
-        if state_out is not None:
-            state_out["state"] = state
-        return 0
+        return finish(state, metrics, steady, dt, acct, {})
     finally:
         if ck is not None and ck.writer is not None:
             ck.writer.close()

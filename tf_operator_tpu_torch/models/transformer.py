@@ -1,4 +1,8 @@
-"""Causal transformer LM in PyTorch: counterpart of tf_operator_tpu/models/transformer.py.
+"""The transformer family in PyTorch: counterpart of tf_operator_tpu/models/transformer.py.
+
+The causal LM (``TransformerLM``), the BERT masked-LM model (``BertMLM``,
+BASELINE.md workload 4's) and the [CLS]-pooled ``TransformerClassifier``
+over one trunk.
 
 Pre-LN blocks (LayerNorm eps 1e-6 with f32 statistics, tanh-approximated
 GELU), learned positional embeddings, a bias-free LM head. Parameters are
@@ -8,9 +12,10 @@ dtype=cfg.dtype``.
 
 Module names follow the JAX package's contract (``trunk/{embed, pos_embed,
 layer_i/{attn/{query,key,value,attn_out}, ln1, ln2, mlp_in, mlp_out},
-ln_f}``, ``lm_head``), so ``params_from_flax`` carries a flax param tree
-across. Dense weights are stored ``[out, in]`` as ``nn.Linear`` keeps them;
-flax kernels are ``[in, out]`` and are transposed on the way in.
+ln_f}``, ``lm_head``, ``mlm_transform``, ``mlm_ln``, ``pooler``, ``cls``), so
+``params_from_flax`` carries a flax param tree across. Dense weights are
+stored ``[out, in]`` as ``nn.Linear`` keeps them; flax kernels are ``[in,
+out]`` and are transposed on the way in.
 
 The attention function is injectable (``attn_fn``); the trainer passes the
 flash kernels from ``parallel.ring_attention.make_attention_fn``.
@@ -21,12 +26,19 @@ the backward replays the block. ``remat_save_flash`` gives every block, and
 ``remat_save_flash_layers`` = K the first K blocks, the selective policy
 ``ops.flash_attention.flash_save_context``, which keeps the flash
 forward's (o, lse) so the replay skips the O(T^2) kernel; as the JAX
-``save_only_these_names("flash_o", "flash_lse")`` policy. Dropout, BERT,
-the classifier and the MLM head are not ported yet.
+``save_only_these_names("flash_o", "flash_lse")`` policy.
+
+Dropout (``dropout_rate``) acts as flax ``nn.Dropout`` after the attention
+and after the MLP of each block, only when a forward is called with
+``deterministic=False``; its masks come from the explicit ``generator``
+given to that forward (one seed drawn from it per block, so a
+rematerialised block replays its own masks). A deterministic forward is
+the forward without dropout.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
 from dataclasses import dataclass
@@ -73,19 +85,17 @@ class TransformerConfig:
                 "remat_save_flash_layers (a subset): pick one")
         if self.remat_save_flash_layers < 0:
             raise ValueError("remat_save_flash_layers must be >= 0")
-        if self.dropout_rate:
-            raise NotImplementedError(
-                "dropout is not ported to the PyTorch package yet")
 
     @property
     def head_dim(self) -> int:
         return self.hidden // self.num_heads
 
 
-TINY_LM = TransformerConfig(
-    vocab_size=1024, num_layers=2, hidden=128, num_heads=4, max_len=256,
-    causal=True,
-)
+BERT_BASE = TransformerConfig()
+BERT_LARGE = TransformerConfig(num_layers=24, hidden=1024, num_heads=16)
+TINY = TransformerConfig(vocab_size=1024, num_layers=2, hidden=128, num_heads=4,
+                         max_len=256)
+TINY_LM = dataclasses.replace(TINY, causal=True)
 
 AttnFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
 
@@ -131,6 +141,29 @@ class Embed(nn.Module):
         return F.embedding(idx, self.weight.to(self.dtype))
 
 
+class Dropout(nn.Module):
+    """flax nn.Dropout: with deterministic=False each element is kept with
+    probability 1 - rate, drawn from `generator`, and divided by 1 - rate;
+    otherwise (or at rate 0) the identity."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor, deterministic: bool = True,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        if deterministic or self.rate == 0.0:
+            return x
+        if generator is None:
+            raise ValueError("dropout with deterministic=False draws its mask from an "
+                             "explicit generator; none was given")
+        if self.rate == 1.0:
+            return torch.zeros_like(x)
+        keep_prob = 1.0 - self.rate
+        keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+        return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 class SelfAttention(nn.Module):
     def __init__(self, cfg: TransformerConfig, attn_fn: AttnFn | None = None,
                  device=None):
@@ -167,11 +200,18 @@ class Block(nn.Module):
         self.ln2 = LayerNorm(h, cfg.dtype, device=device)
         self.mlp_in = Dense(h, h * cfg.mlp_ratio, cfg.dtype, device=device)
         self.mlp_out = Dense(h * cfg.mlp_ratio, h, cfg.dtype, device=device)
+        self.dropout = Dropout(cfg.dropout_rate)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(self.ln1(x))
+    def forward(self, x: torch.Tensor, deterministic: bool = True,
+                seed: int | None = None) -> torch.Tensor:
+        """`seed` seeds the block's dropout masks (needed only when they
+        are drawn: deterministic=False at a nonzero rate)."""
+        gen = None
+        if not deterministic and self.dropout.rate:
+            gen = torch.Generator(device=x.device).manual_seed(seed)
+        x = x + self.dropout(self.attn(self.ln1(x)), deterministic, gen)
         h = F.gelu(self.mlp_in(self.ln2(x)), approximate="tanh")
-        return x + self.mlp_out(h)
+        return x + self.dropout(self.mlp_out(h), deterministic, gen)
 
 
 class Transformer(nn.Module):
@@ -187,19 +227,28 @@ class Transformer(nn.Module):
             Block(cfg, attn_fn, device=device) for _ in range(cfg.num_layers))
         self.ln_f = LayerNorm(cfg.hidden, cfg.dtype, device=device)
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+    def forward(self, tokens: torch.Tensor, deterministic: bool = True,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         cfg = self.cfg
         pos = torch.arange(tokens.shape[1], device=tokens.device)
         x = self.embed(tokens) + self.pos_embed(pos)[None]
         remat = cfg.remat_layers and torch.is_grad_enabled()
+        dropout = not deterministic and cfg.dropout_rate > 0
+        if dropout and generator is None:
+            raise ValueError("dropout with deterministic=False draws its masks from an "
+                             "explicit generator; none was given")
         for i, layer in enumerate(self.layers):
+            # One seed a block, drawn here, so a block's replay under remat
+            # draws the masks of its forward.
+            seed = (int(torch.randint(0, 2 ** 62, (1,), generator=generator,
+                                      device=generator.device)) if dropout else None)
             if not remat:
-                x = layer(x)
+                x = layer(x, deterministic, seed)
                 continue
             # The first remat_save_flash_layers blocks (every block under
             # remat_save_flash) keep the flash residuals; the rest replay all.
             save = cfg.remat_save_flash or i < cfg.remat_save_flash_layers
-            x = checkpoint(layer, x, use_reentrant=False,
+            x = checkpoint(layer, x, deterministic, seed, use_reentrant=False,
                            context_fn=flash_save_context if save else noop_context_fn)
         return self.ln_f(x)
 
@@ -217,11 +266,56 @@ class TransformerLM(nn.Module):
                              device=device)
         init_flax_like(self, generator)
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        return self.lm_head(self.trunk(tokens)).float()
+    def forward(self, tokens: torch.Tensor, deterministic: bool = True,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        return self.lm_head(self.trunk(tokens, deterministic, generator)).float()
 
     def hidden(self, tokens: torch.Tensor) -> torch.Tensor:
         return self.trunk(tokens)
+
+
+class TransformerClassifier(nn.Module):
+    """Sequence classifier over the trunk: the [CLS] position's hidden
+    state through the dense `pooler` and tanh, then the `cls` head; f32
+    logits [B, num_classes]."""
+
+    def __init__(self, cfg: TransformerConfig, num_classes: int = 2,
+                 attn_fn: AttnFn | None = None, device=None,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.cfg = cfg
+        self.trunk = Transformer(cfg, attn_fn, device=device)
+        self.pooler = Dense(cfg.hidden, cfg.hidden, cfg.dtype, device=device)
+        self.cls = Dense(cfg.hidden, num_classes, cfg.dtype, device=device)
+        init_flax_like(self, generator)
+
+    def forward(self, tokens: torch.Tensor, deterministic: bool = True,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        h = self.trunk(tokens, deterministic, generator)
+        return self.cls(torch.tanh(self.pooler(h[:, 0]))).float()
+
+
+class BertMLM(nn.Module):
+    """BERT's masked-LM model over the trunk: the MLM transform (dense,
+    GELU, LayerNorm) and a bias-free decoder to the vocabulary at every
+    position; f32 logits [B, T, vocab]."""
+
+    def __init__(self, cfg: TransformerConfig, attn_fn: AttnFn | None = None,
+                 device=None, generator: torch.Generator | None = None):
+        super().__init__()
+        self.cfg = cfg
+        h = cfg.hidden
+        self.trunk = Transformer(cfg, attn_fn, device=device)
+        self.mlm_transform = Dense(h, h, cfg.dtype, device=device)
+        self.mlm_ln = LayerNorm(h, cfg.dtype, device=device)
+        self.lm_head = Dense(h, cfg.vocab_size, cfg.dtype, bias=False, device=device)
+        init_flax_like(self, generator)
+
+    def forward(self, tokens: torch.Tensor, deterministic: bool = True,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        h = self.trunk(tokens, deterministic, generator)
+        h = self.mlm_ln(F.gelu(self.mlm_transform(h), approximate="tanh"))
+        return self.lm_head(h).float()
 
 
 @torch.no_grad()
@@ -253,8 +347,8 @@ def init_flax_like(model: nn.Module, generator: torch.Generator | None = None) -
 
 
 def params_from_flax(tree) -> dict[str, torch.Tensor]:
-    """state_dict of TransformerLM from a flax param tree given as nested
-    dicts of numpy arrays: `layer_i` -> `layers.i`; Dense `kernel` [in, out]
+    """state_dict of TransformerLM, BertMLM or TransformerClassifier from
+    the flax model's param tree given as nested dicts of numpy arrays: `layer_i` -> `layers.i`; Dense `kernel` [in, out]
     -> `weight` [out, in]; `embedding` and LayerNorm `scale` -> `weight`."""
     out: dict[str, torch.Tensor] = {}
 
@@ -275,6 +369,25 @@ def params_from_flax(tree) -> dict[str, torch.Tensor]:
 
     walk(tree, [])
     return out
+
+
+def mlm_loss(logits: torch.Tensor, targets: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Cross entropy over the masked positions only (mask [B, T] is 1.0
+    where BERT replaced the token), in f32."""
+    logp = F.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, targets[..., None].long())[..., 0]
+    return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+
+
+def make_mlm_batch(generator: torch.Generator, batch: int, seq: int, vocab_size: int,
+                   mask_rate: float = 0.15, mask_token: int = 103) -> dict[str, torch.Tensor]:
+    """Synthetic MLM batch on the generator's device: uniform tokens (the
+    targets), `mask_rate` of them replaced by [MASK] (103, BERT's id)."""
+    dev = generator.device
+    targets = torch.randint(0, vocab_size, (batch, seq), generator=generator, device=dev)
+    mask = (torch.rand((batch, seq), generator=generator, device=dev) < mask_rate).float()
+    tokens = torch.where(mask.bool(), mask_token, targets)
+    return {"tokens": tokens, "targets": targets, "mask": mask}
 
 
 def lm_loss(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
