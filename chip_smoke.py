@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phases build,train,ckpt  # the trainers and checkpoints
     python3 chip_smoke.py --phases build,longctx      # the 64k and 128k LM alone
     python3 chip_smoke.py --phases build,bert,data    # BERT and the --data-dir path
+    python3 chip_smoke.py --phases build,dist         # torch.distributed: NCCL, dp/tp/fsdp
 
 Phases, in order:
   1. identify the card (nvidia-smi name and power limit);
@@ -85,10 +86,28 @@ Phases, in order:
      deterministic: the staged uint8 runs must give the prefetch run's
      losses bit for bit, the f32 wire within rtol 1e-3; images/s, transfer
      MB/s, overlap and consumer wait beside the synthetic-batch images/s;
- 11. (only with --phases ...,profile) both trainers' runs, the 64k LM and
+ 11. torch.distributed (dist): a one-rank NCCL world in a child process
+     (initialize_from_env(force=True), an all_reduce and a broadcast of
+     CUDA tensors, the backend reported); then BERT-base at seq 512, global
+     batch 32, 6 steps, as one process and at dp = 2, tp = 2 and fsdp = 2
+     as two co-located trainer processes started through the operator's
+     env (JAX_COORDINATOR_ADDRESS, JAX_PROCESS_ID, JAX_NUM_PROCESSES,
+     TPUJOB_MESH). Two ranks on one GPU take gloo on CUDA tensors (NCCL
+     refuses them) by the backend rule; the flash kernels are first held
+     against their plain versions (and timed) at the runs' local shapes;
+     every rank must launch K1, K2, K3 and the delta pass once a layer a
+     step, and match the one-process run on every step's loss and global
+     gradient norm and on its final parameters (DIST_RTOL,
+     DIST_NORM_RTOL, DIST_PARAM_GAP), and a planted fault (dp = 2 without
+     the gradient reduction) must fail that comparison: global tokens/s,
+     step time and each rank's peak memory beside the gaps;
+ 12. (only with --phases ...,dist4, on four GPUs) the dist runs and dp = 4
+     and dp x tp = 2 x 2 with one GPU a rank (CUDA_VISIBLE_DEVICES), where
+     the backend rule picks NCCL;
+ 13. (only with --phases ...,profile) both trainers' runs, the 64k LM and
      BERT-base at seq 512 under torch.profiler: device time by kernel group
      over their steady steps.
-The last lines are the eval, longctx, preempt, bert and data phases'
+The last lines are the eval, longctx, preempt, bert, data and dist phases'
 records as one JSON object ({"phases": ...}), the kernels' JSON record,
 the card, and
 {"ok": true, "device": {...}}. Any failed phase exits nonzero with no
@@ -99,6 +118,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import re
 import shutil
@@ -1380,19 +1400,19 @@ _CHILD = (
 )
 
 
-def start_child(argv: list[str], tag: str):
+def start_child(argv: list[str], tag: str, env: dict | None = None, child: str = _CHILD):
     """python -m tf_operator_tpu_torch.models.train `argv` started in a
-    subprocess, with its events in a metrics file; pass the result to
-    finish_child."""
+    subprocess (through `child`, with `env` added to this process's), with
+    its events in a metrics file; pass the result to finish_child."""
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     events_path = OUT_DIR / f"chip_smoke_events{tag}.jsonl"
     counts_path = OUT_DIR / f"chip_smoke_launches{tag}.json"
     for path in (events_path, counts_path):
         path.unlink(missing_ok=True)
-    env = dict(os.environ, TPUJOB_METRICS_FILE=str(events_path),
+    env = dict(os.environ, **(env or {}), TPUJOB_METRICS_FILE=str(events_path),
                PYTHONPATH=str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", ""))
     log("child: python -m tf_operator_tpu_torch.models.train " + " ".join(argv))
-    proc = subprocess.Popen([sys.executable, "-c", _CHILD, str(counts_path), *argv],
+    proc = subprocess.Popen([sys.executable, "-c", child, str(counts_path), *argv],
                             cwd=ROOT, env=env, stdout=subprocess.DEVNULL,
                             stderr=subprocess.PIPE, text=True)
     return proc, events_path, counts_path
@@ -1576,31 +1596,36 @@ def bert_argv(model: str, seq: int, batch: int, steps: int) -> list[str]:
             str(steps), "--log-every", str(LOG_EVERY), "--device", "cuda"]
 
 
-def bert_kernel_check(records: dict) -> None:
+def shape_kernel_check(records: dict, shapes, group: str, seed: int) -> None:
     """K1 (with and without lse), the delta pass, K2 and K3 in bf16, full
-    attention, at BERT_SHAPES, held on the whole tensors against their
+    attention, at each of `shapes`, held on the whole tensors against their
     plain versions with the check phase's tolerances, every MUTATIONS entry
     rejected at each; then timed beside their bound, their plain version and
-    SDPA's forward and backward. Fills records[kernel]["bert"][shape]."""
+    SDPA's forward and backward. Fills records[kernel][group][shape]."""
     import torch
 
-    gen = torch.Generator(device="cuda").manual_seed(512)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     failures = []
-    for shape in BERT_SHAPES:
+    for shape in shapes:
         errs, abs_errs, tensors = check_case(shape, "bfloat16", False, gen, self_test=True)
         failures += [f"{list(shape)} {n}: excess {e[1]:.3g}" for n, e in errs.items()
                      if not e[1] <= 1.0]
         recs = _time_kernels(*tensors, False, shape, "bfloat16", with_plain=True)
         key = "x".join(map(str, shape))
         for name, key_l, _ in KERNELS:
-            records.setdefault(name, {}).setdefault("bert", {})[key] = {
+            records.setdefault(name, {}).setdefault(group, {})[key] = {
                 "shape": list(shape), "causal": False, "max_abs_err": abs_errs[key_l],
                 **recs[name]}
         del tensors
         torch.cuda.empty_cache()
     if failures:
-        raise SmokeFailure("a kernel at a BERT shape disagrees with its plain version: "
+        raise SmokeFailure(f"a kernel at a {group} shape disagrees with its plain version: "
                            + "; ".join(failures))
+
+
+def bert_kernel_check(records: dict) -> None:
+    """shape_kernel_check at BERT_SHAPES."""
+    shape_kernel_check(records, BERT_SHAPES, "bert", 512)
 
 
 def bert_train_run(model: str, seq: int, batch: int, layers: int, card: str) -> dict:
@@ -1770,6 +1795,339 @@ def data_phase(card: str, synthetic_ips: float | None) -> dict:
             synth, "runs": results, "dataset_bytes": nbytes, "card": card}
 
 
+# The dist phase: torch.distributed through the operator's env. The card is
+# one GPU, so a two-rank world runs co-located, and the backend rule picks
+# gloo (on CUDA tensors); NCCL runs at world size 1.
+DIST_RUNS = (("dp", {"dp": 2}), ("tp", {"tp": 2}), ("fsdp", {"fsdp": 2}))
+DIST_SEQ, DIST_BATCH, DIST_STEPS, DIST_LAYERS = 512, 32, 6, 12
+# Each run is held against the one-process run at the same global batch and
+# seed on what a wrong update moves, not only on the loss (six steps of
+# batch noise spread the reference's own losses by 3.2e-3):
+#   - every step's loss within DIST_RTOL;
+#   - every step's global gradient norm within DIST_NORM_RTOL: a rank that
+#     steps on its own rows' gradient reports the norm of half a batch's
+#     gradient, weighted by 1/2;
+#   - each rank's final parameters: |final - ref final| / |ref final - init|
+#     over its local parameters within DIST_PARAM_GAP (a rank that never
+#     updated reads 1; an update from other gradients flips Adam's first
+#     steps on many elements), with the init equal bit for bit.
+# The limits sit between the sound runs' readings on one H100 (gloo, two
+# ranks: loss 2.6e-4, norm 3.6e-3, param gap 0.146 at most, tp) and the
+# planted fault's (DIST_FAULT: dp = 2 without the gradient reduction; loss
+# 2.9e-3, norm 0.38, param gap 1.0), which held_against's own comparison
+# must reject; PERF.md records both readings.
+DIST_RTOL = 1e-3
+DIST_NORM_RTOL = 2e-2
+DIST_PARAM_GAP = 0.4
+DIST_FAULT = ("dp without the gradient reduction", {"dp": 2}, "no-grad-reduce")
+DIST_REF = OUT_DIR / "dist_reference.pt"
+# A dist rank (or the one-process reference): dist_child.
+_DIST_CHILD = "import sys, chip_smoke\nsys.exit(chip_smoke.dist_child(sys.argv[1:]))\n"
+# A world of one through initialize_from_env(force=True): the backend, an
+# all_reduce and a broadcast of CUDA tensors.
+_NCCL_CHILD = (
+    "import json, torch, torch.distributed as dist\n"
+    "from tf_operator_tpu_torch.parallel import distributed\n"
+    "dev = torch.device('cuda', 0)\n"
+    "backend = distributed.initialize_from_env(force=True, device=dev)\n"
+    "x = torch.arange(1, 5, dtype=torch.float32, device=dev)\n"
+    "dist.all_reduce(x)\n"
+    "y = torch.full((3,), 7.0, device=dev)\n"
+    "dist.broadcast(y, src=0)\n"
+    "torch.cuda.synchronize()\n"
+    "print(json.dumps({'backend': backend, 'world': dist.get_world_size(),\n"
+    "                  'all_reduce': x.tolist(), 'broadcast': y.tolist()}))\n"
+    "distributed.distributed_goodbye()\n"
+)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def dist_child(argv: list[str]) -> int:
+    """The trainer's entry point on argv[1:] as a dist rank: records every
+    step's global gradient norm and the parameters before the first step;
+    at the end writes its launches, peak memory and norms to argv[0], and,
+    with CHIP_SMOKE_DIST_ROLE=reference, its initial and final parameters
+    to DIST_REF, or else the gap of its local parameters to DIST_REF's
+    (dist_compare). CHIP_SMOKE_DIST_FAULT=no-grad-reduce plants the fault:
+    each rank steps on its own rows' gradients."""
+    import torch
+
+    from tf_operator_tpu_torch.models import train
+    from tf_operator_tpu_torch.ops import flash_attention as fa
+    from tf_operator_tpu_torch.parallel import train_step as ts
+
+    path, argv = argv[0], argv[1:]
+    norms, init, plans = [], [], []
+    real_step, real_parallelize = ts.train_step, ts.parallelize
+
+    def parallelize(*args, **kwargs):
+        plans.append(real_parallelize(*args, **kwargs))
+        return plans[-1]
+
+    def train_step(state, *args, **kwargs):
+        if not init:
+            init.extend(p.detach().clone() for p in state.params)
+        state, metrics = real_step(state, *args, **kwargs)
+        norms.append(float(metrics["grad_norm"]))
+        return state, metrics
+
+    ts.parallelize, ts.train_step = parallelize, train_step
+    if os.environ.get("CHIP_SMOKE_DIST_FAULT") == "no-grad-reduce":
+        ts.ParallelPlan.reduce_grads = lambda self, grads: grads
+    out: dict = {}
+    rc = train.main(argv, out)
+    rec = {"launches": dict(fa.LAUNCHES), "grad_norms": norms,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if rc == 0:
+        model = out["state"].model
+        names = [n for n, _ in model.named_parameters()]
+        final = [p.detach() for p in model.parameters()]
+        if os.environ.get("CHIP_SMOKE_DIST_ROLE") == "reference":
+            torch.save({"init": {n: t.cpu() for n, t in zip(names, init)},
+                        "final": {n: t.cpu() for n, t in zip(names, final)}}, DIST_REF)
+        else:
+            rec.update(dist_compare(torch.load(DIST_REF), plans[0], names, init, final))
+    Path(path).write_text(json.dumps(rec))
+    return rc
+
+
+def dist_compare(ref: dict, plan, names, init, final) -> dict:
+    """This rank's local parameters against the reference's full ones
+    (plan.local's part of each): param_gap = |final - ref final| / |ref
+    final - ref init| over them, and init_gap = |init - ref init| (0 when
+    both start from the same seeded init)."""
+    import torch
+
+    sums = torch.zeros(3, dtype=torch.float64, device=final[0].device)
+    for i, name in enumerate(names):
+        r_init, r_final = (plan.local(i, ref[k][name].to(final[i].device), shard=False).double()
+                           for k in ("init", "final"))
+        sums += torch.stack([(final[i].double() - r_final).square().sum(),
+                             (r_final - r_init).square().sum(),
+                             (init[i].double() - r_init).square().sum()])
+    gap, step, init_gap = sums.sqrt().tolist()
+    return {"param_gap": gap / step, "init_gap": init_gap}
+
+
+def nccl_world_of_one(card: str) -> dict:
+    env = dict(os.environ, JAX_COORDINATOR_ADDRESS=f"127.0.0.1:{free_port()}",
+               JAX_PROCESS_ID="0", JAX_NUM_PROCESSES="1",
+               PYTHONPATH=str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, "-c", _NCCL_CHILD], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise SmokeFailure(f"the one-rank NCCL world exited {proc.returncode}: "
+                           f"{proc.stderr[-2000:]}")
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    if res != {"backend": "nccl", "world": 1, "all_reduce": [1.0, 2.0, 3.0, 4.0],
+               "broadcast": [7.0, 7.0, 7.0]}:
+        raise SmokeFailure(f"the one-rank world is not NCCL's: {res}")
+    res.update(seconds=time.time() - t0, card=card)
+    log("dist: " + json.dumps(res))
+    return res
+
+
+def dist_argv() -> list[str]:
+    return ["--model", "bert-base", "--seq", str(DIST_SEQ), "--batch", str(DIST_BATCH),
+            "--steps", str(DIST_STEPS), "--log-every", "1", "--device", "cuda"]
+
+
+def _step_losses(events: list) -> dict:
+    """Every step's loss: the first_step event's (one step a chunk) and the
+    progress events'."""
+    out = {e["step"]: e["loss"] for e in events if e["event"] == "progress"}
+    first = [e for e in events if e["event"] == "first_step"]
+    if first:
+        out[1] = first[0]["loss"]
+    return out
+
+
+def dist_local_shape(mesh: dict | None) -> tuple:
+    """The [B, H, T, D] at which a rank of `mesh` runs the flash kernels:
+    its rows of the global batch and its tp share of BERT-base's heads."""
+    mesh = mesh or {}
+    rows = DIST_BATCH // (mesh.get("dp", 1) * mesh.get("fsdp", 1))
+    return (rows, 12 // mesh.get("tp", 1), DIST_SEQ, 64)
+
+
+def dist_world(name: str, mesh: dict | None, own_gpus: bool = False,
+               role: str = "run", fault: str = "") -> dict:
+    """BERT-base through the trainer in as many processes as `mesh` needs
+    (one without a mesh), each started as the operator starts a pod
+    (JAX_COORDINATOR_ADDRESS, JAX_PROCESS_ID, JAX_NUM_PROCESSES,
+    TPUJOB_MESH) through dist_child, co-located on GPU 0 or, with own_gpus,
+    each seeing GPU `rank` alone: every rank must exit 0 with K1, K2, K3
+    and the delta pass launched once a layer a step, and a finite loss and
+    gradient norm at every step."""
+    n = 1 if mesh is None else int(math.prod(mesh.values()))
+    port = free_port()
+    children = []
+    for rank in range(n):
+        env = {"CHIP_SMOKE_DIST_ROLE": role, "CHIP_SMOKE_DIST_FAULT": fault}
+        if mesh is not None:
+            env.update(JAX_COORDINATOR_ADDRESS=f"127.0.0.1:{port}", JAX_PROCESS_ID=str(rank),
+                       JAX_NUM_PROCESSES=str(n), TPUJOB_MESH=json.dumps(mesh))
+        if own_gpus:
+            env["CUDA_VISIBLE_DEVICES"] = str(rank)
+        children.append(start_child(dist_argv(), f"_dist_{name}_{rank}", env, _DIST_CHILD))
+    ranks = [finish_child(c, timeout=600) for c in children]
+    want = {key: DIST_LAYERS * DIST_STEPS for key in FLASH_LAUNCH_KEYS}
+    out = []
+    for rank, (rc, events, rec) in enumerate(ranks):
+        if rc != 0:
+            raise SmokeFailure(f"dist {name}: rank {rank} exited {rc}")
+        if rec.get("launches") != want:
+            raise SmokeFailure(f"dist {name}: rank {rank} launches {rec.get('launches')}, "
+                               f"not one a layer a step {want}")
+        losses, norms = _step_losses(events), rec["grad_norms"]
+        if sorted(losses) != list(range(1, DIST_STEPS + 1)) or len(norms) != DIST_STEPS or \
+                not all(math.isfinite(x) for x in list(losses.values()) + norms):
+            raise SmokeFailure(f"dist {name}: rank {rank} losses {losses}, norms {norms}")
+        by = {e["event"]: e for e in events}
+        out.append({**rec, "losses": losses, "done": by["done"],
+                    "dist_backend": by["jax_ready"].get("dist_backend"),
+                    "mesh": by["first_step"]["mesh"]})
+    return {"ranks": out}
+
+
+def dist_gaps(ref: dict, world: dict) -> dict:
+    """The largest gaps of a world's ranks to the reference run: relative
+    loss and gradient norm over the steps, param_gap and init_gap."""
+    def rel(a, b):
+        return abs(a - b) / abs(b)
+
+    ranks = world["ranks"]
+    return {
+        "loss": max(rel(r["losses"][s], ref["losses"][s]) for r in ranks for s in r["losses"]),
+        "grad_norm": max(rel(x, y) for r in ranks for x, y in zip(r["grad_norms"],
+                                                                  ref["grad_norms"])),
+        "param_gap": max(r["param_gap"] for r in ranks),
+        "init_gap": max(r["init_gap"] for r in ranks)}
+
+
+def dist_verdict(gaps: dict) -> list[str]:
+    """What of dist_gaps exceeds its limit (empty when the run holds)."""
+    limits = {"loss": DIST_RTOL, "grad_norm": DIST_NORM_RTOL, "param_gap": DIST_PARAM_GAP,
+              "init_gap": 0.0}
+    return [f"{k} {gaps[k]:.4g} > {limit}" for k, limit in limits.items()
+            if not gaps[k] <= limit]
+
+
+def held_against(ref: dict, runs, backend: str, own_gpus: bool, card: str) -> list:
+    """Each (name, mesh) of `runs` through dist_world, held against the
+    one-process run `ref`: the backend the rule must pick, the mesh in the
+    events, and dist_verdict's limits; global tokens/s, step time, each
+    rank's peak memory and the gaps."""
+    out = []
+    for name, mesh in runs:
+        world = dist_world(name, mesh, own_gpus)
+        for r in world["ranks"]:
+            if r["dist_backend"] != backend or r["mesh"] != mesh:
+                raise SmokeFailure(f"dist {name}: backend {r['dist_backend']}, mesh "
+                                   f"{r['mesh']} (the rule picks {backend} here)")
+        gaps = dist_gaps(ref, world)
+        done = world["ranks"][0]["done"]
+        eps = done.get("examples_per_sec")
+        res = {"run": name, "mesh": mesh, "backend": backend,
+               "tokens_per_s": eps * DIST_SEQ if eps else None,
+               "step_time_s": (done.get("step_time_s") or {}).get("mean"),
+               "peak_gb": [r["peak_gb"] for r in world["ranks"]], "gaps": gaps,
+               "kernel_shape": list(dist_local_shape(mesh)),
+               "launches_per_step_per_rank": {k: DIST_LAYERS for k in FLASH_LAUNCH_KEYS},
+               "losses": world["ranks"][0]["losses"],
+               "grad_norms": world["ranks"][0]["grad_norms"], "card": card}
+        log("dist: " + json.dumps(res))
+        failed = dist_verdict(gaps)
+        if failed:
+            raise SmokeFailure(f"dist {name} is off one process's run: {failed}")
+        out.append(res)
+    return out
+
+
+def fault_control(ref: dict) -> dict:
+    """The planted fault (DIST_FAULT) through dist_world, which
+    dist_verdict must reject on what a wrong update moves (the gradient
+    norm or the parameters), the loss aside."""
+    label, mesh, fault = DIST_FAULT
+    gaps = dist_gaps(ref, dist_world("fault", mesh, fault=fault))
+    failed = [f for f in dist_verdict(gaps) if not f.startswith("loss")]
+    res = {"run": label, "mesh": mesh, "gaps": gaps, "rejected_on": failed}
+    log("dist: planted fault " + json.dumps(res))
+    if not failed:
+        raise SmokeFailure(f"the dist check accepts a run with {label}: {gaps}")
+    return res
+
+
+def one_process(card: str) -> tuple[dict, dict]:
+    """The one-process reference run (its initial and final parameters in
+    DIST_REF) and its record."""
+    ref = dist_world("one", None, role="reference")["ranks"][0]
+    eps = ref["done"].get("examples_per_sec")
+    rec = {"run": "one process", "tokens_per_s": eps * DIST_SEQ if eps else None,
+           "step_time_s": (ref["done"].get("step_time_s") or {}).get("mean"),
+           "peak_gb": [ref["peak_gb"]], "losses": ref["losses"],
+           "grad_norms": ref["grad_norms"], "card": card}
+    log("dist: " + json.dumps(rec))
+    return ref, rec
+
+
+def dist_kernel_check(records: dict, runs) -> None:
+    """shape_kernel_check at every local shape of `runs` not yet checked."""
+    done = set(records.get(KERNELS[0][0], {}).get("dist", {}))
+    shapes = [sh for sh in dict.fromkeys(dist_local_shape(m) for _, m in runs)
+              if "x".join(map(str, sh)) not in done]
+    shape_kernel_check(records, shapes, "dist", 513)
+
+
+def dist_phase(records: dict, card: str) -> dict:
+    """(a) NCCL at world size 1; the flash kernels at the dist runs' local
+    shapes; (b, c) BERT-base at seq 512, global batch 32, 6 steps, at dp
+    = 2, tp = 2 and fsdp = 2 as two co-located trainer processes, held
+    against one process at the same global batch and seed (held_against),
+    and the planted fault rejected: two ranks on one GPU take gloo."""
+    import torch
+
+    torch.cuda.empty_cache()
+    nccl = nccl_world_of_one(card)
+    dist_kernel_check(records, DIST_RUNS)
+    ref, reference = one_process(card)
+    try:
+        return {"nccl_world_of_one": nccl, "reference": reference,
+                "runs": held_against(ref, DIST_RUNS, "gloo", False, card),
+                "fault_control": fault_control(ref)}
+    finally:
+        DIST_REF.unlink(missing_ok=True)
+
+
+# (only with --phases ...,dist4, on a machine of four GPUs) the dist runs
+# with one GPU a rank, as pods of their own: the rule picks NCCL.
+DIST4_RUNS = DIST_RUNS + (("dp4", {"dp": 4}), ("dp-tp", {"dp": 2, "tp": 2}))
+
+
+def dist4_phase(records: dict, card: str) -> dict:
+    import torch
+
+    if torch.cuda.device_count() < 4:
+        raise SmokeFailure(f"the dist4 phase needs four GPUs, sees "
+                           f"{torch.cuda.device_count()}")
+    torch.cuda.empty_cache()
+    dist_kernel_check(records, DIST4_RUNS)
+    ref, reference = one_process(card)
+    try:
+        return {"reference": reference, "gpus": torch.cuda.device_count(),
+                "runs": held_against(ref, DIST4_RUNS, "nccl", True, card)}
+    finally:
+        DIST_REF.unlink(missing_ok=True)
+
+
 # The LM profile cuts its steps at the attention forward: a kernel whose
 # lower-cased name holds both substrings (fwd_kernel in f32,
 # fwd_wgmma_kernel in bf16; no other kernel of csrc/).
@@ -1850,10 +2208,11 @@ def profile_phase(args, card: str) -> None:
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="build,check,train,ckpt,eval,longctx,preempt,bert,data",
+                    default="build,check,train,ckpt,eval,longctx,preempt,bert,data,dist",
                     help="comma-separated subset of build,check,train,ckpt,eval,longctx,"
-                         "preempt,bert,data,profile; k4 for the fused bottleneck's checks "
-                         "alone (eval follows the ckpt phase's directory)")
+                         "preempt,bert,data,dist,profile; k4 for the fused bottleneck's "
+                         "checks alone (eval follows the ckpt phase's directory); dist4 "
+                         "on a machine of four GPUs")
     ap.add_argument("--steps", type=int, default=6)
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -1905,6 +2264,10 @@ def main(argv: list[str] | None = None) -> int:
             results["bert"] = bert_phase(records, card)
         if "data" in phases:
             results["data"] = data_phase(card, synthetic_ips)
+        if "dist" in phases:
+            results["dist"] = dist_phase(records, card)
+        if "dist4" in phases:
+            results["dist4"] = dist4_phase(records, card)
         if "profile" in phases:
             profile_phase(args, card)
     except Exception as e:  # every phase failure ends the run without a result
@@ -1923,7 +2286,7 @@ def main(argv: list[str] | None = None) -> int:
             "plain_ms": rec.get("plain_ms"), "bound_ms": rec.get("bound_ms"),
             "bound_by": rec.get("bound_by"), "library_ms": rec.get("library_ms"),
         }
-        for extra in (f"at_batch_{BATCH}", "head_widths", "at_T_65536", "bert"):
+        for extra in (f"at_batch_{BATCH}", "head_widths", "at_T_65536", "bert", "dist"):
             if extra in rec:
                 entry[extra] = rec[extra]
         if name in KERNEL_NOTES:

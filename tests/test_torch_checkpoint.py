@@ -146,7 +146,8 @@ def _step_dir(tmp_path, steps=(2, 4, 6)):
         ckpt.save_named(str(d), f"trainstate_{s}", {"step": s})
         ckpt.save(str(d), s, params)
         ckpt.write_sharding_manifest(str(d), f"step_{s}",
-                                     {**ckpt.SINGLE_PROCESS,
+                                     {"processCount": 1, "deviceCount": 1,
+                                      "mesh": {"dp": 1},
                                       "leaves": ckpt.leaf_shardings(params)})
     return d
 

@@ -320,41 +320,54 @@ def test_trainer_refuses_cuda_without_a_device(tmp_path):
     assert not (tmp_path / "events.jsonl").exists()
 
 
-@pytest.mark.parametrize("flag", [
-    ["--model", "moe-lm"], ["--moe-dispatch", "sparse"],
-    ["JAX_NUM_PROCESSES", "2"], ["TPUJOB_NUM_SLICES", "2"],
+@pytest.mark.parametrize("flag,env,says", [
+    (["--model", "moe-lm"], {}, ["not ported", "--model"]),
+    (["--moe-dispatch", "sparse"], {}, ["not ported", "--moe-dispatch"]),
+    ([], {"TPUJOB_NUM_SLICES": "2"}, ["not ported", "TPUJOB_NUM_SLICES", "A12"]),
+    ([], {"JAX_NUM_PROCESSES": "2", "TPUJOB_MESH": '{"sp": 2}'}, ["not ported", "sp=2", "A10"]),
+    ([], {"JAX_NUM_PROCESSES": "2", "TPUJOB_MESH": '{"ep": 2}'}, ["not ported", "ep=2", "A11"]),
+    ([], {"JAX_NUM_PROCESSES": "2", "TPUJOB_MESH": '{"pp": 2}'}, ["not ported", "pp=2", "A12"]),
+    ([], {"JAX_NUM_PROCESSES": "2", "TPUJOB_MESH": '{"dp": 4}'},
+     ["mesh axes {'dp': 4} need 4 devices, have 2"]),
+    (["--heads", "3", "--hidden", "96"], {"JAX_NUM_PROCESSES": "2", "TPUJOB_MESH": '{"tp": 2}'},
+     ["tp=2 does not divide the 3 attention heads"]),
+    (["--batch", "3"], {"JAX_NUM_PROCESSES": "2"}, ["global batch 3 not divisible by dp size 2"]),
 ])
-def test_trainer_refuses_what_is_not_ported(flag, capsys, monkeypatch):
-    """MoE by name, and a job of more than one process by the operator's
-    env (multi-process training waits for torch.distributed, ROADMAP A9):
-    exit 2, the name in the message."""
-    argv = list(TINY_ARGS)
-    if flag[0].startswith("--"):
-        argv += flag
-    else:
-        monkeypatch.setenv(*flag)
+def test_trainer_refuses_what_is_not_ported(flag, env, says, capsys, monkeypatch):
+    """MoE by name; a multi-slice job, a mesh axis the port does not run
+    yet (sp, ep, pp), a mesh whose axes do not multiply to the process
+    count, a tp that splits a head and a global batch the data axes do not
+    divide, by the operator's env: exit 2 before any event, with a message
+    naming what is missing."""
+    argv = list(TINY_ARGS) + flag
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
     with pytest.raises(SystemExit) as e:
         train.main(argv)
     assert e.value.code == 2
-    err = capsys.readouterr().err
-    assert "not ported" in err and flag[0].split("=")[0] in err
-    if not flag[0].startswith("--"):
-        assert "torch.distributed" in err and "A9" in err
+    out = capsys.readouterr()
+    assert all(s in out.err for s in says), out.err
+    assert '"event"' not in out.out
 
 
-def test_multi_process_job_exits_2_before_any_event(tmp_path):
-    """A Worker of a two-process job, as the operator starts it: exit 2
-    with the refusal, no event file, no heartbeat; a one-process job's
-    JAX_NUM_PROCESSES=1 trains."""
-    proc = _run_trainer(tmp_path, TINY_ARGS + ["--steps", "1"],
-                        {"JAX_NUM_PROCESSES": "2", "JAX_PROCESS_ID": "1"})
-    assert proc.returncode == 2
-    assert "JAX_NUM_PROCESSES=2" in proc.stderr and "A9" in proc.stderr
-    assert not (tmp_path / "events.jsonl").exists() and not (tmp_path / "hb.json").exists()
-    proc = _run_trainer(tmp_path, ["--model", "mnist-mlp", "--device", "cpu", "--steps", "1",
-                                   "--batch", "4"],
-                        {"JAX_NUM_PROCESSES": "1", "JAX_PROCESS_ID": "0"})
-    assert proc.returncode == 0, proc.stderr
+def test_a_two_process_job_trains_one_model(tmp_path):
+    """Two Workers of a job, as the operator starts them (no TPUJOB_MESH:
+    pure dp over the two processes), train one model: the same loss on
+    both ranks at every step, the first one (before any update) the
+    one-process run's, the events' mesh {dp: 2}, and both exit 0 after the
+    closing barrier. A one-process job's JAX_NUM_PROCESSES=1 trains alone.
+    tests/test_torch_dist_*.py hold whole trajectories at f32."""
+    from torch_dist import assert_ok, progress_losses, run_world
+
+    argv = ["--model", "mnist-mlp", "--device", "cpu", "--steps", "3", "--batch", "8",
+            "--log-every", "1"]
+    two = run_world(tmp_path, argv, 2, f32=False, tag="two")
+    one = run_world(tmp_path, argv, 1, f32=False, env={"JAX_NUM_PROCESSES": "1"}, tag="one")
+    assert_ok(two + one)
+    assert progress_losses(two[0]["events"]) == progress_losses(two[1]["events"])
+    firsts = [next(e for e in r["events"] if e["event"] == "first_step") for r in two + one]
+    assert [f["mesh"] for f in firsts] == [{"dp": 2}, {"dp": 2}, {"dp": 1}]
+    np.testing.assert_allclose(firsts[0]["loss"], firsts[2]["loss"], rtol=1e-5)
 
 
 def test_chip_smoke_fails_without_a_card():
@@ -377,6 +390,8 @@ def test_import_hygiene_in_a_fresh_process():
         "names = [m.name for m in pkgutil.walk_packages(tf_operator_tpu_torch.__path__,\n"
         "                                                 'tf_operator_tpu_torch.')]\n"
         "assert 'tf_operator_tpu_torch.data.staging' in names, names\n"
+        "assert {'tf_operator_tpu_torch.parallel.' + m for m in ('distributed', 'mesh',\n"
+        "        'sharding_rules', 'collectives', 'train_step')} <= set(names), names\n"
         "for name in names:\n"
         "    __import__(name)\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
@@ -393,6 +408,8 @@ def test_import_hygiene_ast_scan():
     assert len(files) > 10
     for name in ("dataset", "prefetch", "staging"):
         assert ROOT / "tf_operator_tpu_torch" / "data" / f"{name}.py" in files
+    for name in ("distributed", "mesh", "sharding_rules", "collectives", "train_step"):
+        assert ROOT / "tf_operator_tpu_torch" / "parallel" / f"{name}.py" in files
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):

@@ -78,8 +78,6 @@ _DTYPES = {torch.float64: "F64", torch.float32: "F32", torch.float16: "F16",
            torch.bfloat16: "BF16", torch.int64: "I64", torch.int32: "I32",
            torch.int16: "I16", torch.int8: "I8", torch.uint8: "U8", torch.bool: "BOOL"}
 _CODES = {code: dtype for dtype, code in _DTYPES.items()}
-# The gang of a single-process run, as the sharding manifest records it.
-SINGLE_PROCESS = {"processCount": 1, "deviceCount": 1, "mesh": {"dp": 1}}
 
 
 # ---------------------------------------------------------------------------
@@ -128,10 +126,15 @@ def _dtype_name(leaf: Any) -> str:
     return "" if dtype is None else str(dtype).removeprefix("torch.")
 
 
-def leaf_shardings(tree: Any) -> dict[str, dict]:
-    """{leaf path: {"spec", "shape", "dtype"}}: what one process has of
-    the JAX manifest's per-leaf layout (spec null, fully replicated)."""
-    return {key: {"spec": None, "shape": [int(d) for d in getattr(leaf, "shape", ())],
+def leaf_shardings(tree: Any, specs: dict | None = None) -> dict[str, dict]:
+    """{leaf path: {"spec", "shape", "dtype"}}, the JAX manifest's per-leaf
+    layout: `specs` maps a leaf path (keystr) to the spec the leaf is
+    sharded by across the gang (a tuple of None or axis names); a leaf
+    without one records null (fully replicated). Shapes are the leaves'
+    own: the full tensors a checkpoint holds."""
+    specs = specs or {}
+    return {key: {"spec": list(specs[key]) if key in specs else None,
+                  "shape": [int(d) for d in getattr(leaf, "shape", ())],
                   "dtype": _dtype_name(leaf)}
             for key, leaf in flatten(tree)}
 

@@ -22,8 +22,9 @@ the JAX package; it is not torchvision's basic-block ResNet-18. Module names
 follow the flax tree (``stem``, ``stem_bn``, ``BottleneckBlock_<i>`` ->
 ``blocks.<i>`` with ``Conv_k`` -> ``conv_k``, ``TpuBatchNorm_k`` -> ``bn_k``,
 ``proj``, ``proj_bn``, ``head``); ``params_from_flax`` maps a flax
-(params, batch_stats) pair onto the state dict. Cross-replica batch norm
-(``bn_axis_name``) is not ported.
+(params, batch_stats) pair onto the state dict. Under data parallelism each
+batch norm all-reduces its moments (``TpuBatchNorm.sync``), so its
+statistics are the global batch's, as under JAX's SPMD mean.
 """
 
 from __future__ import annotations
@@ -42,6 +43,7 @@ from tf_operator_tpu_torch.models.mnist import (
     state_dict_from_flax,
 )
 from tf_operator_tpu_torch.models.transformer import Dense
+from tf_operator_tpu_torch.parallel import collectives
 
 
 class TpuBatchNorm(nn.Module):
@@ -58,6 +60,9 @@ class TpuBatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels, device=device))
         self.register_buffer("mean", torch.zeros(channels, device=device))
         self.register_buffer("var", torch.ones(channels, device=device))
+        # (group, count): average the moments over the data-parallel group
+        # (set by parallel.train_step.parallelize).
+        self.sync: tuple | None = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
@@ -67,6 +72,11 @@ class TpuBatchNorm(nn.Module):
             red = (0, 2, 3)
             m = xf.mean(red)
             m2 = xf.square().mean(red)
+            if self.sync is not None:
+                # The moments of the global batch, as the JAX mean over a
+                # batch sharded across devices computes them.
+                group, count = self.sync
+                m, m2 = collectives.sum_across(torch.stack([m, m2]), group) / count
             v = torch.clamp_min(m2 - m.square(), 0.0)
             with torch.no_grad():
                 mom = self.momentum

@@ -60,9 +60,18 @@ normalised on the device, on the step's thread). A resumed run continues
 the batch sequence, and the done event carries the ingest's `prefetch` or
 `staging` block.
 
-The trainer is one process: a job whose env says it has more (the
-operator's JAX_NUM_PROCESSES, TPUJOB_NUM_SLICES) is refused with exit 2
-until torch.distributed is ported.
+A job of more than one process (the operator's JAX_NUM_PROCESSES) joins
+one torch.distributed world (parallel/distributed.py: gloo on the CPU, NCCL
+when every process has its own GPU, gloo on CUDA tensors when processes
+share one) and trains one model on the global batch over TPUJOB_MESH's
+dp/fsdp/tp mesh (parallel/mesh.py, the JAX rule tables of
+parallel/sharding_rules.py, parallel/train_step.py's plan). Rank 0 writes
+the checkpoints, gathered to full tensors; the replicas agree on the resume
+step, on a preemption, and exit together (distributed_goodbye) on clean
+completion only. A collective that fails because a peer died exits 138
+(retryable). A multi-slice job (TPUJOB_NUM_SLICES > 1) and the sp, ep, pp
+and data axes are refused with exit 2, naming the ROADMAP item that ports
+them.
 
 It runs on CUDA unless `--device cpu` asks for the CPU, and exits nonzero
 when CUDA is asked for and absent. Flags and models of the JAX trainer
@@ -83,6 +92,9 @@ import time
 from typing import Any, Callable
 
 import torch
+import torch.distributed as dist
+
+from tf_operator_tpu_torch.parallel.collectives import PeerLostError
 
 MODELS = ("mnist-mlp", "mnist-conv", "resnet18", "resnet50", "transformer-lm",
           "bert-base", "bert-tiny", "moe-lm")
@@ -90,9 +102,10 @@ PORTED_MODELS = ("mnist-mlp", "mnist-conv", "resnet18", "resnet50", "transformer
                  "bert-base", "bert-tiny")
 # Flags of the JAX trainer this parser does not define, refused by name.
 UNPORTED_JAX_ARGS = ("--moe-dispatch",)
-# The operator's process-count env (cluster_spec/tpu_env.py): a job of more
-# than one process needs torch.distributed, which is not ported yet.
-PROCESS_COUNT_ENV = ("JAX_NUM_PROCESSES", "TPUJOB_NUM_SLICES")
+# The layers' compute dtype, the JAX trainer's bf16. The CPU tests that hold
+# a multi-process run against one process at f32 tolerances set f32 here in
+# their child processes.
+COMPUTE_DTYPE = torch.bfloat16
 # Per-device f32 logits bytes at which the loss switches to the chunked head
 # (the JAX trainer's cutover).
 CHUNKED_LOSS_BYTES = 6e9
@@ -252,8 +265,9 @@ def parse_args(ap: argparse.ArgumentParser, argv: list[str] | None):
 
 def check_flags(ap: argparse.ArgumentParser, args) -> None:
     """The JAX trainer's flag-only checks, with its messages (ap.error:
-    exit 2), then what this trainer does not handle yet: a job of more than
-    one process (PROCESS_COUNT_ENV) and the models outside PORTED_MODELS."""
+    exit 2), then the gang the operator's env describes (check_gang), then
+    what this trainer does not handle yet: the models outside
+    PORTED_MODELS."""
     if ((args.remat_save_flash or args.remat_save_flash_layers)
             and not args.remat):
         ap.error("--remat-save-flash[-layers] requires --remat (it selects "
@@ -307,17 +321,8 @@ def check_flags(ap: argparse.ArgumentParser, args) -> None:
     if args.allow_reshape and not args.checkpoint_dir:
         ap.error("--allow-reshape shapes the --checkpoint-dir resume walk; "
                  "without one there is nothing to restore")
-    for name in PROCESS_COUNT_ENV:
-        value = os.environ.get(name, "").strip()
-        try:
-            count = int(value or "1")
-        except ValueError:
-            ap.error(f"{name}={value!r} is not a process count")
-        if count > 1:
-            ap.error(f"{name}={count}: multi-process training is not ported to the "
-                     f"PyTorch trainer yet; it waits for torch.distributed (ROADMAP "
-                     f"A9; across slices also A12), and one process per pod training "
-                     f"its own model would not be the job's result")
+    if not args.eval:
+        check_gang(ap, args)
     if args.model not in PORTED_MODELS:
         ap.error(f"--model {args.model} is not ported to the PyTorch trainer "
                  f"yet ({', '.join(PORTED_MODELS)} are)")
@@ -329,6 +334,46 @@ def check_flags(ap: argparse.ArgumentParser, args) -> None:
         ap.error("--checkpoint-every must be >= 0")
     if args.hidden % args.heads:
         ap.error("--hidden must be a multiple of --heads")
+
+
+def _env_count(ap: argparse.ArgumentParser, name: str) -> int:
+    value = os.environ.get(name, "").strip()
+    try:
+        return int(value or "1")
+    except ValueError:
+        ap.error(f"{name}={value!r} is not a process count")
+
+
+def check_gang(ap: argparse.ArgumentParser, args) -> None:
+    """The operator's env against what the trainer runs, before any event
+    (ap.error, exit 2): one slice (a multi-slice job waits for A12), a
+    TPUJOB_MESH whose axes the port runs and whose sizes multiply to the
+    process count (the JAX message), a global batch the data axes divide,
+    attention heads the tp axis divides, and no --data-dir under tp (each
+    process reads its own shards, so tp peers would see different rows)."""
+    from tf_operator_tpu_torch.models import transformer as tfm
+    from tf_operator_tpu_torch.parallel import distributed
+    from tf_operator_tpu_torch.parallel import mesh as mesh_lib
+
+    slices = _env_count(ap, distributed.ENV_NUM_SLICES)
+    if slices > 1:
+        ap.error(f"{distributed.ENV_NUM_SLICES}={slices}: multi-slice training is not "
+                 f"ported to the PyTorch trainer yet (ROADMAP A12)")
+    nprocs = _env_count(ap, distributed.ENV_NUM_PROCESSES)
+    try:
+        axes = mesh_lib.check_axes(mesh_lib.env_axes() or {}, nprocs)
+        mesh_lib.local_batch_size(mesh_lib.Mesh(axes), args.batch)
+    except ValueError as e:
+        ap.error(str(e))
+    tp = axes.get("tp", 1)
+    heads = {"transformer-lm": args.heads, "bert-base": tfm.BERT_BASE.num_heads,
+             "bert-tiny": tfm.TINY.num_heads}.get(args.model)
+    if tp > 1 and heads is not None and heads % tp:
+        ap.error(f"tp={tp} does not divide the {heads} attention heads of --model "
+                 f"{args.model}")
+    if tp > 1 and args.data_dir:
+        ap.error(f"--data-dir under tp={tp}: each process reads its own shards, so the "
+                 f"tp peers of a data shard would train on different rows")
 
 
 def main(argv: list[str] | None = None, state_out: dict | None = None) -> int:
@@ -366,8 +411,24 @@ def main(argv: list[str] | None = None, state_out: dict | None = None) -> int:
     heartbeat = HeartbeatWriter.from_env()
     heartbeat.write(0, force=True)
     try:
-        return _run_trainer(args, torch.device(args.device), heartbeat, guard, chaos,
-                            state_out)
+        rc = _run_trainer(args, torch.device(args.device), heartbeat, guard, chaos,
+                          state_out)
+        if rc == 0:
+            # Clean completion only: a preempted or failing gang must not
+            # wait on a barrier its dying peers never reach.
+            from tf_operator_tpu_torch.parallel.distributed import distributed_goodbye
+
+            distributed_goodbye()
+        return rc
+    except PeerLostError as e:
+        # A peer died (or wedged past the group's timeout): exit retryably,
+        # so the operator rolls the gang instead of failing the job.
+        from tf_operator_tpu_torch.utils.exit_codes import EXIT_USER_RETRYABLE
+
+        print(f"error: {e}", file=sys.stderr)
+        _emit({"event": "peer_lost", "error": str(e)[:500],
+               "exit_code": EXIT_USER_RETRYABLE})
+        return EXIT_USER_RETRYABLE
     finally:
         # The trace goes out on every exit path (done, preempted, the
         # evaluator's returns, an exception), after the writer's spans.
@@ -444,7 +505,7 @@ def _build_model(args, device: torch.device):
 
         cfg = tfm.TransformerConfig(
             vocab_size=VOCAB, num_layers=args.layers, hidden=args.hidden,
-            num_heads=args.heads, max_len=args.seq, causal=True,
+            num_heads=args.heads, max_len=args.seq, causal=True, dtype=COMPUTE_DTYPE,
             # --remat also remats per block; save-flash keeps the flash
             # residuals of every block (or of the first K).
             remat_layers=args.remat, remat_save_flash=args.remat_save_flash,
@@ -458,8 +519,12 @@ def _build_model(args, device: torch.device):
         def loss_fn(model, batch):
             tokens = batch["tokens"]
             if chunked_loss:
-                return tfm.lm_loss_chunked(model.hidden(tokens), model.lm_head.weight,
-                                           tokens)
+                head = model.lm_head.weight
+                if model.lm_head.tp is not None:  # the vocabulary's tp shards, whole
+                    from tf_operator_tpu_torch.parallel import collectives
+
+                    head = collectives.gather_from(head, 0, model.lm_head.tp.group)
+                return tfm.lm_loss_chunked(model.hidden(tokens), head, tokens)
             return tfm.lm_loss(model(tokens), tokens)
 
         def make_batch(g):
@@ -478,7 +543,8 @@ def _build_model(args, device: torch.device):
         base = tfm.BERT_BASE if args.model == "bert-base" else tfm.TINY
         cfg = tfm.TransformerConfig(
             vocab_size=base.vocab_size, num_layers=base.num_layers, hidden=base.hidden,
-            num_heads=base.num_heads, max_len=max(args.seq, 8), causal=False)
+            num_heads=base.num_heads, max_len=max(args.seq, 8), causal=False,
+            dtype=COMPUTE_DTYPE)
         model = tfm.BertMLM(cfg, attn_fn=make_attention_fn(causal=False), device=device,
                             generator=gen)
 
@@ -495,14 +561,14 @@ def _build_model(args, device: torch.device):
     if args.model in ("mnist-mlp", "mnist-conv"):
         classes, shape = 10, (args.batch, 28, 28)
         cls = mnist.MLP if args.model == "mnist-mlp" else mnist.ConvNet
-        model = cls(device=device, generator=gen)
+        model = cls(dtype=COMPUTE_DTYPE, device=device, generator=gen)
     else:
         from tf_operator_tpu_torch.models import resnet
 
         classes = 1000
         shape = (args.batch, args.image_size, args.image_size, 3)
         cls = resnet.ResNet50 if args.model == "resnet50" else resnet.ResNet18
-        model = cls(num_classes=classes, device=device, generator=gen)
+        model = cls(num_classes=classes, dtype=COMPUTE_DTYPE, device=device, generator=gen)
     resnet_loss = args.model.startswith("resnet")
 
     def loss_fn(model, batch):
@@ -520,6 +586,16 @@ def _build_model(args, device: torch.device):
                 "y": torch.randint(0, classes, (args.batch,), generator=g, device=device)}
 
     return model, loss_fn, make_batch
+
+
+def _sharding_rules(args):
+    """The JAX trainer's rule table for --model: the transformer family's
+    tensor-parallel rules, none (replicated, then fsdp) for the rest."""
+    if args.model in ("transformer-lm", "bert-base", "bert-tiny"):
+        from tf_operator_tpu_torch.parallel.sharding_rules import TRANSFORMER_TP_RULES
+
+        return TRANSFORMER_TP_RULES
+    return None
 
 
 def _is_checkpoint_writer() -> bool:
@@ -590,26 +666,48 @@ def _host_tree(tree: dict, buffers: dict) -> dict:
     return out
 
 
-def _split_state(state) -> tuple[dict, dict]:
+def _split_state(state, plan=None) -> tuple[dict, dict]:
     """(params {name: tensor}, the resume payload: everything else of
-    state_tensors)."""
-    from tf_operator_tpu_torch.parallel.train_step import state_tensors
+    state_tensors), every sharded leaf gathered to its full tensor (a
+    collective on every rank of a sharded world)."""
+    from tf_operator_tpu_torch.parallel.train_step import full_state_tensors
 
-    tensors = state_tensors(state)
+    tensors = full_state_tensors(state, plan)
     params = {k[len("params/"):]: v for k, v in tensors.items() if k.startswith("params/")}
     aux = {k: v for k, v in tensors.items() if not k.startswith("params/")}
     return params, aux
 
 
-def _snapshot_state(ckpt_dir: str, step: int, state, final: bool, keep: int,
-                    pool: _PinnedPool) -> _SaveItem:
-    """Blocking snapshot leg: device->host copies of params and the resume
-    payload at a step boundary, ordered on the stream before any later
-    in-place update, and waited for before the item is returned, so the
-    writer thread never touches the device."""
+def _gang_shape(plan) -> dict:
+    """The gang a checkpoint is saved from (or resumed into), as the
+    sharding manifest records it."""
+    from tf_operator_tpu_torch.parallel import mesh as mesh_lib
+
+    return {"processCount": plan.mesh.world, "deviceCount": plan.mesh.world,
+            "mesh": mesh_lib.shape_dict(plan.mesh)}
+
+
+def _leaf_specs(plan, prefixes: tuple[str, ...]) -> dict:
+    """keystr path -> spec of each parameter leaf under `prefixes` (""
+    for the params tree, "mu/" etc. for the resume payload's)."""
     from tf_operator_tpu_torch.models import checkpoint as ckpt
 
-    params, aux = _split_state(state)
+    return dict(ckpt.flatten({f"{pre}{n}": spec for pre in prefixes
+                              for n, spec in plan.specs.items()}))
+
+
+def _snapshot_state(ckpt_dir: str, step: int, state, final: bool, keep: int,
+                    pool: _PinnedPool, plan=None) -> _SaveItem:
+    """Blocking snapshot leg: device->host copies of params and the resume
+    payload at a step boundary (gathered to full tensors under a sharding
+    plan), ordered on the stream before any later in-place update, and
+    waited for before the item is returned, so the writer thread never
+    touches the device."""
+    from tf_operator_tpu_torch.models import checkpoint as ckpt
+    from tf_operator_tpu_torch.parallel.train_step import ParallelPlan
+
+    plan = plan or ParallelPlan()
+    params, aux = _split_state(state, plan)
     buffers = pool.take()
     host_params = _host_tree(params, buffers)
     host_aux = _host_tree(aux, buffers)
@@ -617,8 +715,10 @@ def _snapshot_state(ckpt_dir: str, step: int, state, final: bool, keep: int,
         done = torch.cuda.Event()
         done.record()
         done.synchronize()
-    info = {**ckpt.SINGLE_PROCESS, "leaves": ckpt.leaf_shardings(host_params),
-            "auxLeaves": ckpt.leaf_shardings(host_aux)}
+    info = {**_gang_shape(plan),
+            "leaves": ckpt.leaf_shardings(host_params, _leaf_specs(plan, ("",))),
+            "auxLeaves": ckpt.leaf_shardings(host_aux,
+                                             _leaf_specs(plan, ("mu/", "nu/", "master/")))}
     return _SaveItem(ckpt_dir=ckpt_dir, step=step, host_params=host_params,
                      host_aux=host_aux, info=info, final=final, keep=keep)
 
@@ -793,7 +893,9 @@ class _CkptWriter:
 class _Checkpointing:
     """A saving run's checkpoint settings and accounting: the directory,
     retention, whether saves record digests, the async writer (None in sync
-    mode), the pinned snapshot buffers and the sync saves' totals."""
+    mode), the pinned snapshot buffers and the sync saves' totals. In a
+    sharded world every rank has one, for the gathers of each snapshot;
+    only the writer's (`writes`) writes."""
 
     ckpt_dir: str
     keep: int
@@ -801,6 +903,8 @@ class _Checkpointing:
     heartbeat: Any = None
     chaos: Any = None
     writer: _CkptWriter | None = None
+    plan: Any = None
+    writes: bool = True
     pool: _PinnedPool = dataclasses.field(default_factory=_PinnedPool)
     sync_stats: dict = dataclasses.field(
         default_factory=lambda: {"saves": 0, "snapshot_s": 0.0, "write_s": 0.0})
@@ -833,11 +937,15 @@ def _save_checkpoint(ck: _Checkpointing, step: int, state, final: bool = False,
     or sync=True for the preemption fast path): both legs inline under the
     `checkpoint` phase. Returns the estimated seconds of a synchronous save,
     the preemption guard's estimate against the grace budget."""
+    if not ck.writes:
+        _split_state(state, ck.plan)  # the gathers the writer's snapshot runs
+        return 0.0
     writer = ck.writer
     t0 = time.monotonic()
     if writer is None or sync:
         with st.phase("checkpoint") if st is not None else contextlib.nullcontext():
-            item = _snapshot_state(ck.ckpt_dir, step, state, final, ck.keep, ck.pool)
+            item = _snapshot_state(ck.ckpt_dir, step, state, final, ck.keep, ck.pool,
+                                   ck.plan)
             snap_s = time.monotonic() - t0
             ck.write(item)
         total = time.monotonic() - t0
@@ -849,7 +957,7 @@ def _save_checkpoint(ck: _Checkpointing, step: int, state, final: bool = False,
         # The phase covers the snapshot and any backpressure wait inside
         # submit; the done block keeps the two apart (snapshot_s, and the
         # writer's drain_wait_s).
-        item = _snapshot_state(ck.ckpt_dir, step, state, final, ck.keep, ck.pool)
+        item = _snapshot_state(ck.ckpt_dir, step, state, final, ck.keep, ck.pool, ck.plan)
         snap_s = time.monotonic() - t0
         writer.submit(item)
     writer.note_snapshot(snap_s)
@@ -858,73 +966,90 @@ def _save_checkpoint(ck: _Checkpointing, step: int, state, final: bool = False,
     return snap_s + writer.mean_write_s()
 
 
-def _try_resume(ckpt_dir: str | None, state, tx, allow_reshape: bool = False):
+def _try_resume(ckpt_dir: str | None, state, tx, allow_reshape: bool, plan):
     """Restore the newest restorable checkpoint, if any: (state, start_step).
 
     The walk goes newest first through list_steps. A step whose census
     fails validate_step is skipped with a `resume_fallback` event
     (`invalid_checkpoint`), and so is a step saved at another gang shape
-    (`foreign_shape`) unless allow_reshape, which then checks the per-leaf
-    shapes against this model (`reshard_shape_mismatch`). Only the steps
-    walked past are validated. A restore that raises skips to the next
-    candidate (`restore_error`); nothing left is a step-0 cold start
-    (`no_valid_checkpoint`). A step_<N> without a usable trainstate_<N>
-    (torn, missing, or written under another optimizer layout) resumes
-    params-only with a fresh optimizer, whose master copy under master
-    weights comes from the restored params. Params restore at the
-    optimizer's master precision (f32 under master weights) and the
-    compute copy is re-derived. The `resumed` event carries crc32 digests
-    of the restored host bytes beside the ones the save recorded."""
+    (`foreign_shape`: another process count or mesh) unless allow_reshape,
+    which then checks the per-leaf global shapes against this model
+    (`reshard_shape_mismatch`). Only the steps walked past are validated. A
+    restore that raises skips to the next candidate (`restore_error`);
+    nothing left is a step-0 cold start (`no_valid_checkpoint`). A step_<N>
+    without a usable trainstate_<N> (torn, missing, or written under another
+    optimizer layout) resumes params-only with a fresh optimizer, whose
+    master copy under master weights comes from the restored params. Params
+    restore at the optimizer's master precision (f32 under master weights)
+    and the compute copy is re-derived. Checkpoints hold full tensors; each
+    rank keeps its parts (`plan`). The `resumed` event carries crc32 digests
+    of the restored host bytes beside the ones the save recorded, and a
+    `reshaped` block when the gang shape changed.
+
+    In a world of several processes every rank walks the shared directory
+    itself, then they agree: rank 0's chosen step and its full-vs-params-
+    only choice are broadcast, and a rank that differs raises (the JAX
+    trainer's visibility errors); a restore error raises instead of walking
+    further, since the ranks agreed on that step only."""
     from tf_operator_tpu_torch.models import checkpoint as ckpt
-    from tf_operator_tpu_torch.parallel.train_step import load_state_tensors
+    from tf_operator_tpu_torch.parallel.collectives import broadcast_int
+    from tf_operator_tpu_torch.parallel.train_step import (
+        load_state_tensors,
+        local_state_tensors,
+    )
 
     if not ckpt_dir:
         return state, 0
+    multi = plan.mesh.world > 1
     all_steps = ckpt.list_steps(ckpt_dir)
     ordered = list(reversed(all_steps))  # newest first
-    cur_shape = {k: ckpt.SINGLE_PROCESS[k] for k in ("processCount", "mesh")}
-    params, aux = _split_state(state)
+    cur_shape = {k: _gang_shape(plan)[k] for k in ("processCount", "mesh")}
+    params, aux = _split_state(state)  # this rank's tensors: dtypes only
     master_dtype = torch.float32 if tx.config.master_weights else None
     p_template = {k: master_dtype or v.dtype for k, v in params.items()}
+    template_shapes = {k: v["shape"] for k, v in ckpt.leaf_shardings(
+        {k: torch.empty(shape, device="meta") for k, shape in plan.full_shapes.items()}).items()}
 
-    def candidate_gate(s: int) -> tuple[bool, dict | None]:
+    def candidate_gate(s: int) -> tuple[bool, dict | None, dict | None]:
+        """(restorable, sharding manifest, the saved gang shape when it
+        differs from this one)."""
         if not ckpt.validate_step(ckpt_dir, s):
             _emit({"event": "resume_fallback", "skipped_step": s,
                    "reason": "invalid_checkpoint"})
-            return False, None
+            return False, None, None
         sm = ckpt.read_sharding_manifest(ckpt_dir, f"step_{s}")
         if sm is None:
             if allow_reshape:
                 _emit({"event": "resume_fallback", "step": s,
                        "reason": "missing_sharding_manifest: shape unverifiable, "
                                  "same-shape restore only"})
-            return True, None
+            return True, None, None
         saved = {"processCount": int(sm.get("processCount") or 0),
                  "mesh": {k: int(v) for k, v in (sm.get("mesh") or {}).items()}}
         if saved == cur_shape:
-            return True, sm
+            return True, sm, None
         if not allow_reshape:
             _emit({"event": "resume_fallback", "skipped_step": s,
                    "reason": (f"foreign_shape: saved on {saved['processCount']} "
                               f"process(es), mesh {saved['mesh']} (running "
                               f"{cur_shape['processCount']}, {cur_shape['mesh']}); "
                               f"pass --allow-reshape to reshard")})
-            return False, sm
+            return False, sm, None
         saved_shapes = {k: v.get("shape") for k, v in (sm.get("leaves") or {}).items()}
-        if saved_shapes != {k: v["shape"] for k, v in ckpt.leaf_shardings(params).items()}:
+        if saved_shapes != template_shapes:
             _emit({"event": "resume_fallback", "skipped_step": s,
                    "reason": "reshard_shape_mismatch: per-leaf global shapes differ "
                              "from this model config"})
-            return False, sm
-        return True, sm
+            return False, sm, None
+        return True, sm, saved
 
-    def next_restorable(i: int) -> tuple[int, int | None, dict | None]:
+    def next_restorable(i: int) -> tuple[int, int | None, dict | None, dict | None]:
         while i < len(ordered):
-            ok, sm = candidate_gate(ordered[i])
+            ok, sm, reshaped = candidate_gate(ordered[i])
             if ok:
-                return i, ordered[i], sm
+                return i, ordered[i], sm, reshaped
             i += 1
-        return len(ordered), None, None
+        return len(ordered), None, None, None
 
     def cold_start(warning: str):
         print(f"warning: {warning} — cold-starting from step 0", file=sys.stderr)
@@ -932,7 +1057,17 @@ def _try_resume(ckpt_dir: str | None, state, tx, allow_reshape: bool = False):
                "steps_seen": len(all_steps)})
         return state, 0
 
-    idx, last, sharding_m = next_restorable(0)
+    idx, last, sharding_m, reshaped = next_restorable(0)
+    if multi:
+        # Every rank runs this agreement (sentinel -1 = sees nothing) before
+        # any early return, else the check itself deadlocks.
+        observed = -1 if last is None else last
+        agreed = broadcast_int(observed, device=plan.device)
+        if agreed != observed:
+            raise RuntimeError(
+                f"checkpoint visibility differs across replicas (this process sees step "
+                f"{observed}, process 0 sees {agreed}) — mount a shared --checkpoint-dir "
+                f"volume")
     if last is None:  # step_0 is a valid (externally seeded) checkpoint
         if all_steps:
             return cold_start(f"no restorable checkpoint under {ckpt_dir} (all "
@@ -945,10 +1080,12 @@ def _try_resume(ckpt_dir: str | None, state, tx, allow_reshape: bool = False):
             restored = ckpt.cast_to_template(raw_params, p_template)
             break
         except Exception as e:  # noqa: BLE001 — a torn tree raises anything
+            if multi:
+                raise  # the ranks agreed on `last` only: fail loud, retry the pod
             _emit({"event": "resume_fallback", "skipped_step": last,
                    "reason": f"restore_error: {type(e).__name__}: {e}"})
             raw_params = None
-            idx, last, sharding_m = next_restorable(idx + 1)
+            idx, last, sharding_m, reshaped = next_restorable(idx + 1)
     if raw_params is None:
         return cold_start(f"every checkpoint under {ckpt_dir} failed to restore")
     raw_aux = None
@@ -963,14 +1100,26 @@ def _try_resume(ckpt_dir: str | None, state, tx, allow_reshape: bool = False):
         full = {**{f"params/{k}": v for k, v in restored.items()},
                 **ckpt.cast_to_template(raw_aux, {k: getattr(v, "dtype", v)
                                                   for k, v in aux.items()})}
-        state = load_state_tensors(state, full)
+        state = load_state_tensors(state, local_state_tensors(full, plan))
         partial = False
     except Exception:  # noqa: BLE001 — any unusable payload degrades, below
         # A params-only checkpoint, or a trainstate written under another
         # optimizer layout (ValueError from the leaf-list check), or torn
         # past its census: a fresh optimizer, the step from the dir name.
         raw_aux, partial = None, True
-        state = _params_only_state(state, tx, restored, last)
+        state = _params_only_state(state, tx, restored, last, plan)
+    if multi:
+        # The ranks agreed on the step; they must also agree on full vs
+        # params-only, or one trains on restored Adam moments and another
+        # on fresh ones, and the model silently diverges.
+        mine = 1 if partial else 0
+        agreed_partial = broadcast_int(mine, device=plan.device)
+        if agreed_partial != mine:
+            raise RuntimeError(
+                f"trainstate_{last} visibility differs across replicas (this process "
+                f"resumes {'params-only' if mine else 'full'}, process 0 "
+                f"{'params-only' if agreed_partial else 'full'}) — shared "
+                f"--checkpoint-dir volume lagging; retrying")
     event = {"event": "resumed", "from_step": state.step, "params_only": partial}
     saved_digest = (sharding_m.get("digest") or {}) if sharding_m else {}
     if saved_digest:
@@ -984,19 +1133,26 @@ def _try_resume(ckpt_dir: str | None, state, tx, allow_reshape: bool = False):
         if digest:
             event["digest"] = digest
             event["saved_digest"] = {k: saved_digest[k] for k in digest}
+    if reshaped is not None:
+        event["reshaped"] = {"from_processes": reshaped["processCount"],
+                             "from_mesh": reshaped["mesh"],
+                             "to_processes": cur_shape["processCount"],
+                             "to_mesh": cur_shape["mesh"]}
     _emit(event)
     return state, state.step
 
 
-def _params_only_state(state, tx, params: dict, step: int):
-    """The state with the restored params (at master precision) loaded, a
-    fresh optimizer built from them, and the step set: the resume of a
-    step_<N> without its trainstate."""
+def _params_only_state(state, tx, params: dict, step: int, plan):
+    """The state with the restored params (full tensors at master
+    precision; this rank's parts) loaded, a fresh optimizer built from
+    them, and the step set: the resume of a step_<N> without its
+    trainstate."""
     from tf_operator_tpu_torch.parallel.train_step import TrainState
 
     live = dict(state.model.named_parameters())
-    on_device = [params[n].to(live[n].device) for n in live]
-    opt_state = tx.init(on_device)
+    on_device = [plan.local(i, params[n].to(p.device), shard=False)
+                 for i, (n, p) in enumerate(live.items())]
+    opt_state = tx.init([plan.shard(i, t) for i, t in enumerate(on_device)])
     with torch.no_grad():
         for p, new in zip(live.values(), on_device):
             p.copy_(new)
@@ -1004,19 +1160,23 @@ def _params_only_state(state, tx, params: dict, step: int):
 
 
 def _preempt_exit(args, guard, state, done: int, ck: _Checkpointing | None,
-                  last_save_s: float, last_ckpt_step: int, st=None) -> int:
+                  last_save_s: float, last_ckpt_step: int, plan, st=None) -> int:
     """Graceful-preemption teardown at a chunk boundary: drain the in-flight
     async write first (its seconds burn the grace budget through
     guard.elapsed()), adopt the drained save as the emergency checkpoint
     when it is this boundary's step or newer, else save synchronously when
-    the remaining budget still covers the estimated save. Emits `preempted`
-    and returns 128+signum for the operator's ExitCode policy."""
+    the remaining budget still covers the estimated save. In a world of
+    several processes the writer's verdict is broadcast, so every rank
+    joins the gathers of a synchronous save and reports the gang's
+    checkpoint. Emits `preempted` and returns 128+signum for the operator's
+    ExitCode policy (143 on a rank whose peer took the signal)."""
     saved = False
     skipped = None
     drain_s = None
     adopted = False
     emergency_s = None
-    if ck is not None:
+    sync_save = False
+    if ck is not None and ck.writes:
         writer = ck.writer
         if writer is not None:
             # Drain, don't abandon: the write is mostly on disk already, and
@@ -1033,10 +1193,19 @@ def _preempt_exit(args, guard, state, done: int, ck: _Checkpointing | None,
             if writer is None and done == last_ckpt_step:
                 saved = True  # this boundary's periodic sync save landed
             elif guard.within_grace(last_save_s, args.preempt_grace):
-                emergency_s = _save_checkpoint(ck, done, state, st=st, sync=True)
-                saved = True
+                sync_save = True
             else:
                 skipped = "grace_budget"
+    if plan.mesh.world > 1:
+        from tf_operator_tpu_torch.parallel.collectives import broadcast_int
+
+        verdict = broadcast_int(2 if sync_save else int(saved), device=plan.device)
+        sync_save, saved = verdict == 2, verdict == 1
+    if sync_save:
+        if ck is not None:  # a non-writer's runs the gathers only
+            seconds = _save_checkpoint(ck, done, state, st=st, sync=True)
+            emergency_s = seconds if ck.writes else None
+        saved = True
     event = {
         "event": "preempted",
         "step": done,
@@ -1117,13 +1286,15 @@ def _device_kind(device: torch.device) -> str:
 
 
 def _train_on_dataset(args, device: torch.device, state, start_step: int, loss_fn, tx,
-                      t_start: float, maybe_checkpoint, check_boundary, finish) -> int:
+                      t_start: float, maybe_checkpoint, check_boundary, finish,
+                      plan) -> int:
     """The --data-dir loop: host batches from the sharded dataset (this
-    process's shards, from start_step on, so a resumed run continues the
-    uninterrupted sequence), fed through the prefetch thread or the staging
-    ring, one step at a time. The uint8 wire is normalised here, on the
-    step's thread, before the loss. The done event gets the ingest's
-    `prefetch` or `staging` block."""
+    process's shards and its --batch / nprocs rows of each global step,
+    from start_step on, so a resumed run continues the uninterrupted
+    sequence), fed through the prefetch thread or the staging ring, one
+    step at a time. The uint8 wire is normalised here, on the step's
+    thread, before the loss. The done event gets the ingest's `prefetch`
+    or `staging` block."""
     import itertools
 
     from tf_operator_tpu_torch.data import dataset as dataset_lib
@@ -1134,7 +1305,7 @@ def _train_on_dataset(args, device: torch.device, state, start_step: int, loss_f
 
     reader, readers = dataset_lib.shard_from_env()
     ds = dataset_lib.ShardedDataset(args.data_dir, reader, readers)
-    host_it = ds.batches(args.batch, seed=0, start_batch=start_step)
+    host_it = ds.batches(args.batch // readers, seed=0, start_batch=start_step)
     prefetch_stats: dict = {}
     staging_stats: dict = {}
     tune = None
@@ -1164,7 +1335,7 @@ def _train_on_dataset(args, device: torch.device, state, start_step: int, loss_f
     loss = remat_loss(loss_fn) if args.remat else loss_fn
 
     def step(state, batch):
-        return train_step(state, preprocess(batch), loss, tx)
+        return train_step(state, preprocess(batch), loss, tx, plan)
 
     try:
         state, metrics = step(state, next(it))
@@ -1173,8 +1344,8 @@ def _train_on_dataset(args, device: torch.device, state, start_step: int, loss_f
         done = start_step + 1
         _emit({
             "event": "first_step", "t": t_first, "startup_s": round(t_first - t_start, 3),
-            "steps_in_first_call": 1, "loss": first_loss, "mesh": {"dp": 1},
-            "backend": device.type, "device_kind": _device_kind(device), "n_devices": 1,
+            "steps_in_first_call": 1, "loss": first_loss, **_mesh_fields(plan),
+            "backend": device.type, "device_kind": _device_kind(device),
             "data_dir": args.data_dir, "local_samples": ds.num_samples,
         })
         maybe_checkpoint(done, state)
@@ -1222,6 +1393,12 @@ def _train_on_dataset(args, device: torch.device, state, start_step: int, loss_f
         it.close()
     return finish(state, metrics, args.steps - start_step - 1, dt, acct,
                   _ingest_block(args, prefetch_stats, staging_stats, lanes, chunks, tune))
+
+
+def _mesh_fields(plan) -> dict:
+    """The first_step event's mesh and device count."""
+    shape = _gang_shape(plan)
+    return {"mesh": shape["mesh"], "n_devices": shape["deviceCount"]}
 
 
 def _ingest_block(args, prefetch_stats: dict, staging_stats: dict, lanes: int, chunks: int,
@@ -1280,9 +1457,12 @@ def _run_trainer(args, device: torch.device, heartbeat, guard, chaos=None,
                  state_out=None) -> int:
     from tf_operator_tpu_torch import optim as optim_lib
     from tf_operator_tpu_torch.models import checkpoint as ckpt_lib
+    from tf_operator_tpu_torch.parallel import distributed
+    from tf_operator_tpu_torch.parallel import mesh as mesh_lib
     from tf_operator_tpu_torch.parallel.train_step import (
         create_train_state,
         make_chunked_train_step,
+        parallelize,
     )
     from tf_operator_tpu_torch.telemetry.phases import make_step_accounting
 
@@ -1290,14 +1470,26 @@ def _run_trainer(args, device: torch.device, heartbeat, guard, chaos=None,
     _emit({"event": "start", "t": t_start, "model": args.model})
     if device.type == "cuda":
         torch.cuda.init()
-    _emit({"event": "jax_ready", "t": time.time(), "backend": device.type})
+        device = torch.device("cuda", 0)  # the pod's first visible GPU
+    # The Evaluator is one process whatever its env says.
+    dist_backend = None if args.eval else distributed.initialize_from_env(device=device)
+    # A library that installs its own handlers at init would displace the
+    # guard's; take the signals back.
+    guard.reassert()
+    _emit({"event": "jax_ready", "t": time.time(), "backend": device.type,
+           "dist_backend": dist_backend})
     heartbeat.write(0, force=True)
 
     if args.eval:
         model, loss_fn, make_batch = _build_model(args, device)
         return _run_evaluator(args, model, loss_fn, make_batch, device, guard)
 
-    saver = bool(args.checkpoint_dir) and _is_checkpoint_writer()
+    mesh = mesh_lib.mesh_from_env()
+    multi = mesh.world > 1
+    # One writer: rank 0 of a world of several processes (the JAX trainer's
+    # rule), else the chief (or worker 0).
+    saver = bool(args.checkpoint_dir) and (mesh.rank == 0 if multi
+                                           else _is_checkpoint_writer())
     allow_reshape = args.allow_reshape or os.environ.get("TPUJOB_ALLOW_RESHAPE") == "1"
     if saver:
         # A preempt/retry loop strands tmp dirs (a save killed before its
@@ -1307,12 +1499,13 @@ def _run_trainer(args, device: torch.device, heartbeat, guard, chaos=None,
             _emit({"event": "checkpoint_tmp_swept", "entries": swept})
 
     model, loss_fn, make_batch = _build_model(args, device)
+    plan = parallelize(model, mesh, _sharding_rules(args), device)
     tx = optim_lib.make_optimizer(optim_lib.OptimizerConfig(
         name=args.optimizer, learning_rate=args.lr,
         moment_dtype=args.moment_dtype, master_weights=args.master_weights,
     ))
-    state = create_train_state(model, tx)
-    state, start_step = _try_resume(args.checkpoint_dir, state, tx, allow_reshape)
+    state = create_train_state(model, tx, plan)
+    state, start_step = _try_resume(args.checkpoint_dir, state, tx, allow_reshape, plan)
 
     _emit({"event": "model_ready", "t": time.time()})
     heartbeat.write(start_step, force=True)
@@ -1329,18 +1522,19 @@ def _run_trainer(args, device: torch.device, heartbeat, guard, chaos=None,
         return 0
 
     ck = None
-    if saver:
+    if saver or (args.checkpoint_dir and multi and plan.sharded):
         # Digests (the resumed event's bit-equality witness) ride the writer
         # thread in async mode, and are kept in sync mode for jobs that may
-        # reshape.
+        # reshape. The other ranks of a sharded world join each snapshot's
+        # gathers.
         ck = _Checkpointing(args.checkpoint_dir, args.keep_checkpoints,
                             digest=allow_reshape or args.checkpoint_mode == "async",
-                            heartbeat=heartbeat, chaos=chaos)
-        if args.checkpoint_mode == "async":
+                            heartbeat=heartbeat, chaos=chaos, plan=plan, writes=saver)
+        if saver and args.checkpoint_mode == "async":
             ck.writer = _CkptWriter(ck.write)
     try:
         step_chunk = make_chunked_train_step(loss_fn, tx, make_batch, device, seed=0,
-                                             remat=args.remat)
+                                             remat=args.remat, plan=plan)
         chunk = max(1, min(args.log_every, args.steps - start_step))
         if args.checkpoint_dir and args.checkpoint_every:
             # Chunk boundaries land on every multiple of --checkpoint-every.
@@ -1371,9 +1565,18 @@ def _run_trainer(args, device: torch.device, heartbeat, guard, chaos=None,
                     _emit({"event": "chaos_hang", "step": done, "duration": duration})
                     chaos_lib.hang(duration)
                 chaos.maybe_kill(done, start_step)
-            if guard.triggered:
+            triggered = guard.triggered
+            if multi:
+                # The ranks leave at one boundary, or a signalled rank's
+                # exit strands its peers in the next step's collectives.
+                from tf_operator_tpu_torch.parallel import collectives
+
+                flag = torch.tensor(float(triggered), device=device)
+                triggered = bool(collectives.all_reduce(flag, dist.group.WORLD,
+                                                        dist.ReduceOp.MAX))
+            if triggered:
                 return _preempt_exit(args, guard, state, done, ck, last_save_s,
-                                     last_ckpt_step, st)
+                                     last_ckpt_step, plan, st)
             return None
 
         def finish(state, metrics, steady: int, dt: float, acct, extra: dict) -> int:
@@ -1408,7 +1611,7 @@ def _run_trainer(args, device: torch.device, heartbeat, guard, chaos=None,
 
         if args.data_dir:
             return _train_on_dataset(args, device, state, start_step, loss_fn, tx, t_start,
-                                     maybe_checkpoint, check_boundary, finish)
+                                     maybe_checkpoint, check_boundary, finish, plan)
 
         state, metrics = step_chunk(state, chunk)
         # The loss fetch waits for the first chunk's device work: startup_s
@@ -1422,10 +1625,9 @@ def _run_trainer(args, device: torch.device, heartbeat, guard, chaos=None,
             "startup_s": round(t_first - t_start, 3),
             "steps_in_first_call": chunk,
             "loss": first_loss,
-            "mesh": {"dp": 1},
+            **_mesh_fields(plan),
             "backend": device.type,
             "device_kind": _device_kind(device),
-            "n_devices": 1,
         })
         maybe_checkpoint(done, state)
         rc = check_boundary(done, state)

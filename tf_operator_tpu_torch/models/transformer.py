@@ -51,6 +51,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint, noop_context_fn
 
 from tf_operator_tpu_torch.ops.flash_attention import flash_save_context
+from tf_operator_tpu_torch.parallel import collectives
 from tf_operator_tpu_torch.parallel.ring_attention import attention_reference
 
 LN_EPS = 1e-6  # flax nn.LayerNorm's default
@@ -101,7 +102,15 @@ AttnFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
 
 
 class Dense(nn.Module):
-    """y = x W^T + b computed in `dtype`; W is [out, in]."""
+    """y = x W^T + b computed in `dtype`; W is [out, in].
+
+    Under tensor parallelism (`tp`, set by parallel.train_step.parallelize)
+    W holds this rank's shard: of the output dimension ("col": the input
+    is replicated, the output sharded, the full bias sliced; `tp.gather`
+    all-gathers the output; the caller passes the input through
+    `tp_input` once for all the layers that read it) or of the input
+    dimension ("row": the partial products are all-reduced, then the bias
+    is added)."""
 
     def __init__(self, in_features: int, out_features: int, dtype: torch.dtype,
                  bias: bool = True, device=None):
@@ -109,10 +118,29 @@ class Dense(nn.Module):
         self.dtype = dtype
         self.weight = nn.Parameter(torch.empty(out_features, in_features, device=device))
         self.bias = nn.Parameter(torch.zeros(out_features, device=device)) if bias else None
+        self.tp: collectives.TpShard | None = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b = None if self.bias is None else self.bias.to(self.dtype)
-        return F.linear(x.to(self.dtype), self.weight.to(self.dtype), b)
+        x, w, tp = x.to(self.dtype), self.weight.to(self.dtype), self.tp
+        if tp is None:
+            return F.linear(x, w, b)
+        if tp.mode == "col":
+            if b is not None:
+                b = collectives.local_slice(b, 0, tp.index, tp.size)
+            y = F.linear(x, w, b)
+            return collectives.gather_from(y, -1, tp.group) if tp.gather else y
+        y = collectives.reduce_from(F.linear(x, w), tp.group)
+        return y if b is None else y + b
+
+
+def tp_input(x: torch.Tensor, layer: Dense) -> torch.Tensor:
+    """x as the input of `layer` and of the layers beside it that read the
+    same x: under a column-parallel `layer`, Megatron's f (identity
+    forward, its gradient all-reduced over tp: each rank's columns give
+    part of it)."""
+    tp = layer.tp
+    return x if tp is None or tp.mode != "col" else collectives.copy_to(x, tp.group)
 
 
 class LayerNorm(nn.Module):
@@ -132,13 +160,24 @@ class LayerNorm(nn.Module):
 
 
 class Embed(nn.Module):
+    """A lookup table [num, features]. Under tensor parallelism (`tp`) it
+    holds rows [index * n, (index + 1) * n) of the table: each rank looks up
+    the ids it holds, zeros the rest, and the ranks' rows are summed."""
+
     def __init__(self, num: int, features: int, dtype: torch.dtype, device=None):
         super().__init__()
         self.dtype = dtype
         self.weight = nn.Parameter(torch.empty(num, features, device=device))
+        self.tp: collectives.TpShard | None = None
 
     def forward(self, idx: torch.Tensor) -> torch.Tensor:
-        return F.embedding(idx, self.weight.to(self.dtype))
+        w, tp = self.weight.to(self.dtype), self.tp
+        if tp is None:
+            return F.embedding(idx, w)
+        n = w.shape[0]
+        local = idx - tp.index * n
+        held = ((local >= 0) & (local < n))[..., None].to(w.dtype)
+        return collectives.reduce_from(F.embedding(local.clamp(0, n - 1), w) * held, tp.group)
 
 
 class Dropout(nn.Module):
@@ -151,7 +190,11 @@ class Dropout(nn.Module):
         self.rate = rate
 
     def forward(self, x: torch.Tensor, deterministic: bool = True,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator: torch.Generator | None = None,
+                rows: tuple[int, int] = (0, 1)) -> torch.Tensor:
+        """`rows` = (index, count): x is shard `index` of `count` equal row
+        shards of the global batch, whose mask is drawn whole and sliced,
+        so a data-parallel rank drops what one process would."""
         if deterministic or self.rate == 0.0:
             return x
         if generator is None:
@@ -160,7 +203,10 @@ class Dropout(nn.Module):
         if self.rate == 1.0:
             return torch.zeros_like(x)
         keep_prob = 1.0 - self.rate
-        keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+        index, count = rows
+        draw = torch.rand((x.shape[0] * count, *x.shape[1:]), generator=generator,
+                          device=x.device)
+        keep = collectives.local_slice(draw, 0, index, count) < keep_prob
         return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -180,14 +226,15 @@ class SelfAttention(nn.Module):
         cfg = self.cfg
         b, t, _ = x.shape
 
-        def split(a):  # [B, T, H*D] -> [B, H, T, D]
-            return a.view(b, t, cfg.num_heads, cfg.head_dim).transpose(1, 2)
+        def split(a):  # [B, T, H*D] -> [B, H, T, D]; H is this rank's heads under tp
+            return a.view(b, t, -1, cfg.head_dim).transpose(1, 2)
 
         attn = self.attn_fn
         if attn is None:
             attn = functools.partial(attention_reference, causal=cfg.causal)
+        x = tp_input(x, self.query)
         o = attn(split(self.query(x)), split(self.key(x)), split(self.value(x)))
-        return self.attn_out(o.transpose(1, 2).reshape(b, t, cfg.hidden))
+        return self.attn_out(o.transpose(1, 2).reshape(b, t, -1))
 
 
 class Block(nn.Module):
@@ -203,24 +250,29 @@ class Block(nn.Module):
         self.dropout = Dropout(cfg.dropout_rate)
 
     def forward(self, x: torch.Tensor, deterministic: bool = True,
-                seed: int | None = None) -> torch.Tensor:
+                seed: int | None = None, rows: tuple[int, int] = (0, 1)) -> torch.Tensor:
         """`seed` seeds the block's dropout masks (needed only when they
-        are drawn: deterministic=False at a nonzero rate)."""
+        are drawn: deterministic=False at a nonzero rate); `rows` is
+        Dropout's."""
         gen = None
         if not deterministic and self.dropout.rate:
             gen = torch.Generator(device=x.device).manual_seed(seed)
-        x = x + self.dropout(self.attn(self.ln1(x)), deterministic, gen)
-        h = F.gelu(self.mlp_in(self.ln2(x)), approximate="tanh")
-        return x + self.dropout(self.mlp_out(h), deterministic, gen)
+        x = x + self.dropout(self.attn(self.ln1(x)), deterministic, gen, rows)
+        h = F.gelu(self.mlp_in(tp_input(self.ln2(x), self.mlp_in)), approximate="tanh")
+        return x + self.dropout(self.mlp_out(h), deterministic, gen, rows)
 
 
 class Transformer(nn.Module):
-    """Token trunk; returns the final (post-LayerNorm) hidden states."""
+    """Token trunk; returns the final (post-LayerNorm) hidden states.
+    `batch_rows` = (index, count) says which row shard of the global batch
+    this process holds (set by parallel.train_step.parallelize), for the
+    dropout masks."""
 
     def __init__(self, cfg: TransformerConfig, attn_fn: AttnFn | None = None,
                  device=None):
         super().__init__()
         self.cfg = cfg
+        self.batch_rows = (0, 1)
         self.embed = Embed(cfg.vocab_size, cfg.hidden, cfg.dtype, device=device)
         self.pos_embed = Embed(cfg.max_len, cfg.hidden, cfg.dtype, device=device)
         self.layers = nn.ModuleList(
@@ -243,12 +295,12 @@ class Transformer(nn.Module):
             seed = (int(torch.randint(0, 2 ** 62, (1,), generator=generator,
                                       device=generator.device)) if dropout else None)
             if not remat:
-                x = layer(x, deterministic, seed)
+                x = layer(x, deterministic, seed, self.batch_rows)
                 continue
             # The first remat_save_flash_layers blocks (every block under
             # remat_save_flash) keep the flash residuals; the rest replay all.
             save = cfg.remat_save_flash or i < cfg.remat_save_flash_layers
-            x = checkpoint(layer, x, deterministic, seed, use_reentrant=False,
+            x = checkpoint(layer, x, deterministic, seed, self.batch_rows, use_reentrant=False,
                            context_fn=flash_save_context if save else noop_context_fn)
         return self.ln_f(x)
 
@@ -268,7 +320,8 @@ class TransformerLM(nn.Module):
 
     def forward(self, tokens: torch.Tensor, deterministic: bool = True,
                 generator: torch.Generator | None = None) -> torch.Tensor:
-        return self.lm_head(self.trunk(tokens, deterministic, generator)).float()
+        h = self.trunk(tokens, deterministic, generator)
+        return self.lm_head(tp_input(h, self.lm_head)).float()
 
     def hidden(self, tokens: torch.Tensor) -> torch.Tensor:
         return self.trunk(tokens)
@@ -315,7 +368,7 @@ class BertMLM(nn.Module):
                 generator: torch.Generator | None = None) -> torch.Tensor:
         h = self.trunk(tokens, deterministic, generator)
         h = self.mlm_ln(F.gelu(self.mlm_transform(h), approximate="tanh"))
-        return self.lm_head(h).float()
+        return self.lm_head(tp_input(h, self.lm_head)).float()
 
 
 @torch.no_grad()

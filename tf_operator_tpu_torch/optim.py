@@ -15,7 +15,10 @@ master is a cast and `p + (new - p)` in low precision need not round back
 to `new`. The trainer copies them into the model's parameters in place.
 
 Parameters, gradients and moments are flat lists of tensors in the model's
-parameter order. State field order (count, mu, nu, master) is kept.
+parameter order. State field order (count, mu, nu, master) is kept. Under
+fsdp the lists hold this rank's shards (parallel/train_step.py's plan):
+the update is elementwise, so it runs per shard as it is, and mu, nu and
+the master are sharded like their parameter.
 `state_from_jax` carries the JAX package's optimizer state across.
 """
 
