@@ -8,6 +8,8 @@
     python3 chip_smoke.py --phases build,longctx      # the 64k and 128k LM alone
     python3 chip_smoke.py --phases build,bert,data    # BERT and the --data-dir path
     python3 chip_smoke.py --phases build,dist         # torch.distributed: NCCL, dp/tp/fsdp
+    python3 chip_smoke.py --phases build,sp           # sequence parallelism: ring, Ulysses
+    python3 chip_smoke.py --phases build,dist4        # four GPUs over NCCL (not default)
 
 Phases, in order:
   1. identify the card (nvidia-smi name and power limit);
@@ -98,17 +100,36 @@ Phases, in order:
      every rank must launch K1, K2, K3 and the delta pass once a layer a
      step, and match the one-process run on every step's loss and global
      gradient norm and on its final parameters (DIST_RTOL,
-     DIST_NORM_RTOL, DIST_PARAM_GAP), and a planted fault (dp = 2 without
-     the gradient reduction) must fail that comparison: global tokens/s,
-     step time and each rank's peak memory beside the gaps;
- 12. (only with --phases ...,dist4, on four GPUs) the dist runs and dp = 4
-     and dp x tp = 2 x 2 with one GPU a rank (CUDA_VISIBLE_DEVICES), where
-     the backend rule picks NCCL;
- 13. (only with --phases ...,profile) both trainers' runs, the 64k LM and
+     DIST_NORM_RTOL, DIST_PARAM_GAP), fsdp's ranks must hold half of each
+     fsdp-sharded parameter's bytes between steps (zero-3), and a planted
+     fault (dp = 2 without the gradient reduction) must fail that
+     comparison: global tokens/s, step time and each rank's peak memory
+     beside the gaps;
+ 12. sequence parallelism (sp): K1 (with lse), the delta pass with a
+     nonzero lse cotangent, K2 and K3 held against their plain versions
+     (every MUTATIONS entry rejected) and timed at the ring's local blocks
+     [1, 6, 8192, 128] bf16, causal and full, and at Ulysses' [1, 3,
+     16384, 128] causal; then the full-width LM at seq 16384, batch 1,
+     --remat --remat-save-flash, 6 steps, as one process and at sp = 2 as
+     two co-located trainer processes (gloo) through ring attention and
+     through Ulysses (TPUJOB_SP_MODE), each held against one process as the
+     dist runs are, with the flash kernels launched sp times a layer a
+     forward pass for the ring and once for Ulysses; two planted faults
+     (sp = 2 without the gradient sum over sp, a ring without the
+     visibility mask) must each fail that comparison;
+ 13. (only with --phases ...,dist4, on four GPUs) the dist runs and dp = 4,
+     dp x tp = 2 x 2 and fsdp = 4 with one GPU a rank (CUDA_VISIBLE_DEVICES),
+     where the backend rule picks NCCL; then the 64k LM at sp = 4 (ring)
+     and sp x tp = 2 x 2 (ring, 3 local heads) at batch 1 and dp x sp = 2
+     x 2 (Ulysses) at batch 2, each held against one process at its global
+     batch, with sp = 4 without the gradient sum over sp rejected; the
+     kernels at those runs' local shapes first (on three tiles where the
+     whole tensors are too large);
+ 14. (only with --phases ...,profile) both trainers' runs, the 64k LM and
      BERT-base at seq 512 under torch.profiler: device time by kernel group
      over their steady steps.
-The last lines are the eval, longctx, preempt, bert, data and dist phases'
-records as one JSON object ({"phases": ...}), the kernels' JSON record,
+The last lines are the eval, longctx, preempt, bert, data, dist and sp
+phases' records as one JSON object ({"phases": ...}), the kernels' JSON record,
 the card, and
 {"ok": true, "device": {...}}. Any failed phase exits nonzero with no
 result line. Needs a CUDA device: it never runs on the CPU.
@@ -117,6 +138,7 @@ result line. Needs a CUDA device: it never runs on the CPU.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -1260,71 +1282,90 @@ def longctx_argv(seq: int, steps: int, extra: list[str]) -> list[str]:
             "--log-every", "1", "--device", "cuda", *extra]
 
 
-def longctx_kernel_check(records: dict) -> None:
-    """K1 (o, lse), the delta pass, K2 and K3 at [1, 6, 65536, 128] bf16
-    causal, each held on LONG_TILE-row tiles (first, middle, last) of head 0
-    against its plain version computed for just those rows (K1, K2: the rows
-    against every key up to them) or key columns (K3: the keys against every
-    row from them on); then timed beside their bound and SDPA. Fills
-    records[name]["at_T_65536"]."""
+def tile_kernel_check(records: dict, shape, causal: bool, group: str, seed: int,
+                      with_g_lse: bool = False) -> None:
+    """K1 (o, lse), the delta pass, K2 and K3 at `shape` [1, H, T, D] bf16,
+    each held on LONG_TILE-row tiles (first, middle, last) of head 0
+    against its plain version computed for just those rows (K1, K2: the
+    rows against every key they see) or key columns (K3: the keys against
+    every row that sees them), for tensors too large to hold whole, every
+    MUTATIONS entry rejected on the last tile; with with_g_lse, delta (and
+    so K2 and K3) takes a nonzero lse cotangent.
+    Then timed beside their bound and SDPA. Fills records[name][group]
+    (a dict of the shape's record, or, for group "at_T_65536", the record
+    itself)."""
     import torch
 
     from tf_operator_tpu_torch.ops import flash_attention as fa
 
     dev = torch.device("cuda")
-    t, d, h = LONG_SEQ, 128, LONG_HEADS
-    gen = torch.Generator(device=dev).manual_seed(65536)
+    _, h, t, d = shape
+    gen = torch.Generator(device=dev).manual_seed(seed)
     q, k, v, do = (torch.randn((h, t, d), generator=gen, device=dev).to(torch.bfloat16)
                    for _ in range(4))
-    o, lse = fa.flash_fwd(q, k, v, True)
-    delta = fa.bwd_delta(o, do)
-    dq = fa.flash_bwd_dq(q, k, v, o, lse, do, True, delta=delta)
-    dk, dv = fa.flash_bwd_dkv(q, k, v, o, lse, do, True, delta=delta)
+    g_lse = torch.randn((h, t), generator=gen, device=dev) if with_g_lse else None
+    o, lse = fa.flash_fwd(q, k, v, causal)
+    delta = fa.bwd_delta(o, do, g_lse)
+    dq = fa.flash_bwd_dq(q, k, v, o, lse, do, causal, delta=delta)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, o, lse, do, causal, delta=delta)
     torch.cuda.synchronize()
-    failures, worst = [], {}
+    failures, rec = [], {"shape": list(shape), "causal": causal, "g_lse": with_g_lse}
+    recs = {name: dict(rec, max_abs_err=0.0) for name in _LONG_KERNEL.values()}
     for r0 in (0, t // 2, t - LONG_TILE):
         rows = slice(r0, r0 + LONG_TILE)
-        keys = slice(0, r0 + LONG_TILE)
-        o_p, lse_p = fa.flash_fwd_plain(q[:1, rows], k[:1, keys], v[:1, keys], True,
+        keys = slice(0, r0 + LONG_TILE if causal else t)
+        o_p, lse_p = fa.flash_fwd_plain(q[:1, rows], k[:1, keys], v[:1, keys], causal,
                                         q_offset=r0)
         dq_p = fa._bwd_dq_plain(q[:1, rows], k[:1, keys], v[:1, keys], o[:1, rows],
-                                lse[:1, rows], do[:1, rows], True, delta=delta[:1, rows],
+                                lse[:1, rows], do[:1, rows], causal, delta=delta[:1, rows],
                                 q_offset=r0)
-        delta_p = fa._bwd_delta_plain(o[:1, rows], do[:1, rows])
-        # Key columns [r0, r0 + tile) against the rows from r0 on: both
-        # start at r0, so the causal rule needs no offset.
-        after = slice(r0, t)
+        delta_p = fa._bwd_delta_plain(o[:1, rows], do[:1, rows],
+                                      None if g_lse is None else g_lse[:1, rows])
+        # Key columns [r0, r0 + tile) against the rows that see them (from
+        # r0 on under the causal rule: both start at r0, so it needs no
+        # offset).
+        after = slice(r0 if causal else 0, t)
         dk_p, dv_p = fa._bwd_dkv_plain(q[:1, after], k[:1, rows], v[:1, rows], o[:1, after],
-                                       lse[:1, after], do[:1, after], True,
+                                       lse[:1, after], do[:1, after], causal,
                                        delta=delta[:1, after])
-        for name, got, ref in (("o", o[:1, rows], o_p), ("lse", lse[:1, rows], lse_p),
-                               ("delta", delta[:1, rows], delta_p),
-                               ("dq", dq[:1, rows], dq_p), ("dk", dk[:1, rows], dk_p),
-                               ("dv", dv[:1, rows], dv_p)):
+        pairs = (("o", o[:1, rows], o_p), ("lse", lse[:1, rows], lse_p),
+                 ("delta", delta[:1, rows], delta_p),
+                 ("dq", dq[:1, rows], dq_p), ("dk", dk[:1, rows], dk_p),
+                 ("dv", dv[:1, rows], dv_p))
+        if r0 == t - LONG_TILE:
+            verdicts = checker_self_test({n: g for n, g, _ in pairs},
+                                         {n: r for n, _, r in pairs}, "bfloat16")
+            log(f"{group} check {list(shape)} causal={causal}: the check rejects broken "
+                "outputs, excess " + ", ".join(f"{n}={e:.3g}" for n, e in verdicts.items()))
+        for name, got, ref in pairs:
             e = excess(got, ref, "bfloat16", _kind(name))
             diff = (got.float() - ref.float()).abs().max().item()
-            key = f"{name}@{r0}"
-            worst[key] = e
-            log(f"longctx check {name} rows {r0}..{r0 + LONG_TILE - 1}: max abs err "
-                f"{diff:.4g}, excess {e:.3g}")
+            log(f"{group} check {list(shape)} causal={causal} {name} rows {r0}.."
+                f"{r0 + LONG_TILE - 1}: max abs err {diff:.4g}, excess {e:.3g}")
             if not e <= 1.0:
-                failures.append(f"{key}: excess {e:.3g}")
-            records.setdefault(_LONG_KERNEL[name], {}).setdefault(
-                "at_T_65536", {}).setdefault("max_abs_err", 0.0)
-            rec = records[_LONG_KERNEL[name]]["at_T_65536"]
-            rec["max_abs_err"] = max(rec["max_abs_err"], diff)
+                failures.append(f"{name}@{r0}: excess {e:.3g}")
+            r = recs[_LONG_KERNEL[name]]
+            r["max_abs_err"] = max(r["max_abs_err"], diff)
     if failures:
-        raise SmokeFailure("a kernel at T = 65536 disagrees with its plain version: "
-                           + "; ".join(failures))
+        raise SmokeFailure(f"a kernel at {list(shape)} causal={causal} disagrees with its "
+                           "plain version: " + "; ".join(failures))
     del dq, dk, dv
-    recs = _time_kernels(q, k, v, o, lse, do, True, (1, h, t, d), "bfloat16",
-                         with_plain=False)
-    for name, rec in recs.items():
-        records[name]["at_T_65536"].update(
-            shape=[1, h, t, d], **{key: rec[key] for key in
-                                   ("ms", "bound_ms", "bound_by", "library_ms")})
+    times = _time_kernels(q, k, v, o, lse, do, causal, shape, "bfloat16", with_plain=False)
+    for name, r in recs.items():
+        r.update({key: times[name][key] for key in ("ms", "bound_ms", "bound_by",
+                                                   "library_ms")})
+        if group == "at_T_65536":
+            records.setdefault(name, {})[group] = r
+        else:
+            records.setdefault(name, {}).setdefault(group, {})[_shape_key(shape, causal)] = r
     del q, k, v, do, o, lse, delta
     torch.cuda.empty_cache()
+
+
+def longctx_kernel_check(records: dict) -> None:
+    """tile_kernel_check at [1, 6, 65536, 128] bf16 causal: fills
+    records[name]["at_T_65536"]."""
+    tile_kernel_check(records, (1, LONG_HEADS, LONG_SEQ, 128), True, "at_T_65536", 65536)
 
 
 # Which kernel each checked output of longctx_kernel_check belongs to.
@@ -1596,25 +1637,30 @@ def bert_argv(model: str, seq: int, batch: int, steps: int) -> list[str]:
             str(steps), "--log-every", str(LOG_EVERY), "--device", "cuda"]
 
 
-def shape_kernel_check(records: dict, shapes, group: str, seed: int) -> None:
-    """K1 (with and without lse), the delta pass, K2 and K3 in bf16, full
-    attention, at each of `shapes`, held on the whole tensors against their
-    plain versions with the check phase's tolerances, every MUTATIONS entry
-    rejected at each; then timed beside their bound, their plain version and
-    SDPA's forward and backward. Fills records[kernel][group][shape]."""
+def _shape_key(shape, causal: bool) -> str:
+    return "x".join(map(str, shape)) + ("-causal" if causal else "")
+
+
+def shape_kernel_check(records: dict, shapes, group: str, seed: int,
+                       causal: bool = False) -> None:
+    """K1 (with and without lse), the delta pass (with and without an lse
+    cotangent), K2 and K3 in bf16, causal or full attention, at each of
+    `shapes`, held on the whole tensors against their plain versions with
+    the check phase's tolerances, every MUTATIONS entry rejected at each;
+    then timed beside their bound, their plain version and SDPA's forward
+    and backward. Fills records[kernel][group][shape key]."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     failures = []
     for shape in shapes:
-        errs, abs_errs, tensors = check_case(shape, "bfloat16", False, gen, self_test=True)
+        errs, abs_errs, tensors = check_case(shape, "bfloat16", causal, gen, self_test=True)
         failures += [f"{list(shape)} {n}: excess {e[1]:.3g}" for n, e in errs.items()
                      if not e[1] <= 1.0]
-        recs = _time_kernels(*tensors, False, shape, "bfloat16", with_plain=True)
-        key = "x".join(map(str, shape))
+        recs = _time_kernels(*tensors, causal, shape, "bfloat16", with_plain=True)
         for name, key_l, _ in KERNELS:
-            records.setdefault(name, {}).setdefault(group, {})[key] = {
-                "shape": list(shape), "causal": False, "max_abs_err": abs_errs[key_l],
+            records.setdefault(name, {}).setdefault(group, {})[_shape_key(shape, causal)] = {
+                "shape": list(shape), "causal": causal, "max_abs_err": abs_errs[key_l],
                 **recs[name]}
         del tensors
         torch.cuda.empty_cache()
@@ -1815,11 +1861,12 @@ DIST_SEQ, DIST_BATCH, DIST_STEPS, DIST_LAYERS = 512, 32, 6, 12
 # ranks: loss 2.6e-4, norm 3.6e-3, param gap 0.146 at most, tp) and the
 # planted fault's (DIST_FAULT: dp = 2 without the gradient reduction; loss
 # 2.9e-3, norm 0.38, param gap 1.0), which held_against's own comparison
-# must reject; PERF.md records both readings.
+# must reject; PERF.md records both readings. The sp runs are held to the
+# same limits (PERF.md records their readings and their faults').
 DIST_RTOL = 1e-3
 DIST_NORM_RTOL = 2e-2
 DIST_PARAM_GAP = 0.4
-DIST_FAULT = ("dp without the gradient reduction", {"dp": 2}, "no-grad-reduce")
+DIST_FAULT = ("dp without the gradient reduction", {"dp": 2}, "no-grad-reduce", None)
 DIST_REF = OUT_DIR / "dist_reference.pt"
 # A dist rank (or the one-process reference): dist_child.
 _DIST_CHILD = "import sys, chip_smoke\nsys.exit(chip_smoke.dist_child(sys.argv[1:]))\n"
@@ -1849,14 +1896,43 @@ def free_port() -> int:
         return sock.getsockname()[1]
 
 
+def _plant_fault(fault: str) -> None:
+    """Break this process's port as CHIP_SMOKE_DIST_FAULT says:
+    no-grad-reduce (each rank steps on its own gradients), no-sp-grad-sum
+    (the gradients are summed over the data axes but not over sp) or
+    no-ring-mask (a ring block of a later rank is visible: no causal mask
+    across blocks)."""
+    from tf_operator_tpu_torch.parallel import ring_attention
+    from tf_operator_tpu_torch.parallel import train_step as ts
+
+    if fault == "no-grad-reduce":
+        ts.ParallelPlan.reduce_grads = lambda self, grads: grads
+    elif fault == "no-sp-grad-sum":
+        real = ts.ParallelPlan.reduce_grads
+
+        def reduce_grads(self, grads):
+            seq, self.seq = self.seq, False
+            try:
+                return real(self, grads)
+            finally:
+                self.seq = seq
+
+        ts.ParallelPlan.reduce_grads = reduce_grads
+    elif fault == "no-ring-mask":
+        ring_attention.block_visible = lambda src, my: True
+    elif fault:
+        raise ValueError(f"unknown fault {fault!r}")
+
+
 def dist_child(argv: list[str]) -> int:
     """The trainer's entry point on argv[1:] as a dist rank: records every
     step's global gradient norm and the parameters before the first step;
-    at the end writes its launches, peak memory and norms to argv[0], and,
-    with CHIP_SMOKE_DIST_ROLE=reference, its initial and final parameters
-    to DIST_REF, or else the gap of its local parameters to DIST_REF's
-    (dist_compare). CHIP_SMOKE_DIST_FAULT=no-grad-reduce plants the fault:
-    each rank steps on its own rows' gradients."""
+    at the end writes its launches, peak memory, norms and each
+    parameter's bytes (its shard's, under fsdp) to argv[0], and, with
+    CHIP_SMOKE_DIST_ROLE=reference, its initial and final parameters to
+    CHIP_SMOKE_DIST_REF (DIST_REF by default), or else the gap of its local
+    parameters to that file's (dist_compare). CHIP_SMOKE_DIST_FAULT plants
+    a fault (_plant_fault)."""
     import torch
 
     from tf_operator_tpu_torch.models import train
@@ -1864,6 +1940,7 @@ def dist_child(argv: list[str]) -> int:
     from tf_operator_tpu_torch.parallel import train_step as ts
 
     path, argv = argv[0], argv[1:]
+    ref_path = Path(os.environ.get("CHIP_SMOKE_DIST_REF") or DIST_REF)
     norms, init, plans = [], [], []
     real_step, real_parallelize = ts.train_step, ts.parallelize
 
@@ -1879,8 +1956,7 @@ def dist_child(argv: list[str]) -> int:
         return state, metrics
 
     ts.parallelize, ts.train_step = parallelize, train_step
-    if os.environ.get("CHIP_SMOKE_DIST_FAULT") == "no-grad-reduce":
-        ts.ParallelPlan.reduce_grads = lambda self, grads: grads
+    _plant_fault(os.environ.get("CHIP_SMOKE_DIST_FAULT", ""))
     out: dict = {}
     rc = train.main(argv, out)
     rec = {"launches": dict(fa.LAUNCHES), "grad_norms": norms,
@@ -1889,11 +1965,13 @@ def dist_child(argv: list[str]) -> int:
         model = out["state"].model
         names = [n for n, _ in model.named_parameters()]
         final = [p.detach() for p in model.parameters()]
+        rec["param_bytes"] = {n: p.numel() * p.element_size() for n, p in zip(names, final)}
+        rec["fsdp_sharded"] = [n for n, d in zip(names, plans[0].fsdp_dims) if d is not None]
         if os.environ.get("CHIP_SMOKE_DIST_ROLE") == "reference":
             torch.save({"init": {n: t.cpu() for n, t in zip(names, init)},
-                        "final": {n: t.cpu() for n, t in zip(names, final)}}, DIST_REF)
+                        "final": {n: t.cpu() for n, t in zip(names, final)}}, ref_path)
         else:
-            rec.update(dist_compare(torch.load(DIST_REF), plans[0], names, init, final))
+            rec.update(dist_compare(torch.load(ref_path), plans[0], names, init, final))
     Path(path).write_text(json.dumps(rec))
     return rc
 
@@ -1907,7 +1985,7 @@ def dist_compare(ref: dict, plan, names, init, final) -> dict:
 
     sums = torch.zeros(3, dtype=torch.float64, device=final[0].device)
     for i, name in enumerate(names):
-        r_init, r_final = (plan.local(i, ref[k][name].to(final[i].device), shard=False).double()
+        r_init, r_final = (plan.local(i, ref[k][name].to(final[i].device)).double()
                            for k in ("init", "final"))
         sums += torch.stack([(final[i].double() - r_final).square().sum(),
                              (r_final - r_init).square().sum(),
@@ -1950,45 +2028,101 @@ def _step_losses(events: list) -> dict:
     return out
 
 
-def dist_local_shape(mesh: dict | None) -> tuple:
-    """The [B, H, T, D] at which a rank of `mesh` runs the flash kernels:
-    its rows of the global batch and its tp share of BERT-base's heads."""
-    mesh = mesh or {}
-    rows = DIST_BATCH // (mesh.get("dp", 1) * mesh.get("fsdp", 1))
-    return (rows, 12 // mesh.get("tp", 1), DIST_SEQ, 64)
+@dataclasses.dataclass(frozen=True)
+class DistJob:
+    """A model the dist phases hold across processes: the trainer's argv
+    at global batch `batch`, its tokens an example, steps, layers, how many
+    forward passes a step launch K1 (2 under --remat --remat-save-flash:
+    the forward and the loss's replay), the file of its one-process
+    reference, and its width."""
+
+    label: str
+    argv: tuple
+    seq: int
+    batch: int
+    steps: int
+    layers: int
+    heads: int
+    fwd_passes: int
+    ref: Path
+    hidden: int = 768
+
+    def sp_blocks(self, mesh: dict | None, mode: str | None) -> int:
+        """Flash launches a layer a pass: sp ring blocks, else one."""
+        sp = (mesh or {}).get("sp", 1)
+        return sp if sp > 1 and mode == "ring" else 1
+
+    def launches(self, mesh: dict | None, mode: str | None) -> dict:
+        """Each rank's K1, K2, K3 and delta launches over the run."""
+        n = self.layers * self.steps * self.sp_blocks(mesh, mode)
+        return {key: n * (self.fwd_passes if key == "fwd" else 1)
+                for key in FLASH_LAUNCH_KEYS}
+
+    def local_shape(self, mesh: dict | None, mode: str | None) -> tuple:
+        """The [B, H, T, D] of each flash launch on a rank: its rows, its tp
+        heads, and under sp its T/sp block (ring) or its H/sp heads over the
+        whole sequence (Ulysses)."""
+        mesh = mesh or {}
+        rows = self.batch // (mesh.get("dp", 1) * mesh.get("fsdp", 1))
+        heads, t, sp = self.heads // mesh.get("tp", 1), self.seq, mesh.get("sp", 1)
+        if sp > 1:
+            if mode == "ring":
+                t //= sp
+            else:
+                heads //= sp
+        return (rows, heads, t, self.hidden // self.heads)
+
+
+BERT_DIST = DistJob("bert-base", tuple(dist_argv()), DIST_SEQ, DIST_BATCH, DIST_STEPS,
+                    DIST_LAYERS, 12, 1, DIST_REF)
+
+
+def sp_lm_job(seq: int, batch: int, ref: str) -> DistJob:
+    """The full-width LM (12L x 768h, 6 heads x 128) at `seq`, global
+    `batch`, 6 steps, --remat --remat-save-flash, as the long-context
+    bench runs it."""
+    argv = longctx_argv(seq, SP_STEPS, ["--remat", "--remat-save-flash"])
+    argv[argv.index("--batch") + 1] = str(batch)
+    return DistJob(f"lm {seq} batch {batch}", tuple(argv), seq, batch, SP_STEPS, LAYERS,
+                   LONG_HEADS, 2, OUT_DIR / ref)
 
 
 def dist_world(name: str, mesh: dict | None, own_gpus: bool = False,
-               role: str = "run", fault: str = "") -> dict:
-    """BERT-base through the trainer in as many processes as `mesh` needs
-    (one without a mesh), each started as the operator starts a pod
+               role: str = "run", fault: str = "", job: DistJob = BERT_DIST,
+               mode: str | None = None) -> dict:
+    """`job` through the trainer in as many processes as `mesh` needs (one
+    without a mesh), each started as the operator starts a pod
     (JAX_COORDINATOR_ADDRESS, JAX_PROCESS_ID, JAX_NUM_PROCESSES,
-    TPUJOB_MESH) through dist_child, co-located on GPU 0 or, with own_gpus,
-    each seeing GPU `rank` alone: every rank must exit 0 with K1, K2, K3
-    and the delta pass launched once a layer a step, and a finite loss and
-    gradient norm at every step."""
+    TPUJOB_MESH; TPUJOB_SP_MODE = `mode`) through dist_child, co-located on
+    GPU 0 or, with own_gpus, each seeing GPU `rank` alone: every rank must
+    exit 0 with K1, K2, K3 and the delta pass launched as job.launches
+    says, and a finite loss and gradient norm at every step."""
     n = 1 if mesh is None else int(math.prod(mesh.values()))
     port = free_port()
     children = []
     for rank in range(n):
-        env = {"CHIP_SMOKE_DIST_ROLE": role, "CHIP_SMOKE_DIST_FAULT": fault}
+        env = {"CHIP_SMOKE_DIST_ROLE": role, "CHIP_SMOKE_DIST_FAULT": fault,
+               "CHIP_SMOKE_DIST_REF": str(job.ref)}
         if mesh is not None:
             env.update(JAX_COORDINATOR_ADDRESS=f"127.0.0.1:{port}", JAX_PROCESS_ID=str(rank),
                        JAX_NUM_PROCESSES=str(n), TPUJOB_MESH=json.dumps(mesh))
+        if mode is not None:
+            env["TPUJOB_SP_MODE"] = mode
         if own_gpus:
             env["CUDA_VISIBLE_DEVICES"] = str(rank)
-        children.append(start_child(dist_argv(), f"_dist_{name}_{rank}", env, _DIST_CHILD))
-    ranks = [finish_child(c, timeout=600) for c in children]
-    want = {key: DIST_LAYERS * DIST_STEPS for key in FLASH_LAUNCH_KEYS}
+        children.append(start_child(list(job.argv), f"_dist_{name}_{rank}", env,
+                                    _DIST_CHILD))
+    ranks = [finish_child(c, timeout=900) for c in children]
+    want = job.launches(mesh, mode)
     out = []
     for rank, (rc, events, rec) in enumerate(ranks):
         if rc != 0:
             raise SmokeFailure(f"dist {name}: rank {rank} exited {rc}")
         if rec.get("launches") != want:
             raise SmokeFailure(f"dist {name}: rank {rank} launches {rec.get('launches')}, "
-                               f"not one a layer a step {want}")
+                               f"not {want}")
         losses, norms = _step_losses(events), rec["grad_norms"]
-        if sorted(losses) != list(range(1, DIST_STEPS + 1)) or len(norms) != DIST_STEPS or \
+        if sorted(losses) != list(range(1, job.steps + 1)) or len(norms) != job.steps or \
                 not all(math.isfinite(x) for x in list(losses.values()) + norms):
             raise SmokeFailure(f"dist {name}: rank {rank} losses {losses}, norms {norms}")
         by = {e["event"]: e for e in events}
@@ -2021,14 +2155,37 @@ def dist_verdict(gaps: dict) -> list[str]:
             if not gaps[k] <= limit]
 
 
-def held_against(ref: dict, runs, backend: str, own_gpus: bool, card: str) -> list:
-    """Each (name, mesh) of `runs` through dist_world, held against the
-    one-process run `ref`: the backend the rule must pick, the mesh in the
-    events, and dist_verdict's limits; global tokens/s, step time, each
-    rank's peak memory and the gaps."""
+def fsdp_bytes_check(name: str, world: dict, ref: dict) -> dict:
+    """Each rank of an fsdp run holds its shards between steps: every
+    fsdp-sharded parameter at 1/fsdp of one process's bytes, the rest whole.
+    Returns the bytes each rank holds beside one process's."""
+    n = world["mesh"].get("fsdp", 1)
+    held = []
+    for rank, r in enumerate(world["ranks"]):
+        sharded = set(r["fsdp_sharded"])
+        if not sharded:
+            raise SmokeFailure(f"dist {name}: rank {rank} holds no fsdp shard")
+        for leaf, nbytes in r["param_bytes"].items():
+            whole = ref["param_bytes"][leaf] // (n if leaf in sharded else 1)
+            if nbytes != whole:
+                raise SmokeFailure(f"dist {name}: rank {rank} holds {nbytes} bytes of "
+                                   f"{leaf}, not {whole}")
+        held.append(sum(r["param_bytes"].values()))
+    return {"param_bytes": held, "one_process_param_bytes": sum(ref["param_bytes"].values())}
+
+
+def held_against(ref: dict, runs, backend: str, own_gpus: bool, card: str,
+                 job: DistJob = BERT_DIST) -> list:
+    """Each (name, mesh[, sp mode]) of `runs` through dist_world, held
+    against the one-process run `ref`: the backend the rule must pick, the
+    mesh in the events, dist_verdict's limits and, under fsdp, the shards'
+    bytes; global tokens/s, step time, each rank's peak memory and the
+    gaps."""
     out = []
-    for name, mesh in runs:
-        world = dist_world(name, mesh, own_gpus)
+    for name, mesh, *rest in runs:
+        mode = rest[0] if rest else None
+        world = dist_world(name, mesh, own_gpus, job=job, mode=mode)
+        world["mesh"] = mesh
         for r in world["ranks"]:
             if r["dist_backend"] != backend or r["mesh"] != mesh:
                 raise SmokeFailure(f"dist {name}: backend {r['dist_backend']}, mesh "
@@ -2036,14 +2193,17 @@ def held_against(ref: dict, runs, backend: str, own_gpus: bool, card: str) -> li
         gaps = dist_gaps(ref, world)
         done = world["ranks"][0]["done"]
         eps = done.get("examples_per_sec")
-        res = {"run": name, "mesh": mesh, "backend": backend,
-               "tokens_per_s": eps * DIST_SEQ if eps else None,
+        res = {"run": name, "model": job.label, "mesh": mesh, "sp_mode": mode,
+               "backend": backend, "tokens_per_s": eps * job.seq if eps else None,
                "step_time_s": (done.get("step_time_s") or {}).get("mean"),
                "peak_gb": [r["peak_gb"] for r in world["ranks"]], "gaps": gaps,
-               "kernel_shape": list(dist_local_shape(mesh)),
-               "launches_per_step_per_rank": {k: DIST_LAYERS for k in FLASH_LAUNCH_KEYS},
+               "kernel_shape": list(job.local_shape(mesh, mode)),
+               "launches_per_step_per_rank": {k: n / job.steps for k, n in
+                                              job.launches(mesh, mode).items()},
                "losses": world["ranks"][0]["losses"],
                "grad_norms": world["ranks"][0]["grad_norms"], "card": card}
+        if mesh.get("fsdp", 1) > 1:
+            res["fsdp_bytes"] = fsdp_bytes_check(name, world, ref)
         log("dist: " + json.dumps(res))
         failed = dist_verdict(gaps)
         if failed:
@@ -2052,29 +2212,33 @@ def held_against(ref: dict, runs, backend: str, own_gpus: bool, card: str) -> li
     return out
 
 
-def fault_control(ref: dict) -> dict:
-    """The planted fault (DIST_FAULT) through dist_world, which
-    dist_verdict must reject on what a wrong update moves (the gradient
-    norm or the parameters), the loss aside."""
-    label, mesh, fault = DIST_FAULT
-    gaps = dist_gaps(ref, dist_world("fault", mesh, fault=fault))
+def fault_control(ref: dict, fault=DIST_FAULT, job: DistJob = BERT_DIST,
+                  own_gpus: bool = False) -> dict:
+    """A planted fault (label, mesh, CHIP_SMOKE_DIST_FAULT, sp mode) through
+    dist_world, which dist_verdict must reject on what a wrong update moves
+    (the gradient norm or the parameters), the loss aside."""
+    label, mesh, kind, mode = fault
+    gaps = dist_gaps(ref, dist_world("fault", mesh, own_gpus, fault=kind, job=job,
+                                     mode=mode))
     failed = [f for f in dist_verdict(gaps) if not f.startswith("loss")]
-    res = {"run": label, "mesh": mesh, "gaps": gaps, "rejected_on": failed}
+    res = {"run": label, "model": job.label, "mesh": mesh, "gaps": gaps,
+           "rejected_on": failed}
     log("dist: planted fault " + json.dumps(res))
     if not failed:
         raise SmokeFailure(f"the dist check accepts a run with {label}: {gaps}")
     return res
 
 
-def one_process(card: str) -> tuple[dict, dict]:
+def one_process(card: str, job: DistJob = BERT_DIST) -> tuple[dict, dict]:
     """The one-process reference run (its initial and final parameters in
-    DIST_REF) and its record."""
-    ref = dist_world("one", None, role="reference")["ranks"][0]
+    job.ref) and its record."""
+    ref = dist_world("one", None, role="reference", job=job)["ranks"][0]
     eps = ref["done"].get("examples_per_sec")
-    rec = {"run": "one process", "tokens_per_s": eps * DIST_SEQ if eps else None,
+    rec = {"run": "one process", "model": job.label,
+           "tokens_per_s": eps * job.seq if eps else None,
            "step_time_s": (ref["done"].get("step_time_s") or {}).get("mean"),
-           "peak_gb": [ref["peak_gb"]], "losses": ref["losses"],
-           "grad_norms": ref["grad_norms"], "card": card}
+           "peak_gb": [ref["peak_gb"]], "param_bytes": sum(ref["param_bytes"].values()),
+           "losses": ref["losses"], "grad_norms": ref["grad_norms"], "card": card}
     log("dist: " + json.dumps(rec))
     return ref, rec
 
@@ -2082,8 +2246,8 @@ def one_process(card: str) -> tuple[dict, dict]:
 def dist_kernel_check(records: dict, runs) -> None:
     """shape_kernel_check at every local shape of `runs` not yet checked."""
     done = set(records.get(KERNELS[0][0], {}).get("dist", {}))
-    shapes = [sh for sh in dict.fromkeys(dist_local_shape(m) for _, m in runs)
-              if "x".join(map(str, sh)) not in done]
+    shapes = [sh for sh in dict.fromkeys(BERT_DIST.local_shape(m, None) for _, m in runs)
+              if _shape_key(sh, False) not in done]
     shape_kernel_check(records, shapes, "dist", 513)
 
 
@@ -2091,8 +2255,9 @@ def dist_phase(records: dict, card: str) -> dict:
     """(a) NCCL at world size 1; the flash kernels at the dist runs' local
     shapes; (b, c) BERT-base at seq 512, global batch 32, 6 steps, at dp
     = 2, tp = 2 and fsdp = 2 as two co-located trainer processes, held
-    against one process at the same global batch and seed (held_against),
-    and the planted fault rejected: two ranks on one GPU take gloo."""
+    against one process at the same global batch and seed (held_against;
+    fsdp's ranks hold half of each sharded parameter's bytes), and the
+    planted fault rejected: two ranks on one GPU take gloo."""
     import torch
 
     torch.cuda.empty_cache()
@@ -2107,9 +2272,74 @@ def dist_phase(records: dict, card: str) -> dict:
         DIST_REF.unlink(missing_ok=True)
 
 
+# The sp phase: sequence parallelism on the full-width LM at SP_SEQ, two
+# co-located ranks on the one card (gloo, by the backend rule).
+SP_SEQ, SP_STEPS = 16384, 6
+# The kernels at the local shapes of SP_RUNS: the ring's [1, 6, T/2, 128]
+# blocks (the diagonal causal, the others full) and Ulysses' [1, 3, T, 128]
+# causal, bf16.
+SP_SHAPES = (((1, LONG_HEADS, SP_SEQ // 2, 128), True),
+             ((1, LONG_HEADS, SP_SEQ // 2, 128), False),
+             ((1, LONG_HEADS // 2, SP_SEQ, 128), True))
+SP_RUNS = (("sp-ring", {"sp": 2}, "ring"), ("sp-ulysses", {"sp": 2}, "ulysses"))
+SP_FAULTS = (("sp = 2 without the gradient sum over sp", {"sp": 2}, "no-sp-grad-sum", "ring"),
+             ("a ring without the visibility mask", {"sp": 2}, "no-ring-mask", "ring"))
+
+
+# The largest B x H x T^2 held on whole tensors (its plain backward keeps
+# four f32 [BH, T, T] arrays: 13 GB here); larger shapes are held on tiles.
+SP_WHOLE_MAX = 3 * 16384 ** 2
+
+
+def sp_kernel_check(records: dict, shapes, seed: int) -> None:
+    """K1 (with lse), the delta pass with a nonzero g_lse, K2 and K3 at
+    each (shape, causal) of `shapes`, skipping those already checked: on
+    whole tensors (shape_kernel_check: every MUTATIONS entry rejected,
+    timed beside bound, plain and SDPA) up to SP_WHOLE_MAX, on three tiles
+    (tile_kernel_check) beyond."""
+    done = set(records.get(KERNELS[0][0], {}).get("sp", {}))
+    for shape, causal in dict.fromkeys(shapes):
+        if _shape_key(shape, causal) in done:
+            continue
+        if shape[0] * shape[1] * shape[2] ** 2 <= SP_WHOLE_MAX:
+            shape_kernel_check(records, [shape], "sp", seed, causal=causal)
+        else:
+            tile_kernel_check(records, shape, causal, "sp", seed, with_g_lse=True)
+
+
+def sp_phase(records: dict, card: str) -> dict:
+    """The flash kernels at SP_SHAPES; the full-width LM at SP_SEQ, batch
+    1, --remat --remat-save-flash, as one process and at sp = 2 through the
+    ring and through Ulysses (two co-located ranks, gloo), each held
+    against one process (held_against: launches sp times a layer a pass
+    for the ring, once for Ulysses); and the planted faults of SP_FAULTS
+    rejected."""
+    import torch
+
+    torch.cuda.empty_cache()
+    sp_kernel_check(records, SP_SHAPES, 16384)
+    job = sp_lm_job(SP_SEQ, 1, "sp_reference.pt")
+    ref, reference = one_process(card, job)
+    try:
+        runs = held_against(ref, SP_RUNS, "gloo", False, card, job)
+        for name, key, _ in KERNELS:
+            records.setdefault(name, {})["sp_launches_per_step_per_rank"] = {
+                r["run"]: r["launches_per_step_per_rank"][key] for r in runs}
+        return {"reference": reference, "runs": runs,
+                "fault_control": [fault_control(ref, f, job) for f in SP_FAULTS]}
+    finally:
+        job.ref.unlink(missing_ok=True)
+
+
 # (only with --phases ...,dist4, on a machine of four GPUs) the dist runs
-# with one GPU a rank, as pods of their own: the rule picks NCCL.
-DIST4_RUNS = DIST_RUNS + (("dp4", {"dp": 4}), ("dp-tp", {"dp": 2, "tp": 2}))
+# with one GPU a rank, as pods of their own: the rule picks NCCL. BERT adds
+# dp = 4, dp x tp and fsdp = 4; the 64k LM runs sp = 4 (ring), sp x tp
+# (ring: 3 local heads) at batch 1 and dp x sp (Ulysses) at batch 2.
+DIST4_RUNS = DIST_RUNS + (("dp4", {"dp": 4}), ("dp-tp", {"dp": 2, "tp": 2}),
+                          ("fsdp4", {"fsdp": 4}))
+DIST4_SP = ((1, (("sp4-ring", {"sp": 4}, "ring"), ("sp-tp-ring", {"sp": 2, "tp": 2}, "ring")),
+             ("sp = 4 without the gradient sum over sp", {"sp": 4}, "no-sp-grad-sum", "ring")),
+            (2, (("dp-sp-ulysses", {"dp": 2, "sp": 2}, "ulysses"),), None))
 
 
 def dist4_phase(records: dict, card: str) -> dict:
@@ -2122,10 +2352,24 @@ def dist4_phase(records: dict, card: str) -> dict:
     dist_kernel_check(records, DIST4_RUNS)
     ref, reference = one_process(card)
     try:
-        return {"reference": reference, "gpus": torch.cuda.device_count(),
-                "runs": held_against(ref, DIST4_RUNS, "nccl", True, card)}
+        out = {"reference": reference, "gpus": torch.cuda.device_count(),
+               "runs": held_against(ref, DIST4_RUNS, "nccl", True, card)}
     finally:
         DIST_REF.unlink(missing_ok=True)
+    for batch, runs, fault in DIST4_SP:
+        job = sp_lm_job(LONG_SEQ, batch, f"sp4_reference_{batch}.pt")
+        sp_kernel_check(records, [(job.local_shape(m, mode), True) for _, m, mode in runs]
+                        + [(job.local_shape(m, mode), False) for _, m, mode in runs
+                           if mode == "ring"], 65536 + batch)
+        ref, reference = one_process(card, job)
+        try:
+            out[f"lm_64k_batch_{batch}"] = {
+                "reference": reference,
+                "runs": held_against(ref, runs, "nccl", True, card, job),
+                "fault_control": fault and fault_control(ref, fault, job, own_gpus=True)}
+        finally:
+            job.ref.unlink(missing_ok=True)
+    return out
 
 
 # The LM profile cuts its steps at the attention forward: a kernel whose
@@ -2208,9 +2452,9 @@ def profile_phase(args, card: str) -> None:
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="build,check,train,ckpt,eval,longctx,preempt,bert,data,dist",
+                    default="build,check,train,ckpt,eval,longctx,preempt,bert,data,dist,sp",
                     help="comma-separated subset of build,check,train,ckpt,eval,longctx,"
-                         "preempt,bert,data,dist,profile; k4 for the fused bottleneck's "
+                         "preempt,bert,data,dist,sp,profile; k4 for the fused bottleneck's "
                          "checks alone (eval follows the ckpt phase's directory); dist4 "
                          "on a machine of four GPUs")
     ap.add_argument("--steps", type=int, default=6)
@@ -2266,6 +2510,8 @@ def main(argv: list[str] | None = None) -> int:
             results["data"] = data_phase(card, synthetic_ips)
         if "dist" in phases:
             results["dist"] = dist_phase(records, card)
+        if "sp" in phases:
+            results["sp"] = sp_phase(records, card)
         if "dist4" in phases:
             results["dist4"] = dist4_phase(records, card)
         if "profile" in phases:
@@ -2286,7 +2532,8 @@ def main(argv: list[str] | None = None) -> int:
             "plain_ms": rec.get("plain_ms"), "bound_ms": rec.get("bound_ms"),
             "bound_by": rec.get("bound_by"), "library_ms": rec.get("library_ms"),
         }
-        for extra in (f"at_batch_{BATCH}", "head_widths", "at_T_65536", "bert", "dist"):
+        for extra in (f"at_batch_{BATCH}", "head_widths", "at_T_65536", "bert", "dist",
+                      "sp", "sp_launches_per_step_per_rank"):
             if extra in rec:
                 entry[extra] = rec[extra]
         if name in KERNEL_NOTES:

@@ -561,3 +561,78 @@ def test_bert_eval_run_follows_the_chief_on_cpu(tmp_path, monkeypatch):
     rec = chip_smoke.bert_eval_run("cpu")
     assert rec["evals"][-1]["checkpoint_step"] == 4
     assert rec["evals"][-1]["eval_loss"] == round(rec["in_process_loss"], 6)
+
+
+def test_sp_runs_launch_and_shape_as_the_issue_of_each_scheme():
+    """The sp phase's expectations: the ring launches each flash kernel sp
+    times a layer a forward pass at [1, 6, T/sp, 128], Ulysses once at
+    [1, 6/sp, T, 128]; K1 runs two passes a step under --remat
+    --remat-save-flash (the forward and the loss's replay)."""
+    job = chip_smoke.sp_lm_job(chip_smoke.SP_SEQ, 1, "ref.pt")
+    layers, steps = chip_smoke.LAYERS, chip_smoke.SP_STEPS
+    assert job.argv[job.argv.index("--seq") + 1] == "16384" and "--remat-save-flash" in job.argv
+    want = {"ring": ((1, 6, 8192, 128), 2), "ulysses": ((1, 3, 16384, 128), 1)}
+    for name, mesh, mode in chip_smoke.SP_RUNS:
+        shape, blocks = want[mode]
+        assert job.local_shape(mesh, mode) == shape
+        n = layers * steps * blocks
+        assert job.launches(mesh, mode) == {"fwd": 2 * n, "bwd_dq": n, "bwd_dkv": n,
+                                            "bwd_delta": n}
+    shapes = {(tuple(sh), c) for sh, c in chip_smoke.SP_SHAPES}
+    assert shapes == {((1, 6, 8192, 128), True), ((1, 6, 8192, 128), False),
+                      ((1, 3, 16384, 128), True)}
+    # BERT keeps one launch a layer a step at every dist mesh.
+    assert chip_smoke.BERT_DIST.launches({"fsdp": 2}, None) == {
+        k: 12 * chip_smoke.DIST_STEPS for k in chip_smoke.FLASH_LAUNCH_KEYS}
+    assert chip_smoke.BERT_DIST.local_shape({"tp": 2}, None) == (32, 6, 512, 64)
+    assert chip_smoke.BERT_DIST.local_shape({"dp": 2, "tp": 2}, None) == (16, 6, 512, 64)
+
+
+@pytest.mark.parametrize("r0", [0, 96, 448])
+def test_full_attention_tile_checks_equal_the_full_plain_version(r0):
+    """tile_kernel_check's references without the causal mask: a row tile
+    against every key and a key tile against every row give the full plain
+    version's rows and key columns, the lse cotangent in delta included."""
+    t, tile = 512, 64
+    rng = np.random.default_rng(r0)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((1, t, 32), dtype=np.float32))
+                   for _ in range(4))
+    g_lse = torch.from_numpy(rng.standard_normal((1, t), dtype=np.float32))
+    o, lse = fa.flash_fwd_plain(q, k, v, False)
+    delta = fa._bwd_delta_plain(o, do, g_lse)
+    dq, dk, dv = fa.flash_bwd_plain(q, k, v, o, lse, do, False, g_lse)
+    rows = slice(r0, r0 + tile)
+    o_p, lse_p = fa.flash_fwd_plain(q[:, rows], k, v, False, q_offset=r0)
+    torch.testing.assert_close(o_p, o[:, rows], rtol=0, atol=1e-6)
+    torch.testing.assert_close(lse_p, lse[:, rows], rtol=0, atol=1e-6)
+    torch.testing.assert_close(fa._bwd_delta_plain(o[:, rows], do[:, rows], g_lse[:, rows]),
+                               delta[:, rows], rtol=0, atol=0)
+    dq_p = fa._bwd_dq_plain(q[:, rows], k, v, o[:, rows], lse[:, rows], do[:, rows], False,
+                            delta=delta[:, rows], q_offset=r0)
+    torch.testing.assert_close(dq_p, dq[:, rows], rtol=0, atol=1e-5)
+    dk_p, dv_p = fa._bwd_dkv_plain(q, k[:, rows], v[:, rows], o, lse, do, False, delta=delta)
+    torch.testing.assert_close(dk_p, dk[:, rows], rtol=0, atol=1e-5)
+    torch.testing.assert_close(dv_p, dv[:, rows], rtol=0, atol=1e-5)
+
+
+def test_sp_phase_holds_runs_and_rejects_its_faults_on_cpu(tmp_path, monkeypatch):
+    """The sp phase's machinery at a tiny LM on the CPU (where no kernel
+    launches): one process, then sp = 2 through the ring and through
+    Ulysses as two trainer processes started as pods (dist_child), each
+    held against one process at the dist limits; and both planted faults
+    (no gradient sum over sp, no visibility mask in the ring) rejected on
+    what a wrong update moves."""
+    monkeypatch.setattr(chip_smoke, "OUT_DIR", tmp_path)
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    monkeypatch.setattr(chip_smoke.DistJob, "launches",
+                        lambda self, mesh, mode: dict.fromkeys(chip_smoke.FLASH_LAUNCH_KEYS, 0))
+    argv = ("--model", "transformer-lm", "--steps", "3", "--batch", "2", "--seq", "64",
+            "--layers", "2", "--hidden", "64", "--heads", "4", "--log-every", "1",
+            "--device", "cpu", "--remat", "--remat-save-flash")
+    job = chip_smoke.DistJob("tiny", argv, 64, 2, 3, 2, 4, 2, tmp_path / "ref.pt", 64)
+    ref, _ = chip_smoke.one_process("cpu", job)
+    runs = chip_smoke.held_against(ref, chip_smoke.SP_RUNS, "gloo", False, "cpu", job)
+    assert [r["kernel_shape"] for r in runs] == [[2, 4, 32, 16], [2, 2, 64, 16]]
+    for fault in chip_smoke.SP_FAULTS:
+        res = chip_smoke.fault_control(ref, fault, job)
+        assert res["rejected_on"], res

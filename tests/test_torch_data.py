@@ -566,8 +566,8 @@ def test_mnist_data_dir_follows_the_jax_trainer(tmp_path, monkeypatch):
     params = jmnist.MLP().init(jax.random.key(0), jnp.zeros((1, 28, 28), jnp.float32))["params"]
     build = train._build_model
 
-    def build_from_jax_init(args, device):
-        model, loss_fn, make_batch = build(args, device)
+    def build_from_jax_init(args, device, mesh=None):
+        model, loss_fn, make_batch = build(args, device, mesh)
         model.load_state_dict(mnist.params_from_flax(jax.tree.map(np.array, params)))
         return model, loss_fn, make_batch
 

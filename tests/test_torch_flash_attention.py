@@ -279,12 +279,20 @@ class TestDispatch:
         got = attention_reference(*_torch(arrs), causal=causal)
         np.testing.assert_allclose(_np(got), _np(expected), atol=1e-6)
 
-    def test_attention_fn_is_flash_and_sp_raises(self):
+    def test_attention_fn_is_flash_and_sp_raises(self, monkeypatch):
+        """Without sp (no mesh, or sp = 1) the factory gives the flash
+        binding; over sp it gives the sequence-parallel scheme, which
+        raises JAX's error when Ulysses is forced on heads sp does not
+        divide (before any collective)."""
+        from tf_operator_tpu_torch.parallel import mesh as mesh_lib
+
         q, k, v = _torch(_inputs(11, (1, 2, 32, 16)))
-        torch.testing.assert_close(make_attention_fn(causal=True)(q, k, v),
-                                   fa.FlashAttention.apply(q, k, v, True))
-        with pytest.raises(NotImplementedError):
-            make_attention_fn(sp=2)
+        for mesh in (None, mesh_lib.Mesh({"dp": 1, "sp": 1})):
+            torch.testing.assert_close(make_attention_fn(mesh, causal=True)(q, k, v),
+                                       fa.FlashAttention.apply(q, k, v, True))
+        monkeypatch.setenv("TPUJOB_SP_MODE", "ulysses")
+        with pytest.raises(ValueError, match="divisible by sp=4"):
+            make_attention_fn(mesh_lib.Mesh({"sp": 4}), causal=True)(q, k, v)
 
     def test_kernel_checks_refuse_non_cuda_operands(self):
         q, k, v = _torch(_inputs(12, (2, 64, 64)))

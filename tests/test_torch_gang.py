@@ -119,3 +119,25 @@ def test_kill_one_worker_rolls_both(session, tmp_path):
     ref_done = [e for e in ref0 if e["event"] == "done"][-1]
     done = [e for e in ev0 if e["event"] == "done"][-1]
     assert done["final_loss"] == pytest.approx(ref_done["final_loss"], rel=1e-3)
+
+
+def test_sp_job_through_the_operator(session, tmp_path):
+    """A TrainJob of two Workers at mesh {sp: 2}: the operator injects
+    TPUJOB_MESH, the pods join one world and train the tiny LM with its
+    sequence split over the two (ring attention, 3 heads), and the job
+    reaches Succeeded with both ranks on the same losses."""
+    cmd = [sys.executable, "-m", "tf_operator_tpu_torch.models.train", "--device", "cpu",
+           "--model", "transformer-lm", "--layers", "2", "--hidden", "48", "--heads", "3",
+           "--seq", "32", "--batch", "2", "--steps", "4", "--log-every", "2"]
+    job = make_job("tgangsp", cmd)
+    job.spec.mesh = MeshSpec(axes={"sp": 2})
+    session.submit(job)
+    job = session.wait_for_condition("default", "tgangsp", DONE, timeout=240)
+    assert is_succeeded(job.status), [(str(c.type), c.reason, c.message)
+                                      for c in job.status.conditions]
+    events = [pod_events(tmp_path, f"tgangsp-worker-{idx}") for idx in (0, 1)]
+    for ev in events:
+        first = next(e for e in ev if e["event"] == "first_step")
+        assert first["mesh"] == {"sp": 2} and first["n_devices"] == 2
+        assert [e["steps"] for e in ev if e["event"] == "done"] == [4]
+    assert progress_losses(events[0]) == progress_losses(events[1])

@@ -10,7 +10,8 @@ no process group is made.
 
 Mesh parity: `normalize_axes`, `local_batch_size` (value and error) and the
 error for axes whose product is not the device count are JAX's. The axes
-the port does not run yet (sp, ep, pp, data above 1) are refused by name.
+the port does not run yet (ep, pp, data above 1) are refused by name; sp,
+which it runs, gets its groups.
 """
 
 import jax
@@ -139,13 +140,19 @@ def test_axes_that_miss_the_world_raise_the_jax_message(axes, world):
     assert str(got.value).split(" (")[0] == head, (got.value, want.value)
 
 
-@pytest.mark.parametrize("axis,item", [("sp", "A10"), ("ep", "A11"), ("pp", "A12"),
-                                       ("data", "A12")])
+@pytest.mark.parametrize("axis,item", [("ep", "A11"), ("pp", "A12"), ("data", "A12")])
 def test_unported_axes_are_refused_by_name(axis, item):
     with pytest.raises(mesh_lib.UnportedAxisError, match=f"{axis}=2.*{item}"):
         mesh_lib.check_axes({axis: 2, "dp": 1}, 2)
     # Size 1 is no axis to run: accepted, as JAX keeps it.
     assert mesh_lib.check_axes({axis: 1, "dp": 2}, 2)[axis] == 1
+
+
+def test_sp_is_run_in_the_canonical_order():
+    """sp is ported: accepted at any size, placed between ep and tp."""
+    axes = mesh_lib.check_axes({"tp": 2, "sp": 2, "dp": 2}, 8)
+    assert list(axes) == ["dp", "sp", "tp"] == list(jmesh.normalize_axes(axes))
+    assert mesh_lib.check_axes({"sp": 4}, 4) == {"sp": 4}
 
 
 def test_a_world_of_one_makes_a_mesh_without_groups():

@@ -324,7 +324,17 @@ def test_trainer_refuses_cuda_without_a_device(tmp_path):
     (["--model", "moe-lm"], {}, ["not ported", "--model"]),
     (["--moe-dispatch", "sparse"], {}, ["not ported", "--moe-dispatch"]),
     ([], {"TPUJOB_NUM_SLICES": "2"}, ["not ported", "TPUJOB_NUM_SLICES", "A12"]),
-    ([], {"JAX_NUM_PROCESSES": "2", "TPUJOB_MESH": '{"sp": 2}'}, ["not ported", "sp=2", "A10"]),
+    (["--model", "transformer-lm", "--seq", "33"],
+     {"JAX_NUM_PROCESSES": "2", "TPUJOB_MESH": '{"sp": 2}'}, ["sp=2 does not divide --seq 33"]),
+    (["--model", "transformer-lm", "--heads", "3", "--hidden", "96", "--seq", "32"],
+     {"JAX_NUM_PROCESSES": "2", "TPUJOB_MESH": '{"sp": 2}', "TPUJOB_SP_MODE": "ulysses"},
+     ["ulysses needs local heads (3) divisible by sp=2; use ring attention"]),
+    (["--model", "bert-tiny", "--seq", "32"],
+     {"JAX_NUM_PROCESSES": "8", "TPUJOB_MESH": '{"sp": 4, "tp": 2}',
+      "TPUJOB_SP_MODE": "ulysses"},
+     ["ulysses needs local heads (2) divisible by sp=4"]),
+    (["--data-dir", "/nonexistent"], {"JAX_NUM_PROCESSES": "2", "TPUJOB_MESH": '{"sp": 2}'},
+     ["--data-dir under sp=2"]),
     ([], {"JAX_NUM_PROCESSES": "2", "TPUJOB_MESH": '{"ep": 2}'}, ["not ported", "ep=2", "A11"]),
     ([], {"JAX_NUM_PROCESSES": "2", "TPUJOB_MESH": '{"pp": 2}'}, ["not ported", "pp=2", "A12"]),
     ([], {"JAX_NUM_PROCESSES": "2", "TPUJOB_MESH": '{"dp": 4}'},
@@ -335,10 +345,11 @@ def test_trainer_refuses_cuda_without_a_device(tmp_path):
 ])
 def test_trainer_refuses_what_is_not_ported(flag, env, says, capsys, monkeypatch):
     """MoE by name; a multi-slice job, a mesh axis the port does not run
-    yet (sp, ep, pp), a mesh whose axes do not multiply to the process
-    count, a tp that splits a head and a global batch the data axes do not
-    divide, by the operator's env: exit 2 before any event, with a message
-    naming what is missing."""
+    yet (ep, pp), a mesh whose axes do not multiply to the process count, a
+    tp that splits a head, a global batch the data axes do not divide, a
+    sequence sp does not divide, Ulysses forced on local heads sp does not
+    divide (the JAX message) and --data-dir under sp, by the operator's
+    env: exit 2 before any event, with a message naming what is wrong."""
     argv = list(TINY_ARGS) + flag
     for name, value in env.items():
         monkeypatch.setenv(name, value)
@@ -391,7 +402,8 @@ def test_import_hygiene_in_a_fresh_process():
         "                                                 'tf_operator_tpu_torch.')]\n"
         "assert 'tf_operator_tpu_torch.data.staging' in names, names\n"
         "assert {'tf_operator_tpu_torch.parallel.' + m for m in ('distributed', 'mesh',\n"
-        "        'sharding_rules', 'collectives', 'train_step')} <= set(names), names\n"
+        "        'sharding_rules', 'collectives', 'train_step', 'ring_attention',\n"
+        "        'ulysses')} <= set(names), names\n"
         "for name in names:\n"
         "    __import__(name)\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
@@ -408,7 +420,8 @@ def test_import_hygiene_ast_scan():
     assert len(files) > 10
     for name in ("dataset", "prefetch", "staging"):
         assert ROOT / "tf_operator_tpu_torch" / "data" / f"{name}.py" in files
-    for name in ("distributed", "mesh", "sharding_rules", "collectives", "train_step"):
+    for name in ("distributed", "mesh", "sharding_rules", "collectives", "train_step",
+                 "ring_attention", "ulysses"):
         assert ROOT / "tf_operator_tpu_torch" / "parallel" / f"{name}.py" in files
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):

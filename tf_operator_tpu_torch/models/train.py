@@ -64,12 +64,16 @@ A job of more than one process (the operator's JAX_NUM_PROCESSES) joins
 one torch.distributed world (parallel/distributed.py: gloo on the CPU, NCCL
 when every process has its own GPU, gloo on CUDA tensors when processes
 share one) and trains one model on the global batch over TPUJOB_MESH's
-dp/fsdp/tp mesh (parallel/mesh.py, the JAX rule tables of
-parallel/sharding_rules.py, parallel/train_step.py's plan). Rank 0 writes
+dp/fsdp/sp/tp mesh (parallel/mesh.py, the JAX rule tables of
+parallel/sharding_rules.py, parallel/train_step.py's plan; the LM and BERT
+split their sequence over sp through ring attention or Ulysses,
+TPUJOB_SP_MODE, TPUJOB_RING_BLOCK and TPUJOB_ULYSSES_MAX_SEQ choosing as
+in the JAX package, while MNIST and ResNet run the same rows on every sp
+rank, as the JAX step replicates their batch there). Rank 0 writes
 the checkpoints, gathered to full tensors; the replicas agree on the resume
 step, on a preemption, and exit together (distributed_goodbye) on clean
 completion only. A collective that fails because a peer died exits 138
-(retryable). A multi-slice job (TPUJOB_NUM_SLICES > 1) and the sp, ep, pp
+(retryable). A multi-slice job (TPUJOB_NUM_SLICES > 1) and the ep, pp
 and data axes are refused with exit 2, naming the ROADMAP item that ports
 them.
 
@@ -349,8 +353,11 @@ def check_gang(ap: argparse.ArgumentParser, args) -> None:
     (ap.error, exit 2): one slice (a multi-slice job waits for A12), a
     TPUJOB_MESH whose axes the port runs and whose sizes multiply to the
     process count (the JAX message), a global batch the data axes divide,
-    attention heads the tp axis divides, and no --data-dir under tp (each
-    process reads its own shards, so tp peers would see different rows)."""
+    attention heads the tp axis divides, a transformer's sequence the sp
+    axis divides, local heads that sp divides when TPUJOB_SP_MODE forces
+    Ulysses (the JAX message), and no --data-dir under tp or sp (each
+    process reads its own shards, so the tp or sp peers of a data shard
+    would see different rows)."""
     from tf_operator_tpu_torch.models import transformer as tfm
     from tf_operator_tpu_torch.parallel import distributed
     from tf_operator_tpu_torch.parallel import mesh as mesh_lib
@@ -371,9 +378,18 @@ def check_gang(ap: argparse.ArgumentParser, args) -> None:
     if tp > 1 and heads is not None and heads % tp:
         ap.error(f"tp={tp} does not divide the {heads} attention heads of --model "
                  f"{args.model}")
-    if tp > 1 and args.data_dir:
-        ap.error(f"--data-dir under tp={tp}: each process reads its own shards, so the "
-                 f"tp peers of a data shard would train on different rows")
+    sp = axes.get("sp", 1)
+    if sp > 1 and heads is not None:
+        if args.seq % sp:
+            ap.error(f"sp={sp} does not divide --seq {args.seq} of --model {args.model}")
+        if (os.environ.get("TPUJOB_SP_MODE", "").lower() == "ulysses"
+                and (heads // tp) % sp):
+            ap.error(f"ulysses needs local heads ({heads // tp}) divisible by sp={sp}; "
+                     f"use ring attention for this shape")
+    for axis, size in (("tp", tp), ("sp", sp)):
+        if size > 1 and args.data_dir:
+            ap.error(f"--data-dir under {axis}={size}: each process reads its own shards, "
+                     f"so the {axis} peers of a data shard would train on different rows")
 
 
 def main(argv: list[str] | None = None, state_out: dict | None = None) -> int:
@@ -495,9 +511,14 @@ class _Profile:
         return path
 
 
-def _build_model(args, device: torch.device):
+def _build_model(args, device: torch.device, mesh=None):
     """(model, loss_fn(model, batch), make_batch(generator)) of --model,
-    with weights from a seeded flax-like init."""
+    with weights from a seeded flax-like init; the transformers' attention
+    over `mesh` (parallel.mesh.Mesh: ring attention or Ulysses where it
+    has sp > 1). The loss functions take the whole rows of the batch and
+    run the model's sequence shard of them (model.trunk.seq_shard)."""
+    from tf_operator_tpu_torch.parallel.train_step import full_params, seq_slice
+
     gen = torch.Generator(device=device).manual_seed(0)
     if args.model == "transformer-lm":
         from tf_operator_tpu_torch.models import transformer as tfm
@@ -511,21 +532,23 @@ def _build_model(args, device: torch.device):
             remat_layers=args.remat, remat_save_flash=args.remat_save_flash,
             remat_save_flash_layers=args.remat_save_flash_layers,
         )
-        model = tfm.TransformerLM(cfg, attn_fn=make_attention_fn(causal=True),
+        model = tfm.TransformerLM(cfg, attn_fn=make_attention_fn(mesh, causal=True),
                                   device=device, generator=gen)
         # Past ~6 GB of f32 logits the head and softmax run per sequence chunk.
         chunked_loss = 4.0 * args.batch * args.seq * cfg.vocab_size >= CHUNKED_LOSS_BYTES
 
         def loss_fn(model, batch):
-            tokens = batch["tokens"]
+            tokens, seq = batch["tokens"], model.trunk.seq_shard
+            local = seq_slice(tokens, seq)
             if chunked_loss:
-                head = model.lm_head.weight
+                with full_params(model.lm_head):  # its fsdp shards, whole
+                    head = model.lm_head.weight
                 if model.lm_head.tp is not None:  # the vocabulary's tp shards, whole
                     from tf_operator_tpu_torch.parallel import collectives
 
                     head = collectives.gather_from(head, 0, model.lm_head.tp.group)
-                return tfm.lm_loss_chunked(model.hidden(tokens), head, tokens)
-            return tfm.lm_loss(model(tokens), tokens)
+                return tfm.lm_loss_chunked(model.hidden(local), head, tokens, seq=seq)
+            return tfm.lm_loss(model(local), tokens, seq)
 
         def make_batch(g):
             return {"tokens": torch.randint(0, cfg.vocab_size, (args.batch, args.seq),
@@ -545,11 +568,14 @@ def _build_model(args, device: torch.device):
             vocab_size=base.vocab_size, num_layers=base.num_layers, hidden=base.hidden,
             num_heads=base.num_heads, max_len=max(args.seq, 8), causal=False,
             dtype=COMPUTE_DTYPE)
-        model = tfm.BertMLM(cfg, attn_fn=make_attention_fn(causal=False), device=device,
+        model = tfm.BertMLM(cfg, attn_fn=make_attention_fn(mesh, causal=False), device=device,
                             generator=gen)
 
         def loss_fn(model, batch):
-            return tfm.mlm_loss(model(batch["tokens"]), batch["targets"], batch["mask"])
+            seq = model.trunk.seq_shard
+            tokens, targets, mask = (seq_slice(batch[k], seq)
+                                     for k in ("tokens", "targets", "mask"))
+            return tfm.mlm_loss(model(tokens), targets, mask)
 
         def make_batch(g):
             return tfm.make_mlm_batch(g, args.batch, args.seq, cfg.vocab_size)
@@ -1150,9 +1176,8 @@ def _params_only_state(state, tx, params: dict, step: int, plan):
     from tf_operator_tpu_torch.parallel.train_step import TrainState
 
     live = dict(state.model.named_parameters())
-    on_device = [plan.local(i, params[n].to(p.device), shard=False)
-                 for i, (n, p) in enumerate(live.items())]
-    opt_state = tx.init([plan.shard(i, t) for i, t in enumerate(on_device)])
+    on_device = [plan.local(i, params[n].to(p.device)) for i, (n, p) in enumerate(live.items())]
+    opt_state = tx.init(on_device)
     with torch.no_grad():
         for p, new in zip(live.values(), on_device):
             p.copy_(new)
@@ -1498,7 +1523,7 @@ def _run_trainer(args, device: torch.device, heartbeat, guard, chaos=None,
         if swept:
             _emit({"event": "checkpoint_tmp_swept", "entries": swept})
 
-    model, loss_fn, make_batch = _build_model(args, device)
+    model, loss_fn, make_batch = _build_model(args, device, mesh)
     plan = parallelize(model, mesh, _sharding_rules(args), device)
     tx = optim_lib.make_optimizer(optim_lib.OptimizerConfig(
         name=args.optimizer, learning_rate=args.lr,

@@ -18,7 +18,15 @@ stored ``[out, in]`` as ``nn.Linear`` keeps them; flax kernels are ``[in,
 out]`` and are transposed on the way in.
 
 The attention function is injectable (``attn_fn``); the trainer passes the
-flash kernels from ``parallel.ring_attention.make_attention_fn``.
+flash kernels from ``parallel.ring_attention.make_attention_fn`` (ring
+attention or Ulysses under sequence parallelism).
+
+Under sequence parallelism (``Transformer.seq_shard`` = (index, count), set
+by ``parallel.train_step.parallelize``) the trunk takes this rank's T/count
+columns of the tokens, its positions start at index * T/count, and
+``lm_loss``/``lm_loss_chunked`` (given the whole rows of tokens and the
+shard) take the target of the shard's last position from the next shard's
+first token; their denominator stays the global B x (T - 1).
 
 Per-layer remat (``remat_layers``) runs each block under a non-reentrant
 ``torch.utils.checkpoint``: the forward keeps only the block's input and
@@ -191,10 +199,11 @@ class Dropout(nn.Module):
 
     def forward(self, x: torch.Tensor, deterministic: bool = True,
                 generator: torch.Generator | None = None,
-                rows: tuple[int, int] = (0, 1)) -> torch.Tensor:
+                rows: tuple[int, int] = (0, 1), cols: tuple[int, int] = (0, 1)) -> torch.Tensor:
         """`rows` = (index, count): x is shard `index` of `count` equal row
-        shards of the global batch, whose mask is drawn whole and sliced,
-        so a data-parallel rank drops what one process would."""
+        shards of the global batch (`cols`: of its dimension-1 columns, a
+        sequence shard), whose mask is drawn whole and sliced, so a
+        data- or sequence-parallel rank drops what one process would."""
         if deterministic or self.rate == 0.0:
             return x
         if generator is None:
@@ -203,10 +212,12 @@ class Dropout(nn.Module):
         if self.rate == 1.0:
             return torch.zeros_like(x)
         keep_prob = 1.0 - self.rate
-        index, count = rows
-        draw = torch.rand((x.shape[0] * count, *x.shape[1:]), generator=generator,
-                          device=x.device)
-        keep = collectives.local_slice(draw, 0, index, count) < keep_prob
+        shape = [x.shape[0] * rows[1], *x.shape[1:]]
+        if cols[1] > 1:
+            shape[1] *= cols[1]
+        draw = torch.rand(shape, generator=generator, device=x.device)
+        draw = collectives.local_slice(draw, 0, *rows)
+        keep = (draw if cols[1] == 1 else collectives.local_slice(draw, 1, *cols)) < keep_prob
         return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -250,29 +261,33 @@ class Block(nn.Module):
         self.dropout = Dropout(cfg.dropout_rate)
 
     def forward(self, x: torch.Tensor, deterministic: bool = True,
-                seed: int | None = None, rows: tuple[int, int] = (0, 1)) -> torch.Tensor:
+                seed: int | None = None, rows: tuple[int, int] = (0, 1),
+                cols: tuple[int, int] = (0, 1)) -> torch.Tensor:
         """`seed` seeds the block's dropout masks (needed only when they
-        are drawn: deterministic=False at a nonzero rate); `rows` is
-        Dropout's."""
+        are drawn: deterministic=False at a nonzero rate); `rows` and
+        `cols` are Dropout's."""
         gen = None
         if not deterministic and self.dropout.rate:
             gen = torch.Generator(device=x.device).manual_seed(seed)
-        x = x + self.dropout(self.attn(self.ln1(x)), deterministic, gen, rows)
+        x = x + self.dropout(self.attn(self.ln1(x)), deterministic, gen, rows, cols)
         h = F.gelu(self.mlp_in(tp_input(self.ln2(x), self.mlp_in)), approximate="tanh")
-        return x + self.dropout(self.mlp_out(h), deterministic, gen, rows)
+        return x + self.dropout(self.mlp_out(h), deterministic, gen, rows, cols)
 
 
 class Transformer(nn.Module):
     """Token trunk; returns the final (post-LayerNorm) hidden states.
     `batch_rows` = (index, count) says which row shard of the global batch
-    this process holds (set by parallel.train_step.parallelize), for the
-    dropout masks."""
+    this process holds, and `seq_shard` which shard of its sequence (both
+    set by parallel.train_step.parallelize): the tokens given are that
+    shard's columns, its positions start at index * T_local, and dropout
+    masks are the global batch's."""
 
     def __init__(self, cfg: TransformerConfig, attn_fn: AttnFn | None = None,
                  device=None):
         super().__init__()
         self.cfg = cfg
         self.batch_rows = (0, 1)
+        self.seq_shard = (0, 1)
         self.embed = Embed(cfg.vocab_size, cfg.hidden, cfg.dtype, device=device)
         self.pos_embed = Embed(cfg.max_len, cfg.hidden, cfg.dtype, device=device)
         self.layers = nn.ModuleList(
@@ -282,7 +297,9 @@ class Transformer(nn.Module):
     def forward(self, tokens: torch.Tensor, deterministic: bool = True,
                 generator: torch.Generator | None = None) -> torch.Tensor:
         cfg = self.cfg
-        pos = torch.arange(tokens.shape[1], device=tokens.device)
+        t = tokens.shape[1]
+        pos = torch.arange(self.seq_shard[0] * t, (self.seq_shard[0] + 1) * t,
+                           device=tokens.device)
         x = self.embed(tokens) + self.pos_embed(pos)[None]
         remat = cfg.remat_layers and torch.is_grad_enabled()
         dropout = not deterministic and cfg.dropout_rate > 0
@@ -295,12 +312,13 @@ class Transformer(nn.Module):
             seed = (int(torch.randint(0, 2 ** 62, (1,), generator=generator,
                                       device=generator.device)) if dropout else None)
             if not remat:
-                x = layer(x, deterministic, seed, self.batch_rows)
+                x = layer(x, deterministic, seed, self.batch_rows, self.seq_shard)
                 continue
             # The first remat_save_flash_layers blocks (every block under
             # remat_save_flash) keep the flash residuals; the rest replay all.
             save = cfg.remat_save_flash or i < cfg.remat_save_flash_layers
-            x = checkpoint(layer, x, deterministic, seed, self.batch_rows, use_reentrant=False,
+            x = checkpoint(layer, x, deterministic, seed, self.batch_rows, self.seq_shard,
+                           use_reentrant=False,
                            context_fn=flash_save_context if save else noop_context_fn)
         return self.ln_f(x)
 
@@ -443,14 +461,25 @@ def make_mlm_batch(generator: torch.Generator, batch: int, seq: int, vocab_size:
     return {"tokens": tokens, "targets": targets, "mask": mask}
 
 
-def lm_loss(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+def _next_tokens(tokens: torch.Tensor, t_local: int, seq: tuple[int, int]) -> torch.Tensor:
+    """The next-token targets of shard `seq` = (index, count) of the whole
+    rows `tokens` [B, T]: T/count of them, one fewer on the last shard
+    (its last position has no target)."""
+    start = seq[0] * t_local + 1
+    return tokens[:, start:min(start + t_local, tokens.shape[1])]
+
+
+def lm_loss(logits: torch.Tensor, tokens: torch.Tensor,
+            seq: tuple[int, int] = (0, 1)) -> torch.Tensor:
     """Next-token cross entropy as logsumexp(z) - z[target] (no [B, T, V]
-    log-probs tensor)."""
-    z = logits[:, :-1].float()
-    tgt = tokens[:, 1:]
+    log-probs tensor). `logits` are those of sequence shard `seq` of the
+    whole rows `tokens`; the sum over the shards is the mean over B x
+    (T - 1)."""
+    tgt = _next_tokens(tokens, logits.shape[1], seq)
+    z = logits[:, :tgt.shape[1]].float()
     lse = torch.logsumexp(z, dim=-1)
     z_tgt = torch.gather(z, -1, tgt[..., None])[..., 0]
-    return (lse - z_tgt).mean()
+    return (lse - z_tgt).sum() / (tokens.shape[0] * (tokens.shape[1] - 1))
 
 
 def _chunk_nll(weight: torch.Tensor, h_c: torch.Tensor, t_c: torch.Tensor) -> torch.Tensor:
@@ -461,18 +490,21 @@ def _chunk_nll(weight: torch.Tensor, h_c: torch.Tensor, t_c: torch.Tensor) -> to
 
 
 def lm_loss_chunked(h: torch.Tensor, head_weight: torch.Tensor,
-                    tokens: torch.Tensor, chunk: int = 2048) -> torch.Tensor:
+                    tokens: torch.Tensor, chunk: int = 2048,
+                    seq: tuple[int, int] = (0, 1)) -> torch.Tensor:
     """lm_loss without the full [B, T, vocab] logits: the head and the cross
     entropy run per sequence chunk, each chunk under a checkpoint so the
     backward recomputes its logits instead of keeping every chunk's (the
     stacked-logits residual the JAX docstring describes). head_weight is
-    the LM head's [vocab, hidden] weight."""
-    b, t, _ = h.shape
-    preds, tgt = h[:, :-1], tokens[:, 1:]
-    n = t - 1
+    the LM head's [vocab, hidden] weight; `h` the hidden states of shard
+    `seq` of the whole rows `tokens`, as in lm_loss."""
+    b, t = tokens.shape
+    tgt = _next_tokens(tokens, h.shape[1], seq)
+    n = tgt.shape[1]
+    preds = h[:, :n]
     weight = head_weight.to(h.dtype)
     total = h.new_zeros((), dtype=torch.float32)
     for s in range(0, n, chunk):
         total = total + checkpoint(_chunk_nll, weight, preds[:, s:s + chunk],
                                    tgt[:, s:s + chunk], use_reentrant=False)
-    return total / (b * n)
+    return total / (b * (t - 1))

@@ -21,7 +21,17 @@ read it, once for all of them),
 row-parallel layer), `gather_from` (all-gather forward, the local slice
 backward: every rank computes the same loss from the gathered tensor), and
 `sum_across` (all-reduce both ways: a statistic of data split across
-ranks, such as batch-norm moments).
+ranks, such as batch-norm moments). zero-3's `gather_params` all-gathers a
+layer's fsdp shards in one flat bucket in the forward and reduce-scatters
+their gradients in the backward. Sequence parallelism's two are JAX's:
+`rotate` (ppermute of K and V together to the next rank of the ring; the
+gradients go to the previous one) and `all_to_all` (the tiled
+lax.all_to_all; its backward is the reverse all-to-all).
+
+gloo's point-to-point ops take no CUDA tensor (the process aborts), so
+where the backend is gloo and the tensors live on a GPU (two ranks sharing
+one card) `rotate` stages its bytes through pinned host buffers; gloo's
+all_to_all_single takes CUDA tensors as they are.
 """
 
 from __future__ import annotations
@@ -237,3 +247,122 @@ def gather_from(x: torch.Tensor, dim: int, group) -> torch.Tensor:
 
 def sum_across(x: torch.Tensor, group) -> torch.Tensor:
     return x if group is None else _SumAcross.apply(x, group)
+
+
+class _GatherParams(torch.autograd.Function):
+    """fsdp shards -> full tensors in one all-gather; the backward
+    reduce-scatters the full tensors' gradients back to the shards (one f32
+    bucket), so they come out summed over the group."""
+
+    @staticmethod
+    def forward(ctx, dims, group, *shards):
+        n = dist.get_world_size(group)
+        fulls = []
+        for s, d in zip(shards, dims):
+            shape = list(s.shape)
+            shape[d] *= n
+            fulls.append(s.new_empty(shape))
+        all_gather_into(list(shards), fulls, list(dims), group)
+        ctx.dims, ctx.group = dims, group
+        ctx.shapes = [f.shape for f in fulls]
+        ctx.dtype, ctx.device = fulls[0].dtype, fulls[0].device
+        return tuple(fulls)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        grads = [torch.zeros(shape, dtype=ctx.dtype, device=ctx.device) if g is None else g
+                 for g, shape in zip(grads, ctx.shapes)]
+        return (None, None, *reduce_scatter_flat(grads, list(ctx.dims), ctx.group))
+
+
+def gather_params(shards: list[torch.Tensor], dims: list[int], group) -> list[torch.Tensor]:
+    """The full tensors of a layer's fsdp `shards` (each split along its
+    `dims` entry over `group`), differentiable: their gradients reach the
+    shards reduce-scattered, summed over the group."""
+    if group is None or not shards:
+        return list(shards)
+    return list(_GatherParams.apply(tuple(dims), group, *shards))
+
+
+def _wire(x: torch.Tensor) -> torch.Tensor:
+    """x's bytes as a collective moves them (bf16 as fp16, see above)."""
+    return x.view(torch.float16) if x.dtype == torch.bfloat16 else x
+
+
+def _pinned(x: torch.Tensor) -> torch.Tensor:
+    """An empty pinned host buffer of x's shape and dtype."""
+    return torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+
+
+def _exchange(buf: torch.Tensor, dst: int, src: int, group) -> torch.Tensor:
+    """Send the flat `buf` to group rank `dst` and receive one of its size
+    from group rank `src`, in one batch of point-to-point ops."""
+    out = torch.empty_like(buf)
+    staged = buf.is_cuda and dist.get_backend(group) == "gloo"
+    send, recv = (_pinned(_wire(buf)).copy_(_wire(buf)), _pinned(_wire(out))) if staged \
+        else (_wire(buf), _wire(out))
+    ops = [dist.P2POp(dist.isend, send, dist.get_global_rank(group, dst), group=group),
+           dist.P2POp(dist.irecv, recv, dist.get_global_rank(group, src), group=group)]
+    for work in _call(dist.batch_isend_irecv, ops):
+        _call(work.wait)
+    if staged:
+        _wire(out).copy_(recv)
+    return out
+
+
+def _shift(k: torch.Tensor, v: torch.Tensor, group, step: int):
+    """(k, v) of the rank `step` places before this one in `group`'s ring
+    (step 1: the previous rank's; -1: the next one's), sent as one buffer."""
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    flat = torch.cat([k.reshape(-1), v.reshape(-1)])
+    out = _exchange(flat, (r + step) % n, (r - step) % n, group)
+    return out[:k.numel()].view(k.shape), out[k.numel():].view(v.shape)
+
+
+class _Rotate(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, k, v, group):
+        ctx.group = group
+        return _shift(k.contiguous(), v.contiguous(), group, 1)
+
+    @staticmethod
+    def backward(ctx, gk, gv):
+        return (*_shift(gk.contiguous(), gv.contiguous(), ctx.group, -1), None)
+
+
+def rotate(k: torch.Tensor, v: torch.Tensor, group) -> tuple[torch.Tensor, torch.Tensor]:
+    """JAX's ppermute of k and v to the next rank of `group`'s ring (rank
+    r gets rank r - 1's), in one paired exchange; the gradients travel the
+    other way."""
+    if group is None:
+        return k, v
+    return _Rotate.apply(k, v, group)
+
+
+def _all_to_all(x: torch.Tensor, split_dim: int, concat_dim: int, group) -> torch.Tensor:
+    n = dist.get_world_size(group)
+    send = torch.stack(x.chunk(n, dim=split_dim)).contiguous()
+    recv = torch.empty_like(send)
+    _call(dist.all_to_all_single, _wire(recv), _wire(send), group=group)
+    return torch.cat(recv.unbind(0), dim=concat_dim)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, split_dim, concat_dim, group):
+        ctx.dims, ctx.group = (split_dim, concat_dim), group
+        return _all_to_all(x, split_dim, concat_dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_dim, concat_dim = ctx.dims
+        return _all_to_all(g, concat_dim, split_dim, ctx.group), None, None, None
+
+
+def all_to_all(x: torch.Tensor, split_dim: int, concat_dim: int, group) -> torch.Tensor:
+    """JAX's tiled lax.all_to_all over `group`: x split into equal chunks
+    along split_dim, chunk j to rank j, the chunks received concatenated
+    along concat_dim in rank order."""
+    if group is None:
+        return x
+    return _AllToAll.apply(x, split_dim, concat_dim, group)

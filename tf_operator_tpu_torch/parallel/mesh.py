@@ -9,13 +9,14 @@ Axis semantics, as in the JAX package:
   dp    pure data parallel (params replicated)
   fsdp  data parallel with sharded params and optimizer state
   tp    tensor parallel (megatron-style within attention and the MLP)
-  sp    sequence parallel (ROADMAP A10)
+  sp    sequence parallel (ring attention or Ulysses over the sequence)
   ep    expert parallel (A11)
   pp    pipeline parallel (A12)
   data  the cross-slice axis of a multi-slice job (A12)
 
-Batches split over (dp, fsdp); parameters shard over (fsdp, tp) by
-sharding_rules. An axis of the last four above 1 is refused by name.
+Batches split over (dp, fsdp), and a transformer's sequence over sp;
+parameters shard over (fsdp, tp) by sharding_rules. An axis of the last
+three above 1 is refused by name.
 
 `Mesh` is a rank grid with one process group for each axis this rank
 needs a collective over, made with the backend of the world's group.
@@ -42,7 +43,11 @@ AXIS_ORDER = ("data", "pp", "dp", "fsdp", "ep", "sp", "tp")
 DATA_AXIS = "data"
 # Axes the port does not run yet, with the ROADMAP item that ports them.
 UNPORTED_AXES = {"data": "A12 (multi-slice)", "pp": "A12 (the pipeline schedule)",
-                 "sp": "A10 (ring attention and Ulysses)", "ep": "A11 (MoE)"}
+                 "ep": "A11 (MoE)"}
+# The axes a sequence-parallel model sums its gradients over, beside the
+# fsdp-less ones its fsdp shards are summed over after their reduce-scatter.
+GRAD_AXES = ("data", "dp", "fsdp", "sp")
+SHARD_GRAD_AXES = ("data", "dp", "sp")
 
 
 class UnportedAxisError(ValueError):
@@ -150,9 +155,10 @@ def make_mesh(axes: dict[str, int] | None = None) -> Mesh:
         return mesh
     names, grid = mesh.axis_names, mesh.grid
     wanted = [(a,) for a in names if axes[a] > 1]
-    data = tuple(a for a in data_axes(mesh) if axes[a] > 1)
-    if len(data) > 1:
-        wanted.append(data)
+    for combo in (data_axes(mesh), GRAD_AXES, SHARD_GRAD_AXES, ("data", "dp")):
+        sub = tuple(a for a in combo if axes.get(a, 1) > 1)
+        if len(sub) > 1 and sub not in wanted:
+            wanted.append(sub)
     backend = dist.get_backend()
     for sub in wanted:
         keep = [names.index(a) for a in sub]

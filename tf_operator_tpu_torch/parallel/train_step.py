@@ -23,19 +23,30 @@ parameter is laid out by sharding_rules' spec:
   - tp: the model holds its tensor-parallel shard, and the layers run
     Megatron's collectives (models/transformer.py's Dense and Embed);
     attention runs on this rank's heads;
-  - fsdp: the optimizer state (mu, nu, the f32 master) holds this rank's
-    fsdp shard, and the update is per shard: the fsdp-sharded gradients
-    are reduce-scattered to this rank's shards in one f32 bucket, and the
-    updated shards all-gathered into the compute copy in one bucket (the
-    compute copy stays whole on every rank: zero-3's per-layer gather
-    before use is not ported);
+  - fsdp (zero-3, the JAX layout): the model holds this rank's fsdp shard
+    of each fsdp-sharded parameter, and so do mu, nu and the f32 master.
+    A layer's full tensors exist only while it runs: its forward
+    all-gathers its shards in one flat bucket (a transformer Block or a
+    ResNet block is one bucket, any other parameter its own module's) and
+    its backward reduce-scatters their gradients to the shards. Without
+    remat autograd keeps the gathered tensors that the layer's backward
+    reads until that backward has run; under remat the replay gathers
+    again. The update is per shard and copies shards: nothing is gathered
+    after it;
   - dp, fsdp: each rank takes its rows of the global batch that
     batch_generator(seed, step) makes, and its loss is its share of the
     global batch's loss (rows, or a `mask`'s count for the MLM loss), so
     the shards' gradients SUM to the one-process gradient: the other
     gradients are all-reduced over the data axes in one f32 bucket, and
     the fsdp shards over dp. Batch norm all-reduces its moments, dropout
-    draws the global batch's masks.
+    draws the global batch's masks;
+  - sp (a model with a `seq_shard`, the transformer trunk): each rank runs
+    its T/sp columns of its rows (its loss function slices them from the
+    whole rows, which every rank holds), attention crosses the ranks
+    (parallel/ring_attention.py, parallel/ulysses.py), and the gradients
+    are summed over sp too, in the same buckets. A model without one
+    (MNIST, ResNet) runs the same rows on every sp rank, whose gradients
+    are then not summed over sp: the JAX step replicates its batch there.
 
 The reported loss is the global batch's and `grad_norm` the global norm, so
 a 2-process run follows the 1-process run at the same global batch.
@@ -44,6 +55,7 @@ a 2-process run follows the 1-process run at the same global batch.
 from __future__ import annotations
 
 import contextlib
+import functools
 from dataclasses import dataclass, field
 from typing import Any, Callable
 
@@ -74,11 +86,12 @@ class TrainState:
 class ParallelPlan:
     """How this rank holds each parameter (in model.parameters() order):
     its spec (port dimension order, of the full parameter), the dimension
-    sharded over tp (the model holds that shard) and over fsdp (the
-    optimizer state holds that shard of the tp shard), and whether its
-    gradient is a partial sum over tp (a column-parallel layer's
-    replicated bias, sliced in the forward). The default plan is one
-    process's: nothing sharded, no collective."""
+    sharded over tp (the model holds that shard) and over fsdp (the model
+    and the optimizer state hold that shard of the tp shard), and whether
+    its gradient is a partial sum over tp (a column-parallel layer's
+    replicated bias, sliced in the forward); `seq`: the model splits its
+    sequence over sp. The default plan is one process's: nothing sharded,
+    no collective."""
 
     mesh: mesh_lib.Mesh = field(default_factory=lambda: mesh_lib.Mesh({"dp": 1}))
     names: list[str] = field(default_factory=list)
@@ -88,6 +101,7 @@ class ParallelPlan:
     fsdp_dims: list = field(default_factory=list)
     tp_partial: list = field(default_factory=list)
     device: Any = None
+    seq: bool = False
 
     @property
     def n_data(self) -> int:
@@ -100,6 +114,22 @@ class ParallelPlan:
     @property
     def data_group(self):
         return self.mesh.group(*mesh_lib.data_axes(self.mesh))
+
+    @property
+    def seq_shard(self) -> tuple[int, int]:
+        """(index, count) of this rank's sequence columns."""
+        if not self.seq:
+            return 0, 1
+        return self.mesh.coord("sp"), self.mesh.shape["sp"]
+
+    def _summed(self, axes: tuple[str, ...]):
+        return self.mesh.group(*(a for a in axes if a != "sp" or self.seq))
+
+    @property
+    def loss_group(self):
+        """The ranks whose losses (and gradients) sum to the global
+        batch's: the data axes, and sp under `seq`."""
+        return self._summed(mesh_lib.GRAD_AXES)
 
     @property
     def sharded(self) -> bool:
@@ -121,21 +151,20 @@ class ParallelPlan:
         d = self._dim(self.fsdp_dims, i)
         return t if d is None else collectives.all_gather(t, d, self.mesh.group("fsdp"))
 
-    def full(self, i: int, t: torch.Tensor, shard: bool) -> torch.Tensor:
-        """The full tensor of parameter i from this rank's tp-local tensor
-        (shard=False) or its fsdp shard (shard=True); a collective over
-        every rank of the groups involved."""
-        if shard:
-            t = self.unshard(i, t)
+    def full(self, i: int, t: torch.Tensor) -> torch.Tensor:
+        """The full tensor of parameter i from this rank's part of it (its
+        fsdp shard of its tp shard); a collective over every rank of the
+        groups involved."""
+        t = self.unshard(i, t)
         d = self._dim(self.tp_dims, i)
         return t if d is None else collectives.all_gather(t, d, self.mesh.group("tp"))
 
-    def local(self, i: int, t: torch.Tensor, shard: bool) -> torch.Tensor:
+    def local(self, i: int, t: torch.Tensor) -> torch.Tensor:
         """The inverse of full: this rank's part of parameter i's full t."""
         d = self._dim(self.tp_dims, i)
         if d is not None:
             t = collectives.local_slice(t, d, self.mesh.coord("tp"), self.mesh.shape["tp"])
-        return self.shard(i, t) if shard else t
+        return self.shard(i, t)
 
     def local_rows(self, batch: dict) -> dict:
         """This rank's rows of a global batch (a scalar passes through)."""
@@ -147,12 +176,13 @@ class ParallelPlan:
 
     def loss_weight(self, batch: dict) -> torch.Tensor | float:
         """This rank's share of the global batch's loss: its count of a
-        `mask` (the MLM loss is a masked mean) over the global count,
-        else its share of the rows."""
+        `mask` (the MLM loss is a masked mean; under `seq`, of its columns)
+        over the global count, else its share of the rows (a sequence
+        shard's loss is already its part of its rows' mean)."""
         if "mask" not in batch:
             return 1.0 / self.n_data
-        local = batch["mask"].float().sum()
-        return local / collectives.all_reduce(local, self.data_group).clamp_min(1.0)
+        local = seq_slice(batch["mask"], self.seq_shard).float().sum()
+        return local / collectives.all_reduce(local, self.loss_group).clamp_min(1.0)
 
     def _fsdp_split(self, n: int) -> tuple[list[int], list[int]]:
         """The indices of the parameters with an fsdp shard, and the rest."""
@@ -161,37 +191,20 @@ class ParallelPlan:
 
     def reduce_grads(self, grads: list[torch.Tensor]) -> list[torch.Tensor]:
         """The global batch's gradients as this rank's optimizer takes
-        them: partial tp sums completed; the fsdp-sharded parameters'
-        reduce-scattered over fsdp to this rank's shards (one f32 bucket),
-        then summed over dp; every other gradient summed over the data
-        axes in one f32 bucket."""
+        them: partial tp sums completed; the fsdp shards' gradients, which
+        their layers' backward reduce-scattered over fsdp, summed over dp
+        (and sp); every other gradient over the data axes (and sp), each
+        set in one f32 bucket."""
         tp_group = self.mesh.group("tp")
         grads = [collectives.all_reduce(g, tp_group) if self._dim(self.tp_partial, i) else g
                  for i, g in enumerate(grads)]
-        split, whole = self._fsdp_split(len(grads))
         out = list(grads)
-        for i, g in zip(whole, collectives.all_reduce_flat([grads[i] for i in whole],
-                                                           self.data_group)):
-            out[i] = g
-        if split:
-            shards = collectives.reduce_scatter_flat([grads[i] for i in split],
-                                                     [self.fsdp_dims[i] for i in split],
-                                                     self.mesh.group("fsdp"))
-            for i, g in zip(split, collectives.all_reduce_flat(shards, self.mesh.group("dp"))):
+        for idx, axes in zip(self._fsdp_split(len(grads)),
+                             (mesh_lib.SHARD_GRAD_AXES, mesh_lib.GRAD_AXES)):
+            summed = collectives.all_reduce_flat([grads[i] for i in idx], self._summed(axes))
+            for i, g in zip(idx, summed):
                 out[i] = g
         return out
-
-    def set_params(self, params: list[torch.Tensor], new: list[torch.Tensor]) -> None:
-        """Copy the optimizer's new parameters (fsdp shards where the
-        parameter has one) into the model's: the shards through one
-        all-gather over fsdp."""
-        split, whole = self._fsdp_split(len(params))
-        with torch.no_grad():
-            for i in whole:
-                params[i].copy_(new[i])
-            collectives.all_gather_into([new[i] for i in split], [params[i] for i in split],
-                                        [self.fsdp_dims[i] for i in split],
-                                        self.mesh.group("fsdp"))
 
     def global_norm(self, grads: list[torch.Tensor]) -> torch.Tensor:
         """The norm of the full gradient from reduce_grads' gradients
@@ -209,13 +222,86 @@ class ParallelPlan:
         return torch.sqrt(tp + sq[0][0] + fsdp[1])
 
 
+def seq_slice(x: torch.Tensor, seq: tuple[int, int]) -> torch.Tensor:
+    """Columns (dimension 1) of shard `seq` = (index, count) of x."""
+    index, count = seq
+    return x if count == 1 else collectives.local_slice(x, 1, index, count)
+
+
+# Module classes whose parameters zero-3 gathers as one bucket; any other
+# parameter is gathered with its own module's.
+FSDP_UNITS = ("Block", "BottleneckBlock")
+
+
+@dataclass
+class FsdpUnit:
+    """The fsdp-sharded parameters of one bucket: (module, name, dim)."""
+
+    members: list
+    group: Any
+
+    @contextlib.contextmanager
+    def gathered(self):
+        """The members' full tensors in place of their shards (in
+        `_parameters`, so the modules read them as their own) for the
+        duration; differentiable back to the shards."""
+        shards = [m._parameters[leaf] for m, leaf, _ in self.members]
+        fulls = collectives.gather_params(shards, [d for *_, d in self.members], self.group)
+        for (m, leaf, _), full in zip(self.members, fulls):
+            m._parameters[leaf] = full
+        try:
+            yield
+        finally:
+            for (m, leaf, _), shard in zip(self.members, shards):
+                m._parameters[leaf] = shard
+
+
+def _unit_forward(unit: FsdpUnit, forward, *args, **kwargs):
+    with unit.gathered():
+        return forward(*args, **kwargs)
+
+
+def full_params(module: nn.Module):
+    """A context in which `module` holds its full parameters, for a caller
+    that reads them outside the module's forward (the chunked LM head)."""
+    unit = module.__dict__.get("fsdp_unit")
+    return contextlib.nullcontext() if unit is None else unit.gathered()
+
+
+def _install_fsdp(model: nn.Module, plan: ParallelPlan) -> None:
+    """Cut each fsdp-sharded parameter to this rank's shard and make every
+    bucket's owner gather its members around its forward."""
+    group = plan.mesh.group("fsdp")
+    if group is None:
+        return
+    modules = dict(model.named_modules())
+    units: dict[str, list] = {}
+    for i, (name, p) in enumerate(model.named_parameters()):
+        d = plan.fsdp_dims[i]
+        if d is None:
+            continue
+        with torch.no_grad():
+            p.data = plan.shard(i, p.data).clone()
+        mod_name, _, leaf = name.rpartition(".")
+        parts = mod_name.split(".")
+        owner = next((".".join(parts[:k]) for k in range(1, len(parts) + 1)
+                      if type(modules[".".join(parts[:k])]).__name__ in FSDP_UNITS), mod_name)
+        units.setdefault(owner, []).append((modules[mod_name], leaf, d))
+    for owner, members in units.items():
+        mod = modules[owner]
+        mod.fsdp_unit = FsdpUnit(members, group)
+        mod.forward = functools.partial(_unit_forward, mod.fsdp_unit, mod.forward)
+
+
 def parallelize(model: nn.Module, mesh: mesh_lib.Mesh, rules=None,
                 device=None) -> ParallelPlan:
     """Lay a freshly built, full model out on `mesh` by `rules`
     (sharding_rules): slice each tp-sharded parameter to this rank's shard
-    and give its layer the tensor-parallel mode; point batch norms at the
-    data group and the trunk's dropout at this rank's rows. Every rank
-    must build the same full model first (a seeded init)."""
+    and give its layer the tensor-parallel mode; keep each fsdp-sharded
+    one's shard (_install_fsdp); point batch norms at the data group, the
+    trunk's dropout at this rank's rows and, under sp, its positions and
+    dropout at this rank's columns. Every rank must build the same full
+    model first (a seeded init)."""
     names = [n for n, _ in model.named_parameters()]
     plan = ParallelPlan(mesh=mesh, names=names, device=device,
                         specs=sharding_rules.tree_shardings(model, mesh.shape, rules),
@@ -245,25 +331,30 @@ def parallelize(model: nn.Module, mesh: mesh_lib.Mesh, rules=None,
         else:
             mod.tp = collectives.TpShard("row", tp_group, tp_i, tp_n)
     plan.tp_partial = [n in col_biases for n in names]
-    if plan.n_data > 1:
-        for mod in modules.values():
-            if hasattr(mod, "sync"):
-                mod.sync = (plan.data_group, plan.n_data)
-            if hasattr(mod, "batch_rows"):
-                mod.batch_rows = (plan.data_index, plan.n_data)
+    _install_fsdp(model, plan)
+    plan.seq = (mesh_lib.axis_size(mesh, "sp") > 1
+                and any(hasattr(mod, "seq_shard") for mod in modules.values()))
+    for mod in modules.values():
+        if plan.n_data > 1 and hasattr(mod, "sync"):
+            mod.sync = (plan.data_group, plan.n_data)
+        if plan.n_data > 1 and hasattr(mod, "batch_rows"):
+            mod.batch_rows = (plan.data_index, plan.n_data)
+        if plan.seq and hasattr(mod, "seq_shard"):
+            mod.seq_shard = plan.seq_shard
     return plan
 
 
 def create_train_state(model: nn.Module,
                        tx: optim_lib.MixedPrecisionTransformation,
                        plan: ParallelPlan | None = None) -> TrainState:
-    # Init BEFORE the compute cast: under master_weights the optimizer's f32
+    # `plan` is taken for the callers' symmetry; parallelize already laid
+    # the parameters out. Init BEFORE the compute cast: under master_weights the optimizer's f32
     # master copy comes from the full-precision init parameters, and the
     # model then holds the bf16 compute copy. Only parameters are cast:
     # buffers (running statistics) stay f32, as the JAX model_state does.
-    # Under fsdp the optimizer state is built from this rank's shards.
-    plan = plan or ParallelPlan()
-    opt_state = tx.init([plan.shard(i, p) for i, p in enumerate(model.parameters())])
+    # Under fsdp the parameters, and so the optimizer state, are this
+    # rank's shards.
+    opt_state = tx.init(list(model.parameters()))
     dtype = optim_lib.compute_dtype(tx)
     if dtype is not None:
         with torch.no_grad():
@@ -317,13 +408,10 @@ def load_state_tensors(state: TrainState, tensors: dict[str, Any]) -> TrainState
     return TrainState(int(tensors["step"]), state.model, opt)
 
 
-_OPT_FIELDS = ("mu/", "nu/", "master/")
-
-
 def _state_map(tensors: dict, plan: ParallelPlan, to_full: bool) -> dict:
     """state_tensors-keyed `tensors` mapped leaf by leaf between this
-    rank's parts and the full tensors (params: the tp-local compute copy;
-    mu, nu, master: the fsdp shard of it)."""
+    rank's parts (params, mu, nu, master: the fsdp shard of the tp-local
+    tensor) and the full tensors."""
     index = {n: i for i, n in enumerate(plan.names)}
     out = {}
     for key, t in tensors.items():
@@ -332,8 +420,7 @@ def _state_map(tensors: dict, plan: ParallelPlan, to_full: bool) -> dict:
         if i is None or prefix == "buffers" or not isinstance(t, torch.Tensor):
             out[key] = t
             continue
-        shard = f"{prefix}/" in _OPT_FIELDS
-        out[key] = plan.full(i, t, shard) if to_full else plan.local(i, t, shard)
+        out[key] = plan.full(i, t) if to_full else plan.local(i, t)
     return out
 
 
@@ -360,20 +447,21 @@ def train_step(state: TrainState, batch, loss_fn: LossFn,
                plan: ParallelPlan | None = None):
     """One optimizer step on this rank's rows `batch`; returns (state,
     {"loss", "grad_norm"}) with the metrics as device scalars (no host sync
-    in one process). Under a plan of several data ranks the loss is
-    weighted to this rank's share of the global loss, and the metrics are
-    the global batch's."""
+    in one process). Under a plan of several data (or sequence) ranks the
+    loss is weighted to this rank's share of the global loss, and the
+    metrics are the global batch's."""
     plan = plan or ParallelPlan()
     params = state.params
     state.model.train()
     loss = loss_fn(state.model, batch)
-    if plan.n_data > 1:
+    if plan.loss_group is not None:
         loss = loss * plan.loss_weight(batch)
     grads = plan.reduce_grads(list(torch.autograd.grad(loss, params)))
-    new_shards, new_opt = tx.update(grads, state.opt_state,
-                                    [plan.shard(i, p) for i, p in enumerate(params)])
-    plan.set_params(params, new_shards)
-    metrics = {"loss": collectives.all_reduce(loss.detach(), plan.data_group),
+    new_params, new_opt = tx.update(grads, state.opt_state, params)
+    with torch.no_grad():
+        for p, new in zip(params, new_params):
+            p.copy_(new)
+    metrics = {"loss": collectives.all_reduce(loss.detach(), plan.loss_group),
                "grad_norm": plan.global_norm(grads)}
     return TrainState(state.step + 1, state.model, new_opt), metrics
 
