@@ -9,7 +9,9 @@
     python3 chip_smoke.py --phases build,bert,data    # BERT and the --data-dir path
     python3 chip_smoke.py --phases build,dist         # torch.distributed: NCCL, dp/tp/fsdp
     python3 chip_smoke.py --phases build,sp           # sequence parallelism: ring, Ulysses
+    python3 chip_smoke.py --phases build,moe          # the MoE LM and K5, ep = 2
     python3 chip_smoke.py --phases build,dist4        # four GPUs over NCCL (not default)
+    python3 chip_smoke.py --phases build,moe4         # dist4's MoE runs alone (four GPUs)
 
 Phases, in order:
   1. identify the card (nvidia-smi name and power limit);
@@ -117,18 +119,34 @@ Phases, in order:
      forward pass for the ring and once for Ulysses; two planted faults
      (sp = 2 without the gradient sum over sp, a ring without the
      visibility mask) must each fail that comparison;
- 13. (only with --phases ...,dist4, on four GPUs) the dist runs and dp = 4,
+ 13. the MoE LM (moe): K5, the grouped matmul of the dropless dispatch
+     (gmm NN and NT, tgmm), held against its plain version at bench.py's MoE
+     cell (12 x 768, 8 experts top-2, seq 2048, batch 8: 32768 routed rows
+     from a top-2 routing of random tokens, K x N = 768 x 3072; every
+     K5_MUTATIONS entry rejected) and at small ragged cases in bf16 and f32
+     (an empty group, a one-row group, sizes off the tile, all rows in one
+     expert, two of four groups, K and N off 8), timed at the cell beside
+     its bound, its plain version and torch._grouped_mm; K1-K3 and delta at
+     the cell's [8, 6, 2048, 128] bf16 causal; then the cell through the
+     trainer with --moe-dispatch sparse (K1-K3 and delta 12 a step, each K5
+     kernel 12: tokens/s, MFU by moe_flops_per_step, peak memory) and dense
+     (no K5 launch); then ep = 2 at 4 layers, both dispatches, as two
+     co-located gloo ranks held against one process, and ep = 2 without the
+     sum over ep rejected;
+ 14. (only with --phases ...,dist4, on four GPUs) the dist runs and dp = 4,
      dp x tp = 2 x 2 and fsdp = 4 with one GPU a rank (CUDA_VISIBLE_DEVICES),
      where the backend rule picks NCCL; then the 64k LM at sp = 4 (ring)
      and sp x tp = 2 x 2 (ring, 3 local heads) at batch 1 and dp x sp = 2
      x 2 (Ulysses) at batch 2, each held against one process at its global
      batch, with sp = 4 without the gradient sum over sp rejected; the
      kernels at those runs' local shapes first (on three tiles where the
-     whole tensors are too large);
- 14. (only with --phases ...,profile) both trainers' runs, the 64k LM and
-     BERT-base at seq 512 under torch.profiler: device time by kernel group
-     over their steady steps.
-The last lines are the eval, longctx, preempt, bert, data, dist and sp
+     whole tensors are too large); then the MoE cell (sparse) at ep = 4 and
+     dp x ep = 2 x 2, each held against one process (moe4 runs these
+     alone);
+ 15. (only with --phases ...,profile) both trainers' runs, the 64k LM,
+     BERT-base at seq 512 and the MoE cell (sparse) under torch.profiler:
+     device time by kernel group over their steady steps.
+The last lines are the eval, longctx, preempt, bert, data, dist, sp and moe
 phases' records as one JSON object ({"phases": ...}), the kernels' JSON record,
 the card, and
 {"ok": true, "device": {...}}. Any failed phase exits nonzero with no
@@ -226,7 +244,7 @@ TIME_BATCHES = (1, BATCH)
 SOURCE = "tf_operator_tpu_torch/csrc/flash_attention.cu"
 K4 = ("fused_bottleneck_fwd", "tf_operator_tpu_torch/csrc/fused_bottleneck.cu",
       "tf_operator_tpu/ops/fused_bottleneck.py:100")
-SOURCES = ("flash_attention", "fused_bottleneck")
+SOURCES = ("flash_attention", "fused_bottleneck", "grouped_matmul")
 
 # The fused bottleneck's cases: (label, ResNet-50 block index or None for
 # random inputs, dtype). Blocks 1, 4, 8 and 14 are the first identity
@@ -341,12 +359,14 @@ def build_phase() -> float:
     from tf_operator_tpu_torch.ops import _build
     from tf_operator_tpu_torch.ops import flash_attention as fa
     from tf_operator_tpu_torch.ops import fused_bottleneck as fb
+    from tf_operator_tpu_torch.ops import grouped_matmul as gm
 
     t0 = time.time()
     with ThreadPoolExecutor(len(SOURCES)) as pool:
         list(pool.map(_build.build, SOURCES))
     fa._lib()
     fb._lib()
+    gm._lib()
     secs = time.time() - t0
     log(f"build: {', '.join(n + '.cu' for n in SOURCES)} in parallel in {secs:.1f} s")
     for name in SOURCES:
@@ -367,6 +387,14 @@ def build_phase() -> float:
         missing = [k for k, n in counts.items() if "wgmma" in k and n == 0]
         if missing:
             raise SmokeFailure(f"wgmma kernels without HGMMA instructions: {missing}")
+        # K5's bf16 kernels run mma.sync, which SASS spells HMMA.
+        counts = sass_counts(sass, "HMMA")
+        if name == "grouped_matmul":
+            log(f"  sass {name}: HMMA instructions per kernel: "
+                + ", ".join(f"{k} {n}" for k, n in sorted(counts.items())))
+            missing = [k for k, n in counts.items() if "mma_kernel" in k and n == 0]
+            if missing:
+                raise SmokeFailure(f"mma.sync kernels without HMMA instructions: {missing}")
     return secs
 
 
@@ -374,7 +402,7 @@ def kernel_label(mangled: str) -> str:
     """A readable label for a mangled kernel name of this repo's sources,
     e.g. bwd_dq_wgmma_kernel<128> or fwd_kernel<float, 64>: the
     length-prefixed identifier that ends in "_kernel", and the dtype and
-    integers of its template arguments."""
+    integers (and bools) of its template arguments."""
     i = 3 if mangled.startswith("_ZN") else 2
     while (m := re.match(r"\d+", mangled[i:])) is not None:
         start = i + len(m.group())
@@ -387,7 +415,8 @@ def kernel_label(mangled: str) -> str:
             return name
         targs = rest[1:rest.find("EE")] if "EE" in rest else rest[1:]
         dtype = "float" if targs.startswith("f") else ("bf16" if "bfloat16" in targs else "")
-        dims = re.findall(r"Li(\d+)", targs)
+        dims = [("true" if v == "1" else "false") if kind == "b" else v
+                for kind, v in re.findall(r"L([ib])(\d+)", targs)]
         return f"{name}<{', '.join([dtype] * bool(dtype) + dims)}>"
     return mangled
 
@@ -1249,6 +1278,10 @@ LM_GROUPS = (("flash_fwd", ("fwd_kernel", "fwd_wgmma_kernel")),
              ("flash_bwd_dkv", ("bwd_dkv_kernel", "bwd_dkv_wgmma_kernel")),
              ("flash_bwd_delta", ("bwd_delta_kernel",)),
              ("matmul", ("nvjet", "gemm", "xmma", "cutlass")))
+# The MoE LM's: K5's kernels (tgmm first: "gmm_mma" is in its name) and
+# the LM's groups.
+MOE_GROUPS = (("grouped_matmul_tgmm", ("tgmm_mma_kernel", "tgmm_fma_kernel")),
+              ("grouped_matmul_gmm", ("gmm_mma_kernel", "gmm_fma_kernel")), *LM_GROUPS)
 RESNET_GROUPS = (("conv", ("fprop", "dgrad", "wgrad", "conv", "implicit", "winograd",
                            "xmma")),
                  ("matmul", ("nvjet", "gemm", "cutlass")),
@@ -1899,9 +1932,10 @@ def free_port() -> int:
 def _plant_fault(fault: str) -> None:
     """Break this process's port as CHIP_SMOKE_DIST_FAULT says:
     no-grad-reduce (each rank steps on its own gradients), no-sp-grad-sum
-    (the gradients are summed over the data axes but not over sp) or
+    (the gradients are summed over the data axes but not over sp),
     no-ring-mask (a ring block of a later rank is visible: no causal mask
-    across blocks)."""
+    across blocks) or no-ep-sum (an MoE layer's output and input gradient
+    are not summed over ep: each rank keeps its own experts' part)."""
     from tf_operator_tpu_torch.parallel import ring_attention
     from tf_operator_tpu_torch.parallel import train_step as ts
 
@@ -1920,6 +1954,14 @@ def _plant_fault(fault: str) -> None:
         ts.ParallelPlan.reduce_grads = reduce_grads
     elif fault == "no-ring-mask":
         ring_attention.block_visible = lambda src, my: True
+    elif fault == "no-ep-sum":
+        real_place = ts._place_experts
+
+        def place(mod, plan, name):
+            real_place(mod, plan, name)
+            mod.group = None
+
+        ts._place_experts = place
     elif fault:
         raise ValueError(f"unknown fault {fault!r}")
 
@@ -1937,6 +1979,7 @@ def dist_child(argv: list[str]) -> int:
 
     from tf_operator_tpu_torch.models import train
     from tf_operator_tpu_torch.ops import flash_attention as fa
+    from tf_operator_tpu_torch.ops import grouped_matmul as gm
     from tf_operator_tpu_torch.parallel import train_step as ts
 
     path, argv = argv[0], argv[1:]
@@ -1959,7 +2002,7 @@ def dist_child(argv: list[str]) -> int:
     _plant_fault(os.environ.get("CHIP_SMOKE_DIST_FAULT", ""))
     out: dict = {}
     rc = train.main(argv, out)
-    rec = {"launches": dict(fa.LAUNCHES), "grad_norms": norms,
+    rec = {"launches": dict(fa.LAUNCHES), "k5_launches": dict(gm.LAUNCHES), "grad_norms": norms,
            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
     if rc == 0:
         model = out["state"].model
@@ -2034,7 +2077,8 @@ class DistJob:
     at global batch `batch`, its tokens an example, steps, layers, how many
     forward passes a step launch K1 (2 under --remat --remat-save-flash:
     the forward and the loss's replay), the file of its one-process
-    reference, and its width."""
+    reference, its width, and each K5 kernel's launches a step (the MoE
+    LM's sparse dispatch)."""
 
     label: str
     argv: tuple
@@ -2046,6 +2090,7 @@ class DistJob:
     fwd_passes: int
     ref: Path
     hidden: int = 768
+    k5_per_step: int = 0
 
     def sp_blocks(self, mesh: dict | None, mode: str | None) -> int:
         """Flash launches a layer a pass: sp ring blocks, else one."""
@@ -2118,9 +2163,10 @@ def dist_world(name: str, mesh: dict | None, own_gpus: bool = False,
     for rank, (rc, events, rec) in enumerate(ranks):
         if rc != 0:
             raise SmokeFailure(f"dist {name}: rank {rank} exited {rc}")
-        if rec.get("launches") != want:
+        want_k5 = {key: job.k5_per_step * job.steps for _, key in K5}
+        if rec.get("launches") != want or rec.get("k5_launches") != want_k5:
             raise SmokeFailure(f"dist {name}: rank {rank} launches {rec.get('launches')}, "
-                               f"not {want}")
+                               f"K5 {rec.get('k5_launches')}, not {want}, {want_k5}")
         losses, norms = _step_losses(events), rec["grad_norms"]
         if sorted(losses) != list(range(1, job.steps + 1)) or len(norms) != job.steps or \
                 not all(math.isfinite(x) for x in list(losses.values()) + norms):
@@ -2331,15 +2377,343 @@ def sp_phase(records: dict, card: str) -> dict:
         job.ref.unlink(missing_ok=True)
 
 
+# The moe phase: the MoE LM at bench.py's cell (bench.py:1122-1140: 12 x
+# 768, 6 heads x 128, 8 experts top-2 every 2nd block, seq 2048, batch 8),
+# and K5, the grouped matmul of its dropless dispatch
+# (ops/grouped_matmul.py), at that cell's expert products.
+MOE_SEQ, MOE_BATCH, MOE_LAYERS, MOE_HEADS, MOE_STEPS = 2048, 8, 12, 6, 6
+MOE_EXPERTS, MOE_TOP_K, MOE_HIDDEN = 8, 2, 768
+MOE_FFN = 4 * MOE_HIDDEN
+MOE_SHAPE = (MOE_BATCH, MOE_HEADS, MOE_SEQ, MOE_HIDDEN // MOE_HEADS)
+# K5's three kernels: (record name, LAUNCHES key, the product timed at the
+# cell: (rows' operand, K, N) of x . w, x . w^T or x^T . dy).
+K5 = (("grouped_matmul_nn", "gmm_nn"), ("grouped_matmul_nt", "gmm_nt"),
+      ("grouped_matmul_tgmm", "tgmm"))
+K5_SOURCE = "tf_operator_tpu_torch/csrc/grouped_matmul.cu"
+K5_REPLACES = "tf_operator_tpu/models/moe.py:193"
+# Per-element limits of K5 against its plain version, |got - ref| <= rtol
+# |ref| + atol s, s the rms of ref: gmm's bf16 output is one rounding of an
+# f32 sum on both sides, so a value near a rounding boundary may land one
+# bf16 step (2^-7 relative at most) away: rtol 1e-2, atol 1e-2 s. tgmm's
+# output is f32, and in f32 the inputs' products are exact on both sides:
+# only the order of the sums differs (1e-4). f32 inputs run the FMA kernels
+# against an f32 plain version: 1e-5.
+K5_TOL = {("bfloat16", "gmm"): (1e-2, 1e-2), ("bfloat16", "tgmm"): (1e-4, 1e-4),
+          ("float32", "gmm"): (1e-5, 1e-5), ("float32", "tgmm"): (1e-5, 1e-5)}
+# The small cases: (label, M, K, N, group sizes, first group, groups held).
+K5_SMALL = (
+    ("empty, one-row and off-tile groups", 300, 72, 136, (0, 1, 130, 169), 0, 4),
+    ("all rows in one expert", 300, 72, 136, (300, 0, 0, 0), 0, 4),
+    ("two of four groups (ep)", 517, 40, 100, (100, 200, 117, 100), 1, 2),
+    ("K, N off 8 (element loads)", 257, 30, 50, (128, 129), 0, 2),
+)
+# Broken outputs the K5 check must reject, each the plain version's on
+# altered inputs (sizes, w, the row operand): groups 0 and 1 exchange their
+# weights (tgmm: their outputs); one row moved across the first group
+# boundary; each group's last row dropped.
+K5_MUTATIONS = (
+    ("a swapped group", lambda s, w, a: (s, w[[1, 0, *range(2, w.shape[0])]], a)),
+    ("an off-by-one offset", lambda s, w, a: (_shift_first_group(s), w, a)),
+    ("a dropped tail row", lambda s, w, a: (s, w, _drop_tail_rows(s, a))),
+)
+# The ep runs: the MoE LM at 4 of its 12 layers (two MoE layers) as two
+# co-located gloo ranks, held against one process at the dist limits; and
+# the planted fault, ep = 2 without the sum over ep.
+MOE_EP_LAYERS = 4
+MOE_EP_RUNS = (("ep", {"ep": 2}),)
+MOE_EP_FAULT = ("ep = 2 without the sum over ep", {"ep": 2}, "no-ep-sum", None)
+
+
+def _shift_first_group(sizes):
+    """Group sizes with one row moved from the second group into the first."""
+    sizes = sizes.clone()
+    sizes[0] += 1
+    sizes[1] -= 1
+    return sizes
+
+
+def _drop_tail_rows(sizes, a):
+    """The row operand with each non-empty group's last row zeroed."""
+    ends = sizes.cumsum(0)
+    a = a.clone()
+    a[ends[sizes > 0] - 1] = 0
+    return a
+
+
+def moe_flops_per_step(batch: int, seq: int, layers: int = MOE_LAYERS,
+                       hidden: int = MOE_HIDDEN, vocab: int = 32000, experts: int = MOE_EXPERTS,
+                       top_k: int = MOE_TOP_K, moe_every: int = 2) -> float:
+    """Model FLOPs of one training step of the MoE LM over its active
+    parameters, recomputation not counted: 6 x (the attention projections
+    and dense MLPs of every block, top_k experts' FFNs and the router in
+    each MoE block, the head) per token, plus causal attention's QK^T and
+    PV (4 x B x T(T+1)/2 x hidden a layer forward) times 3."""
+    ffn = 4 * hidden
+    n_moe = sum(1 for i in range(layers) if i % moe_every == moe_every - 1)
+    active = layers * 4 * hidden * hidden + (layers - n_moe) * 2 * hidden * ffn \
+        + n_moe * (top_k * 2 * hidden * ffn + hidden * experts) + hidden * vocab
+    attn = layers * 3 * 4.0 * batch * (seq * (seq + 1) / 2) * hidden
+    return 6.0 * active * batch * seq + attn
+
+
+def moe_argv(dispatch: str, layers: int = MOE_LAYERS, steps: int = MOE_STEPS) -> list[str]:
+    """bench.py's MoE cell through the trainer, with its optimizer flags."""
+    return ["--model", "moe-lm", "--moe-dispatch", dispatch, "--seq", str(MOE_SEQ),
+            "--batch", str(MOE_BATCH), "--layers", str(layers), "--hidden", str(MOE_HIDDEN),
+            "--heads", str(MOE_HEADS), "--steps", str(steps), "--log-every", "1",
+            "--moment-dtype", "bf16", "--master-weights", "--device", "cuda"]
+
+
+def moe_routed_inputs(gen):
+    """The cell's expert-product operands from a real top-2 routing: B x T
+    tokens through a lecun-initialised router, their copies sorted by
+    expert (x_sorted [B T K, h] bf16) and the group sizes (int64, on the
+    card); expert weights w_in [E, h, ffn] and w_out [E, ffn, h] bf16."""
+    import torch
+
+    dev = torch.device("cuda")
+    n = MOE_BATCH * MOE_SEQ
+    x = torch.randn(n, MOE_HIDDEN, generator=gen, device=dev)
+    router = torch.randn(MOE_HIDDEN, MOE_EXPERTS, generator=gen, device=dev) \
+        * MOE_HIDDEN ** -0.5
+    topi = torch.topk(torch.softmax(x @ router, -1), MOE_TOP_K, -1).indices.reshape(-1)
+    order = torch.argsort(topi, stable=True)
+    sizes = torch.bincount(topi, minlength=MOE_EXPERTS)
+    x_sorted = x.to(torch.bfloat16)[order // MOE_TOP_K].contiguous()
+    w_in = (torch.randn(MOE_EXPERTS, MOE_HIDDEN, MOE_FFN, generator=gen, device=dev)
+            * MOE_HIDDEN ** -0.5).to(torch.bfloat16)
+    w_out = (torch.randn(MOE_EXPERTS, MOE_FFN, MOE_HIDDEN, generator=gen, device=dev)
+             * MOE_FFN ** -0.5).to(torch.bfloat16)
+    return x_sorted, sizes, w_in, w_out
+
+
+def k5_excess(got, ref, dtype_name: str, kind: str) -> float:
+    """The largest |got - ref| / (rtol |ref| + atol s) of K5_TOL[dtype,
+    kind], s the rms of ref; the check passes at <= 1. A non-finite got
+    fails."""
+    rtol, atol = K5_TOL[(dtype_name, kind)]
+    g, r = got.float(), ref.float()
+    s = r.square().mean().sqrt().clamp_min(1e-30)
+    e = ((g - r).abs() / (rtol * r.abs() + atol * s)).max().item()
+    return e if math.isfinite(e) and bool(g.isfinite().all()) else float("inf")
+
+
+def _k5_products(x, w_in, w_out, dy, dh, sizes, first: int = 0) -> dict:
+    """K5's three kernels on one set of operands: {name: (kernel call,
+    plain call of (sizes, w, row operand), kind)}: NN is x . w_in, NT is
+    dy . w_out^T (dgrad's orientation, w_out [G, N, K] as it lies), tgmm is
+    x^T . dh over the groups."""
+    from tf_operator_tpu_torch.ops import grouped_matmul as gm
+
+    local = w_in.shape[0]
+    return {
+        "grouped_matmul_nn": (lambda: gm.gmm(x, w_in, sizes, first),
+                              lambda s=sizes, w=w_in, a=x: gm.gmm_reference(a, w, s, first),
+                              "gmm"),
+        "grouped_matmul_nt": (lambda: gm.gmm(dy, w_out, sizes, first, trans_w=True),
+                              lambda s=sizes, w=w_out, a=dy: gm.gmm_reference(a, w, s, first,
+                                                                              True), "gmm"),
+        "grouped_matmul_tgmm": (lambda: gm.tgmm(x, dh, sizes, first, local),
+                                lambda s=sizes, w=None, a=x: gm.tgmm_reference(a, dh, s, first,
+                                                                               local), "tgmm"),
+    }
+
+
+def k5_check_case(label: str, x, w_in, w_out, dy, sizes, first: int, mutate: bool) -> dict:
+    """Each K5 kernel against its plain version on one case (tgmm's dY the
+    plain NT product): {name: (max |got - ref|, excess)}; with `mutate`,
+    every K5_MUTATIONS entry's output must be rejected (raises otherwise)."""
+    import torch
+
+    from tf_operator_tpu_torch.ops import grouped_matmul as gm
+
+    dtype_name = str(x.dtype).split(".")[1]
+    dh = gm.gmm_reference(dy, w_out, sizes, first, trans_w=True)
+    out, rejected = {}, {}
+    for name, (kernel, plain, kind) in _k5_products(x, w_in, w_out, dy, dh, sizes,
+                                                    first).items():
+        got = kernel()
+        if got.is_cuda:
+            torch.cuda.synchronize()
+        ref = plain()
+        out[name] = ((got.float() - ref.float()).abs().max().item(),
+                     k5_excess(got, ref, dtype_name, kind))
+        if mutate:
+            w = w_in if name.endswith("nn") else w_out
+            a = dy if name.endswith("nt") else x
+            for what, alter in K5_MUTATIONS:
+                if what == "a swapped group" and kind == "tgmm":
+                    bad = ref[[1, 0, *range(2, ref.shape[0])]]
+                else:
+                    bad = plain(*alter(sizes, w, a))
+                rejected[f"{name} {what}"] = k5_excess(bad, ref, dtype_name, kind)
+        del got, ref
+    accepted = [k for k, e in rejected.items() if not e > 1.0]
+    if accepted:
+        raise SmokeFailure(f"the K5 check accepts broken outputs: {accepted}")
+    log(f"moe: K5 {label} {dtype_name}: (max abs err, excess) "
+        + ", ".join(f"{n}=({e[0]:.3g}, {e[1]:.3g})" for n, e in out.items())
+        + ("; mutations rejected, excess " + ", ".join(f"{k}={e:.3g}" for k, e in
+                                                     rejected.items()) if mutate else ""))
+    failed = [f"{label} {n}: excess {e[1]:.3g}" for n, e in out.items() if not e[1] <= 1.0]
+    if failed:
+        raise SmokeFailure("K5 disagrees with its plain version: " + "; ".join(failed))
+    return out
+
+
+def k5_bound(m_rows: int, k: int, n: int, groups: int) -> tuple[float, str]:
+    """(bound_ms, bound_by) of one K5 launch at the cell: 2 m k n operations
+    at the bf16 peak against its bytes (x [m, k], w [G, k, n] and out [m, n]
+    in bf16; tgmm's [G, k, n] output f32 and its inputs [m, k], [m, n])."""
+    t_ops = 2.0 * m_rows * k * n / PEAK_FLOPS["bfloat16"] * 1e3
+    t_bytes = 2.0 * (m_rows * k + groups * k * n + m_rows * n) / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _grouped_mm_ms(fn) -> float | str:
+    """The library call's time, or its error where it refuses."""
+    try:
+        return time_ms(fn)
+    except Exception as e:  # noqa: BLE001 — recorded: the card's torch may refuse it
+        return f"{type(e).__name__}: {str(e)[:200]}"
+
+
+def k5_check_phase(records: dict) -> None:
+    """K5 against its plain version at the cell's products on routed
+    operands (every K5_MUTATIONS entry rejected) and at K5_SMALL in bf16
+    and f32; then each kernel timed at the cell beside its bound, its plain
+    version and torch._grouped_mm (the library yardstick, never called by
+    the port), and at the cell's other orientation (K 3072, N 768)."""
+    import torch
+
+    from tf_operator_tpu_torch.ops import grouped_matmul as gm
+
+    gen = torch.Generator(device="cuda").manual_seed(2048)
+    x, sizes, w_in, w_out = moe_routed_inputs(gen)
+    m = x.shape[0]
+    dy = torch.randn(m, MOE_HIDDEN, generator=gen, device="cuda").to(torch.bfloat16)
+    log(f"moe: K5 at the cell, {m} routed rows, group sizes {sizes.tolist()}")
+    cell = k5_check_case("cell", x, w_in, w_out, dy, sizes, 0, mutate=True)
+    for dtype in (torch.bfloat16, torch.float32):
+        for label, rows, k, n, gs, first, held in K5_SMALL:
+            g = torch.Generator(device="cuda").manual_seed(rows)
+            xs = torch.randn(rows, k, generator=g, device="cuda").to(dtype)
+            wi = (torch.randn(held, k, n, generator=g, device="cuda") * k ** -0.5).to(dtype)
+            wo = (torch.randn(held, n, k, generator=g, device="cuda") * k ** -0.5).to(dtype)
+            dys = torch.randn(rows, k, generator=g, device="cuda").to(dtype)
+            k5_check_case(label, xs, wi, wo, dys, torch.tensor(gs, device="cuda"), first,
+                          mutate=False)
+    dh = torch.randn(m, MOE_FFN, generator=gen, device="cuda").to(torch.bfloat16)
+    products = _k5_products(x, w_in, w_out, dy, dh, sizes)
+    offs = torch.cumsum(sizes, 0).to(torch.int32)
+    library = {"grouped_matmul_nn": lambda: torch._grouped_mm(x, w_in, offs=offs),
+               "grouped_matmul_nt": lambda: torch._grouped_mm(dy, w_out.transpose(-2, -1),
+                                                              offs=offs),
+               "grouped_matmul_tgmm": lambda: torch._grouped_mm(x.t(), dh, offs=offs)}
+    others = {"grouped_matmul_nn": lambda: gm.gmm(dh, w_out, sizes),
+              "grouped_matmul_nt": lambda: gm.gmm(dh, w_in, sizes, trans_w=True),
+              "grouped_matmul_tgmm": lambda: gm.tgmm(dh, dy, sizes, 0, MOE_EXPERTS)}
+    b_ms, b_by = k5_bound(m, MOE_HIDDEN, MOE_FFN, MOE_EXPERTS)
+    for name, _ in K5:
+        kernel, plain, _ = products[name]
+        rec = {"ms": time_ms(kernel), "plain_ms": time_ms(plain, reps=2),
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": _grouped_mm_ms(library[name]),
+               "ms_k3072_n768": time_ms(others[name]),
+               "max_abs_err": cell[name][0], "excess": cell[name][1],
+               "shape": {"rows": m, "k": MOE_HIDDEN, "n": MOE_FFN, "groups": MOE_EXPERTS},
+               "group_sizes": sizes.tolist()}
+        records.setdefault(name, {}).update(rec)
+        log(f"moe: {name} at the cell: " + json.dumps(rec))
+
+
+def moe_train_run(dispatch: str, card: str) -> dict:
+    """bench.py's MoE cell through the trainer: a finite loss, K1, K2, K3
+    and the delta pass once a layer a step and, under the sparse dispatch,
+    each K5 kernel twice a MoE layer a step (the dense dispatch launches
+    none); tokens/s, step time, peak memory and MFU (moe_flops_per_step).
+    The launch counts are zeroed just before the run and read just after."""
+    import torch
+
+    from tf_operator_tpu_torch.ops import flash_attention as fa
+    from tf_operator_tpu_torch.ops import grouped_matmul as gm
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    gm.reset_launches()
+    by = run_trainer(moe_argv(dispatch), tag=f"_{dispatch}")
+    launches, k5 = dict(fa.LAUNCHES), dict(gm.LAUNCHES)
+    n_moe = MOE_LAYERS // 2
+    want = {key: MOE_LAYERS * MOE_STEPS for key in FLASH_LAUNCH_KEYS}
+    want_k5 = {key: (2 * n_moe * MOE_STEPS if dispatch == "sparse" else 0) for _, key in K5}
+    if launches != want or k5 != want_k5:
+        raise SmokeFailure(f"moe-lm {dispatch}: launches {launches}, K5 {k5}; want {want}, "
+                           f"{want_k5}")
+    done = by["done"]
+    eps = done.get("examples_per_sec")
+    res = {"dispatch": dispatch, "seq": MOE_SEQ, "batch": MOE_BATCH, "layers": MOE_LAYERS,
+           "steps": MOE_STEPS, "tokens_per_s": eps * MOE_SEQ if eps else None,
+           "mfu": (moe_flops_per_step(MOE_BATCH, MOE_SEQ) * eps / MOE_BATCH
+                   / PEAK_FLOPS["bfloat16"]) if eps else None,
+           "step_time_s": (done.get("step_time_s") or {}).get("mean"),
+           "startup_s": by["first_step"]["startup_s"],
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches_per_step": {k: n / MOE_STEPS for k, n in {**launches, **k5}.items()},
+           "first_loss": by["first_step"]["loss"], "final_loss": done["final_loss"],
+           "card": card}
+    log("moe: " + json.dumps(res))
+    return res
+
+
+def moe_ep_job(dispatch: str, layers: int = MOE_EP_LAYERS) -> DistJob:
+    """The MoE cell at `layers` layers (6 steps) as a DistJob: each K5
+    kernel launches twice a MoE layer (every 2nd) a step under sparse."""
+    return DistJob(f"moe-lm {dispatch} {layers} layers", tuple(moe_argv(dispatch, layers)),
+                   MOE_SEQ, MOE_BATCH, MOE_STEPS, layers, MOE_HEADS, 1,
+                   OUT_DIR / f"moe_reference_{dispatch}.pt", MOE_HIDDEN,
+                   k5_per_step=(layers if dispatch == "sparse" else 0))
+
+
+def moe_phase(records: dict, card: str) -> dict:
+    """K5 (k5_check_phase); K1-K3 and delta at the cell's attention
+    [8, 6, 2048, 128] bf16 causal (every MUTATIONS entry rejected, timed
+    beside bound and SDPA); the cell through the trainer with both
+    dispatches; and ep = 2 (both dispatches, two co-located gloo ranks at
+    MOE_EP_LAYERS layers) held against one process, with the planted fault
+    rejected."""
+    import torch
+
+    torch.cuda.empty_cache()
+    k5_check_phase(records)
+    shape_kernel_check(records, [MOE_SHAPE], "moe", 2048, causal=True)
+    out = {"runs": [moe_train_run(d, card) for d in ("sparse", "dense")]}
+    for name, key in K5:
+        records[name]["launches"] = int(out["runs"][0]["launches_per_step"][key] * MOE_STEPS)
+    for dispatch in ("sparse", "dense"):
+        job = moe_ep_job(dispatch)
+        ref, reference = one_process(card, job)
+        try:
+            out[f"ep_{dispatch}"] = {
+                "reference": reference, "runs": held_against(ref, MOE_EP_RUNS, "gloo", False,
+                                                             card, job),
+                "fault_control": (fault_control(ref, MOE_EP_FAULT, job)
+                                  if dispatch == "sparse" else None)}
+        finally:
+            job.ref.unlink(missing_ok=True)
+    return out
+
+
 # (only with --phases ...,dist4, on a machine of four GPUs) the dist runs
 # with one GPU a rank, as pods of their own: the rule picks NCCL. BERT adds
 # dp = 4, dp x tp and fsdp = 4; the 64k LM runs sp = 4 (ring), sp x tp
-# (ring: 3 local heads) at batch 1 and dp x sp (Ulysses) at batch 2.
+# (ring: 3 local heads) at batch 1 and dp x sp (Ulysses) at batch 2; the
+# MoE cell (12 layers, sparse) runs ep = 4 and dp x ep = 2 x 2.
 DIST4_RUNS = DIST_RUNS + (("dp4", {"dp": 4}), ("dp-tp", {"dp": 2, "tp": 2}),
                           ("fsdp4", {"fsdp": 4}))
 DIST4_SP = ((1, (("sp4-ring", {"sp": 4}, "ring"), ("sp-tp-ring", {"sp": 2, "tp": 2}, "ring")),
              ("sp = 4 without the gradient sum over sp", {"sp": 4}, "no-sp-grad-sum", "ring")),
             (2, (("dp-sp-ulysses", {"dp": 2, "sp": 2}, "ulysses"),), None))
+DIST4_MOE = (("ep4", {"ep": 4}), ("dp-ep", {"dp": 2, "ep": 2}))
 
 
 def dist4_phase(records: dict, card: str) -> dict:
@@ -2369,7 +2743,26 @@ def dist4_phase(records: dict, card: str) -> dict:
                 "fault_control": fault and fault_control(ref, fault, job, own_gpus=True)}
         finally:
             job.ref.unlink(missing_ok=True)
+    out["moe_sparse"] = moe4_phase(card)
     return out
+
+
+def moe4_phase(card: str) -> dict:
+    """(dist4's last part, also a phase of its own on four GPUs) the MoE
+    cell, sparse, at ep = 4 and dp x ep = 2 x 2 with one GPU a rank (NCCL),
+    each held against one process."""
+    import torch
+
+    if torch.cuda.device_count() < 4:
+        raise SmokeFailure(f"the MoE's four-GPU runs need four GPUs, see "
+                           f"{torch.cuda.device_count()}")
+    job = moe_ep_job("sparse", MOE_LAYERS)
+    ref, reference = one_process(card, job)
+    try:
+        return {"reference": reference,
+                "runs": held_against(ref, DIST4_MOE, "nccl", True, card, job)}
+    finally:
+        job.ref.unlink(missing_ok=True)
 
 
 # The LM profile cuts its steps at the attention forward: a kernel whose
@@ -2431,10 +2824,12 @@ def _profile_trainer(argv, steps: int, marker: tuple, per_step: int, groups,
 
 def profile_phase(args, card: str) -> None:
     """Both trainers' runs, as the train phase drives them, the 64k LM
-    with --remat --remat-save-flash (LONGCTX_RUNS' first, 5 steps) and
-    BERT-base at seq 512 (BERT_RUNS' first), under torch.profiler. The LM's steps are cut at their first attention forward
-    (24 a step at 64k: the forward's and the loss replay's), ResNet-50's at
-    their loss's log-softmax forward. The Chrome traces go to OUT_DIR."""
+    with --remat --remat-save-flash (LONGCTX_RUNS' first, 5 steps),
+    BERT-base at seq 512 (BERT_RUNS' first) and the MoE cell (sparse),
+    under torch.profiler. The LM's steps are cut at their first attention
+    forward (24 a step at 64k: the forward's and the loss replay's),
+    ResNet-50's at their loss's log-softmax forward. The Chrome traces go
+    to OUT_DIR."""
     if args.steps < LOG_EVERY + 2:
         raise SmokeFailure(f"the profile needs --steps >= {LOG_EVERY + 2}")
     _profile_trainer(lm_argv(args.steps), args.steps, LM_STEP_MARKER, LAYERS, LM_GROUPS,
@@ -2447,16 +2842,18 @@ def profile_phase(args, card: str) -> None:
     model, seq, batch, layers = BERT_RUNS[0]
     _profile_trainer(bert_argv(model, seq, batch, args.steps), args.steps, LM_STEP_MARKER,
                      layers, LM_GROUPS, batch, card, "bert_profile.trace.json")
+    _profile_trainer(moe_argv("sparse", steps=args.steps), args.steps, LM_STEP_MARKER,
+                     MOE_LAYERS, MOE_GROUPS, MOE_BATCH, card, "moe_profile.trace.json")
 
 
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="build,check,train,ckpt,eval,longctx,preempt,bert,data,dist,sp",
+                    default="build,check,train,ckpt,eval,longctx,preempt,bert,data,dist,sp,moe",
                     help="comma-separated subset of build,check,train,ckpt,eval,longctx,"
-                         "preempt,bert,data,dist,sp,profile; k4 for the fused bottleneck's "
+                         "preempt,bert,data,dist,sp,moe,profile; k4 for the fused bottleneck's "
                          "checks alone (eval follows the ckpt phase's directory); dist4 "
-                         "on a machine of four GPUs")
+                         "(or its MoE runs alone, moe4) on a machine of four GPUs")
     ap.add_argument("--steps", type=int, default=6)
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -2512,8 +2909,12 @@ def main(argv: list[str] | None = None) -> int:
             results["dist"] = dist_phase(records, card)
         if "sp" in phases:
             results["sp"] = sp_phase(records, card)
+        if "moe" in phases:
+            results["moe"] = moe_phase(records, card)
         if "dist4" in phases:
             results["dist4"] = dist4_phase(records, card)
+        elif "moe4" in phases:
+            results["moe4"] = moe4_phase(card)
         if "profile" in phases:
             profile_phase(args, card)
     except Exception as e:  # every phase failure ends the run without a result
@@ -2533,7 +2934,7 @@ def main(argv: list[str] | None = None) -> int:
             "bound_by": rec.get("bound_by"), "library_ms": rec.get("library_ms"),
         }
         for extra in (f"at_batch_{BATCH}", "head_widths", "at_T_65536", "bert", "dist",
-                      "sp", "sp_launches_per_step_per_rank"):
+                      "sp", "sp_launches_per_step_per_rank", "moe"):
             if extra in rec:
                 entry[extra] = rec[extra]
         if name in KERNEL_NOTES:
@@ -2551,6 +2952,17 @@ def main(argv: list[str] | None = None) -> int:
                  "stage under times"),
         "times": rec.get("times"),
     })
+    for name, _ in K5:
+        rec = records.get(name, {})
+        kernels.append({
+            "name": name, "route": "cuda", "source": K5_SOURCE, "replaces": K5_REPLACES,
+            **{k: rec.get(k) for k in ("launches", "max_abs_err", "ms", "plain_ms",
+                                       "bound_ms", "bound_by", "library_ms")},
+            "note": ("launches: the sparse moe-lm cell's run (12 a step); times at the "
+                     "cell's routed rows, K 768, N 3072; ms_k3072_n768 the other "
+                     "orientation; library_ms torch._grouped_mm, or its error"),
+            "ms_k3072_n768": rec.get("ms_k3072_n768"), "group_sizes": rec.get("group_sizes"),
+        })
     log(f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"phases": results}))
     print(json.dumps({"kernels": kernels}))

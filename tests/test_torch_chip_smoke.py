@@ -22,6 +22,7 @@ import torch
 import chip_smoke
 from tf_operator_tpu_torch.ops import flash_attention as fa
 from tf_operator_tpu_torch.ops import fused_bottleneck as fb
+from tf_operator_tpu_torch.ops import grouped_matmul as gm
 
 torch.set_num_threads(2)
 
@@ -209,6 +210,23 @@ def _flash_kernel_names():
     return re.findall(KERNEL_RE, FLASH_CU.read_text())
 
 
+def test_every_k5_kernel_has_its_moe_profile_group():
+    """Each __global__ kernel of grouped_matmul.cu falls in its own MoE
+    profile group (tgmm's name holds gmm's), and the flash kernels in the
+    LM's groups there too."""
+    src = (Path(chip_smoke.__file__).parent / chip_smoke.K5_SOURCE).read_text()
+    names = re.findall(r"(\w+_kernel)\(", src)
+    assert {"gmm_mma_kernel", "tgmm_mma_kernel", "gmm_fma_kernel", "tgmm_fma_kernel"} \
+        <= set(names)
+    for name in set(names):
+        group = chip_smoke.kernel_group(f"void (anonymous namespace)::{name}<true>(int)",
+                                        chip_smoke.MOE_GROUPS)
+        want = "grouped_matmul_tgmm" if name.startswith("tgmm") else "grouped_matmul_gmm"
+        assert group == want, (name, group)
+    assert chip_smoke.kernel_group("void fwd_wgmma_kernel<128>()", chip_smoke.MOE_GROUPS) \
+        == "flash_fwd"
+
+
 def test_every_flash_kernel_has_an_lm_profile_group():
     """Each __global__ kernel of flash_attention.cu falls in an LM profile
     group other than "other", as the profiler names it, and the kernels of
@@ -249,6 +267,8 @@ def _mangled(name, targs=""):
     ("I13__nv_bfloat16Li128EE", "bwd_dq_wgmma_kernel<bf16, 128>"),
     ("", "bwd_dq_wgmma_kernel"),
     ("ILi128EE", "fwd_wgmma_kernel<128>"),
+    ("ILb1EE", "gmm_mma_kernel<true>"),
+    ("ILb0EE", "gmm_mma_kernel<false>"),
 ])
 def test_kernel_label(targs, label):
     name = label.split("<")[0]
@@ -636,3 +656,86 @@ def test_sp_phase_holds_runs_and_rejects_its_faults_on_cpu(tmp_path, monkeypatch
     for fault in chip_smoke.SP_FAULTS:
         res = chip_smoke.fault_control(ref, fault, job)
         assert res["rejected_on"], res
+
+
+def _k5_operands(dtype, rows=300, k=24, n=40, sizes=(0, 1, 130, 169)):
+    rng = np.random.default_rng(11)
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dtype)
+
+    return t(rows, k), t(len(sizes), k, n), t(len(sizes), n, k), t(rows, k), torch.tensor(sizes)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_k5_check_holds_the_plain_version_and_rejects_every_mutation(dtype):
+    """k5_check_case with the plain version standing in for the kernels
+    (CPU tensors): it accepts them (excess 0) and rejects each
+    K5_MUTATIONS entry on every kernel, at groups that are empty, one row
+    and off the tile."""
+    x, w_in, w_out, dy, sizes = _k5_operands(dtype)
+    out = chip_smoke.k5_check_case("cpu", x, w_in, w_out, dy, sizes, 0, mutate=True)
+    assert sorted(out) == sorted(name for name, _ in chip_smoke.K5)
+    assert all(e == (0.0, 0.0) for e in out.values())
+
+
+def test_k5_check_accepts_one_bf16_step_of_gmm():
+    x, w_in, _, _, sizes = _k5_operands(torch.bfloat16)
+    ref = gm.gmm_reference(x, w_in, sizes)
+    got = (ref.view(torch.int16) + 1).view(torch.bfloat16)
+    assert chip_smoke.k5_excess(got, ref, "bfloat16", "gmm") <= 1.0
+    got[7, 3] = float("nan")
+    assert chip_smoke.k5_excess(got, ref, "bfloat16", "gmm") == float("inf")
+
+
+def test_k5_bound_at_the_cell_is_operations():
+    """Each K5 launch at the cell: 2 x 32768 x 768 x 3072 = 154.6 GFLOP, so
+    0.1563 ms at 989 TF/s, against 0.086 ms of bytes."""
+    ms, by = chip_smoke.k5_bound(32768, 768, 3072, 8)
+    assert by == "operations" and abs(ms - 2 * 32768 * 768 * 3072 / 989e9) < 1e-9
+    assert round(ms, 4) == 0.1563
+
+
+def test_moe_flops_per_step_is_the_count():
+    """moe_flops_per_step at a hand-sized model: 6 x the active weights a
+    token (attention projections, the dense MLP, two experts' FFNs and the
+    router, the head) plus causal attention's 3 x 4 x B T(T+1)/2 x h."""
+    b, t, h, v = 2, 4, 8, 10
+    active = 2 * 4 * h * h + 2 * h * 4 * h + (2 * 2 * h * 4 * h + h * 8) + h * v
+    want = 6.0 * active * b * t + 2 * 3 * 4.0 * b * (t * (t + 1) / 2) * h
+    assert chip_smoke.moe_flops_per_step(b, t, layers=2, hidden=h, vocab=v) == want
+
+
+def test_moe_runs_launch_k5_twice_a_moe_layer_a_step():
+    """The ep job's K5 launches: two of each kernel per MoE layer (every
+    2nd) a step under sparse, none under dense; the phase's kernels line
+    names K5's three kernels and the JAX function they replace."""
+    assert chip_smoke.moe_ep_job("sparse").k5_per_step == chip_smoke.MOE_EP_LAYERS
+    assert chip_smoke.moe_ep_job("dense").k5_per_step == 0
+    assert chip_smoke.moe_ep_job("sparse", 12).k5_per_step == 12
+    assert [k for _, k in chip_smoke.K5] == ["gmm_nn", "gmm_nt", "tgmm"]
+    assert chip_smoke.K5_REPLACES == "tf_operator_tpu/models/moe.py:193"
+    assert chip_smoke.MOE_SHAPE == (8, 6, 2048, 128)
+
+
+def test_moe_phase_holds_ep_runs_and_rejects_its_fault_on_cpu(tmp_path, monkeypatch):
+    """The moe phase's ep machinery at a tiny MoE LM on the CPU (where no
+    kernel launches): one process, then ep = 2 as two trainer processes
+    started as pods (dist_child), held against one process at the dist
+    limits for both dispatches; and ep = 2 without the sum over ep
+    rejected on what a wrong update moves."""
+    monkeypatch.setattr(chip_smoke, "OUT_DIR", tmp_path)
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    monkeypatch.setattr(chip_smoke.DistJob, "launches",
+                        lambda self, mesh, mode: dict.fromkeys(chip_smoke.FLASH_LAUNCH_KEYS, 0))
+    for dispatch in ("sparse", "dense"):
+        argv = ("--model", "moe-lm", "--moe-dispatch", dispatch, "--steps", "3", "--batch",
+                "4", "--seq", "32", "--layers", "2", "--hidden", "64", "--heads", "4",
+                "--log-every", "1", "--device", "cpu")
+        job = chip_smoke.DistJob("tiny", argv, 32, 4, 3, 2, 4, 1, tmp_path / "ref.pt", 64)
+        ref, _ = chip_smoke.one_process("cpu", job)
+        runs = chip_smoke.held_against(ref, chip_smoke.MOE_EP_RUNS, "gloo", False, "cpu", job)
+        assert [r["mesh"] for r in runs] == [{"ep": 2}]
+        if dispatch == "sparse":
+            res = chip_smoke.fault_control(ref, chip_smoke.MOE_EP_FAULT, job)
+            assert res["rejected_on"], res

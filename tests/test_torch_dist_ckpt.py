@@ -95,6 +95,38 @@ def test_ranks_that_see_different_checkpoints_refuse_to_resume(tmp_path):
     assert [e["event"] for e in runs[0]["events"]][-1] == "peer_lost"
 
 
+# Rank 1 leaves (os._exit) right after the resume agreement's first
+# collective, the visibility verdict, which it passed.
+_LEAVES_AFTER_FIRST_AGREEMENT = (
+    "import os, sys, torch\n"
+    "from tf_operator_tpu_torch.models import train\n"
+    "from tf_operator_tpu_torch.parallel import collectives\n"
+    "train.COMPUTE_DTYPE = torch.float32\n"
+    "real = collectives.all_gather_int\n"
+    "def all_gather_int(*args, **kwargs):\n"
+    "    out = real(*args, **kwargs)\n"
+    "    if os.environ['JAX_PROCESS_ID'] == '1':\n"
+    "        os._exit(3)\n"
+    "    return out\n"
+    "collectives.all_gather_int = all_gather_int\n"
+    "sys.exit(train.main(sys.argv[1:]))\n")
+
+
+def test_a_peer_that_leaves_after_the_first_agreement_exits_rank_0_retryably(tmp_path):
+    """Both ranks see the step-2 save and agree on it; rank 1 then leaves
+    before the second agreement (full vs params-only), and rank 0, whose
+    agreement needs rank 1's part, exits 138 with peer_lost last."""
+    ck = str(tmp_path / "ck")
+    assert_ok(run_world(tmp_path, ARGV + ["--steps", "2", "--checkpoint-dir", ck], 2,
+                        {"dp": 2}, tag="two"))
+    runs = run_world(tmp_path, ARGV + ["--steps", "4", "--checkpoint-dir", ck], 2,
+                     {"dp": 2}, tag="leave", code=_LEAVES_AFTER_FIRST_AGREEMENT)
+    assert runs[1]["rc"] == 3
+    assert runs[0]["rc"] == 138, runs[0]["stderr"][-2000:]
+    assert [e["event"] for e in runs[0]["events"]][-1] == "peer_lost"
+    assert not [e for e in runs[0]["events"] if e["event"] == "resumed"]
+
+
 def test_a_peer_death_exits_retryably(tmp_path):
     runs = run_world(tmp_path, ARGV + ["--steps", "6", "--chaos",
                                        "kill:step=2,signal=KILL,index=1"], 2, {"dp": 2},

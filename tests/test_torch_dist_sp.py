@@ -326,7 +326,7 @@ def test_example_manifest_runs_the_trainer_at_sp(monkeypatch):
     monkeypatch.setenv("TPUJOB_MESH", json.dumps(axes))
     monkeypatch.delenv("TPUJOB_SP_MODE", raising=False)
     ap = train.build_parser()
-    args = train.parse_args(ap, argv)
+    args = ap.parse_args(argv)
     train.check_flags(ap, args)
     assert args.remat and args.remat_save_flash and args.seq == 65536
     assert sp_mode(mesh_lib.Mesh(axes), args.heads, seq_len=args.seq) == "ulysses"

@@ -10,8 +10,8 @@ no process group is made.
 
 Mesh parity: `normalize_axes`, `local_batch_size` (value and error) and the
 error for axes whose product is not the device count are JAX's. The axes
-the port does not run yet (ep, pp, data above 1) are refused by name; sp,
-which it runs, gets its groups.
+the port does not run yet (pp, data above 1) are refused by name; sp and
+ep, which it runs, get their groups.
 """
 
 import jax
@@ -140,12 +140,20 @@ def test_axes_that_miss_the_world_raise_the_jax_message(axes, world):
     assert str(got.value).split(" (")[0] == head, (got.value, want.value)
 
 
-@pytest.mark.parametrize("axis,item", [("ep", "A11"), ("pp", "A12"), ("data", "A12")])
+@pytest.mark.parametrize("axis,item", [("pp", "A12"), ("data", "A12")])
 def test_unported_axes_are_refused_by_name(axis, item):
     with pytest.raises(mesh_lib.UnportedAxisError, match=f"{axis}=2.*{item}"):
         mesh_lib.check_axes({axis: 2, "dp": 1}, 2)
     # Size 1 is no axis to run: accepted, as JAX keeps it.
     assert mesh_lib.check_axes({axis: 1, "dp": 2}, 2)[axis] == 1
+
+
+def test_ep_is_run_in_the_canonical_order():
+    """ep is ported (the MoE LM's experts): accepted at any size, placed
+    between fsdp and sp, as the JAX package orders it."""
+    axes = mesh_lib.check_axes({"tp": 2, "ep": 2, "dp": 2}, 8)
+    assert list(axes) == ["dp", "ep", "tp"] == list(jmesh.normalize_axes(axes))
+    assert mesh_lib.check_axes({"ep": 4}, 4) == {"ep": 4}
 
 
 def test_sp_is_run_in_the_canonical_order():

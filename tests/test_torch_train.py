@@ -321,8 +321,8 @@ def test_trainer_refuses_cuda_without_a_device(tmp_path):
 
 
 @pytest.mark.parametrize("flag,env,says", [
-    (["--model", "moe-lm"], {}, ["not ported", "--model"]),
-    (["--moe-dispatch", "sparse"], {}, ["not ported", "--moe-dispatch"]),
+    (["--model", "moe-lm", "--moe-dispatch", "sorted"], {}, ["invalid choice", "--moe-dispatch"]),
+    (["--xla-option", "a=b"], {}, ["unrecognized arguments", "--xla-option"]),
     ([], {"TPUJOB_NUM_SLICES": "2"}, ["not ported", "TPUJOB_NUM_SLICES", "A12"]),
     (["--model", "transformer-lm", "--seq", "33"],
      {"JAX_NUM_PROCESSES": "2", "TPUJOB_MESH": '{"sp": 2}'}, ["sp=2 does not divide --seq 33"]),
@@ -335,7 +335,7 @@ def test_trainer_refuses_cuda_without_a_device(tmp_path):
      ["ulysses needs local heads (2) divisible by sp=4"]),
     (["--data-dir", "/nonexistent"], {"JAX_NUM_PROCESSES": "2", "TPUJOB_MESH": '{"sp": 2}'},
      ["--data-dir under sp=2"]),
-    ([], {"JAX_NUM_PROCESSES": "2", "TPUJOB_MESH": '{"ep": 2}'}, ["not ported", "ep=2", "A11"]),
+    ([], {"JAX_NUM_PROCESSES": "2", "TPUJOB_MESH": '{"data": 2}'}, ["not ported", "data=2", "A12"]),
     ([], {"JAX_NUM_PROCESSES": "2", "TPUJOB_MESH": '{"pp": 2}'}, ["not ported", "pp=2", "A12"]),
     ([], {"JAX_NUM_PROCESSES": "2", "TPUJOB_MESH": '{"dp": 4}'},
      ["mesh axes {'dp': 4} need 4 devices, have 2"]),
@@ -344,8 +344,9 @@ def test_trainer_refuses_cuda_without_a_device(tmp_path):
     (["--batch", "3"], {"JAX_NUM_PROCESSES": "2"}, ["global batch 3 not divisible by dp size 2"]),
 ])
 def test_trainer_refuses_what_is_not_ported(flag, env, says, capsys, monkeypatch):
-    """MoE by name; a multi-slice job, a mesh axis the port does not run
-    yet (ep, pp), a mesh whose axes do not multiply to the process count, a
+    """A dispatch the JAX trainer does not have and a JAX-only flag; a
+    multi-slice job, a mesh axis the port does not run yet (pp, data), a
+    mesh whose axes do not multiply to the process count, a
     tp that splits a head, a global batch the data axes do not divide, a
     sequence sp does not divide, Ulysses forced on local heads sp does not
     divide (the JAX message) and --data-dir under sp, by the operator's
@@ -404,6 +405,8 @@ def test_import_hygiene_in_a_fresh_process():
         "assert {'tf_operator_tpu_torch.parallel.' + m for m in ('distributed', 'mesh',\n"
         "        'sharding_rules', 'collectives', 'train_step', 'ring_attention',\n"
         "        'ulysses')} <= set(names), names\n"
+        "assert {'tf_operator_tpu_torch.models.moe',\n"
+        "        'tf_operator_tpu_torch.ops.grouped_matmul'} <= set(names), names\n"
         "for name in names:\n"
         "    __import__(name)\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
@@ -423,6 +426,8 @@ def test_import_hygiene_ast_scan():
     for name in ("distributed", "mesh", "sharding_rules", "collectives", "train_step",
                  "ring_attention", "ulysses"):
         assert ROOT / "tf_operator_tpu_torch" / "parallel" / f"{name}.py" in files
+    for name in ("models/moe.py", "ops/grouped_matmul.py"):
+        assert ROOT / "tf_operator_tpu_torch" / name in files
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):

@@ -10,16 +10,19 @@
         --seq 128 --batch 8 --steps 6 --checkpoint-dir /ckpt
     python -m tf_operator_tpu_torch.models.train --model resnet50 \
         --data-dir /data --input-staging staged --staging-lanes 2
+    python -m tf_operator_tpu_torch.models.train --model moe-lm --moe-dispatch sparse \
+        --seq 2048 --batch 8 --layers 12 --hidden 768 --heads 6
 
-Counterpart of tf_operator_tpu/models/train.py for the models ported so
-far: `mnist-mlp` (the default, as there), `mnist-conv`, `resnet18`,
-`resnet50`, `transformer-lm` and BERT's masked LM (`bert-base`,
+Counterpart of tf_operator_tpu/models/train.py for its models:
+`mnist-mlp` (the default, as there), `mnist-conv`, `resnet18`,
+`resnet50`, `transformer-lm`, BERT's masked LM (`bert-base`,
 `bert-tiny`: their own widths, --layers/--hidden/--heads ignored, full
-attention, max_len max(seq, 8)). Synthetic batches are made on the device
-(x ~ N(0, 1) images of [B, 28, 28] or [B, S, S, 3] with uniform labels;
-uniform tokens for the LM; BERT's 15% [MASK] batches), attention runs
-through the flash kernels, the optimizer is mixed-precision Adam/AdamW,
-and the JSON events are the JAX
+attention, max_len max(seq, 8)) and the MoE LM (`moe-lm`: 8 experts,
+top-2, every 2nd block, `--moe-dispatch` dense or sparse, models/moe.py).
+Synthetic batches are made on the device (x ~ N(0, 1) images of [B, 28,
+28] or [B, S, S, 3] with uniform labels; uniform tokens for the LMs;
+BERT's 15% [MASK] batches), attention runs through the flash kernels, the
+optimizer is mixed-precision Adam/AdamW, and the JSON events are the JAX
 trainer's (`start`, `jax_ready` — kept by name for the bench's segment
 reader, `model_ready`, `first_step`, `progress`, `done`) on stdout and
 appended to `TPUJOB_METRICS_FILE`, plus the `TPUJOB_HEARTBEAT_FILE`
@@ -64,7 +67,7 @@ A job of more than one process (the operator's JAX_NUM_PROCESSES) joins
 one torch.distributed world (parallel/distributed.py: gloo on the CPU, NCCL
 when every process has its own GPU, gloo on CUDA tensors when processes
 share one) and trains one model on the global batch over TPUJOB_MESH's
-dp/fsdp/sp/tp mesh (parallel/mesh.py, the JAX rule tables of
+dp/fsdp/sp/tp/ep mesh (parallel/mesh.py, the JAX rule tables of
 parallel/sharding_rules.py, parallel/train_step.py's plan; the LM and BERT
 split their sequence over sp through ring attention or Ulysses,
 TPUJOB_SP_MODE, TPUJOB_RING_BLOCK and TPUJOB_ULYSSES_MAX_SEQ choosing as
@@ -73,8 +76,8 @@ rank, as the JAX step replicates their batch there). Rank 0 writes
 the checkpoints, gathered to full tensors; the replicas agree on the resume
 step, on a preemption, and exit together (distributed_goodbye) on clean
 completion only. A collective that fails because a peer died exits 138
-(retryable). A multi-slice job (TPUJOB_NUM_SLICES > 1) and the ep, pp
-and data axes are refused with exit 2, naming the ROADMAP item that ports
+(retryable). A multi-slice job (TPUJOB_NUM_SLICES > 1) and the pp and
+data axes are refused with exit 2, naming the ROADMAP item that ports
 them.
 
 It runs on CUDA unless `--device cpu` asks for the CPU, and exits nonzero
@@ -102,10 +105,6 @@ from tf_operator_tpu_torch.parallel.collectives import PeerLostError
 
 MODELS = ("mnist-mlp", "mnist-conv", "resnet18", "resnet50", "transformer-lm",
           "bert-base", "bert-tiny", "moe-lm")
-PORTED_MODELS = ("mnist-mlp", "mnist-conv", "resnet18", "resnet50", "transformer-lm",
-                 "bert-base", "bert-tiny")
-# Flags of the JAX trainer this parser does not define, refused by name.
-UNPORTED_JAX_ARGS = ("--moe-dispatch",)
 # The layers' compute dtype, the JAX trainer's bf16. The CPU tests that hold
 # a multi-process run against one process at f32 tolerances set f32 here in
 # their child processes.
@@ -138,6 +137,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--hidden", type=int, default=512, help="transformer-lm width")
     ap.add_argument("--heads", type=int, default=8,
                     help="transformer-lm attention heads")
+    ap.add_argument("--moe-dispatch", default="dense", choices=["dense", "sparse"],
+                    help="moe-lm token dispatch: dense = GShard capacity einsums; "
+                         "sparse = dropless sorted grouped matmul (K5 on the card)")
     ap.add_argument("--image-size", type=int, default=224, help="resnet input size")
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--optimizer", default="adamw", choices=["adam", "adamw"])
@@ -255,23 +257,9 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def parse_args(ap: argparse.ArgumentParser, argv: list[str] | None):
-    """ap's arguments; a flag of UNPORTED_JAX_ARGS is refused by name, any
-    other unknown argument as argparse refuses it (exit 2 either way)."""
-    args, rest = ap.parse_known_args(argv)
-    for arg in rest:
-        if arg.split("=", 1)[0] in UNPORTED_JAX_ARGS:
-            ap.error(f"{arg.split('=', 1)[0]} is not ported to the PyTorch trainer yet")
-    if rest:
-        ap.error(f"unrecognized arguments: {' '.join(rest)}")
-    return args
-
-
 def check_flags(ap: argparse.ArgumentParser, args) -> None:
     """The JAX trainer's flag-only checks, with its messages (ap.error:
-    exit 2), then the gang the operator's env describes (check_gang), then
-    what this trainer does not handle yet: the models outside
-    PORTED_MODELS."""
+    exit 2), then the gang the operator's env describes (check_gang)."""
     if ((args.remat_save_flash or args.remat_save_flash_layers)
             and not args.remat):
         ap.error("--remat-save-flash[-layers] requires --remat (it selects "
@@ -327,9 +315,6 @@ def check_flags(ap: argparse.ArgumentParser, args) -> None:
                  "without one there is nothing to restore")
     if not args.eval:
         check_gang(ap, args)
-    if args.model not in PORTED_MODELS:
-        ap.error(f"--model {args.model} is not ported to the PyTorch trainer "
-                 f"yet ({', '.join(PORTED_MODELS)} are)")
     for name in ("steps", "batch", "seq", "layers", "hidden", "heads", "log_every",
                  "image_size"):
         if getattr(args, name) < 1:
@@ -373,7 +358,8 @@ def check_gang(ap: argparse.ArgumentParser, args) -> None:
     except ValueError as e:
         ap.error(str(e))
     tp = axes.get("tp", 1)
-    heads = {"transformer-lm": args.heads, "bert-base": tfm.BERT_BASE.num_heads,
+    heads = {"transformer-lm": args.heads, "moe-lm": args.heads,
+             "bert-base": tfm.BERT_BASE.num_heads,
              "bert-tiny": tfm.TINY.num_heads}.get(args.model)
     if tp > 1 and heads is not None and heads % tp:
         ap.error(f"tp={tp} does not divide the {heads} attention heads of --model "
@@ -396,7 +382,7 @@ def main(argv: list[str] | None = None, state_out: dict | None = None) -> int:
     """Parse, check and train (or evaluate). When `state_out` is a dict, the
     final TrainState is left in it under "state" for an in-process caller."""
     ap = build_parser()
-    args = parse_args(ap, argv)
+    args = ap.parse_args(argv)
     check_flags(ap, args)
     if args.device == "cuda" and not torch.cuda.is_available():
         print("error: --device cuda was asked for but no CUDA device is "
@@ -517,7 +503,7 @@ def _build_model(args, device: torch.device, mesh=None):
     over `mesh` (parallel.mesh.Mesh: ring attention or Ulysses where it
     has sp > 1). The loss functions take the whole rows of the batch and
     run the model's sequence shard of them (model.trunk.seq_shard)."""
-    from tf_operator_tpu_torch.parallel.train_step import full_params, seq_slice
+    from tf_operator_tpu_torch.parallel.train_step import seq_slice
 
     gen = torch.Generator(device=device).manual_seed(0)
     if args.model == "transformer-lm":
@@ -541,14 +527,33 @@ def _build_model(args, device: torch.device, mesh=None):
             tokens, seq = batch["tokens"], model.trunk.seq_shard
             local = seq_slice(tokens, seq)
             if chunked_loss:
-                with full_params(model.lm_head):  # its fsdp shards, whole
-                    head = model.lm_head.weight
-                if model.lm_head.tp is not None:  # the vocabulary's tp shards, whole
-                    from tf_operator_tpu_torch.parallel import collectives
-
-                    head = collectives.gather_from(head, 0, model.lm_head.tp.group)
-                return tfm.lm_loss_chunked(model.hidden(local), head, tokens, seq=seq)
+                return tfm.lm_loss_chunked(model.hidden(local), _full_head(model), tokens,
+                                           seq=seq)
             return tfm.lm_loss(model(local), tokens, seq)
+
+        def make_batch(g):
+            return {"tokens": torch.randint(0, cfg.vocab_size, (args.batch, args.seq),
+                                            generator=g, device=device)}
+
+        return model, loss_fn, make_batch
+
+    if args.model == "moe-lm":
+        from tf_operator_tpu_torch.models import moe
+        from tf_operator_tpu_torch.parallel.ring_attention import make_attention_fn
+
+        # The JAX trainer's branch: 8 experts, top-2, every 2nd block, the
+        # chunked head at the LM's cutover, only the loss-level --remat.
+        cfg = moe.MoEConfig(vocab_size=VOCAB, num_layers=args.layers, hidden=args.hidden,
+                            num_heads=args.heads, max_len=args.seq, num_experts=8, top_k=2,
+                            moe_every=2, dispatch=args.moe_dispatch, dtype=COMPUTE_DTYPE)
+        model = moe.MoETransformerLM(cfg, attn_fn=make_attention_fn(mesh, causal=True),
+                                     device=device, generator=gen)
+        chunked_loss = 4.0 * args.batch * args.seq * cfg.vocab_size >= CHUNKED_LOSS_BYTES
+
+        def loss_fn(model, batch):
+            head = _full_head(model) if chunked_loss else None
+            return moe.moe_lm_loss(model, batch["tokens"], chunked=chunked_loss,
+                                   seq=model.trunk.seq_shard, head_weight=head)
 
         def make_batch(g):
             return {"tokens": torch.randint(0, cfg.vocab_size, (args.batch, args.seq),
@@ -614,13 +619,30 @@ def _build_model(args, device: torch.device, mesh=None):
     return model, loss_fn, make_batch
 
 
-def _sharding_rules(args):
-    """The JAX trainer's rule table for --model: the transformer family's
-    tensor-parallel rules, none (replicated, then fsdp) for the rest."""
-    if args.model in ("transformer-lm", "bert-base", "bert-tiny"):
-        from tf_operator_tpu_torch.parallel.sharding_rules import TRANSFORMER_TP_RULES
+def _full_head(model):
+    """The LM head's whole [vocab, hidden] weight for the chunked loss: its
+    fsdp shards gathered, then its vocabulary's tp shards."""
+    from tf_operator_tpu_torch.parallel import collectives
+    from tf_operator_tpu_torch.parallel.train_step import full_params
 
-        return TRANSFORMER_TP_RULES
+    with full_params(model.lm_head):
+        head = model.lm_head.weight
+    if model.lm_head.tp is not None:
+        head = collectives.gather_from(head, 0, model.lm_head.tp.group)
+    return head
+
+
+def _sharding_rules(args):
+    """The JAX trainer's rule table for --model: the MoE rules (the
+    experts over ep and tp, then the transformer's), the transformer
+    family's tensor-parallel rules, none (replicated, then fsdp) for the
+    rest."""
+    from tf_operator_tpu_torch.parallel import sharding_rules
+
+    if args.model == "moe-lm":
+        return sharding_rules.MOE_RULES
+    if args.model in ("transformer-lm", "bert-base", "bert-tiny"):
+        return sharding_rules.TRANSFORMER_TP_RULES
     return None
 
 
@@ -1013,12 +1035,15 @@ def _try_resume(ckpt_dir: str | None, state, tx, allow_reshape: bool, plan):
     `reshaped` block when the gang shape changed.
 
     In a world of several processes every rank walks the shared directory
-    itself, then they agree: rank 0's chosen step and its full-vs-params-
-    only choice are broadcast, and a rank that differs raises (the JAX
-    trainer's visibility errors); a restore error raises instead of walking
-    further, since the ranks agreed on that step only."""
+    itself, then they agree (collectives.agree_int, each verdict seen by
+    every rank at once): on the chosen step and on the full-vs-params-only
+    choice. A rank that differs from process 0 raises the JAX trainer's
+    visibility error (exit 1), and the ranks that agree with process 0 raise
+    PeerLostError (exit 138), since their peer leaves; a restore error
+    raises instead of walking further, since the ranks agreed on that step
+    only."""
     from tf_operator_tpu_torch.models import checkpoint as ckpt
-    from tf_operator_tpu_torch.parallel.collectives import broadcast_int
+    from tf_operator_tpu_torch.parallel.collectives import agree_int
     from tf_operator_tpu_torch.parallel.train_step import (
         load_state_tensors,
         local_state_tensors,
@@ -1087,13 +1112,10 @@ def _try_resume(ckpt_dir: str | None, state, tx, allow_reshape: bool, plan):
     if multi:
         # Every rank runs this agreement (sentinel -1 = sees nothing) before
         # any early return, else the check itself deadlocks.
-        observed = -1 if last is None else last
-        agreed = broadcast_int(observed, device=plan.device)
-        if agreed != observed:
-            raise RuntimeError(
-                f"checkpoint visibility differs across replicas (this process sees step "
-                f"{observed}, process 0 sees {agreed}) — mount a shared --checkpoint-dir "
-                f"volume")
+        agree_int(-1 if last is None else last, lambda mine, first: (
+            f"checkpoint visibility differs across replicas (this process sees step "
+            f"{mine}, process 0 sees {first}) — mount a shared --checkpoint-dir volume"),
+            device=plan.device)
     if last is None:  # step_0 is a valid (externally seeded) checkpoint
         if all_steps:
             return cold_start(f"no restorable checkpoint under {ckpt_dir} (all "
@@ -1138,14 +1160,13 @@ def _try_resume(ckpt_dir: str | None, state, tx, allow_reshape: bool, plan):
         # The ranks agreed on the step; they must also agree on full vs
         # params-only, or one trains on restored Adam moments and another
         # on fresh ones, and the model silently diverges.
-        mine = 1 if partial else 0
-        agreed_partial = broadcast_int(mine, device=plan.device)
-        if agreed_partial != mine:
-            raise RuntimeError(
-                f"trainstate_{last} visibility differs across replicas (this process "
-                f"resumes {'params-only' if mine else 'full'}, process 0 "
-                f"{'params-only' if agreed_partial else 'full'}) — shared "
-                f"--checkpoint-dir volume lagging; retrying")
+        def kind(p: int) -> str:
+            return "params-only" if p else "full"
+
+        agree_int(int(partial), lambda mine, first: (
+            f"trainstate_{last} visibility differs across replicas (this process "
+            f"resumes {kind(mine)}, process 0 {kind(first)}) — shared --checkpoint-dir "
+            f"volume lagging; retrying"), device=plan.device)
     event = {"event": "resumed", "from_step": state.step, "params_only": partial}
     saved_digest = (sharding_m.get("digest") or {}) if sharding_m else {}
     if saved_digest:

@@ -390,11 +390,13 @@ class BertMLM(nn.Module):
 
 
 @torch.no_grad()
-def lecun_normal_(weight: torch.Tensor, generator: torch.Generator | None = None) -> None:
+def lecun_normal_(weight: torch.Tensor, generator: torch.Generator | None = None,
+                  fan_in: int | None = None) -> None:
     """flax's lecun_normal in place: a unit normal truncated at 2 sigma,
     scaled to variance 1/fan_in, fan_in = every dimension but the first
-    (in for a [out, in] kernel, in x kh x kw for an OIHW one)."""
-    fan_in = math.prod(weight.shape[1:])
+    (in for a [out, in] kernel, in x kh x kw for an OIHW one) unless
+    given."""
+    fan_in = fan_in or math.prod(weight.shape[1:])
     nn.init.trunc_normal_(weight, 0.0, 1.0, -2.0, 2.0, generator=generator)
     weight.mul_(math.sqrt(1.0 / fan_in) / 0.87962566103423978)
 
@@ -403,9 +405,12 @@ def lecun_normal_(weight: torch.Tensor, generator: torch.Generator | None = None
 def init_flax_like(model: nn.Module, generator: torch.Generator | None = None) -> None:
     """Flax's default initialisers, in distribution: Dense kernels
     lecun-normal (truncated at 2 sigma), biases 0, embeddings normal with
-    std 1/sqrt(features), LayerNorm scale 1 and bias 0."""
+    std 1/sqrt(features), LayerNorm scale 1 and bias 0; an MoE layer's
+    router and experts by its own fan-ins (models/moe.py)."""
     for mod in model.modules():
-        if isinstance(mod, Dense):
+        if type(mod).__name__ == "MoEMlp":
+            mod.init_flax_like(generator)
+        elif isinstance(mod, Dense):
             lecun_normal_(mod.weight, generator)
             if mod.bias is not None:
                 mod.bias.zero_()

@@ -38,6 +38,7 @@ from __future__ import annotations
 
 import re
 from dataclasses import dataclass
+from typing import Callable
 
 import torch
 import torch.distributed as dist
@@ -181,6 +182,34 @@ def broadcast_int(value: int, group=None, device=None) -> int:
     src = 0 if group is None else dist.get_global_rank(group, 0)
     _call(dist.broadcast, t, src=src, group=group)
     return int(t.item())
+
+
+def all_gather_int(value: int, device=None) -> list[int]:
+    """Every rank's `value`, by rank, on every rank of the world: one
+    all-reduce of a vector in which each rank fills its own slot. Unlike a
+    broadcast, no rank can finish it without hearing from every other."""
+    t = torch.zeros(dist.get_world_size(), dtype=torch.int64, device=device)
+    t[dist.get_rank()] = value
+    _call(dist.all_reduce, t)
+    return [int(v) for v in t.tolist()]
+
+
+def agree_int(value: int, what: Callable[[int, int], str], device=None) -> None:
+    """Hold every rank's `value` against process 0's, on every rank at
+    once (all_gather_int). Where they differ, a rank that differs raises
+    RuntimeError (the job is misconfigured: exit 1), and a rank that agrees
+    with process 0 raises PeerLostError (its disagreeing peers leave: exit
+    138, retryable), without a further collective, so no rank's verdict
+    depends on a send into a peer that is leaving. `what(mine, process 0's)`
+    words the disagreement."""
+    seen = all_gather_int(value, device)
+    if len(set(seen)) == 1:
+        return
+    if value != seen[0]:
+        raise RuntimeError(what(value, seen[0]))
+    others = [r for r, v in enumerate(seen) if v != seen[0]]
+    raise PeerLostError(f"process(es) {others} leave the job; process {others[0]} reports: "
+                        f"{what(seen[others[0]], seen[0])}")
 
 
 def local_slice(t: torch.Tensor, dim: int, index: int, count: int) -> torch.Tensor:

@@ -10,13 +10,13 @@ Axis semantics, as in the JAX package:
   fsdp  data parallel with sharded params and optimizer state
   tp    tensor parallel (megatron-style within attention and the MLP)
   sp    sequence parallel (ring attention or Ulysses over the sequence)
-  ep    expert parallel (A11)
+  ep    expert parallel (the MoE LM's experts; not a data axis)
   pp    pipeline parallel (A12)
   data  the cross-slice axis of a multi-slice job (A12)
 
 Batches split over (dp, fsdp), and a transformer's sequence over sp;
-parameters shard over (fsdp, tp) by sharding_rules. An axis of the last
-three above 1 is refused by name.
+parameters shard over (fsdp, ep, tp) by sharding_rules. An axis of the last
+two above 1 is refused by name.
 
 `Mesh` is a rank grid with one process group for each axis this rank
 needs a collective over, made with the backend of the world's group.
@@ -42,12 +42,14 @@ AXIS_ORDER = ("data", "pp", "dp", "fsdp", "ep", "sp", "tp")
 # links only at the slowest level); "data" is the cross-slice axis.
 DATA_AXIS = "data"
 # Axes the port does not run yet, with the ROADMAP item that ports them.
-UNPORTED_AXES = {"data": "A12 (multi-slice)", "pp": "A12 (the pipeline schedule)",
-                 "ep": "A11 (MoE)"}
+UNPORTED_AXES = {"data": "A12 (multi-slice)", "pp": "A12 (the pipeline schedule)"}
 # The axes a sequence-parallel model sums its gradients over, beside the
 # fsdp-less ones its fsdp shards are summed over after their reduce-scatter.
 GRAD_AXES = ("data", "dp", "fsdp", "sp")
 SHARD_GRAD_AXES = ("data", "dp", "sp")
+# The axes whose ranks each hold part of an MoE layer's experts, and sum
+# their parts of its output.
+EXPERT_AXES = ("ep", "tp")
 
 
 class UnportedAxisError(ValueError):
@@ -155,7 +157,7 @@ def make_mesh(axes: dict[str, int] | None = None) -> Mesh:
         return mesh
     names, grid = mesh.axis_names, mesh.grid
     wanted = [(a,) for a in names if axes[a] > 1]
-    for combo in (data_axes(mesh), GRAD_AXES, SHARD_GRAD_AXES, ("data", "dp")):
+    for combo in (data_axes(mesh), GRAD_AXES, SHARD_GRAD_AXES, ("data", "dp"), EXPERT_AXES):
         sub = tuple(a for a in combo if axes.get(a, 1) > 1)
         if len(sub) > 1 and sub not in wanted:
             wanted.append(sub)

@@ -42,6 +42,15 @@ TRANSFORMER_TP_RULES: Rules = [
     (r".*(bias|scale)$", ()),
 ]
 
+# MoE (models/moe.py naming): stacked expert FFN weights [E, in, out] shard
+# the experts over ep and the matmul dims over tp; the router stays
+# replicated so every dp shard routes identically.
+MOE_RULES: Rules = [
+    (r".*experts_in$", ("ep", None, "tp")),
+    (r".*experts_out$", ("ep", "tp", None)),
+    (r".*/router$", ()),
+] + TRANSFORMER_TP_RULES
+
 
 def path_str(path) -> str:
     """A parameter path as the rules read it: entries joined by "/"; a

@@ -23,6 +23,10 @@ parameter is laid out by sharding_rules' spec:
   - tp: the model holds its tensor-parallel shard, and the layers run
     Megatron's collectives (models/transformer.py's Dense and Embed);
     attention runs on this rank's heads;
+  - ep (an MoE layer's experts, models/moe.py): the model holds its
+    experts (E / ep of them, from ep index x E / ep on), and the layer sums
+    its ranks' parts of its output over ep (and tp); ep ranks hold the same
+    rows, as ep is no data axis in the JAX package;
   - fsdp (zero-3, the JAX layout): the model holds this rank's fsdp shard
     of each fsdp-sharded parameter, and so do mu, nu and the f32 master.
     A layer's full tensors exist only while it runs: its forward
@@ -86,18 +90,19 @@ class TrainState:
 class ParallelPlan:
     """How this rank holds each parameter (in model.parameters() order):
     its spec (port dimension order, of the full parameter), the dimension
-    sharded over tp (the model holds that shard) and over fsdp (the model
-    and the optimizer state hold that shard of the tp shard), and whether
-    its gradient is a partial sum over tp (a column-parallel layer's
-    replicated bias, sliced in the forward); `seq`: the model splits its
-    sequence over sp. The default plan is one process's: nothing sharded,
-    no collective."""
+    sharded over tp and over ep (the model holds that shard) and over fsdp
+    (the model and the optimizer state hold that shard of the tp and ep
+    shard), and whether its gradient is a partial sum over tp (a
+    column-parallel layer's replicated bias, sliced in the forward); `seq`:
+    the model splits its sequence over sp. The default plan is one
+    process's: nothing sharded, no collective."""
 
     mesh: mesh_lib.Mesh = field(default_factory=lambda: mesh_lib.Mesh({"dp": 1}))
     names: list[str] = field(default_factory=list)
     specs: dict[str, tuple] = field(default_factory=dict)
     full_shapes: dict[str, tuple] = field(default_factory=dict)
     tp_dims: list = field(default_factory=list)
+    ep_dims: list = field(default_factory=list)
     fsdp_dims: list = field(default_factory=list)
     tp_partial: list = field(default_factory=list)
     device: Any = None
@@ -134,7 +139,7 @@ class ParallelPlan:
     @property
     def sharded(self) -> bool:
         """Whether some parameter or optimizer leaf is a shard here."""
-        return any(d is not None for d in self.tp_dims + self.fsdp_dims)
+        return any(d is not None for d in self.tp_dims + self.ep_dims + self.fsdp_dims)
 
     def _dim(self, dims: list, i: int):
         return dims[i] if dims else None
@@ -153,18 +158,27 @@ class ParallelPlan:
 
     def full(self, i: int, t: torch.Tensor) -> torch.Tensor:
         """The full tensor of parameter i from this rank's part of it (its
-        fsdp shard of its tp shard); a collective over every rank of the
-        groups involved."""
+        fsdp shard of its tp and ep shard); a collective over every rank of
+        the groups involved."""
         t = self.unshard(i, t)
-        d = self._dim(self.tp_dims, i)
-        return t if d is None else collectives.all_gather(t, d, self.mesh.group("tp"))
+        for axis, dims in (("tp", self.tp_dims), ("ep", self.ep_dims)):
+            d = self._dim(dims, i)
+            if d is not None:
+                t = collectives.all_gather(t, d, self.mesh.group(axis))
+        return t
+
+    def model_part(self, i: int, t: torch.Tensor) -> torch.Tensor:
+        """This rank's tp and ep shard (a view) of parameter i's full t."""
+        for axis, dims in (("ep", self.ep_dims), ("tp", self.tp_dims)):
+            d = self._dim(dims, i)
+            if d is not None:
+                t = collectives.local_slice(t, d, self.mesh.coord(axis),
+                                            mesh_lib.axis_size(self.mesh, axis))
+        return t
 
     def local(self, i: int, t: torch.Tensor) -> torch.Tensor:
         """The inverse of full: this rank's part of parameter i's full t."""
-        d = self._dim(self.tp_dims, i)
-        if d is not None:
-            t = collectives.local_slice(t, d, self.mesh.coord("tp"), self.mesh.shape["tp"])
-        return self.shard(i, t)
+        return self.shard(i, self.model_part(i, t))
 
     def local_rows(self, batch: dict) -> dict:
         """This rank's rows of a global batch (a scalar passes through)."""
@@ -208,18 +222,24 @@ class ParallelPlan:
 
     def global_norm(self, grads: list[torch.Tensor]) -> torch.Tensor:
         """The norm of the full gradient from reduce_grads' gradients
-        (fsdp shards, tp shards where the parameter is tp-sharded): each
-        part's squares summed over the groups that split it."""
-        zero = torch.zeros((), device=grads[0].device)
-        sq = [[zero, zero], [zero, zero]]  # [tp-sharded][fsdp-sharded]
+        (fsdp shards, tp and ep shards where the parameter has them): the
+        squares summed by which of fsdp, tp and ep split the parameter,
+        each sum then over the groups of those axes in turn."""
+        axes = (("fsdp", self.fsdp_dims), ("tp", self.tp_dims), ("ep", self.ep_dims))
+        sq: dict[tuple, torch.Tensor] = {}
         for i, g in enumerate(grads):
-            tp = int(self._dim(self.tp_dims, i) is not None)
-            fs = int(self._dim(self.fsdp_dims, i) is not None)
-            sq[tp][fs] = sq[tp][fs] + g.float().pow(2).sum()
-        fsdp = collectives.all_reduce(torch.stack([sq[1][1], sq[0][1]]),
-                                      self.mesh.group("fsdp"))
-        tp = collectives.all_reduce(sq[1][0] + fsdp[0], self.mesh.group("tp"))
-        return torch.sqrt(tp + sq[0][0] + fsdp[1])
+            key = tuple(self._dim(dims, i) is not None for _, dims in axes)
+            sq[key] = sq.get(key, 0.0) + g.float().pow(2).sum()
+        keys = sorted(sq)  # the same on every rank: the specs are
+        vals = [sq[k] for k in keys]
+        for j, (axis, _) in enumerate(axes):
+            idx = [n for n, k in enumerate(keys) if k[j]]
+            if idx:
+                summed = collectives.all_reduce(torch.stack([vals[n] for n in idx]),
+                                                self.mesh.group(axis))
+                for n, v in zip(idx, summed):
+                    vals[n] = v
+        return torch.sqrt(torch.stack(vals).sum())
 
 
 def seq_slice(x: torch.Tensor, seq: tuple[int, int]) -> torch.Tensor:
@@ -230,7 +250,7 @@ def seq_slice(x: torch.Tensor, seq: tuple[int, int]) -> torch.Tensor:
 
 # Module classes whose parameters zero-3 gathers as one bucket; any other
 # parameter is gathered with its own module's.
-FSDP_UNITS = ("Block", "BottleneckBlock")
+FSDP_UNITS = ("Block", "MoEBlock", "BottleneckBlock")
 
 
 @dataclass
@@ -293,6 +313,22 @@ def _install_fsdp(model: nn.Module, plan: ParallelPlan) -> None:
         mod.forward = functools.partial(_unit_forward, mod.fsdp_unit, mod.forward)
 
 
+def _place_experts(mod: nn.Module, plan: ParallelPlan, name: str) -> None:
+    """An MoE layer's share of the experts on this rank: the first of its
+    experts, the group of the axes that split them (ep, tp: those its
+    experts_in spec names), and the group and size over which its Switch
+    fraction is averaged (the data axes, and sp under `seq`)."""
+    mesh = plan.mesh
+    spec = plan.specs[f"{name}.experts_in"]
+    if "ep" in spec:
+        mod.first_expert = mesh.coord("ep") * mod.experts_in.shape[0]
+    mod.group = mesh.group(*(a for a in mesh_lib.EXPERT_AXES if a in spec))
+    axes = tuple(a for a in mesh_lib.GRAD_AXES if a != "sp" or plan.seq)
+    mod.stats = (mesh.group(*axes), mesh.size(*axes))
+    if plan.seq:
+        mod.sp_group = mesh.group("sp")
+
+
 def parallelize(model: nn.Module, mesh: mesh_lib.Mesh, rules=None,
                 device=None) -> ParallelPlan:
     """Lay a freshly built, full model out on `mesh` by `rules`
@@ -312,14 +348,18 @@ def parallelize(model: nn.Module, mesh: mesh_lib.Mesh, rules=None,
     for name, p in model.named_parameters():
         spec = plan.specs[name]
         tp_dim = spec.index("tp") if "tp" in spec else None
+        ep_dim = spec.index("ep") if "ep" in spec else None
         plan.tp_dims.append(tp_dim)
+        plan.ep_dims.append(ep_dim)
         plan.fsdp_dims.append(spec.index("fsdp") if "fsdp" in spec else None)
-        if tp_dim is None:
+        if tp_dim is None and ep_dim is None:
             continue
         with torch.no_grad():
-            p.data = collectives.local_slice(p.data, tp_dim, tp_i, tp_n).clone()
+            p.data = plan.model_part(len(plan.tp_dims) - 1, p.data).clone()
         mod_name = name.rpartition(".")[0]
         mod = modules[mod_name]
+        if type(mod).__name__ == "MoEMlp":
+            continue  # its experts' groups are set below, with the sp ones
         if type(mod).__name__ == "Embed":
             mod.tp = collectives.TpShard("rows", tp_group, tp_i, tp_n)
         elif tp_dim == 0:
@@ -331,9 +371,12 @@ def parallelize(model: nn.Module, mesh: mesh_lib.Mesh, rules=None,
         else:
             mod.tp = collectives.TpShard("row", tp_group, tp_i, tp_n)
     plan.tp_partial = [n in col_biases for n in names]
-    _install_fsdp(model, plan)
     plan.seq = (mesh_lib.axis_size(mesh, "sp") > 1
                 and any(hasattr(mod, "seq_shard") for mod in modules.values()))
+    for mod_name, mod in modules.items():
+        if type(mod).__name__ == "MoEMlp":
+            _place_experts(mod, plan, mod_name)
+    _install_fsdp(model, plan)
     for mod in modules.values():
         if plan.n_data > 1 and hasattr(mod, "sync"):
             mod.sync = (plan.data_group, plan.n_data)
