@@ -10,6 +10,7 @@
     python3 chip_smoke.py --phases build,dist         # torch.distributed: NCCL, dp/tp/fsdp
     python3 chip_smoke.py --phases build,sp           # sequence parallelism: ring, Ulysses
     python3 chip_smoke.py --phases build,moe          # the MoE LM and K5, ep = 2
+    python3 chip_smoke.py --phases build,k5           # K5's checks and times alone
     python3 chip_smoke.py --phases build,dist4        # four GPUs over NCCL (not default)
     python3 chip_smoke.py --phases build,moe4         # dist4's MoE runs alone (four GPUs)
 
@@ -18,7 +19,8 @@ Phases, in order:
   2. build the CUDA kernels from tf_operator_tpu_torch/csrc with nvcc, one
      nvcc per source, all started together, and log each kernel's registers
      and spills (ptxas) and its count of wgmma (HGMMA) instructions in the
-     built library's SASS;
+     built library's SASS: every *wgmma_kernel must have HGMMA ones, every
+     other *mma_kernel (K5's mma.sync route) HMMA ones (sass_failures);
   3. hold each kernel against its plain PyTorch version on the card: the
      flash kernels (the forward with and without its lse) and the
      backward's delta pass at the LM trainer's attention shape and four
@@ -120,19 +122,22 @@ Phases, in order:
      (sp = 2 without the gradient sum over sp, a ring without the
      visibility mask) must each fail that comparison;
  13. the MoE LM (moe): K5, the grouped matmul of the dropless dispatch
-     (gmm NN and NT, tgmm), held against its plain version at bench.py's MoE
-     cell (12 x 768, 8 experts top-2, seq 2048, batch 8: 32768 routed rows
-     from a top-2 routing of random tokens, K x N = 768 x 3072; every
-     K5_MUTATIONS entry rejected) and at small ragged cases in bf16 and f32
-     (an empty group, a one-row group, sizes off the tile, all rows in one
-     expert, two of four groups, K and N off 8), timed at the cell beside
-     its bound, its plain version and torch._grouped_mm; K1-K3 and delta at
-     the cell's [8, 6, 2048, 128] bf16 causal; then the cell through the
-     trainer with --moe-dispatch sparse (K1-K3 and delta 12 a step, each K5
-     kernel 12: tokens/s, MFU by moe_flops_per_step, peak memory) and dense
-     (no K5 launch); then ep = 2 at 4 layers, both dispatches, as two
-     co-located gloo ranks held against one process, and ep = 2 without the
-     sum over ep rejected;
+     (gmm NN and NT, tgmm with an f32 and a bf16 output), held against its
+     plain version at bench.py's MoE cell (12 x 768, 8 experts top-2, seq
+     2048, batch 8: 32768 routed rows from a top-2 routing of random
+     tokens, K x N = 768 x 3072, the wgmma route; every K5_MUTATIONS entry
+     rejected) and at K5_SMALL's ragged cases in bf16 (both bf16 routes)
+     and f32, each output handed to the kernel NaN-filled (an empty group,
+     a one-row group, sizes off the tile, groups of 1-63 rows, all rows in
+     one expert, two of four groups on each bf16 route, K and N off 8),
+     timed at the cell beside its bound, its plain version and
+     torch._grouped_mm (the k5 phase alone does this much); K1-K3 and
+     delta at the cell's [8, 6, 2048, 128] bf16 causal; then the cell
+     through the trainer with --moe-dispatch sparse (K1-K3 and delta 12 a
+     step, each K5 kernel 12, all on the wgmma route: tokens/s, MFU by
+     moe_flops_per_step, peak memory) and dense (no K5 launch); then ep = 2
+     at 4 layers, both dispatches, as two co-located gloo ranks held
+     against one process, and ep = 2 without the sum over ep rejected;
  14. (only with --phases ...,dist4, on four GPUs) the dist runs and dp = 4,
      dp x tp = 2 x 2 and fsdp = 4 with one GPU a rank (CUDA_VISIBLE_DEVICES),
      where the backend rule picks NCCL; then the 64k LM at sp = 4 (ring)
@@ -156,6 +161,7 @@ result line. Needs a CUDA device: it never runs on the CPU.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -381,21 +387,28 @@ def build_phase() -> float:
     for name in SOURCES:
         sass = subprocess.run([str(cuobjdump), "--dump-sass", str(_build.library_path(name))],
                               capture_output=True, text=True, timeout=300, check=True).stdout
-        counts = sass_counts(sass, "HGMMA")
-        log(f"  sass {name}: HGMMA instructions per kernel: "
-            + ", ".join(f"{k} {n}" for k, n in sorted(counts.items())))
-        missing = [k for k, n in counts.items() if "wgmma" in k and n == 0]
-        if missing:
-            raise SmokeFailure(f"wgmma kernels without HGMMA instructions: {missing}")
-        # K5's bf16 kernels run mma.sync, which SASS spells HMMA.
-        counts = sass_counts(sass, "HMMA")
-        if name == "grouped_matmul":
-            log(f"  sass {name}: HMMA instructions per kernel: "
-                + ", ".join(f"{k} {n}" for k, n in sorted(counts.items())))
-            missing = [k for k, n in counts.items() if "mma_kernel" in k and n == 0]
-            if missing:
-                raise SmokeFailure(f"mma.sync kernels without HMMA instructions: {missing}")
+        for opcode in ("HGMMA", "HMMA"):
+            counts = sass_counts(sass, opcode)
+            if opcode == "HGMMA" or name == "grouped_matmul":
+                log(f"  sass {name}: {opcode} instructions per kernel: "
+                    + ", ".join(f"{k} {n}" for k, n in sorted(counts.items())))
+        failures = sass_failures(sass)
+        if failures:
+            raise SmokeFailure(f"{name}: " + "; ".join(failures))
     return secs
+
+
+def sass_failures(sass: str) -> list[str]:
+    """The kernels of a cuobjdump --dump-sass listing that miss their
+    tensor-core instructions: a *wgmma_kernel without HGMMA (wgmma), and
+    any other *mma_kernel (K5's mma.sync route) without HMMA (mma.sync;
+    "HGMMA" does not hold "HMMA" as a word)."""
+    hgmma, hmma = sass_counts(sass, "HGMMA"), sass_counts(sass, "HMMA")
+    out = [f"{k} without HGMMA instructions" for k, n in hgmma.items()
+           if "wgmma_kernel" in k and n == 0]
+    out += [f"{k} without HMMA instructions" for k, n in hmma.items()
+            if "mma_kernel" in k and "wgmma" not in k and n == 0]
+    return out
 
 
 def kernel_label(mangled: str) -> str:
@@ -1278,10 +1291,13 @@ LM_GROUPS = (("flash_fwd", ("fwd_kernel", "fwd_wgmma_kernel")),
              ("flash_bwd_dkv", ("bwd_dkv_kernel", "bwd_dkv_wgmma_kernel")),
              ("flash_bwd_delta", ("bwd_delta_kernel",)),
              ("matmul", ("nvjet", "gemm", "xmma", "cutlass")))
-# The MoE LM's: K5's kernels (tgmm first: "gmm_mma" is in its name) and
+# The MoE LM's: K5's kernels on each route (tgmm first: "gmm_wgmma",
+# "gmm_mma" and "gmm_fma" are in its names) and
 # the LM's groups.
-MOE_GROUPS = (("grouped_matmul_tgmm", ("tgmm_mma_kernel", "tgmm_fma_kernel")),
-              ("grouped_matmul_gmm", ("gmm_mma_kernel", "gmm_fma_kernel")), *LM_GROUPS)
+MOE_GROUPS = (("grouped_matmul_tgmm", ("tgmm_wgmma_kernel", "tgmm_mma_kernel",
+                                        "tgmm_fma_kernel")),
+              ("grouped_matmul_gmm", ("gmm_wgmma_kernel", "gmm_mma_kernel", "gmm_fma_kernel")),
+              *LM_GROUPS)
 RESNET_GROUPS = (("conv", ("fprop", "dgrad", "wgrad", "conv", "implicit", "winograd",
                            "xmma")),
                  ("matmul", ("nvjet", "gemm", "cutlass")),
@@ -2390,20 +2406,39 @@ MOE_SHAPE = (MOE_BATCH, MOE_HEADS, MOE_SEQ, MOE_HIDDEN // MOE_HEADS)
 K5 = (("grouped_matmul_nn", "gmm_nn"), ("grouped_matmul_nt", "gmm_nt"),
       ("grouped_matmul_tgmm", "tgmm"))
 K5_SOURCE = "tf_operator_tpu_torch/csrc/grouped_matmul.cu"
+# The kernel functions behind each record, one a route: wgmma (bf16 that
+# TMA can describe: the cell), mma.sync (other bf16), FMA (f32).
+K5_FUNCTIONS = {
+    "grouped_matmul_nn": ["gmm_wgmma_kernel<false>", "gmm_mma_kernel<false>",
+                          "gmm_fma_kernel<false>"],
+    "grouped_matmul_nt": ["gmm_wgmma_kernel<true>", "gmm_mma_kernel<true>",
+                          "gmm_fma_kernel<true>"],
+    "grouped_matmul_tgmm": ["tgmm_wgmma_kernel", "tgmm_mma_kernel", "tgmm_fma_kernel"],
+}
 K5_REPLACES = "tf_operator_tpu/models/moe.py:193"
 # Per-element limits of K5 against its plain version, |got - ref| <= rtol
 # |ref| + atol s, s the rms of ref: gmm's bf16 output is one rounding of an
 # f32 sum on both sides, so a value near a rounding boundary may land one
 # bf16 step (2^-7 relative at most) away: rtol 1e-2, atol 1e-2 s. tgmm's
-# output is f32, and in f32 the inputs' products are exact on both sides:
-# only the order of the sums differs (1e-4). f32 inputs run the FMA kernels
-# against an f32 plain version: 1e-5.
+# f32 output: in f32 the inputs' products are exact on both sides, only the
+# order of the sums differs (1e-4). tgmm's bf16 output (the trainer's dW,
+# written in w's dtype) is one rounding of those f32 sums on both sides,
+# which may land one bf16 step apart as gmm's do: gmm's (1e-2, 1e-2). f32
+# inputs run the FMA kernels against an f32 plain version: 1e-5.
 K5_TOL = {("bfloat16", "gmm"): (1e-2, 1e-2), ("bfloat16", "tgmm"): (1e-4, 1e-4),
-          ("float32", "gmm"): (1e-5, 1e-5), ("float32", "tgmm"): (1e-5, 1e-5)}
+          ("bfloat16", "tgmm_bf16"): (1e-2, 1e-2),
+          ("float32", "gmm"): (1e-5, 1e-5), ("float32", "tgmm"): (1e-5, 1e-5),
+          ("float32", "tgmm_bf16"): (1e-2, 1e-2)}
 # The small cases: (label, M, K, N, group sizes, first group, groups held).
+# In bf16 a case whose K and N are multiples of 8 takes the wgmma route (K
+# and N off 64 here, so TMA's zero fill and the tiles' tails are reached),
+# the others the mma.sync route (grouped_matmul.route); the tgmm edge
+# masks' groups of 1-63 rows start and end inside 64-row k-steps.
 K5_SMALL = (
     ("empty, one-row and off-tile groups", 300, 72, 136, (0, 1, 130, 169), 0, 4),
+    ("tgmm edge masks: groups of 1-63 rows", 300, 72, 136, (5, 1, 63, 17, 40, 62, 112), 0, 7),
     ("all rows in one expert", 300, 72, 136, (300, 0, 0, 0), 0, 4),
+    ("two of four groups (ep), wgmma", 517, 40, 104, (100, 200, 117, 100), 1, 2),
     ("two of four groups (ep)", 517, 40, 100, (100, 200, 117, 100), 1, 2),
     ("K, N off 8 (element loads)", 257, 30, 50, (128, 129), 0, 2),
 )
@@ -2502,10 +2537,14 @@ def _k5_products(x, w_in, w_out, dy, dh, sizes, first: int = 0) -> dict:
     """K5's three kernels on one set of operands: {name: (kernel call,
     plain call of (sizes, w, row operand), kind)}: NN is x . w_in, NT is
     dy . w_out^T (dgrad's orientation, w_out [G, N, K] as it lies), tgmm is
-    x^T . dh over the groups."""
+    x^T . dh over the groups, with an f32 output and (tgmm_bf16, as the
+    trainer's backward asks for it) a bf16 one."""
+    import torch
+
     from tf_operator_tpu_torch.ops import grouped_matmul as gm
 
     local = w_in.shape[0]
+    bf16 = torch.bfloat16
     return {
         "grouped_matmul_nn": (lambda: gm.gmm(x, w_in, sizes, first),
                               lambda s=sizes, w=w_in, a=x: gm.gmm_reference(a, w, s, first),
@@ -2516,13 +2555,45 @@ def _k5_products(x, w_in, w_out, dy, dh, sizes, first: int = 0) -> dict:
         "grouped_matmul_tgmm": (lambda: gm.tgmm(x, dh, sizes, first, local),
                                 lambda s=sizes, w=None, a=x: gm.tgmm_reference(a, dh, s, first,
                                                                                local), "tgmm"),
+        "grouped_matmul_tgmm_bf16": (
+            lambda: gm.tgmm(x, dh, sizes, first, local, bf16),
+            lambda s=sizes, w=None, a=x: gm.tgmm_reference(a, dh, s, first, local, bf16),
+            "tgmm_bf16"),
     }
+
+
+@contextlib.contextmanager
+def stale_outputs():
+    """Inside, every floating tensor torch.empty makes is filled with NaN:
+    the memory a kernel's output lands on then holds no zeros by chance,
+    and a row the kernel misses fails the check. (Filling a freed block
+    and counting on the caching allocator to hand it back is not certain:
+    a freed block coalesces with free neighbours.)"""
+    import torch
+
+    empty = torch.empty
+
+    def nan_empty(*args, **kwargs):
+        t = empty(*args, **kwargs)
+        if t.is_floating_point():
+            t.fill_(float("nan"))
+        return t
+
+    torch.empty = nan_empty
+    try:
+        yield
+    finally:
+        torch.empty = empty
 
 
 def k5_check_case(label: str, x, w_in, w_out, dy, sizes, first: int, mutate: bool) -> dict:
     """Each K5 kernel against its plain version on one case (tgmm's dY the
-    plain NT product): {name: (max |got - ref|, excess)}; with `mutate`,
-    every K5_MUTATIONS entry's output must be rejected (raises otherwise)."""
+    plain NT product), its output handed to it NaN-filled (stale_outputs):
+    {name: (max |got - ref|, excess)}; with `mutate`, every K5_MUTATIONS
+    entry's output must be rejected (raises otherwise) on each kernel's
+    output at its own limits. (Not on tgmm's bf16 output: it is the f32
+    output's sums rounded once, and a dropped row of a 4000-row sum moves
+    an element less than the bf16 limit.)"""
     import torch
 
     from tf_operator_tpu_torch.ops import grouped_matmul as gm
@@ -2532,13 +2603,14 @@ def k5_check_case(label: str, x, w_in, w_out, dy, sizes, first: int, mutate: boo
     out, rejected = {}, {}
     for name, (kernel, plain, kind) in _k5_products(x, w_in, w_out, dy, dh, sizes,
                                                     first).items():
-        got = kernel()
+        with stale_outputs():
+            got = kernel()
         if got.is_cuda:
             torch.cuda.synchronize()
         ref = plain()
         out[name] = ((got.float() - ref.float()).abs().max().item(),
                      k5_excess(got, ref, dtype_name, kind))
-        if mutate:
+        if mutate and kind != "tgmm_bf16":
             w = w_in if name.endswith("nn") else w_out
             a = dy if name.endswith("nt") else x
             for what, alter in K5_MUTATIONS:
@@ -2551,7 +2623,9 @@ def k5_check_case(label: str, x, w_in, w_out, dy, sizes, first: int, mutate: boo
     accepted = [k for k, e in rejected.items() if not e > 1.0]
     if accepted:
         raise SmokeFailure(f"the K5 check accepts broken outputs: {accepted}")
-    log(f"moe: K5 {label} {dtype_name}: (max abs err, excess) "
+    path = gm.route(x.dtype, x.shape[0], x.shape[1], w_in.shape[2], w_in.shape[0],
+                    x.data_ptr(), w_in.data_ptr())
+    log(f"moe: K5 {label} {dtype_name} ({path} route): (max abs err, excess) "
         + ", ".join(f"{n}=({e[0]:.3g}, {e[1]:.3g})" for n, e in out.items())
         + ("; mutations rejected, excess " + ", ".join(f"{k}={e:.3g}" for k, e in
                                                      rejected.items()) if mutate else ""))
@@ -2563,8 +2637,9 @@ def k5_check_case(label: str, x, w_in, w_out, dy, sizes, first: int, mutate: boo
 
 def k5_bound(m_rows: int, k: int, n: int, groups: int) -> tuple[float, str]:
     """(bound_ms, bound_by) of one K5 launch at the cell: 2 m k n operations
-    at the bf16 peak against its bytes (x [m, k], w [G, k, n] and out [m, n]
-    in bf16; tgmm's [G, k, n] output f32 and its inputs [m, k], [m, n])."""
+    at the bf16 peak against its bytes, all bf16 (gmm: x [m, k], w [G, k, n]
+    and out [m, n]; tgmm: x [m, k], dy [m, n] and dw [G, k, n], written in
+    the weights' dtype as the trainer asks and as its ms is timed)."""
     t_ops = 2.0 * m_rows * k * n / PEAK_FLOPS["bfloat16"] * 1e3
     t_bytes = 2.0 * (m_rows * k + groups * k * n + m_rows * n) / PEAK_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
@@ -2580,10 +2655,14 @@ def _grouped_mm_ms(fn) -> float | str:
 
 def k5_check_phase(records: dict) -> None:
     """K5 against its plain version at the cell's products on routed
-    operands (every K5_MUTATIONS entry rejected) and at K5_SMALL in bf16
-    and f32; then each kernel timed at the cell beside its bound, its plain
+    operands (every K5_MUTATIONS entry rejected), at their other
+    orientation (K 3072, N 768) and at K5_SMALL in bf16 and f32; then each
+    kernel timed at the cell beside its bound, its plain
     version and torch._grouped_mm (the library yardstick, never called by
-    the port), and at the cell's other orientation (K 3072, N 768)."""
+    the port), and at the cell's other orientation (K 3072, N 768). tgmm's
+    ms is its bf16 output's, as the trainer's backward and
+    torch._grouped_mm write it (ms_f32_out beside it); each record names
+    the route its launches took and the SM count of the persistent grid."""
     import torch
 
     from tf_operator_tpu_torch.ops import grouped_matmul as gm
@@ -2604,6 +2683,8 @@ def k5_check_phase(records: dict) -> None:
             k5_check_case(label, xs, wi, wo, dys, torch.tensor(gs, device="cuda"), first,
                           mutate=False)
     dh = torch.randn(m, MOE_FFN, generator=gen, device="cuda").to(torch.bfloat16)
+    # The trainer's other orientation, the experts' second product.
+    k5_check_case("cell, K 3072, N 768", dh, w_out, w_in, dh, sizes, 0, mutate=False)
     products = _k5_products(x, w_in, w_out, dy, dh, sizes)
     offs = torch.cumsum(sizes, 0).to(torch.int32)
     library = {"grouped_matmul_nn": lambda: torch._grouped_mm(x, w_in, offs=offs),
@@ -2612,16 +2693,26 @@ def k5_check_phase(records: dict) -> None:
                "grouped_matmul_tgmm": lambda: torch._grouped_mm(x.t(), dh, offs=offs)}
     others = {"grouped_matmul_nn": lambda: gm.gmm(dh, w_out, sizes),
               "grouped_matmul_nt": lambda: gm.gmm(dh, w_in, sizes, trans_w=True),
-              "grouped_matmul_tgmm": lambda: gm.tgmm(dh, dy, sizes, 0, MOE_EXPERTS)}
+              "grouped_matmul_tgmm": lambda: gm.tgmm(dh, dy, sizes, 0, MOE_EXPERTS),
+              "grouped_matmul_tgmm_bf16": lambda: gm.tgmm(dh, dy, sizes, 0, MOE_EXPERTS,
+                                                          torch.bfloat16)}
     b_ms, b_by = k5_bound(m, MOE_HIDDEN, MOE_FFN, MOE_EXPERTS)
     for name, _ in K5:
-        kernel, plain, _ = products[name]
+        timed = name + "_bf16" if name.endswith("tgmm") else name
+        kernel, plain, _ = products[timed]
+        gm.reset_launches()
         rec = {"ms": time_ms(kernel), "plain_ms": time_ms(plain, reps=2),
                "bound_ms": b_ms, "bound_by": b_by, "library_ms": _grouped_mm_ms(library[name]),
-               "ms_k3072_n768": time_ms(others[name]),
-               "max_abs_err": cell[name][0], "excess": cell[name][1],
+               "ms_k3072_n768": time_ms(others[timed]),
+               "max_abs_err": cell[timed][0], "excess": cell[timed][1],
+               "route": [r for r, c in gm.ROUTE_LAUNCHES.items() if c],
+               # the persistent grid of the wgmma route: one block an SM
+               "sm_count": torch.cuda.get_device_properties(0).multi_processor_count,
                "shape": {"rows": m, "k": MOE_HIDDEN, "n": MOE_FFN, "groups": MOE_EXPERTS},
                "group_sizes": sizes.tolist()}
+        if timed != name:
+            rec["ms_f32_out"] = time_ms(products[name][0])
+            rec["f32_out_max_abs_err"], rec["f32_out_excess"] = cell[name]
         records.setdefault(name, {}).update(rec)
         log(f"moe: {name} at the cell: " + json.dumps(rec))
 
@@ -2642,13 +2733,15 @@ def moe_train_run(dispatch: str, card: str) -> dict:
     fa.reset_launches()
     gm.reset_launches()
     by = run_trainer(moe_argv(dispatch), tag=f"_{dispatch}")
-    launches, k5 = dict(fa.LAUNCHES), dict(gm.LAUNCHES)
+    launches, k5, routes = dict(fa.LAUNCHES), dict(gm.LAUNCHES), dict(gm.ROUTE_LAUNCHES)
     n_moe = MOE_LAYERS // 2
     want = {key: MOE_LAYERS * MOE_STEPS for key in FLASH_LAUNCH_KEYS}
     want_k5 = {key: (2 * n_moe * MOE_STEPS if dispatch == "sparse" else 0) for _, key in K5}
-    if launches != want or k5 != want_k5:
-        raise SmokeFailure(f"moe-lm {dispatch}: launches {launches}, K5 {k5}; want {want}, "
-                           f"{want_k5}")
+    # The cell's products (K, N 768 and 3072) all take the wgmma route.
+    want_routes = {"wgmma": sum(want_k5.values()), "mma": 0, "fma": 0}
+    if launches != want or k5 != want_k5 or routes != want_routes:
+        raise SmokeFailure(f"moe-lm {dispatch}: launches {launches}, K5 {k5} by route "
+                           f"{routes}; want {want}, {want_k5}, {want_routes}")
     done = by["done"]
     eps = done.get("examples_per_sec")
     res = {"dispatch": dispatch, "seq": MOE_SEQ, "batch": MOE_BATCH, "layers": MOE_LAYERS,
@@ -2659,6 +2752,7 @@ def moe_train_run(dispatch: str, card: str) -> dict:
            "startup_s": by["first_step"]["startup_s"],
            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
            "launches_per_step": {k: n / MOE_STEPS for k, n in {**launches, **k5}.items()},
+           "k5_launches_by_route": routes,
            "first_loss": by["first_step"]["loss"], "final_loss": done["final_loss"],
            "card": card}
     log("moe: " + json.dumps(res))
@@ -2852,7 +2946,8 @@ def main(argv: list[str] | None = None) -> int:
                     default="build,check,train,ckpt,eval,longctx,preempt,bert,data,dist,sp,moe",
                     help="comma-separated subset of build,check,train,ckpt,eval,longctx,"
                          "preempt,bert,data,dist,sp,moe,profile; k4 for the fused bottleneck's "
-                         "checks alone (eval follows the ckpt phase's directory); dist4 "
+                         "checks alone, k5 for the grouped matmul's (moe runs them too; "
+                         "eval follows the ckpt phase's directory); dist4 "
                          "(or its MoE runs alone, moe4) on a machine of four GPUs")
     ap.add_argument("--steps", type=int, default=6)
     args = ap.parse_args(argv)
@@ -2886,6 +2981,8 @@ def main(argv: list[str] | None = None) -> int:
             check_phase(records)
         elif "k4" in phases:
             k4_check_phase(records)
+        if "k5" in phases and "moe" not in phases:
+            k5_check_phase(records)
         uninterrupted = synthetic_ips = None
         if "train" in phases:
             launches, uninterrupted = train_phase(args, card)
@@ -2958,10 +3055,15 @@ def main(argv: list[str] | None = None) -> int:
             "name": name, "route": "cuda", "source": K5_SOURCE, "replaces": K5_REPLACES,
             **{k: rec.get(k) for k in ("launches", "max_abs_err", "ms", "plain_ms",
                                        "bound_ms", "bound_by", "library_ms")},
+            "kernel_functions": K5_FUNCTIONS[name],
+            "kernel_route": rec.get("route"), "sm_count": rec.get("sm_count"),
             "note": ("launches: the sparse moe-lm cell's run (12 a step); times at the "
-                     "cell's routed rows, K 768, N 3072; ms_k3072_n768 the other "
-                     "orientation; library_ms torch._grouped_mm, or its error"),
-            "ms_k3072_n768": rec.get("ms_k3072_n768"), "group_sizes": rec.get("group_sizes"),
+                     "cell's routed rows, K 768, N 3072, on kernel_route (the first of "
+                     "kernel_functions; the others are the mma.sync and FMA routes); "
+                     "tgmm's ms with a bf16 output, as the trainer asks, ms_f32_out "
+                     "with f32; ms_k3072_n768 the other orientation; library_ms "
+                     "torch._grouped_mm, or its error"),
+            **{k: rec.get(k) for k in ("ms_f32_out", "ms_k3072_n768", "group_sizes")},
         })
     log(f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"phases": results}))

@@ -211,13 +211,16 @@ def _flash_kernel_names():
 
 
 def test_every_k5_kernel_has_its_moe_profile_group():
-    """Each __global__ kernel of grouped_matmul.cu falls in its own MoE
-    profile group (tgmm's name holds gmm's), and the flash kernels in the
-    LM's groups there too."""
+    """Each __global__ kernel of grouped_matmul.cu, on every route, falls in
+    its own MoE profile group (tgmm's names hold gmm's), and the flash
+    kernels in the LM's groups there too."""
     src = (Path(chip_smoke.__file__).parent / chip_smoke.K5_SOURCE).read_text()
     names = re.findall(r"(\w+_kernel)\(", src)
-    assert {"gmm_mma_kernel", "tgmm_mma_kernel", "gmm_fma_kernel", "tgmm_fma_kernel"} \
-        <= set(names)
+    assert {"gmm_wgmma_kernel", "tgmm_wgmma_kernel", "gmm_mma_kernel", "tgmm_mma_kernel",
+            "gmm_fma_kernel", "tgmm_fma_kernel"} <= set(names)
+    assert set(re.findall(KERNEL_RE, src)) == {
+        "gmm_wgmma_kernel", "tgmm_wgmma_kernel", "gmm_mma_kernel", "tgmm_mma_kernel",
+        "gmm_fma_kernel", "tgmm_fma_kernel"}
     for name in set(names):
         group = chip_smoke.kernel_group(f"void (anonymous namespace)::{name}<true>(int)",
                                         chip_smoke.MOE_GROUPS)
@@ -269,6 +272,9 @@ def _mangled(name, targs=""):
     ("ILi128EE", "fwd_wgmma_kernel<128>"),
     ("ILb1EE", "gmm_mma_kernel<true>"),
     ("ILb0EE", "gmm_mma_kernel<false>"),
+    ("ILb1EE", "gmm_wgmma_kernel<true>"),
+    ("ILb0EE", "gmm_wgmma_kernel<false>"),
+    ("", "tgmm_wgmma_kernel"),
 ])
 def test_kernel_label(targs, label):
     name = label.split("<")[0]
@@ -675,7 +681,8 @@ def test_k5_check_holds_the_plain_version_and_rejects_every_mutation(dtype):
     and off the tile."""
     x, w_in, w_out, dy, sizes = _k5_operands(dtype)
     out = chip_smoke.k5_check_case("cpu", x, w_in, w_out, dy, sizes, 0, mutate=True)
-    assert sorted(out) == sorted(name for name, _ in chip_smoke.K5)
+    assert sorted(out) == sorted([name for name, _ in chip_smoke.K5]
+                                 + ["grouped_matmul_tgmm_bf16"])
     assert all(e == (0.0, 0.0) for e in out.values())
 
 
@@ -739,3 +746,100 @@ def test_moe_phase_holds_ep_runs_and_rejects_its_fault_on_cpu(tmp_path, monkeypa
         if dispatch == "sparse":
             res = chip_smoke.fault_control(ref, chip_smoke.MOE_EP_FAULT, job)
             assert res["rejected_on"], res
+
+
+def _sass_listing(kernels):
+    """A cuobjdump --dump-sass listing: one Function per (name, template
+    arguments, opcodes) of grouped_matmul.cu."""
+    ns = "_GLOBAL__N__e3b2a46e_17_grouped_matmul_cu_6df88d3d"
+    lines = ["\tcode for sm_90a"]
+    for name, targs, opcodes in kernels:
+        lines.append(f"\t\tFunction : _ZN{len(ns)}{ns}{len(name)}{name}{targs}EvPKtS2_PKiPii")
+        lines += [f"        /*0{i:03x}0*/   {op} ;" for i, op in enumerate(opcodes)]
+    return "\n".join(lines)
+
+
+HGMMA = "HGMMA.64x256x16.F32.BF16 R24, gdesc[UR4], R24, gsb0"
+HMMA = "HMMA.16816.F32.BF16 R4, R8, R12, R4"
+
+
+@pytest.mark.parametrize("kernels,failing", [
+    # every kernel with its own tensor-core instructions: accepted
+    ([("gmm_wgmma_kernel", "ILb0E", [HGMMA]), ("tgmm_wgmma_kernel", "", [HGMMA]),
+      ("gmm_mma_kernel", "ILb1E", [HMMA]), ("gmm_fma_kernel", "ILb1E", ["FFMA R1, R2, R3, R4"])],
+     []),
+    # a wgmma kernel that compiled to mma.sync (HMMA) is refused
+    ([("gmm_wgmma_kernel", "ILb1E", [HMMA]), ("gmm_mma_kernel", "ILb1E", [HMMA])],
+     ["gmm_wgmma_kernel<true> without HGMMA instructions"]),
+    # an mma.sync kernel without HMMA is refused, HGMMA does not stand in
+    ([("tgmm_wgmma_kernel", "", [HGMMA]), ("gmm_mma_kernel", "ILb0E", [HGMMA, "FFMA R1"])],
+     ["gmm_mma_kernel<false> without HMMA instructions"]),
+    ([("tgmm_mma_kernel", "", ["FFMA R1, R2, R3, R4"])],
+     ["tgmm_mma_kernel without HMMA instructions"]),
+])
+def test_sass_rule_asks_each_route_for_its_tensor_core_instructions(kernels, failing):
+    """build_phase's rule (sass_failures): HGMMA in every *wgmma_kernel, HMMA
+    in every other *mma_kernel; FMA kernels are asked for neither."""
+    assert chip_smoke.sass_failures(_sass_listing(kernels)) == failing
+
+
+def test_k5_small_cases_reach_both_bf16_routes():
+    """K5_SMALL in bf16 takes the wgmma route (K and N multiples of 8 but
+    not of 64) and the mma.sync route (K or N off 8), the ep case on each,
+    and the tgmm edge-mask case's groups of 1-63 rows start and end inside
+    64-row k-steps on the wgmma route."""
+    routes = {label: gm.route(torch.bfloat16, rows, k, n, held, 0, 16)
+              for label, rows, k, n, gs, first, held in chip_smoke.K5_SMALL}
+    assert set(routes.values()) == {"wgmma", "mma"}
+    ep = {routes[label] for label, *_, first, held in chip_smoke.K5_SMALL if first > 0}
+    assert ep == {"wgmma", "mma"}
+    for label, rows, k, n, gs, first, held in chip_smoke.K5_SMALL:
+        assert sum(gs) == rows and len(gs) >= first + held
+        if routes[label] == "wgmma":
+            assert k % 64 and n % 64
+    label, rows, k, n, gs, _, _ = chip_smoke.K5_SMALL[1]
+    assert routes[label] == "wgmma" and "edge masks" in label
+    starts = np.cumsum((0,) + gs[:-1])
+    assert sum(1 <= g <= 63 for g in gs) >= 4 and any(s % 64 for s in starts[1:])
+    assert {gm.route(torch.float32, rows, k, n, held)
+            for _, rows, k, n, _, _, held in chip_smoke.K5_SMALL} == {"fma"}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", range(len(chip_smoke.K5_SMALL)))
+def test_k5_small_cases_hold_the_plain_version(dtype, case):
+    """Each K5_SMALL case through k5_check_case, the plain version standing
+    in for the kernels, with the phase's operands: excess 0 on every
+    product."""
+    label, rows, k, n, gs, first, held = chip_smoke.K5_SMALL[case]
+    rng = np.random.default_rng(rows)
+
+    def t(*shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32)).to(dtype)
+
+    out = chip_smoke.k5_check_case(label, t(rows, k), t(held, k, n, scale=k ** -0.5),
+                                   t(held, n, k, scale=k ** -0.5), t(rows, k),
+                                   torch.tensor(gs), first, mutate=False)
+    assert all(e == (0.0, 0.0) for e in out.values())
+
+
+def test_stale_outputs_fills_what_torch_empty_makes_and_restores_it():
+    empty = torch.empty
+    with chip_smoke.stale_outputs():
+        assert torch.empty((3, 4), dtype=torch.bfloat16).isnan().all()
+        assert torch.empty(5, dtype=torch.int32).dtype == torch.int32
+    assert torch.empty is empty
+
+
+def test_k5_functions_are_the_kernels_of_each_route():
+    """The kernels line's kernel_functions: for each K5 record its wgmma,
+    mma.sync and FMA kernels, named as kernel_label names them."""
+    src = (Path(chip_smoke.__file__).parent / chip_smoke.K5_SOURCE).read_text()
+    kernels = set(re.findall(KERNEL_RE, src))
+    assert set(chip_smoke.K5_FUNCTIONS) == {name for name, _ in chip_smoke.K5}
+    for name, funcs in chip_smoke.K5_FUNCTIONS.items():
+        assert [f.split("<")[0].split("_")[-2] for f in funcs] == ["wgmma", "mma", "fma"]
+        assert {f.split("<")[0] for f in funcs} <= kernels
+        assert chip_smoke.kernel_group(f"void {funcs[0]}(CUtensorMap_st)",
+                                       chip_smoke.MOE_GROUPS) == (
+            "grouped_matmul_tgmm" if name.endswith("tgmm") else "grouped_matmul_gmm")

@@ -692,19 +692,6 @@ struct DqSmem {
   uint64_t full[kStages], empty[kStages], q_full;
 };
 
-// The thread's warpgroup, read from lane 0 so that the compiler knows it is
-// warp-uniform: descriptors derived from it then live in uniform registers.
-__device__ __forceinline__ int warpgroup() {
-  return __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / kWgThreads, 0);
-}
-
-template <typename S>
-__device__ __forceinline__ S& smem_as() {
-  extern __shared__ unsigned char smem_raw[];
-  return *reinterpret_cast<S*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
-                               ~static_cast<uintptr_t>(1023));
-}
-
 __device__ __forceinline__ float pos_inf() { return __int_as_float(0x7f800000); }
 
 // K3 (dK/dV) in bf16. Replaces ops/flash_attention.py::_bwd_dkv_kernel. One
@@ -719,12 +706,12 @@ bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                      const float* __restrict__ lse, const float* __restrict__ delta,
                      bf16* __restrict__ dk, bf16* __restrict__ dv, int tq, int tk,
                      int causal, float scale) {
-  auto& sm = smem_as<DkvSmem<D>>();
+  auto& sm = hopper::smem_as<DkvSmem<D>>();
   const int bh = blockIdx.x;
   const int k0 = blockIdx.y * kBlockRows;
   const int n_qt = (tq + 63) / 64;
   const int qt0 = causal ? k0 / 64 : 0;  // q-tiles wholly before k0 are all masked
-  const int wg = warpgroup();
+  const int wg = hopper::warpgroup();
   const int lane = threadIdx.x & 31;
 
   if (threadIdx.x == 0) {
@@ -876,13 +863,13 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                     const __grid_constant__ CUtensorMap tm_do,
                     const float* __restrict__ lse, const float* __restrict__ delta,
                     bf16* __restrict__ dq, int tq, int tk, int causal, float scale) {
-  auto& sm = smem_as<DqSmem<D>>();
+  auto& sm = hopper::smem_as<DqSmem<D>>();
   const int bh = blockIdx.x;
   const int qb = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
   const int q0 = qb * kBlockRows;
   int n_kt = (tk + 63) / 64;
   if (causal) n_kt = min(n_kt, (q0 + kBlockRows - 1) / 64 + 1);
-  const int wg = warpgroup();
+  const int wg = hopper::warpgroup();
   const int lane = threadIdx.x & 31;
 
   if (threadIdx.x == 0) {
@@ -1141,13 +1128,13 @@ fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                  const __grid_constant__ CUtensorMap tm_k,
                  const __grid_constant__ CUtensorMap tm_v, bf16* __restrict__ o,
                  float* __restrict__ lse, int tq, int tk, int causal, float scale) {
-  auto& sm = smem_as<FwdSmem<D>>();
+  auto& sm = hopper::smem_as<FwdSmem<D>>();
   const int bh = blockIdx.x;
   const int qb = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
   const int q0 = qb * kBlockRows;
   int n_kt = (tk + kFwdN - 1) / kFwdN;
   if (causal) n_kt = min(n_kt, (q0 + kBlockRows - 1) / kFwdN + 1);
-  const int wg = warpgroup();
+  const int wg = hopper::warpgroup();
   const int lane = threadIdx.x & 31;
 
   if (threadIdx.x == 0) {

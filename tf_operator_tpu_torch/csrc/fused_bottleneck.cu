@@ -430,12 +430,6 @@ __device__ __forceinline__ unsigned char* smem_base() {
                                           ~static_cast<uintptr_t>(1023));
 }
 
-// The thread's warpgroup, read from lane 0 so that the compiler knows it is
-// warp-uniform: descriptors derived from it then live in uniform registers.
-__device__ __forceinline__ int warpgroup() {
-  return __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / kWgThreads, 0);
-}
-
 // The k-tile kt of the weights' columns [n0, n0 + BN) into dst: BN / 64
 // boxes of 64 reduction rows x 64 columns, read MN-major by the products.
 template <int BN>
@@ -489,7 +483,7 @@ bottleneck_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a,
   const int rblocks = (rows_per_tile + kWM - 1) / kWM;
   const int nblocks = N / BN;
   const int items = rblocks * nblocks * tiles;
-  const int wg = warpgroup();
+  const int wg = hopper::warpgroup();
   const int lane = threadIdx.x & 31;
 
   if (threadIdx.x == 0) {

@@ -15,12 +15,19 @@ computed, and every other row of the output is zero, as is every row past
 the sum of ``group_sizes`` (``lax.ragged_dot``'s rule).
 
 ``grouped_matmul`` is differentiable (``GroupedMatmul``: dX = gmm(dY, w^T),
-dW = tgmm(x, dY), f32 accumulations rounded to w's dtype). On CPU tensors
-every product runs its plain version, a loop over the groups of
+dW = tgmm(x, dY) written in w's dtype: one rounding of the f32 sum). On CPU
+tensors every product runs its plain version, a loop over the groups of
 ``x[s:e] @ w[g]``, which reads ``group_sizes`` on the host. On CUDA tensors
-it launches the kernels (counted in ``LAUNCHES``) or raises; the host never
-reads ``group_sizes`` there, so nothing syncs. Both accumulate in f32 and
-round the output to the inputs' dtype.
+it launches the kernels (counted in ``LAUNCHES``, and by route in
+``ROUTE_LAUNCHES``) or raises; the host never reads ``group_sizes`` there,
+so nothing syncs. Both accumulate in f32 and round the output to the
+inputs' dtype (tgmm: to ``out_dtype``).
+
+Which kernel a CUDA call launches is ``route``'s choice, from the dtype,
+the shapes and the operands' alignment alone: ``"wgmma"`` (TMA + wgmma,
+persistent) for bf16 whose K and N are multiples of 8 and whose bases are
+16-byte aligned, ``"mma"`` (mma.sync) for other bf16, ``"fma"`` for f32. A
+launch error raises; no route falls back to another.
 """
 
 from __future__ import annotations
@@ -31,15 +38,20 @@ import torch
 
 SUPPORTED_DTYPES = (torch.float32, torch.bfloat16)
 
-# Launch counts of the kernels, incremented where the wrapper launches them.
+# Launch counts of the kernels, incremented where the wrapper launches them,
+# by product and by route.
 LAUNCHES = {"gmm_nn": 0, "gmm_nt": 0, "tgmm": 0}
+ROUTE_LAUNCHES = {"wgmma": 0, "mma": 0, "fma": 0}
+# The C interface's `kind` argument of each route.
+ROUTE_KINDS = {"fma": 0, "mma": 1, "wgmma": 2}
 
 _lib_handle = None
 
 
 def reset_launches() -> None:
-    for key in LAUNCHES:
-        LAUNCHES[key] = 0
+    for counts in (LAUNCHES, ROUTE_LAUNCHES):
+        for key in counts:
+            counts[key] = 0
 
 
 def _lib() -> ctypes.CDLL:
@@ -51,7 +63,7 @@ def _lib() -> ctypes.CDLL:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.tfo_gmm.argtypes = [ptr] * 4 + [i32] * 7 + [ptr]
         lib.tfo_gmm.restype = i32
-        lib.tfo_tgmm.argtypes = [ptr] * 4 + [i32] * 6 + [ptr]
+        lib.tfo_tgmm.argtypes = [ptr] * 4 + [i32] * 7 + [ptr]
         lib.tfo_tgmm.restype = i32
         _lib_handle = lib
     return _lib_handle
@@ -88,14 +100,15 @@ def gmm_reference(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
 
 
 def tgmm_reference(x: torch.Tensor, dy: torch.Tensor, group_sizes: torch.Tensor,
-                   first_group: int, num_groups: int) -> torch.Tensor:
-    """dw [G, K, N] f32 with dw[g] = x[rows of g]^T dy[rows of g] (0 for an
-    empty group)."""
+                   first_group: int, num_groups: int,
+                   out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """dw [G, K, N] with dw[g] = x[rows of g]^T dy[rows of g] (0 for an
+    empty group), summed in f32 and rounded once to out_dtype."""
     out = torch.zeros((num_groups, x.shape[1], dy.shape[1]), dtype=torch.float32,
                       device=x.device)
     for j, lo, hi in _group_rows(group_sizes, first_group, num_groups, x.shape[0]):
         out[j] = x[lo:hi].float().T @ dy[lo:hi].float()
-    return out
+    return out.to(out_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -113,6 +126,22 @@ def _check_cuda(*tensors: torch.Tensor) -> None:
         raise ValueError(f"operands of one dtype, got {[t.dtype for t in tensors[:2]]}")
     if any(t.numel() >= 2 ** 31 for t in tensors):
         raise ValueError("the grouped matmul indexes with 32-bit dimensions")
+
+
+def route(dtype: torch.dtype, m: int, k: int, n: int, groups: int, *base_ptrs: int) -> str:
+    """The kernel route of a CUDA call with m rows, reduction K, width N and
+    `groups` local groups, whose operands start at base_ptrs: "wgmma" (TMA
+    + wgmma) for bf16 that TMA can describe (no empty dimension, K and N
+    multiples of 8, so 16-byte row strides, and 16-byte aligned bases),
+    "mma" (mma.sync) for other bf16, "fma" for f32."""
+    if dtype == torch.float32:
+        return "fma"
+    if dtype != torch.bfloat16:
+        raise ValueError(f"the grouped matmul takes f32 or bf16, got {dtype}")
+    if min(m, k, n, groups) > 0 and k % 8 == 0 and n % 8 == 0 \
+            and all(p % 16 == 0 for p in base_ptrs):
+        return "wgmma"
+    return "mma"
 
 
 def _sizes32(group_sizes: torch.Tensor, device) -> torch.Tensor:
@@ -140,44 +169,53 @@ def gmm(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
     _check_cuda(x, w)
     x, w = x.contiguous(), w.contiguous()
     sizes = _sizes32(group_sizes, x.device)
-    out = torch.zeros((m, n), dtype=x.dtype, device=x.device)
+    # The kernel writes every row: zeros outside the local groups' rows.
+    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    path = route(x.dtype, m, k, n, g, x.data_ptr(), w.data_ptr())
     stream = ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
     with torch.cuda.device(x.device):
         err = _lib().tfo_gmm(_ptr(x), _ptr(w), _ptr(sizes), _ptr(out), m, k, n, first_group,
-                             g, int(trans_w), int(x.dtype == torch.bfloat16), stream)
+                             g, int(trans_w), ROUTE_KINDS[path], stream)
     if err != 0:
-        raise RuntimeError(f"grouped matmul kernel launch failed: error {err}")
+        raise RuntimeError(f"grouped matmul kernel launch failed ({path}): error {err}")
     LAUNCHES["gmm_nt" if trans_w else "gmm_nn"] += 1
+    ROUTE_LAUNCHES[path] += 1
     return out
 
 
 def tgmm(x: torch.Tensor, dy: torch.Tensor, group_sizes: torch.Tensor, first_group: int,
-         num_groups: int) -> torch.Tensor:
-    """dw [num_groups, K, N] f32: x[rows of g]^T . dy[rows of g] for the
-    groups from first_group on (zeros for an empty one)."""
+         num_groups: int, out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """dw [num_groups, K, N] in out_dtype (f32 or bf16): x[rows of g]^T .
+    dy[rows of g] for the groups from first_group on (zeros for an empty
+    one), summed in f32 and rounded once."""
     m, k = x.shape
     if dy.dim() != 2 or dy.shape[0] != m:
         raise ValueError(f"dy {tuple(dy.shape)} does not fit x {tuple(x.shape)}")
+    if out_dtype not in SUPPORTED_DTYPES:
+        raise ValueError(f"tgmm writes f32 or bf16, not {out_dtype}")
     if x.device.type == "cpu":
-        return tgmm_reference(x, dy, group_sizes, first_group, num_groups)
+        return tgmm_reference(x, dy, group_sizes, first_group, num_groups, out_dtype)
     _check_cuda(x, dy)
     x, dy = x.contiguous(), dy.contiguous()
     sizes = _sizes32(group_sizes, x.device)
     n = dy.shape[1]
-    out = torch.empty((num_groups, k, n), dtype=torch.float32, device=x.device)
+    out = torch.empty((num_groups, k, n), dtype=out_dtype, device=x.device)
+    path = route(x.dtype, m, k, n, num_groups, x.data_ptr(), dy.data_ptr())
     stream = ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
     with torch.cuda.device(x.device):
         err = _lib().tfo_tgmm(_ptr(x), _ptr(dy), _ptr(sizes), _ptr(out), m, k, n, first_group,
-                              num_groups, int(x.dtype == torch.bfloat16), stream)
+                              num_groups, ROUTE_KINDS[path], int(out_dtype == torch.bfloat16),
+                              stream)
     if err != 0:
-        raise RuntimeError(f"grouped matmul (tgmm) kernel launch failed: error {err}")
+        raise RuntimeError(f"grouped matmul (tgmm) kernel launch failed ({path}): error {err}")
     LAUNCHES["tgmm"] += 1
+    ROUTE_LAUNCHES[path] += 1
     return out
 
 
 class GroupedMatmul(torch.autograd.Function):
     """gmm with megablox's backward: dX = gmm(dY, w, NT), dW = tgmm(x, dY)
-    rounded to w's dtype."""
+    written in w's dtype."""
 
     @staticmethod
     def forward(ctx, x, w, group_sizes, first_group):
@@ -193,7 +231,7 @@ class GroupedMatmul(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             dx = gmm(g, w, group_sizes, ctx.first_group, trans_w=True)
         if ctx.needs_input_grad[1]:
-            dw = tgmm(x, g, group_sizes, ctx.first_group, w.shape[0]).to(w.dtype)
+            dw = tgmm(x, g, group_sizes, ctx.first_group, w.shape[0], w.dtype)
         return dx, dw, None, None
 
 
