@@ -11,6 +11,7 @@
     python3 chip_smoke.py --phases build,sp           # sequence parallelism: ring, Ulysses
     python3 chip_smoke.py --phases build,moe          # the MoE LM and K5, ep = 2
     python3 chip_smoke.py --phases build,k5           # K5's checks and times alone
+    python3 chip_smoke.py --phases build,serve        # the inference server (A13)
     python3 chip_smoke.py --phases build,dist4        # four GPUs over NCCL (not default)
     python3 chip_smoke.py --phases build,moe4         # dist4's MoE runs alone (four GPUs)
 
@@ -138,7 +139,23 @@ Phases, in order:
      moe_flops_per_step, peak memory) and dense (no K5 launch); then ep = 2
      at 4 layers, both dispatches, as two co-located gloo ranks held
      against one process, and ep = 2 without the sum over ep rejected;
- 14. (only with --phases ...,dist4, on four GPUs) the dist runs and dp = 4,
+ 14. serving (serve): the port trainer writes 2 steps of the full-width LM
+     at seq 2048 (f32 parameters); `python -m
+     tf_operator_tpu_torch.serve.server` runs on the card as a subprocess
+     with the controller's env (window 2048, 8 KV slots, 128 new tokens at
+     most, batch 8, TPUJOB_SERVE_NUM_HEADS=6) and must answer, all with
+     200 and every token asked for, (a) one request of 8 rows of 17-1984
+     prompt tokens, 64 new each, and (b) 24 concurrent single rows with
+     8-128 new tokens, then drain to exit 0 on SIGTERM; in this process the
+     same request a through the server's own code must give the server's
+     tokens up to each row's first top-2 margin under SERVE_MARGIN, prefill's
+     last logits must match the port's TransformerLM forward (K1) and each
+     decode tick's logits a prefill of the same context (bf16, within
+     SERVE_LIMITS, each of SERVE_FAULTS rejected), and f32 greedy chains
+     must equal a naive f32 re-forward; time to ready, prefill and decode
+     tokens/s, tick ms against its bound, request latencies, the cache's
+     bytes and the peak memory are logged;
+ 15. (only with --phases ...,dist4, on four GPUs) the dist runs and dp = 4,
      dp x tp = 2 x 2 and fsdp = 4 with one GPU a rank (CUDA_VISIBLE_DEVICES),
      where the backend rule picks NCCL; then the 64k LM at sp = 4 (ring)
      and sp x tp = 2 x 2 (ring, 3 local heads) at batch 1 and dp x sp = 2
@@ -148,11 +165,11 @@ Phases, in order:
      whole tensors are too large); then the MoE cell (sparse) at ep = 4 and
      dp x ep = 2 x 2, each held against one process (moe4 runs these
      alone);
- 15. (only with --phases ...,profile) both trainers' runs, the 64k LM,
+ 16. (only with --phases ...,profile) both trainers' runs, the 64k LM,
      BERT-base at seq 512 and the MoE cell (sparse) under torch.profiler:
      device time by kernel group over their steady steps.
-The last lines are the eval, longctx, preempt, bert, data, dist, sp and moe
-phases' records as one JSON object ({"phases": ...}), the kernels' JSON record,
+The last lines are the eval, longctx, preempt, bert, data, dist, sp, moe and
+serve phases' records as one JSON object ({"phases": ...}), the kernels' JSON record,
 the card, and
 {"ok": true, "device": {...}}. Any failed phase exits nonzero with no
 result line. Needs a CUDA device: it never runs on the CPU.
@@ -168,6 +185,7 @@ import math
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import time
@@ -2797,6 +2815,594 @@ def moe_phase(records: dict, card: str) -> dict:
     return out
 
 
+# The serve phase (A13): the port's inference server on the card with the
+# full-width LM the trainer trains (bench.py:1006-1019's LM, 12 x 768, 6
+# heads x 128, vocab 32000), at a 2048-token window: the controller's env,
+# 8 KV slots, 128 new tokens at most. `a_lengths`: one request of 8 rows
+# spread over the seq buckets (sorted admission); `b_*`: 24 concurrent
+# single-row requests over the 8 slots (continuous admission).
+# `check_lengths`: the prompts whose decode ticks are held against a
+# prefill of the same context (short ones, where one position carries a
+# visible share of the attention, and a long one); `chain_lengths`: the f32
+# greedy chains held against a naive re-forward.
+@dataclasses.dataclass(frozen=True)
+class ServeCell:
+    layers: int = 12
+    hidden: int = 768
+    heads: int = 6
+    vocab: int = 32000
+    seq: int = 2048
+    slots: int = 8
+    max_new: int = 128
+    batch_max: int = 8
+    a_lengths: tuple = (17, 45, 120, 300, 640, 1024, 1500, 1984)
+    a_new: int = 64
+    b_requests: int = 24
+    b_new: tuple = (8, 128, 16, 96, 32, 64)  # cycled over the requests
+    b_length_range: tuple = (5, 400)
+    forward_lengths: tuple = (17, 300, 1984)
+    check_lengths: tuple = (1, 3, 11, 1500)
+    ticks: int = 4
+    chain_lengths: tuple = (5, 20, 100)
+    chain_tokens: int = 16
+    train_batch: int = 4
+    train_steps: int = 2
+    device: str = "cuda"
+
+
+SERVE = ServeCell()
+SERVE_DIR = OUT_DIR / "serve"
+# bf16 limits of the in-process checks, on max |got - ref| / rms(ref) over
+# the checked logits (`rel_err`), placed between the sound readings and
+# those of SERVE_FAULTS, which must each exceed one. On an H100: sound
+# 0.031 for both; the faults 0.43 and 0.42 (tick against prefill) and 0.32
+# (prefill against the forward).
+SERVE_LIMITS = {"prefill_vs_forward": 0.1, "tick_vs_prefill": 0.1}
+# The server's answers are held to the in-process chains up to the first
+# position whose reference top-2 logit margin is below this (a bf16 near
+# tie, which rounding may break either way; logit units).
+SERVE_MARGIN = 0.05
+# Broken decode paths the checks must reject: (what is broken, the
+# models/decode.py helper replaced).
+SERVE_FAULTS = (("decode visibility < in place of <=", "visible_mask"),
+                ("the tick's K/V written at position + 1", "write_token_kv"),
+                ("prefill's logits taken at lengths, not lengths - 1", "last_index"))
+
+
+@contextlib.contextmanager
+def planted(helper: str | None):
+    """models/decode.py with one SERVE_FAULTS helper broken (None: as it
+    is), restored on exit."""
+    import torch
+
+    from tf_operator_tpu_torch.models import decode
+
+    orig = getattr(decode, helper) if helper else None
+    broken = {
+        None: None,
+        "visible_mask": lambda positions, max_len: (
+            torch.arange(max_len, device=positions.device)[None] < positions[:, None]),
+        "write_token_kv": lambda cache, layer, positions, kv: orig(
+            cache, layer, (positions + 1).clamp_max(cache.shape[3] - 1), kv),
+        "last_index": lambda lengths: lengths,
+    }[helper]
+    if helper:
+        setattr(decode, helper, broken)
+    try:
+        yield
+    finally:
+        if helper:
+            setattr(decode, helper, orig)
+
+
+def rel_err(got, ref) -> float:
+    """max |got - ref| / rms(ref), in f32."""
+    got, ref = got.float(), ref.float()
+    return float((got - ref).abs().max() / ref.square().mean().sqrt())
+
+
+def top2_margin(logits):
+    """The gap between each row's two largest logits."""
+    top = logits.float().topk(2, dim=-1).values
+    return top[..., 0] - top[..., 1]
+
+
+def serve_train_argv(cell: ServeCell, ckpt_dir) -> list[str]:
+    """The port trainer writing the phase's checkpoint: f32 parameters and
+    moments, the cell's widths, position table `seq`."""
+    return ["--model", "transformer-lm", "--steps", str(cell.train_steps),
+            "--batch", str(cell.train_batch), "--seq", str(cell.seq),
+            "--layers", str(cell.layers), "--hidden", str(cell.hidden),
+            "--heads", str(cell.heads), "--log-every", "1", "--device", cell.device,
+            "--checkpoint-dir", str(ckpt_dir)]
+
+
+def serve_env(cell: ServeCell, ckpt_dir, port: int, files: dict) -> dict:
+    """The env the InferenceService controller gives a server pod (and the
+    pod's heartbeat, stats and events files)."""
+    return {"TPUJOB_SERVE_MODEL": "transformer-lm",
+            "TPUJOB_SERVE_CHECKPOINT_DIR": str(ckpt_dir),
+            "TPUJOB_SERVE_PORT": str(port), "TPUJOB_SERVE_LISTEN_PORT": str(port),
+            "TPUJOB_SERVE_MAX_SEQ_LEN": str(cell.seq),
+            "TPUJOB_SERVE_MAX_CONCURRENT_SEQS": str(cell.slots),
+            "TPUJOB_SERVE_MAX_NEW_TOKENS": str(cell.max_new),
+            "TPUJOB_SERVE_BATCH_MAX": str(cell.batch_max),
+            "TPUJOB_SERVE_BATCH_TIMEOUT_MS": "5.0",
+            "TPUJOB_SERVE_NUM_HEADS": str(cell.heads),
+            "TPUJOB_SERVE_DEVICE": cell.device,
+            "TPUJOB_POD_NAME": "chip-smoke-serve-0",
+            "TPUJOB_SERVE_STATS_FILE": str(files["stats"]),
+            "TPUJOB_HEARTBEAT_FILE": str(files["heartbeat"]),
+            "TPUJOB_METRICS_FILE": str(files["events"])}
+
+
+def serve_requests(cell: ServeCell, seed: int = 0):
+    """(a's rows, [(row, maxNewTokens)] of b), token ids from the seed."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    a = [rng.integers(0, cell.vocab, n).tolist() for n in cell.a_lengths]
+    lo, hi = cell.b_length_range
+    b = [(rng.integers(0, cell.vocab, int(rng.integers(lo, hi))).tolist(),
+          cell.b_new[i % len(cell.b_new)]) for i in range(cell.b_requests)]
+    return a, b
+
+
+def _padded(rows, t: int, device):
+    import torch
+
+    tok = torch.zeros((len(rows), t), dtype=torch.int64)
+    for i, r in enumerate(rows):
+        tok[i, :len(r)] = torch.tensor(r)
+    return tok.to(device), torch.tensor([len(r) for r in rows])
+
+
+def decode_readings(host: dict, cell: ServeCell, seed: int = 1) -> dict:
+    """The bf16 decode path against references, in this process:
+    `prefill_vs_forward`, prefill's last logits against the port's
+    TransformerLM forward (the flash kernels on the card) at rows of
+    `forward_lengths`; `tick_vs_prefill`, each of `ticks` decode ticks'
+    logits for prompts of `check_lengths` against a prefill of the same
+    context. Both as rel_err."""
+    import numpy as np
+    import torch
+
+    from tf_operator_tpu_torch.models import decode
+    from tf_operator_tpu_torch.models import transformer as tfm
+    from tf_operator_tpu_torch.parallel.ring_attention import make_attention_fn
+
+    dev = torch.device(cell.device)
+    cfg = decode.config_from_params(host, num_heads=cell.heads)
+    params = decode.prepare_params({k: v.to(dev) for k, v in host.items()}, cfg)
+    rng = np.random.default_rng(seed)
+    out = {}
+    with torch.inference_mode():
+        rows = [rng.integers(0, cfg.vocab_size, n).tolist() for n in cell.forward_lengths]
+        tokens, lengths = _padded(rows, cell.seq, dev)
+        if int(lengths.max()) >= cell.seq:
+            raise SmokeFailure("the forward check's rows must be shorter than the window")
+        model = tfm.TransformerLM(dataclasses.replace(cfg, max_len=cell.seq),
+                                  attn_fn=make_attention_fn(None, causal=True), device=dev)
+        model.load_state_dict(host)
+        want = model(tokens)[torch.arange(len(rows)), lengths.to(dev) - 1]
+        del model
+        got = decode.prefill(params, tokens, lengths, cfg)[3]
+        out["prefill_vs_forward"] = rel_err(got, want)
+
+        prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in cell.check_lengths]
+        n = len(prompts)
+        k, v = decode.init_kv_cache(cfg, n + 1, cell.seq, dev)
+        # Every prefill here pads past its longest row, so that the planted
+        # last_index fault reads a pad position, not past the tensor.
+        tok, lens = _padded(prompts, max(cell.check_lengths) + 1, dev)
+        _, _, first, _ = decode.prefill_into_slots(params, k, v, tok, lens, list(range(n)), cfg)
+        fed = [[int(x)] for x in first.cpu()]
+        positions = np.array(list(cell.check_lengths) + [0], np.int64)
+        errs = []
+        for _ in range(cell.ticks):
+            last = torch.tensor([f[-1] for f in fed] + [0])
+            _, _, nxt, logits = decode.decode_step(params, k, v, last, positions, cfg)
+            ctx = [p + f for p, f in zip(prompts, fed)]
+            ctok, clens = _padded(ctx, max(len(c) for c in ctx) + 1, dev)
+            ref = decode.prefill(params, ctok, clens, cfg)[3]
+            errs.append(rel_err(logits[:n], ref))
+            for f, t in zip(fed, nxt.cpu().tolist()):
+                f.append(t)
+            positions[:n] += 1
+        out["tick_vs_prefill"] = max(errs)
+    return out
+
+
+def f32_chains(host: dict, cell: ServeCell, seed: int = 2) -> dict:
+    """Greedy chains at cfg.dtype f32 through prefill_into_slots and
+    decode_step against a naive f32 re-forward (the port's TransformerLM,
+    plain attention), for prompts of `chain_lengths`, `chain_tokens` each:
+    the chains, and whether they are equal token for token."""
+    import numpy as np
+    import torch
+
+    from tf_operator_tpu_torch.models import decode
+    from tf_operator_tpu_torch.models import transformer as tfm
+
+    dev = torch.device(cell.device)
+    cfg = dataclasses.replace(decode.config_from_params(host, num_heads=cell.heads),
+                              dtype=torch.float32)
+    params = {k: v.to(dev) for k, v in host.items()}
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in cell.chain_lengths]
+    with torch.inference_mode():
+        model = tfm.TransformerLM(dataclasses.replace(cfg, max_len=cell.seq), device=dev)
+        model.load_state_dict(host)
+        naive, margins = [], []
+        for p in prompts:
+            seq, row = list(p), []
+            for _ in range(cell.chain_tokens):
+                logits = model(torch.tensor([seq], device=dev))[0, -1]
+                margins.append(float(top2_margin(logits)))
+                row.append(int(logits.argmax()))
+                seq.append(row[-1])
+            naive.append(row)
+        del model
+        n = len(prompts)
+        k, v = decode.init_kv_cache(cfg, n + 1, cell.seq, dev)
+        tok, lens = _padded(prompts, max(cell.chain_lengths), dev)
+        _, _, first, _ = decode.prefill_into_slots(params, k, v, tok, lens, list(range(n)), cfg)
+        got = [[int(x)] for x in first.cpu()]
+        positions = np.array(list(cell.chain_lengths) + [0], np.int64)
+        for _ in range(cell.chain_tokens - 1):
+            last = torch.tensor([g[-1] for g in got] + [0])
+            _, _, nxt, _ = decode.decode_step(params, k, v, last, positions, cfg)
+            for g, t in zip(got, nxt.cpu().tolist()):
+                g.append(t)
+            positions[:n] += 1
+    return {"equal": got == naive, "chains": got, "naive": naive,
+            "min_margin": min(margins)}
+
+
+def reference_answers(ckpt_dir, cell: ServeCell, rows, max_new: int) -> dict:
+    """One request of `rows` through an InferenceServer in this process
+    (the server's own load, scheduler and decode functions at its bucket
+    shapes): its answers, each row's top-2 margins along its chain, the
+    prefill and tick times (each call synchronised) and the peak device
+    memory of the load and the run."""
+    import torch
+
+    from tf_operator_tpu_torch.serve import server as srv_mod
+
+    dev = torch.device(cell.device)
+    os.environ["TPUJOB_SERVE_NUM_HEADS"] = str(cell.heads)
+    try:
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+        srv = srv_mod.InferenceServer(
+            "transformer-lm", str(ckpt_dir), 0, batch_max=cell.batch_max,
+            batch_timeout_ms=5.0, max_seq_len=cell.seq, max_new_tokens=cell.max_new,
+            max_slots=cell.slots, device=cell.device)
+        srv.load()
+    finally:
+        os.environ.pop("TPUJOB_SERVE_NUM_HEADS", None)
+    margins: dict = {}  # slot -> the top-2 margins of its chain so far
+    times = {"prefill": [], "tick": []}
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def timed(kind, fn):
+        def call(params, k, v, tokens, *rest):
+            sync()
+            t0 = time.perf_counter()
+            out = fn(params, k, v, tokens, *rest)
+            sync()
+            times[kind].append(time.perf_counter() - t0)
+            m = top2_margin(out[3]).cpu().tolist()
+            if kind == "prefill":  # rows land in slots rest[1], each a new chain
+                for s, x in zip(rest[1], m):
+                    margins[int(s)] = [x]
+            else:
+                for s in margins:
+                    margins[s].append(m[s])
+            return out
+        return call
+
+    srv._prefill_fn = timed("prefill", srv._prefill_fn)
+    srv._decode_fn = timed("tick", srv._decode_fn)
+    item = srv_mod._Pending([list(r) for r in rows], max_new=max_new)
+    srv._shift_inflight(+1)
+    srv.queue.submit(item)
+    srv.queue.close()
+    threads = srv.start_pipeline()
+    if not item.event.wait(600):
+        raise SmokeFailure("the in-process server never answered")
+    for t in threads:
+        t.join(60)
+    if item.error:
+        raise SmokeFailure(f"the in-process server failed: {item.error}")
+    # Admission sorted the rows by length (stable) into slots 0, 1, ...
+    order = sorted(range(len(rows)), key=lambda i: len(rows[i]))
+    row_margins = [None] * len(rows)
+    for slot, i in enumerate(order):
+        row_margins[i] = margins[slot][:max_new]
+    peak = torch.cuda.max_memory_allocated() - base if dev.type == "cuda" else None
+    return {"answers": item.result, "margins": row_margins, "times": times,
+            "peak_bytes": peak, "kv_bytes": sum(t.numel() * t.element_size() for t in srv._kv),
+            "cfg": srv._decode_cfg, "params": srv._live[0], "kv": srv._kv}
+
+
+def device_profile(ref: dict, cell: ServeCell, rows, ticks: int = 10) -> dict:
+    """On the server's weights and cache, in this process: three more
+    synchronised prefills of `rows` at the bucket the server gave them
+    (their seconds, `prefill_s`), then `ticks` decode ticks under
+    torch.profiler, each ending in the host copy of its next tokens as the
+    scheduler's does, every slot at mid-window (`tick`: the device's busy
+    ms a tick, the idle share of the window from the first kernel's start
+    to the last one's end, device launches a tick, the longest kernels)."""
+    import numpy as np
+    import torch
+    from torch.profiler import DeviceType, ProfilerActivity, profile
+
+    from tf_operator_tpu_torch.models import decode
+    from tf_operator_tpu_torch.serve.server import select_bucket, seq_bucket_sizes
+
+    params, (k, v), cfg = ref["params"], ref["kv"], ref["cfg"]
+    rows = sorted(rows, key=len)
+    tokens, lengths = _padded(rows, select_bucket(len(rows[-1]), seq_bucket_sizes(cell.seq)),
+                              "cpu")
+    prefill_s = []
+    with torch.inference_mode():
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            decode.prefill_into_slots(params, k, v, tokens, lengths, list(range(len(rows))),
+                                      cfg)[2].cpu()
+            prefill_s.append(time.perf_counter() - t0)
+        last = np.arange(cell.slots + 1) + 100
+        positions = np.array([cell.seq // 2] * cell.slots + [0])
+        decode.decode_step(params, k, v, last, positions, cfg)[2].cpu()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(ticks):
+                decode.decode_step(params, k, v, last, positions, cfg)[2].cpu()
+    events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    window = (max(e.time_range.end for e in events) - events[0].time_range.start) / 1e3
+    by_name: dict[str, float] = {}
+    for e in events:
+        ms = (e.time_range.end - e.time_range.start) / 1e3
+        by_name[e.name[:80]] = by_name.get(e.name[:80], 0.0) + ms / ticks
+    busy = sum(by_name.values()) * ticks
+    return {"prefill_s": prefill_s, "tick": {
+        "device_ms_per_tick": busy / ticks, "window_ms_per_tick": window / ticks,
+        "idle_share": 1.0 - busy / window, "launches_per_tick": len(events) / ticks,
+        "top_kernels_ms_per_tick": dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:6])}}
+
+
+def held_answers(got, want, margins, tol: float = SERVE_MARGIN) -> dict:
+    """Each row of `got` against `want` up to (not including) the first
+    position whose reference margin is below tol: the positions compared
+    and the first disagreement inside them (None when they all agree)."""
+    compared, mismatch = 0, None
+    for r, (g, w, m) in enumerate(zip(got, want, margins)):
+        if len(g) != len(w):
+            mismatch = mismatch or (r, "length", len(g), len(w))
+            continue
+        stop = next((i for i, x in enumerate(m) if x < tol), len(w))
+        bad = next((i for i in range(stop) if g[i] != w[i]), None)
+        if bad is not None:
+            mismatch = mismatch or (r, bad, g[bad], w[bad])
+        compared += stop
+    return {"compared": compared, "of": sum(len(w) for w in want), "mismatch": mismatch,
+            "identical": got == want}
+
+
+def tick_bound_bytes(params: dict, cfg, slots: int, max_len: int) -> int:
+    """Bytes one decode tick must move: every weight as the tick reads it
+    (the dense weights in the compute dtype, LayerNorm parameters, the
+    `slots` rows of both embedding tables), the whole KV cache (attention
+    reads every position of every slot), this tick's K/V writes and the
+    f32 logits."""
+    item = {"float32": 4, "bfloat16": 2}[str(cfg.dtype).removeprefix("torch.")]
+    total = 0
+    for name, t in params.items():
+        if name in ("trunk.embed.weight", "trunk.pos_embed.weight"):
+            total += slots * t.shape[1] * t.element_size()
+        else:
+            total += t.numel() * t.element_size()
+    cache = 2 * cfg.num_layers * slots * cfg.num_heads * max_len * cfg.head_dim * item
+    writes = 2 * cfg.num_layers * slots * cfg.hidden * item
+    return total + cache + writes + slots * cfg.vocab_size * 4
+
+
+def _post(port: int, body: dict, timeout: float = 120.0) -> tuple[int, dict, float]:
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/predict",
+                                 data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"}, method="POST")
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read()), time.perf_counter() - t0
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"{}"), time.perf_counter() - t0
+
+
+def _percentile(xs, q: float) -> float:
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(len(xs) * q))]
+
+
+def run_server(cell: ServeCell, ckpt_dir, a_rows, b_reqs) -> dict:
+    """The server as a pod runs it (`python -m
+    tf_operator_tpu_torch.serve.server` with the controller's env): time to
+    ready; request a (the rows, a_new tokens) and then b (concurrent
+    single rows); SIGTERM, which must drain to exit 0 with a done event.
+    Fails on any answer that is not a 200 with its full token count."""
+    import urllib.request
+    from concurrent.futures import ThreadPoolExecutor as Pool
+
+    SERVE_DIR.mkdir(parents=True, exist_ok=True)
+    files = {k: SERVE_DIR / f"server.{k}" for k in ("stats", "heartbeat", "events", "log")}
+    for f in files.values():
+        f.unlink(missing_ok=True)
+    port = free_port()
+    env = dict(os.environ, **serve_env(cell, ckpt_dir, port, files),
+               PYTHONPATH=str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    with open(files["log"], "w") as logf:
+        proc = subprocess.Popen([sys.executable, "-m", "tf_operator_tpu_torch.serve.server"],
+                                cwd=ROOT, env=env, stdout=logf, stderr=subprocess.STDOUT)
+    try:
+        ready_s = None
+        while time.perf_counter() - t0 < 300 and proc.poll() is None:
+            try:
+                with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=2) as r:
+                    if json.loads(r.read()).get("ok"):
+                        ready_s = time.perf_counter() - t0
+                        break
+            except OSError:
+                pass
+            time.sleep(0.1)
+        if ready_s is None:
+            raise SmokeFailure(f"the server never became ready (exit {proc.poll()}): "
+                               + files["log"].read_text()[-2000:])
+        code, a_resp, a_s = _post(port, {"instances": a_rows, "maxNewTokens": cell.a_new})
+        if code != 200 or [len(p) for p in a_resp.get("predictions", [])] != \
+                [cell.a_new] * len(a_rows):
+            raise SmokeFailure(f"request a answered {code}: {str(a_resp)[:300]}")
+        with Pool(len(b_reqs)) as pool:
+            b_out = list(pool.map(lambda rq: _post(port, {"instances": [rq[0]],
+                                                          "maxNewTokens": rq[1]}), b_reqs))
+        bad = [(i, c, str(r)[:200]) for i, ((_, n), (c, r, _)) in enumerate(zip(b_reqs, b_out))
+               if c != 200 or [len(p) for p in r.get("predictions", [])] != [n]]
+        if bad:
+            raise SmokeFailure(f"requests of b not answered in full: {bad[:3]}")
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=5) as r:
+            metrics = r.read().decode()
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    events = [json.loads(x) for x in files["events"].read_text().splitlines()]
+    names = [e["event"] for e in events]
+    stats = json.loads(files["stats"].read_text())  # the drain's final snapshot
+    if rc != 0 or names[:2] != ["start", "serve_ready"] or names[-1] != "done":
+        raise SmokeFailure(f"the server's SIGTERM drain exited {rc} with events {names}")
+    b_lat = [s for _, _, s in b_out]
+    return {"ready_s": ready_s, "a_answers": a_resp["predictions"], "a_s": a_s,
+            "b_p50_s": _percentile(b_lat, 0.5), "b_p99_s": _percentile(b_lat, 0.99),
+            "b_tokens": sum(n for _, n in b_reqs), "stats": stats,
+            "metrics_families": sorted({ln.split()[2] for ln in metrics.splitlines()
+                                        if ln.startswith("# TYPE")}),
+            "done": events[-1]}
+
+
+def serve_phase(card: str, cell: ServeCell = SERVE) -> dict:
+    """A13 on the card: the port trainer writes the cell's checkpoint; the
+    server serves requests a and b from it as a pod would; in this process
+    the decode path is held against the port's forward and against itself
+    (decode_readings, within SERVE_LIMITS, each of SERVE_FAULTS rejected),
+    the f32 chains against a naive re-forward, and the server's answers to
+    a against the same request through the server's code here
+    (held_answers). Logs time to ready, prefill and decode tokens/s, tick
+    ms against its bound, request latencies and memory."""
+    import torch
+
+    from tf_operator_tpu_torch.models import checkpoint as ckpt
+    from tf_operator_tpu_torch.ops import flash_attention as fa
+
+    ckpt_dir = SERVE_DIR / "ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    run_trainer(serve_train_argv(cell, ckpt_dir), tag="_serve")
+    a_rows, b_reqs = serve_requests(cell)
+    served = run_server(cell, ckpt_dir, a_rows, b_reqs)
+    log(f"serve: ready in {served['ready_s']:.3f} s; request a (8 rows) {served['a_s']:.3f} s; "
+        f"b ({len(b_reqs)} concurrent, {served['b_tokens']} tokens) latency p50 "
+        f"{served['b_p50_s'] * 1e3:.3f} ms p99 {served['b_p99_s'] * 1e3:.3f} ms; server "
+        f"stats p50/p99 {served['stats']['latency_p50_ms']}/{served['stats']['latency_p99_ms']}"
+        f" ms, decode_steps {served['stats']['decode_steps']}, tokens "
+        f"{served['stats']['tokens_total']} [{card}]")
+
+    ref = reference_answers(ckpt_dir, cell, a_rows, cell.a_new)
+    held = held_answers(served["a_answers"], ref["answers"], ref["margins"])
+    if held["mismatch"] is not None:
+        raise SmokeFailure(f"the server's answers to a differ from the in-process chains: {held}")
+    prefill_first_s = ref["times"]["prefill"][-1]  # the server's own call
+    prof = device_profile(ref, cell, a_rows) if cell.device == "cuda" else None
+    prefill_s = sum(prof["prefill_s"]) / 3 if prof else prefill_first_s
+    ticks = ref["times"]["tick"]
+    tick_ms = sorted(t * 1e3 for t in ticks)
+    bound_bytes = tick_bound_bytes(ref["params"], ref["cfg"], cell.slots + 1, cell.seq)
+    rec = {
+        "ready_s": served["ready_s"],
+        "prefill_tokens_per_s": sum(cell.a_lengths) / prefill_s,
+        "prefill_ms": prefill_s * 1e3, "prefill_first_ms": prefill_first_s * 1e3,
+        "decode_tokens_per_s": len(a_rows) / (sum(ticks) / len(ticks)),
+        "tick_ms": {"mean": sum(tick_ms) / len(tick_ms), "p50": _percentile(tick_ms, 0.5),
+                    "p99": _percentile(tick_ms, 0.99), "n": len(tick_ms)},
+        "tick_bound_ms": bound_bytes / PEAK_BYTES_PER_S * 1e3, "tick_bound_bytes": bound_bytes,
+        "b_latency_ms": {"p50": served["b_p50_s"] * 1e3, "p99": served["b_p99_s"] * 1e3},
+        "server_stats": {k: served["stats"][k] for k in (
+            "served_total", "decode_steps", "tokens_total", "pad_efficiency",
+            "latency_p50_ms", "latency_p99_ms")},
+        "kv_bytes": ref["kv_bytes"], "peak_bytes": ref["peak_bytes"],
+        "answers_held": held,
+    }
+    if prof:
+        rec["tick_profile"] = prof["tick"]
+        log(f"serve: prefill repeats {prof['prefill_s']} s; tick under torch.profiler: "
+            f"{json.dumps(prof['tick'])} [{card}]")
+    del ref
+    host = ckpt.restore(ckpt_dir, ckpt.latest_valid_checkpoint(ckpt_dir))
+    before = fa.LAUNCHES["fwd"]
+    readings = {"sound": decode_readings(host, cell)}
+    if fa.LAUNCHES["fwd"] - before < cell.layers and cell.device == "cuda":
+        raise SmokeFailure("the reference forward did not launch K1 once a layer")
+    for what, helper in SERVE_FAULTS:
+        with planted(helper):
+            readings[what] = decode_readings(host, cell)
+    chains = f32_chains(host, cell)
+    del host
+    if cell.device == "cuda":
+        torch.cuda.empty_cache()
+    rec.update(readings=readings, limits=SERVE_LIMITS,
+               f32_chains={"equal": chains["equal"], "min_margin": chains["min_margin"]})
+    log(f"serve: prefill {rec['prefill_tokens_per_s']:.1f} tokens/s ({rec['prefill_ms']:.3f} ms "
+        f"for {sum(cell.a_lengths)} prompt tokens at (8, {cell.seq}); the server's own call "
+        f"{rec['prefill_first_ms']:.3f} ms); decode "
+        f"{rec['decode_tokens_per_s']:.1f} tokens/s at {len(a_rows)} active slots; tick ms "
+        f"mean {rec['tick_ms']['mean']:.4f} p50 {rec['tick_ms']['p50']:.4f} p99 "
+        f"{rec['tick_ms']['p99']:.4f} against its bound {rec['tick_bound_ms']:.4f} "
+        f"({bound_bytes} bytes at 3.35 TB/s); KV cache {rec['kv_bytes']} bytes, peak "
+        f"{rec['peak_bytes']} bytes; answers held on {held['compared']} of {held['of']} "
+        f"tokens (identical: {held['identical']}); readings {readings} (limits "
+        f"{SERVE_LIMITS}); f32 chains equal: {chains['equal']} (min margin "
+        f"{chains['min_margin']:.3g}) [{card}]")
+    failures = serve_verdict(readings)
+    if not chains["equal"]:
+        failures.append(f"f32 greedy chains differ from the naive re-forward: "
+                        f"{chains['chains']} vs {chains['naive']}")
+    if failures:
+        raise SmokeFailure("serve: " + "; ".join(failures))
+    return rec
+
+
+def serve_verdict(readings: dict) -> list[str]:
+    """Failures of decode_readings records: the sound one over a limit, or
+    a planted fault under every limit (not rejected)."""
+    out = [f"sound {k} {v:.4g} over its limit {SERVE_LIMITS[k]}"
+           for k, v in readings["sound"].items() if not v <= SERVE_LIMITS[k]]
+    for what, _ in SERVE_FAULTS:
+        r = readings.get(what)
+        if r is None or all(v <= SERVE_LIMITS[k] for k, v in r.items()):
+            out.append(f"planted fault not rejected: {what} ({r})")
+    return out
+
+
 # (only with --phases ...,dist4, on a machine of four GPUs) the dist runs
 # with one GPU a rank, as pods of their own: the rule picks NCCL. BERT adds
 # dp = 4, dp x tp and fsdp = 4; the 64k LM runs sp = 4 (ring), sp x tp
@@ -2943,9 +3549,10 @@ def profile_phase(args, card: str) -> None:
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="build,check,train,ckpt,eval,longctx,preempt,bert,data,dist,sp,moe",
+                    default="build,check,train,ckpt,eval,longctx,preempt,bert,data,dist,sp,moe,"
+                            "serve",
                     help="comma-separated subset of build,check,train,ckpt,eval,longctx,"
-                         "preempt,bert,data,dist,sp,moe,profile; k4 for the fused bottleneck's "
+                         "preempt,bert,data,dist,sp,moe,serve,profile; k4 for the fused bottleneck's "
                          "checks alone, k5 for the grouped matmul's (moe runs them too; "
                          "eval follows the ckpt phase's directory); dist4 "
                          "(or its MoE runs alone, moe4) on a machine of four GPUs")
@@ -3008,6 +3615,8 @@ def main(argv: list[str] | None = None) -> int:
             results["sp"] = sp_phase(records, card)
         if "moe" in phases:
             results["moe"] = moe_phase(records, card)
+        if "serve" in phases:
+            results["serve"] = serve_phase(card)
         if "dist4" in phases:
             results["dist4"] = dist4_phase(records, card)
         elif "moe4" in phases:

@@ -843,3 +843,152 @@ def test_k5_functions_are_the_kernels_of_each_route():
         assert chip_smoke.kernel_group(f"void {funcs[0]}(CUtensorMap_st)",
                                        chip_smoke.MOE_GROUPS) == (
             "grouped_matmul_tgmm" if name.endswith("tgmm") else "grouped_matmul_gmm")
+
+
+# ------------------------------------------------------------ the serve phase
+
+# The serve phase at a CPU size: 2 layers x 128 (2 heads of 64), window 256.
+SERVE_TINY = chip_smoke.ServeCell(
+    layers=2, hidden=128, heads=2, seq=256, slots=4, max_new=32, batch_max=4,
+    a_lengths=(5, 17, 40, 200), a_new=16, b_requests=8, b_new=(4, 32, 8),
+    b_length_range=(3, 60), forward_lengths=(9, 100, 200), check_lengths=(1, 3, 11, 150),
+    chain_lengths=(5, 20), chain_tokens=8, train_batch=2, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def serve_host(tmp_path_factory):
+    """A tiny LM's state dict as the port trainer saves it."""
+    from tf_operator_tpu_torch.models import transformer as tfm
+
+    cfg = tfm.TransformerConfig(vocab_size=32000, num_layers=2, hidden=128, num_heads=2,
+                                max_len=256, causal=True)
+    model = tfm.TransformerLM(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    return {k: v.detach() for k, v in model.state_dict().items()}
+
+
+def test_serve_cell_requests_fit_its_window():
+    """Request a: 8 rows over at least four seq buckets, each with its 64
+    new tokens inside the 2048 window; b: 24 single rows, maxNewTokens 8 to
+    128; the checks' rows shorter than the window."""
+    from tf_operator_tpu_torch.serve.server import select_bucket, seq_bucket_sizes
+
+    cell = chip_smoke.SERVE
+    a, b = chip_smoke.serve_requests(cell)
+    assert [len(r) for r in a] == list(cell.a_lengths) and len(a) == cell.batch_max == 8
+    assert min(cell.a_lengths) == 17 and max(cell.a_lengths) == 1984
+    assert all(n + cell.a_new <= cell.seq for n in cell.a_lengths)
+    buckets = {select_bucket(n, seq_bucket_sizes(cell.seq)) for n in cell.a_lengths}
+    assert len(buckets) >= 4
+    assert len(b) == 24 and {n for _, n in b} >= {8, 128}
+    assert all(len(r) + n <= cell.seq and 0 < n <= cell.max_new for r, n in b)
+    assert max(cell.forward_lengths + cell.check_lengths) < cell.seq
+    assert (cell.layers, cell.hidden, cell.heads, cell.vocab) == (12, 768, 6, 32000)
+
+
+def test_serve_env_is_the_controllers():
+    from tf_operator_tpu.serve import controller
+
+    env = chip_smoke.serve_env(chip_smoke.SERVE, "/ck", 1234, {
+        k: f"/f/{k}" for k in ("stats", "heartbeat", "events")})
+    assert env[controller.ENV_MAX_SEQ_LEN] == "2048"
+    assert env[controller.ENV_MAX_CONCURRENT] == "8"
+    assert env[controller.ENV_MAX_NEW_TOKENS] == "128"
+    assert env[controller.ENV_BATCH_MAX] == "8"
+    assert env[controller.ENV_MODEL] == "transformer-lm"
+    assert env[controller.ENV_CKPT_DIR] == "/ck"
+    assert env["TPUJOB_SERVE_NUM_HEADS"] == "6"
+
+
+def test_serve_checks_pass_sound_and_reject_each_planted_fault(serve_host):
+    """decode_readings in bf16 on the CPU: the sound path within
+    SERVE_LIMITS, every SERVE_FAULTS entry over one of them (serve_verdict
+    passes), and planted() restores the helper it broke."""
+    from tf_operator_tpu_torch.models import decode
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        readings = {"sound": chip_smoke.decode_readings(serve_host, SERVE_TINY)}
+        for what, helper in chip_smoke.SERVE_FAULTS:
+            orig = getattr(decode, helper)
+            with chip_smoke.planted(helper):
+                assert getattr(decode, helper) is not orig
+                readings[what] = chip_smoke.decode_readings(serve_host, SERVE_TINY)
+            assert getattr(decode, helper) is orig
+    finally:
+        torch.set_num_threads(n)
+    assert chip_smoke.serve_verdict(readings) == []
+    for what, _ in chip_smoke.SERVE_FAULTS:
+        assert max(readings[what][k] / chip_smoke.SERVE_LIMITS[k]
+                   for k in chip_smoke.SERVE_LIMITS) > 3, (what, readings[what])
+
+
+@pytest.mark.parametrize("broken", ["sound over", "fault under"])
+def test_serve_verdict_fails_a_bad_reading(broken):
+    sound = {"prefill_vs_forward": 0.03, "tick_vs_prefill": 0.03}
+    fault = {"prefill_vs_forward": 0.03, "tick_vs_prefill": 0.5}
+    readings = {"sound": dict(sound), **{w: dict(fault) for w, _ in chip_smoke.SERVE_FAULTS}}
+    assert chip_smoke.serve_verdict(readings) == []
+    if broken == "sound over":
+        readings["sound"]["tick_vs_prefill"] = 0.2
+    else:
+        readings[chip_smoke.SERVE_FAULTS[1][0]] = dict(sound)
+    assert len(chip_smoke.serve_verdict(readings)) == 1
+
+
+def test_f32_chains_equal_a_naive_reforward_on_cpu(serve_host):
+    out = chip_smoke.f32_chains(serve_host, SERVE_TINY)
+    assert out["equal"] and len(out["chains"]) == 2 and len(out["chains"][0]) == 8
+
+
+def test_held_answers_stop_at_the_first_near_tie():
+    want = [[1, 2, 3, 4], [5, 6, 7, 8]]
+    margins = [[1.0, 1.0, 0.001, 1.0], [1.0] * 4]
+    assert chip_smoke.held_answers([[1, 2, 9, 9], [5, 6, 7, 8]], want, margins) == {
+        "compared": 6, "of": 8, "mismatch": None, "identical": False}
+    bad = chip_smoke.held_answers([[1, 2, 3, 4], [5, 0, 7, 8]], want, margins)
+    assert bad["mismatch"] == (1, 1, 0, 6)
+    assert chip_smoke.held_answers([[1, 2]], [[1, 2, 3]], [[1.0] * 3])["mismatch"] == (
+        0, "length", 2, 3)
+
+
+def test_tick_bound_counts_weights_cache_and_logits():
+    """The full-width cell's tick: bf16 dense weights and biases, f32
+    LayerNorm parameters, 9 rows of both f32 embedding tables, the 679 MB
+    cache of 9 slots x 2048, the tick's K/V writes and f32 logits."""
+    from tf_operator_tpu_torch.models import decode
+    from tf_operator_tpu_torch.models import transformer as tfm
+
+    cfg = tfm.TransformerConfig(vocab_size=32000, num_layers=12, hidden=768, num_heads=6,
+                                max_len=2048, causal=True)
+    model = tfm.TransformerLM(cfg, device="meta")
+    params = decode.prepare_params(dict(model.state_dict()), cfg)
+    h, layers, slots = 768, 12, 9
+    dense = layers * (4 * (h * h + h) + (h * 4 * h + 4 * h) + (4 * h * h + h)) + h * 32000
+    norms = (2 * layers + 1) * 2 * h
+    cache = 2 * layers * slots * 6 * 2048 * 128 * 2
+    want = dense * 2 + norms * 4 + 2 * slots * h * 4 + cache + 2 * layers * slots * h * 2 \
+        + slots * 32000 * 4
+    got = chip_smoke.tick_bound_bytes(params, cfg, slots, 2048)
+    assert got == want == 900357120
+    assert cache == 679477248
+
+
+def test_serve_phase_runs_on_cpu_at_a_tiny_size(tmp_path, monkeypatch):
+    """The serve phase end to end at SERVE_TINY on the CPU: the trainer's
+    checkpoint, the server subprocess with requests a and b and its
+    SIGTERM drain, the in-process chains, readings, faults and f32 chains."""
+    monkeypatch.setattr(chip_smoke, "OUT_DIR", tmp_path)
+    monkeypatch.setattr(chip_smoke, "SERVE_DIR", tmp_path / "serve")
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        rec = chip_smoke.serve_phase("cpu", SERVE_TINY)
+    finally:
+        torch.set_num_threads(n)
+    assert rec["answers_held"]["identical"] and rec["answers_held"]["of"] == 4 * 16
+    assert rec["server_stats"]["served_total"] == 1 + 8
+    assert rec["f32_chains"]["equal"] and rec["tick_ms"]["n"] == 15
+    assert rec["kv_bytes"] == 2 * 2 * 5 * 2 * 256 * 64 * 2
+    assert set(rec["readings"]) == {"sound"} | {w for w, _ in chip_smoke.SERVE_FAULTS}

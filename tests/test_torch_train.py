@@ -407,6 +407,8 @@ def test_import_hygiene_in_a_fresh_process():
         "        'ulysses')} <= set(names), names\n"
         "assert {'tf_operator_tpu_torch.models.moe',\n"
         "        'tf_operator_tpu_torch.ops.grouped_matmul'} <= set(names), names\n"
+        "assert {'tf_operator_tpu_torch.serve.server', 'tf_operator_tpu_torch.models.decode',\n"
+        "        'tf_operator_tpu_torch.status.metrics'} <= set(names), names\n"
         "for name in names:\n"
         "    __import__(name)\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
@@ -426,7 +428,8 @@ def test_import_hygiene_ast_scan():
     for name in ("distributed", "mesh", "sharding_rules", "collectives", "train_step",
                  "ring_attention", "ulysses"):
         assert ROOT / "tf_operator_tpu_torch" / "parallel" / f"{name}.py" in files
-    for name in ("models/moe.py", "ops/grouped_matmul.py"):
+    for name in ("models/moe.py", "ops/grouped_matmul.py", "serve/server.py", "models/decode.py",
+                 "status/metrics.py"):
         assert ROOT / "tf_operator_tpu_torch" / name in files
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
