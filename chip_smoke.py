@@ -12,6 +12,7 @@
     python3 chip_smoke.py --phases build,moe          # the MoE LM and K5, ep = 2
     python3 chip_smoke.py --phases build,k5           # K5's checks and times alone
     python3 chip_smoke.py --phases build,serve        # the inference server (A13)
+    python3 chip_smoke.py --phases build,multislice,pipeline  # A12: slices, the GPipe schedule
     python3 chip_smoke.py --phases build,dist4        # four GPUs over NCCL (not default)
     python3 chip_smoke.py --phases build,moe4         # dist4's MoE runs alone (four GPUs)
 
@@ -155,7 +156,26 @@ Phases, in order:
      must equal a naive f32 re-forward; time to ready, prefill and decode
      tokens/s, tick ms against its bound, request latencies, the cache's
      bytes and the peak memory are logged;
- 15. (only with --phases ...,dist4, on four GPUs) the dist runs and dp = 4,
+ 15. multi-slice (multislice): the full-width LM (train phase's argv, every
+     step logged) as 2 slices, one process a slice on the card, each a
+     one-rank world with TPUJOB_NUM_SLICES=2, its TPUJOB_SLICE_ID and one
+     TPUJOB_DCN_DIR (on /dev/shm when it has MS_SHM_BYTES free), 2
+     microbatches a step, held against one process at the same argv on
+     dist_gaps' limits with K1-K3 and delta launched once a layer a
+     microbatch a step in each slice; at 4 layers each slice applying its
+     own mean (no-dcn-sum) must fail those limits, and slice 1 killed
+     (SIGKILL, --chaos) at step 5, two after worker 0's step-3 save, then
+     relaunched, must resume from step 3 while slice 0, never restarted,
+     emits dcn_rewind and ends on the uninterrupted run's losses: global
+     tokens/s, step time, the dcn block and each slice's peak;
+ 16. the pipeline (pipeline): make_pipelined_lm at the LM's widths (12
+     layers, 6 a stage at pp = 2, batch 4 in 4 microbatches) as two gloo
+     ranks on the card, the logits (rel_err) and one step's gradients
+     (norm_err) within PP_LIMIT of the unpipelined LM with the same
+     weights, a zero hop over it, each flash kernel launched 24 times a
+     rank a step; the step (and its backward / reduction split) beside one
+     process's, the bubble;
+ 17. (only with --phases ...,dist4, on four GPUs) the dist runs and dp = 4,
      dp x tp = 2 x 2 and fsdp = 4 with one GPU a rank (CUDA_VISIBLE_DEVICES),
      where the backend rule picks NCCL; then the 64k LM at sp = 4 (ring)
      and sp x tp = 2 x 2 (ring, 3 local heads) at batch 1 and dp x sp = 2
@@ -165,11 +185,11 @@ Phases, in order:
      whole tensors are too large); then the MoE cell (sparse) at ep = 4 and
      dp x ep = 2 x 2, each held against one process (moe4 runs these
      alone);
- 16. (only with --phases ...,profile) both trainers' runs, the 64k LM,
+ 18. (only with --phases ...,profile) both trainers' runs, the 64k LM,
      BERT-base at seq 512 and the MoE cell (sparse) under torch.profiler:
      device time by kernel group over their steady steps.
-The last lines are the eval, longctx, preempt, bert, data, dist, sp, moe and
-serve phases' records as one JSON object ({"phases": ...}), the kernels' JSON record,
+The last lines are the eval, longctx, preempt, bert, data, dist, sp, moe,
+serve, multislice and pipeline phases' records as one JSON object ({"phases": ...}), the kernels' JSON record,
 the card, and
 {"ok": true, "device": {...}}. Any failed phase exits nonzero with no
 result line. Needs a CUDA device: it never runs on the CPU.
@@ -324,8 +344,12 @@ class SmokeFailure(RuntimeError):
     pass
 
 
+_T0 = time.monotonic()
+
+
 def log(msg: str) -> None:
-    print(f"[chip_smoke] {msg}", flush=True)
+    """A progress line with the seconds since the script started."""
+    print(f"[chip_smoke {time.monotonic() - _T0:.1f}s] {msg}", flush=True)
 
 
 def card_line() -> str:
@@ -1965,7 +1989,9 @@ def free_port() -> int:
 
 def _plant_fault(fault: str) -> None:
     """Break this process's port as CHIP_SMOKE_DIST_FAULT says:
-    no-grad-reduce (each rank steps on its own gradients), no-sp-grad-sum
+    no-grad-reduce (each rank steps on its own gradients), no-dcn-sum (each
+    slice of a multi-slice job applies its own microbatches' mean: the
+    exchange counts its peers' contributions but does not add them), no-sp-grad-sum
     (the gradients are summed over the data axes but not over sp),
     no-ring-mask (a ring block of a later rank is visible: no causal mask
     across blocks) or no-ep-sum (an MoE layer's output and input gradient
@@ -1986,6 +2012,23 @@ def _plant_fault(fault: str) -> None:
                 self.seq = seq
 
         ts.ParallelPlan.reduce_grads = reduce_grads
+    elif fault == "no-dcn-sum":
+        from tf_operator_tpu_torch.parallel import multislice
+
+        real_acc, real_collect = (multislice.DcnExchange._accumulate,
+                                  multislice.DcnExchange.collect)
+
+        def accumulate(self, p, sid, m, bucket_ids, host_by_bucket):
+            if sid != self.world.slice_id:
+                p.got.update((sid, m, b) for b in bucket_ids)
+                return
+            real_acc(self, p, sid, m, bucket_ids, host_by_bucket)
+
+        def collect(self, *args, **kwargs):
+            return [a * self.world.num_slices for a in real_collect(self, *args, **kwargs)]
+
+        multislice.DcnExchange._accumulate = accumulate
+        multislice.DcnExchange.collect = collect
     elif fault == "no-ring-mask":
         ring_attention.block_visible = lambda src, my: True
     elif fault == "no-ep-sum":
@@ -2032,7 +2075,22 @@ def dist_child(argv: list[str]) -> int:
         norms.append(float(metrics["grad_norm"]))
         return state, metrics
 
+    real_ms = ts.make_multislice_step_fns
+
+    def make_multislice_step_fns(*args, **kwargs):
+        gen_batch, backward, apply = real_ms(*args, **kwargs)
+
+        def recorded(state, grads):
+            if not init:
+                init.extend(p.detach().clone() for p in state.params)
+            state, norm = apply(state, grads)
+            norms.append(float(norm))
+            return state, norm
+
+        return gen_batch, backward, recorded
+
     ts.parallelize, ts.train_step = parallelize, train_step
+    ts.make_multislice_step_fns = make_multislice_step_fns
     _plant_fault(os.environ.get("CHIP_SMOKE_DIST_FAULT", ""))
     out: dict = {}
     rc = train.main(argv, out)
@@ -3403,6 +3461,442 @@ def serve_verdict(readings: dict) -> list[str]:
     return out
 
 
+# The multislice phase: a 2-slice job of the full-width LM (one process a
+# slice, one-rank worlds sharing the card) meeting in the DCN exchange
+# (parallel/multislice.py) through a directory on /dev/shm when it has the
+# room, held against one process at the same global batch and seed on
+# dist_gaps' limits; at MS_REWIND_LAYERS layers, the planted fault (each
+# slice applies its own mean) must fail them, and a kill of slice 1 two
+# steps after a save (checkpoint every MS_CKPT_EVERY, kill at MS_KILL), its
+# relaunch and slice 0's in-process rewind must end on the uninterrupted
+# run's losses.
+MS_SLICES, MS_MICRO, MS_STEPS = 2, 2, 6
+MS_REWIND_LAYERS, MS_CKPT_EVERY, MS_KILL = 4, 3, 5
+MS_FAULT = ("each slice applies its own mean", "no-dcn-sum")
+MS_SHM_BYTES = 16e9  # /dev/shm room the full-width exchange may take
+
+
+def ms_job(layers: int, ref: str) -> DistJob:
+    """The train phase's LM argv at `layers` (every step logged), as a
+    DistJob whose flash kernels launch once a layer a microbatch a step in
+    each slice."""
+    argv = lm_argv(MS_STEPS, layers)
+    argv[argv.index("--log-every") + 1] = "1"
+    return DistJob(f"lm {SEQ} {layers} layers", tuple(argv), SEQ, BATCH, MS_STEPS, layers,
+                   6, 1, OUT_DIR / ref)
+
+
+def dcn_dir(name: str) -> Path:
+    """A fresh exchange directory: under /dev/shm when it has MS_SHM_BYTES
+    free, else under OUT_DIR."""
+    shm = Path("/dev/shm")
+    root = shm if shm.is_dir() and shutil.disk_usage(shm).free >= MS_SHM_BYTES else OUT_DIR
+    path = root / f"chip_smoke_dcn_{os.getpid()}_{name}"
+    shutil.rmtree(path, ignore_errors=True)
+    path.mkdir(parents=True)
+    log(f"multislice: exchange directory {path} ({shutil.disk_usage(path).free} bytes free)")
+    return path
+
+
+def slice_env(sid: int, dcn: Path, job: DistJob, fault: str = "") -> dict:
+    """A slice's pod env as the operator injects it (worker `sid` of a
+    job without a chief: worker 0 writes the checkpoints), with dist_child's."""
+    return {"CHIP_SMOKE_DIST_ROLE": "run", "CHIP_SMOKE_DIST_FAULT": fault,
+            "CHIP_SMOKE_DIST_REF": str(job.ref), "TPUJOB_NUM_SLICES": str(MS_SLICES),
+            "TPUJOB_SLICE_ID": str(sid), "TPUJOB_DCN_DIR": str(dcn),
+            "TPUJOB_REPLICA_TYPE": "worker", "TPUJOB_REPLICA_INDEX": str(sid)}
+
+
+def ms_argv(job: DistJob, extra=()) -> list[str]:
+    return list(job.argv) + ["--dcn-microbatches", str(MS_MICRO), *extra]
+
+
+def slice_launches(job: DistJob) -> dict:
+    """A slice's flash launches over the run: one a layer a microbatch a
+    step."""
+    return {k: job.layers * job.steps * MS_MICRO for k in FLASH_LAUNCH_KEYS}
+
+
+def slice_record(name: str, job: DistJob, sid: int, res) -> dict:
+    """A slice's (exit code, events, dist_child record) checked: exit 0,
+    the flash kernels launched once a layer a microbatch a step, a finite
+    loss and gradient norm at every step, a done event with its dcn block."""
+    rc, events, rec = res
+    if rc != 0:
+        raise SmokeFailure(f"multislice {name}: slice {sid} exited {rc}")
+    want = slice_launches(job)
+    if rec.get("launches") != want:
+        raise SmokeFailure(f"multislice {name}: slice {sid} launches {rec.get('launches')}, "
+                           f"not {want}")
+    losses, norms = _step_losses(events), rec["grad_norms"]
+    if sorted(losses) != list(range(1, job.steps + 1)) or len(norms) != job.steps or \
+            not all(math.isfinite(x) for x in list(losses.values()) + norms):
+        raise SmokeFailure(f"multislice {name}: slice {sid} losses {losses}, norms {norms}")
+    by = {e["event"]: e for e in events}
+    if not by.get("done", {}).get("dcn") or by["first_step"].get("slices") != MS_SLICES:
+        raise SmokeFailure(f"multislice {name}: slice {sid} events lack the dcn block")
+    return {**rec, "losses": losses, "done": by["done"], "events": events}
+
+
+def slice_world(name: str, job: DistJob, fault: str = "") -> dict:
+    """`job` as MS_SLICES slice processes of one rank each (dist_child),
+    every slice checked by slice_record."""
+    dcn = dcn_dir(name)
+    try:
+        children = [start_child(ms_argv(job), f"_ms_{name}_{sid}",
+                                slice_env(sid, dcn, job, fault), _DIST_CHILD)
+                    for sid in range(MS_SLICES)]
+        res = [finish_child(c, timeout=900) for c in children]
+    finally:
+        shutil.rmtree(dcn, ignore_errors=True)
+    return {"ranks": [slice_record(name, job, sid, r) for sid, r in enumerate(res)]}
+
+
+def ms_summary(name: str, job: DistJob, world: dict, ref: dict, card: str) -> dict:
+    """Global tokens/s, step time, the dcn block and peak of each slice,
+    and dist_gaps to the one-process run."""
+    done = world["ranks"][0]["done"]
+    eps = done.get("examples_per_sec")
+    return {"run": name, "model": job.label, "slices": MS_SLICES, "microbatches": MS_MICRO,
+            "tokens_per_s": eps * job.seq if eps else None,
+            "step_time_s": (done.get("step_time_s") or {}).get("mean"),
+            "phase_breakdown": done.get("phase_breakdown"),
+            "dcn": [r["done"]["dcn"] for r in world["ranks"]],
+            "peak_gb": [r["peak_gb"] for r in world["ranks"]],
+            "launches_per_slice": world["ranks"][0]["launches"],
+            "gaps": dist_gaps(ref, world), "losses": world["ranks"][0]["losses"],
+            "grad_norms": world["ranks"][0]["grad_norms"], "card": card}
+
+
+def ms_rewind(job: DistJob, ref: dict, card: str) -> dict:
+    """Slice 1 killed (SIGKILL, by --chaos) MS_KILL steps in, two after the
+    step-MS_CKPT_EVERY save of worker 0, and relaunched: it must resume
+    from that step, slice 0 must emit dcn_rewind with peer_resume at that
+    step without restarting, and both must end on the uninterrupted run's
+    losses within DIST_RTOL."""
+    dcn, ckpt = dcn_dir("rewind"), OUT_DIR / "ms_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    save = ["--checkpoint-dir", str(ckpt), "--checkpoint-every", str(MS_CKPT_EVERY)]
+    chaos = ["--chaos", f"kill:step={MS_KILL},slice=1,signal=KILL"]
+    t0 = time.time()
+    try:
+        s0 = start_child(ms_argv(job, save), "_ms_rewind_0", slice_env(0, dcn, job), _DIST_CHILD)
+        rc1, _, _ = finish_child(start_child(ms_argv(job, save + chaos), "_ms_rewind_1a",
+                                             slice_env(1, dcn, job), _DIST_CHILD), 900)
+        if rc1 != -signal.SIGKILL:
+            raise SmokeFailure(f"multislice rewind: slice 1 exited {rc1}, not killed")
+        relaunch = finish_child(start_child(ms_argv(job, save), "_ms_rewind_1b",
+                                            slice_env(1, dcn, job), _DIST_CHILD), 900)
+        r0 = finish_child(s0, 900)
+    finally:
+        shutil.rmtree(dcn, ignore_errors=True)
+        shutil.rmtree(ckpt, ignore_errors=True)
+    rc0, ev0, _ = r0
+    if rc0 != 0 or relaunch[0] != 0:
+        raise SmokeFailure(f"multislice rewind: slice 0 exited {rc0}, the relaunch {relaunch[0]}")
+    resumed = [e for e in relaunch[1] if e["event"] == "resumed"]
+    rewinds = [e for e in ev0 if e["event"] == "dcn_rewind"]
+    starts = [e for e in ev0 if e["event"] == "start"]
+    if not resumed or resumed[-1]["from_step"] != MS_CKPT_EVERY or len(starts) != 1 or \
+            not rewinds or rewinds[-1]["peer_resume"] != MS_CKPT_EVERY:
+        raise SmokeFailure(f"multislice rewind: resumed {resumed}, rewinds {rewinds}, "
+                           f"slice 0 starts {len(starts)}")
+    got = {e["step"]: e["loss"] for e in ev0 if e["event"] == "progress"}
+    want = ref["losses"]
+    gaps = {s: abs(got[s] - want[s]) / abs(want[s]) for s in want if s in got}
+    done = next(e for e in ev0 if e["event"] == "done")
+    res = {"killed_at": MS_KILL, "resumed_from": resumed[-1]["from_step"],
+           "rewind": rewinds[-1], "slice0_starts": len(starts), "loss_gaps": gaps,
+           "final_loss": done["final_loss"], "reference_final_loss": want[MS_STEPS],
+           "dcn": done["dcn"], "seconds": time.time() - t0, "card": card}
+    log("multislice: rewind " + json.dumps(res))
+    if MS_STEPS not in gaps or not max(gaps.values()) <= DIST_RTOL:
+        raise SmokeFailure(f"multislice rewind: losses off the uninterrupted run: {gaps}")
+    return res
+
+
+def multislice_phase(records: dict, card: str) -> dict:
+    """(a) the full-width LM as 2 slices x 2 microbatches against one
+    process; (b) at MS_REWIND_LAYERS layers: one process, the planted
+    fault rejected, the kill, relaunch and rewind."""
+    import torch
+
+    torch.cuda.empty_cache()
+    out = {}
+    for layers, ref_file in ((LAYERS, "ms_reference.pt"),
+                             (MS_REWIND_LAYERS, "ms_reference_small.pt")):
+        job = ms_job(layers, ref_file)
+        ref, reference = one_process(card, job)
+        try:
+            if layers == LAYERS:
+                res = ms_summary("2 slices", job, slice_world("full", job), ref, card)
+                log("multislice: " + json.dumps({k: v for k, v in res.items()
+                                                 if k not in ("losses", "grad_norms")}))
+                failed = dist_verdict(res["gaps"])
+                if failed:
+                    raise SmokeFailure(f"multislice is off one process's run: {failed}")
+                for name, key, _ in KERNELS:
+                    records.setdefault(name, {})["multislice_launches_per_slice"] = \
+                        res["launches_per_slice"][key]
+                out.update(reference=reference, run=res)
+                continue
+            label, kind = MS_FAULT
+            gaps = dist_gaps(ref, slice_world("fault", job, kind))
+            failed = [f for f in dist_verdict(gaps) if not f.startswith("loss")]
+            out["fault_control"] = {"run": label, "layers": layers, "gaps": gaps,
+                                    "rejected_on": failed}
+            log("multislice: planted fault " + json.dumps(out["fault_control"]))
+            if not failed:
+                raise SmokeFailure(f"the multislice check accepts a run where {label}: {gaps}")
+            out["rewind"] = ms_rewind(job, ref, card)
+        finally:
+            job.ref.unlink(missing_ok=True)
+    return out
+
+
+# The pipeline phase: make_pipelined_lm at the LM's widths (12 layers, 6 a
+# stage at pp = 2, seq 8192, batch 4, 4 microbatches (PipeCell), bf16 compute on
+# f32 weights) as two co-located gloo ranks, held against the unpipelined
+# port LM with the same weights: rel_err = max |d| / rms(ref) of the logits,
+# and norm_err = |d| / |ref| of each parameter's gradient after one step (the
+# pipelined ones summed over pp by reduce_grads; the key biases' aside: zero
+# in exact arithmetic), the largest of each within PP_LIMIT; a hop that sends
+# zeros must exceed it. The gradients are held in norm: the 4 microbatches'
+# bf16 weight gradients, each rounded, summed against one rounded batch-4
+# gradient put single elements of a weight's gradient up to 0.079 of its rms
+# apart (max |d| / rms, logged as grads_max_elem, an mlp_out weight on an
+# H100; the norm reading 0.0024 there), while a lost microbatch moves the
+# norm by ~1/4.
+PP_LIMIT = 0.05
+_PP_CHILD = "import sys, chip_smoke\nsys.exit(chip_smoke.pipeline_child(sys.argv[1:]))\n"
+
+
+@dataclasses.dataclass(frozen=True)
+class PipeCell:
+    """The pipeline phase's model and schedule (the LM's widths by
+    default)."""
+
+    layers: int = LAYERS
+    hidden: int = 768
+    heads: int = 6
+    vocab: int = 32000
+    seq: int = SEQ
+    batch: int = BATCH
+    stages: int = 2
+    micro: int = 4
+    device: str = "cuda"
+    dtype: str = "bfloat16"
+
+
+PIPE = PipeCell()
+
+
+def norm_err(got, ref) -> float:
+    """|got - ref| / |ref| (Frobenius), in f32."""
+    got, ref = got.float(), ref.float()
+    return float((got - ref).norm() / ref.norm())
+
+
+def pipeline_readings(model, loss_fn, ref, batch, map_grads) -> dict:
+    """rel_err of the pipelined logits and gradients against `ref`'s (on
+    the rank that holds `ref`; every rank runs the pipelined half)."""
+    import torch
+
+    with torch.no_grad():
+        logits = model(batch["tokens"])
+        out = {"logits": rel_err(logits, ref(batch["tokens"])) if ref is not None else None}
+    del logits
+    model.zero_grad(set_to_none=True)
+    loss_fn(model, batch).backward()
+    model.reduce_grads()
+    if ref is not None:
+        from tf_operator_tpu_torch.models import transformer as tfm
+
+        ref.zero_grad(set_to_none=True)
+        tfm.lm_loss(ref(batch["tokens"]), batch["tokens"]).backward()
+        want = dict(ref.named_parameters())
+        got = map_grads({n: p.grad for n, p in model.named_parameters()})
+        # A key bias's gradient is zero in exact arithmetic (softmax is
+        # invariant to it): both sides hold noise there.
+        errs = {n: norm_err(got[n], want[n].grad) for n in want
+                if not n.endswith("attn.key.bias")}
+        worst = max(errs, key=errs.get)
+        out["grads"], out["grads_worst"] = errs[worst], worst
+        elem = {n: rel_err(got[n], want[n].grad) for n in errs}
+        worst = max(elem, key=elem.get)
+        out["grads_max_elem"], out["grads_max_elem_worst"] = elem[worst], worst
+        ref.zero_grad(set_to_none=True)
+    model.zero_grad(set_to_none=True)
+    return out
+
+
+def pipeline_child(argv: list[str]) -> int:
+    """One pp rank of the pipeline phase (argv: the record file, the
+    PipeCell as JSON): the sound readings, one step's flash launches, the
+    step time against one process (on rank 0, rank 1 waiting) and the
+    readings with a hop that sends zeros."""
+    import torch
+    import torch.distributed as dist
+
+    from tf_operator_tpu_torch.models import transformer as tfm
+    from tf_operator_tpu_torch.ops import flash_attention as fa
+    from tf_operator_tpu_torch.parallel import distributed
+    from tf_operator_tpu_torch.parallel import mesh as mesh_lib
+    from tf_operator_tpu_torch.parallel import pipeline as pl
+
+    cell = PipeCell(**json.loads(argv[1]))
+    cuda = cell.device == "cuda"
+    dev = torch.device("cuda", 0) if cuda else torch.device("cpu")
+    backend = distributed.initialize_from_env(force=True, device=dev)
+    mesh = mesh_lib.make_mesh({"pp": cell.stages})
+    rank = mesh.rank
+    cfg = tfm.TransformerConfig(vocab_size=cell.vocab, num_layers=cell.layers,
+                                hidden=cell.hidden, num_heads=cell.heads, max_len=cell.seq,
+                                causal=True, dtype=getattr(torch, cell.dtype))
+    model, loss_fn = pl.make_pipelined_lm(
+        cfg, mesh, cell.micro, device=dev,
+        generator=torch.Generator(device=dev).manual_seed(0))
+    gen = torch.Generator(device=dev).manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (cell.batch, cell.seq), generator=gen,
+                                     device=dev)}
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    ref = None
+    if rank == 0:
+        from tf_operator_tpu_torch.parallel.ring_attention import make_attention_fn
+
+        ref = tfm.TransformerLM(cfg, attn_fn=make_attention_fn(None, causal=True), device=dev)
+        ref.load_state_dict(pl.lm_state_dict(model.state_dict(), cell.layers))
+
+    def map_grads(grads):
+        return pl.lm_state_dict(grads, cell.layers)
+
+    rec = {"backend": backend, "rank": rank, "stage": mesh.coord("pp"),
+           "sound": pipeline_readings(model, loss_fn, ref, batch, map_grads)}
+
+    def step():
+        model.zero_grad(set_to_none=True)
+        loss_fn(model, batch).backward()
+        model.reduce_grads()
+
+    fa.reset_launches()
+    step()
+    rec["launches_per_step"] = dict(fa.LAUNCHES)
+    times, split = [], []
+    for _ in range(3):
+        sync()
+        dist.barrier()
+        t0 = time.perf_counter()
+        model.zero_grad(set_to_none=True)
+        loss_fn(model, batch).backward()
+        sync()
+        t1 = time.perf_counter()
+        model.reduce_grads()
+        sync()
+        times.append(time.perf_counter() - t0)
+        split.append([t1 - t0, time.perf_counter() - t1])
+    rec["step_s"], rec["forward_backward_and_reduce_s"] = times, split
+    dist.barrier()
+    if ref is not None:
+        def ref_step():
+            ref.zero_grad(set_to_none=True)
+            tfm.lm_loss(ref(batch["tokens"]), batch["tokens"]).backward()
+
+        ref_step()
+        rec["one_process_step_s"] = []
+        for _ in range(3):
+            sync()
+            t0 = time.perf_counter()
+            ref_step()
+            sync()
+            rec["one_process_step_s"].append(time.perf_counter() - t0)
+    dist.barrier()
+    real = pl._Send.forward
+
+    def zero_hop(ctx, x, dst, group, tag):
+        return real(ctx, torch.zeros_like(x), dst, group, tag)
+
+    pl._Send.forward = staticmethod(zero_hop)
+    rec["zero_hop"] = pipeline_readings(model, loss_fn, ref, batch, map_grads)
+    pl._Send.forward = staticmethod(real)
+    rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+    Path(argv[0]).write_text(json.dumps(rec))
+    distributed.distributed_goodbye()
+    return 0
+
+
+def pipeline_launches(cell: PipeCell) -> dict:
+    """Each rank's flash launches a step: one a layer of its stage a
+    microbatch."""
+    return {k: cell.layers // cell.stages * cell.micro for k in FLASH_LAUNCH_KEYS}
+
+
+def pipeline_phase(records: dict, card: str, cell: PipeCell = PIPE) -> dict:
+    """make_pipelined_lm at pp = 2 as two co-located ranks (gloo by the
+    backend rule): the logits and one step's gradients within PP_LIMIT of
+    the unpipelined LM's, a zero hop over it, 6 layers x 4 microbatches of
+    K1-K3 a rank a step; the step time beside one process's and the
+    bubble."""
+    import torch
+
+    from tf_operator_tpu_torch.parallel.pipeline import bubble_fraction
+
+    if cell.device == "cuda":
+        torch.cuda.empty_cache()
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    port = free_port()
+    procs = []
+    for rank in range(cell.stages):
+        path = OUT_DIR / f"chip_smoke_pipeline_{rank}.json"
+        path.unlink(missing_ok=True)
+        env = dict(os.environ, JAX_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                   JAX_PROCESS_ID=str(rank), JAX_NUM_PROCESSES=str(cell.stages),
+                   PYTHONPATH=str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        procs.append((subprocess.Popen([sys.executable, "-c", _PP_CHILD, str(path),
+                                        json.dumps(dataclasses.asdict(cell))], cwd=ROOT,
+                                       env=env, stdout=subprocess.DEVNULL,
+                                       stderr=subprocess.PIPE, text=True), path))
+    ranks = []
+    for proc, path in procs:
+        try:
+            _, err = proc.communicate(timeout=900)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        if proc.returncode != 0 or not path.exists():
+            raise SmokeFailure(f"pipeline: a rank exited {proc.returncode}: {err[-3000:]}")
+        ranks.append(json.loads(path.read_text()))
+    want = pipeline_launches(cell)
+    r0 = ranks[0]
+    res = {"stages": cell.stages, "microbatches": cell.micro, "backend": r0["backend"],
+           "sound": r0["sound"], "zero_hop": r0["zero_hop"], "limit": PP_LIMIT,
+           "step_s": [r["step_s"] for r in ranks],
+           "forward_backward_and_reduce_s": [r["forward_backward_and_reduce_s"] for r in ranks],
+           "one_process_step_s": r0["one_process_step_s"],
+           "bubble": bubble_fraction(cell.stages, cell.micro),
+           "launches_per_step_per_rank": [r["launches_per_step"] for r in ranks],
+           "peak_gb": [r["peak_gb"] for r in ranks], "card": card}
+    log("pipeline: " + json.dumps(res))
+    for name, key, _ in KERNELS:
+        records.setdefault(name, {})["pipeline_launches_per_step_per_rank"] = want[key]
+    failures = [f"rank {r['rank']} launches {r['launches_per_step']}, not {want}"
+                for r in ranks if r["launches_per_step"] != want]
+    readings = ("logits", "grads")
+    failures += [f"sound {k} {r0['sound'][k]:.4g} over {PP_LIMIT}" for k in readings
+                 if not r0["sound"][k] <= PP_LIMIT]
+    if all(r0["zero_hop"][k] <= PP_LIMIT for k in readings):
+        failures.append(f"a zero hop is not rejected: {r0['zero_hop']}")
+    if r0["backend"] != "gloo":
+        failures.append(f"backend {r0['backend']}, not gloo (two ranks on one card)")
+    if failures:
+        raise SmokeFailure("pipeline: " + "; ".join(failures))
+    return res
+
+
 # (only with --phases ...,dist4, on a machine of four GPUs) the dist runs
 # with one GPU a rank, as pods of their own: the rule picks NCCL. BERT adds
 # dp = 4, dp x tp and fsdp = 4; the 64k LM runs sp = 4 (ring), sp x tp
@@ -3550,9 +4044,10 @@ def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="build,check,train,ckpt,eval,longctx,preempt,bert,data,dist,sp,moe,"
-                            "serve",
+                            "serve,multislice,pipeline",
                     help="comma-separated subset of build,check,train,ckpt,eval,longctx,"
-                         "preempt,bert,data,dist,sp,moe,serve,profile; k4 for the fused bottleneck's "
+                         "preempt,bert,data,dist,sp,moe,serve,multislice,pipeline,profile; k4 for "
+                         "the fused bottleneck's "
                          "checks alone, k5 for the grouped matmul's (moe runs them too; "
                          "eval follows the ckpt phase's directory); dist4 "
                          "(or its MoE runs alone, moe4) on a machine of four GPUs")
@@ -3617,6 +4112,10 @@ def main(argv: list[str] | None = None) -> int:
             results["moe"] = moe_phase(records, card)
         if "serve" in phases:
             results["serve"] = serve_phase(card)
+        if "multislice" in phases:
+            results["multislice"] = multislice_phase(records, card)
+        if "pipeline" in phases:
+            results["pipeline"] = pipeline_phase(records, card)
         if "dist4" in phases:
             results["dist4"] = dist4_phase(records, card)
         elif "moe4" in phases:
@@ -3640,7 +4139,8 @@ def main(argv: list[str] | None = None) -> int:
             "bound_by": rec.get("bound_by"), "library_ms": rec.get("library_ms"),
         }
         for extra in (f"at_batch_{BATCH}", "head_widths", "at_T_65536", "bert", "dist",
-                      "sp", "sp_launches_per_step_per_rank", "moe"):
+                      "sp", "sp_launches_per_step_per_rank", "moe",
+                      "multislice_launches_per_slice", "pipeline_launches_per_step_per_rank"):
             if extra in rec:
                 entry[extra] = rec[extra]
         if name in KERNEL_NOTES:

@@ -992,3 +992,96 @@ def test_serve_phase_runs_on_cpu_at_a_tiny_size(tmp_path, monkeypatch):
     assert rec["f32_chains"]["equal"] and rec["tick_ms"]["n"] == 15
     assert rec["kv_bytes"] == 2 * 2 * 5 * 2 * 256 * 64 * 2
     assert set(rec["readings"]) == {"sound"} | {w for w, _ in chip_smoke.SERVE_FAULTS}
+
+
+def test_multislice_runs_are_the_cells():
+    """The multislice phase's argv: the train phase's full-width LM (every
+    step logged) with 2 microbatches, each slice launching K1-K3 and the
+    delta pass once a layer a microbatch a step; each slice's env is the
+    operator's (worker `sid`, its slice, the shared directory)."""
+    job = chip_smoke.ms_job(chip_smoke.LAYERS, "ref.pt")
+    argv = chip_smoke.ms_argv(job)
+    for flag, value in (("--layers", "12"), ("--hidden", "768"), ("--heads", "6"),
+                        ("--seq", "8192"), ("--batch", "4"), ("--steps", "6"),
+                        ("--log-every", "1"), ("--dcn-microbatches", "2"),
+                        ("--device", "cuda")):
+        assert argv[argv.index(flag) + 1] == value, flag
+    assert chip_smoke.slice_launches(job) == dict.fromkeys(chip_smoke.FLASH_LAUNCH_KEYS, 144)
+    assert chip_smoke.ms_job(chip_smoke.MS_REWIND_LAYERS, "r.pt").layers == 4
+    assert chip_smoke.MS_KILL - chip_smoke.MS_CKPT_EVERY == 2
+    env = chip_smoke.slice_env(1, Path("/d"), job)
+    assert {k: env[k] for k in ("TPUJOB_NUM_SLICES", "TPUJOB_SLICE_ID", "TPUJOB_DCN_DIR",
+                                "TPUJOB_REPLICA_TYPE", "TPUJOB_REPLICA_INDEX")} == \
+        {"TPUJOB_NUM_SLICES": "2", "TPUJOB_SLICE_ID": "1", "TPUJOB_DCN_DIR": "/d",
+         "TPUJOB_REPLICA_TYPE": "worker", "TPUJOB_REPLICA_INDEX": "1"}
+
+
+def test_dcn_dir_falls_back_when_dev_shm_lacks_room(tmp_path, monkeypatch):
+    monkeypatch.setattr(chip_smoke, "OUT_DIR", tmp_path)
+    monkeypatch.setattr(chip_smoke, "MS_SHM_BYTES", float("inf"))
+    path = chip_smoke.dcn_dir("x")
+    assert path.parent == tmp_path and path.is_dir() and not any(path.iterdir())
+
+
+def test_multislice_phase_holds_slices_and_rejects_its_fault_on_cpu(tmp_path, monkeypatch):
+    """The multislice phase's machinery at a tiny LM on the CPU (where no
+    kernel launches): one process, then 2 slices (dist_child, the
+    operator's env) held against it at the dist limits with the dcn block
+    recorded; each slice applying its own mean rejected on what a wrong
+    update moves; the kill of slice 1, its relaunch and slice 0's rewind
+    ending on the uninterrupted losses."""
+    monkeypatch.setattr(chip_smoke, "OUT_DIR", tmp_path)
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    zeros = dict.fromkeys(chip_smoke.FLASH_LAUNCH_KEYS, 0)
+    monkeypatch.setattr(chip_smoke.DistJob, "launches", lambda self, mesh, mode: zeros)
+    monkeypatch.setattr(chip_smoke, "slice_launches", lambda job: zeros)
+    argv = ("--model", "transformer-lm", "--steps", "6", "--batch", "4", "--seq", "32",
+            "--layers", "2", "--hidden", "32", "--heads", "2", "--log-every", "1",
+            "--device", "cpu")
+    job = chip_smoke.DistJob("tiny", argv, 32, 4, 6, 2, 2, 1, tmp_path / "ref.pt", 32)
+    ref, _ = chip_smoke.one_process("cpu", job)
+    res = chip_smoke.ms_summary("2 slices", job, chip_smoke.slice_world("full", job), ref,
+                                "cpu")
+    assert not chip_smoke.dist_verdict(res["gaps"]), res["gaps"]
+    assert [d["slice_id"] for d in res["dcn"]] == [0, 1]
+    assert all(d["transfers"] == 6 * 2 * d["buckets"] for d in res["dcn"])
+    gaps = chip_smoke.dist_gaps(ref, chip_smoke.slice_world("fault", job, "no-dcn-sum"))
+    assert [f for f in chip_smoke.dist_verdict(gaps) if not f.startswith("loss")], gaps
+    rewind = chip_smoke.ms_rewind(job, ref, "cpu")
+    assert rewind["resumed_from"] == 3 and rewind["rewind"]["peer_resume"] == 3
+    assert rewind["slice0_starts"] == 1 and rewind["dcn"]["rewinds"] == 1
+
+
+PIPE_TINY = chip_smoke.PipeCell(layers=2, hidden=32, heads=2, vocab=64, seq=16, batch=4,
+                                stages=2, micro=2, device="cpu", dtype="bfloat16")
+
+
+def test_pipeline_launches_are_a_stages_layers_a_microbatch():
+    assert chip_smoke.pipeline_launches(chip_smoke.PIPE) == \
+        dict.fromkeys(chip_smoke.FLASH_LAUNCH_KEYS, 6 * 4)
+    assert (chip_smoke.PIPE.layers, chip_smoke.PIPE.seq, chip_smoke.PIPE.batch) == \
+        (chip_smoke.LAYERS, chip_smoke.SEQ, chip_smoke.BATCH)
+
+
+@pytest.mark.parametrize("broken", [None, "sound", "fault"])
+def test_pipeline_phase_runs_on_cpu_at_a_tiny_size(tmp_path, monkeypatch, broken):
+    """The pipeline phase end to end on the CPU (two gloo ranks, bf16):
+    the sound readings under PP_LIMIT, the zero hop over it, the record's
+    fields; a limit the sound readings miss, or one the zero hop meets,
+    fails the phase."""
+    monkeypatch.setattr(chip_smoke, "OUT_DIR", tmp_path)
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    monkeypatch.setattr(chip_smoke, "pipeline_launches",
+                        lambda cell: dict.fromkeys(chip_smoke.FLASH_LAUNCH_KEYS, 0))
+    if broken:
+        monkeypatch.setattr(chip_smoke, "PP_LIMIT", 0.0 if broken == "sound" else 1e12)
+        with pytest.raises(chip_smoke.SmokeFailure, match="sound grads|zero hop"):
+            chip_smoke.pipeline_phase({}, "cpu", PIPE_TINY)
+        return
+    records: dict = {}
+    res = chip_smoke.pipeline_phase(records, "cpu", PIPE_TINY)
+    assert res["backend"] == "gloo" and res["bubble"] == pytest.approx(1 / 3)
+    assert res["sound"]["logits"] <= chip_smoke.PP_LIMIT >= res["sound"]["grads"]
+    assert res["zero_hop"]["logits"] > chip_smoke.PP_LIMIT
+    assert len(res["step_s"]) == 2 and len(res["one_process_step_s"]) == 3
+    assert records["flash_fwd"]["pipeline_launches_per_step_per_rank"] == 0

@@ -453,10 +453,17 @@ def test_retired_slot_boundary_matches_jax(tmp_path, monkeypatch):
             step_fn = functools.partial(decode.decode_step, cfg=cfg)
             srv._kv = decode.init_kv_cache(cfg, 3, 32, device="cpu")
             srv._live = ({k: v.float() for k, v in srv._live[0].items()}, srv._live[1])
-        seen = []
+        seen, late = [], {}
+        submitted = threading.Event()
 
-        def tick(params, k, v, last, positions, step_fn=step_fn, seen=seen):
+        def tick(params, k, v, last, positions, step_fn=step_fn, seen=seen, late=late,
+                 mod=mod, srv=srv, submitted=submitted):
             seen.append(np.array(positions))
+            if len(seen) == 4:
+                # C is submitted on the dispatch thread after tick 3 was fed,
+                # so its admission follows tick 3 on both servers.
+                late["c"] = _submit(mod, srv, [c_row], 6)
+                submitted.set()
             return step_fn(params, k, v, last, positions)
 
         srv._decode_fn = tick
@@ -464,7 +471,8 @@ def test_retired_slot_boundary_matches_jax(tmp_path, monkeypatch):
         b = _submit(mod, srv, [b_row], 20)
         threads = srv.start_pipeline()
         assert a.event.wait(30) and a.error is None
-        c = _submit(mod, srv, [c_row], 6)
+        assert submitted.wait(30)
+        c = late["c"]
         srv.queue.close()
         assert b.event.wait(30) and c.event.wait(30)
         for t in threads:

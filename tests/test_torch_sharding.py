@@ -142,10 +142,14 @@ def test_axes_that_miss_the_world_raise_the_jax_message(axes, world):
 
 @pytest.mark.parametrize("axis,item", [("pp", "A12"), ("data", "A12")])
 def test_unported_axes_are_refused_by_name(axis, item):
-    with pytest.raises(mesh_lib.UnportedAxisError, match=f"{axis}=2.*{item}"):
-        mesh_lib.check_axes({axis: 2, "dp": 1}, 2)
-    # Size 1 is no axis to run: accepted, as JAX keeps it.
+    """pp and data are ported (A12 = `item`): accepted at any size, in the
+    JAX package's canonical order; only an axis the port does not know is
+    refused, by name."""
+    axes = mesh_lib.check_axes({"dp": 1, axis: 2}, 2)
+    assert axes == {axis: 2, "dp": 1} and list(axes) == list(jmesh.normalize_axes(axes))
     assert mesh_lib.check_axes({axis: 1, "dp": 2}, 2)[axis] == 1
+    with pytest.raises(mesh_lib.UnportedAxisError, match=f"unknown mesh axis '{axis}x'"):
+        mesh_lib.check_axes({f"{axis}x": 2}, 2)
 
 
 def test_ep_is_run_in_the_canonical_order():

@@ -323,7 +323,9 @@ def test_trainer_refuses_cuda_without_a_device(tmp_path):
 @pytest.mark.parametrize("flag,env,says", [
     (["--model", "moe-lm", "--moe-dispatch", "sorted"], {}, ["invalid choice", "--moe-dispatch"]),
     (["--xla-option", "a=b"], {}, ["unrecognized arguments", "--xla-option"]),
-    ([], {"TPUJOB_NUM_SLICES": "2"}, ["not ported", "TPUJOB_NUM_SLICES", "A12"]),
+    ([], {"TPUJOB_NUM_SLICES": "2"},
+     ["TPUJOB_NUM_SLICES=2 but TPUJOB_DCN_DIR is unset: the cross-slice exchange needs a "
+      "shared rendezvous directory"]),
     (["--model", "transformer-lm", "--seq", "33"],
      {"JAX_NUM_PROCESSES": "2", "TPUJOB_MESH": '{"sp": 2}'}, ["sp=2 does not divide --seq 33"]),
     (["--model", "transformer-lm", "--heads", "3", "--hidden", "96", "--seq", "32"],
@@ -335,8 +337,12 @@ def test_trainer_refuses_cuda_without_a_device(tmp_path):
      ["ulysses needs local heads (2) divisible by sp=4"]),
     (["--data-dir", "/nonexistent"], {"JAX_NUM_PROCESSES": "2", "TPUJOB_MESH": '{"sp": 2}'},
      ["--data-dir under sp=2"]),
-    ([], {"JAX_NUM_PROCESSES": "2", "TPUJOB_MESH": '{"data": 2}'}, ["not ported", "data=2", "A12"]),
-    ([], {"JAX_NUM_PROCESSES": "2", "TPUJOB_MESH": '{"pp": 2}'}, ["not ported", "pp=2", "A12"]),
+    (["--model", "resnet18"], {"TPUJOB_NUM_SLICES": "2", "TPUJOB_DCN_DIR": "dcn"},
+     ["--model resnet18 carries mutable model state (batch stats), which does not cross the "
+      "DCN exchange"]),
+    (["--data-dir", "/nonexistent"], {"TPUJOB_NUM_SLICES": "2", "TPUJOB_DCN_DIR": "dcn"},
+     ["multi-slice training (TPUJOB_NUM_SLICES > 1) drives the synthetic on-device batch "
+      "path; --data-dir is not supported yet"]),
     ([], {"JAX_NUM_PROCESSES": "2", "TPUJOB_MESH": '{"dp": 4}'},
      ["mesh axes {'dp': 4} need 4 devices, have 2"]),
     (["--heads", "3", "--hidden", "96"], {"JAX_NUM_PROCESSES": "2", "TPUJOB_MESH": '{"tp": 2}'},
@@ -345,8 +351,9 @@ def test_trainer_refuses_cuda_without_a_device(tmp_path):
 ])
 def test_trainer_refuses_what_is_not_ported(flag, env, says, capsys, monkeypatch):
     """A dispatch the JAX trainer does not have and a JAX-only flag; a
-    multi-slice job, a mesh axis the port does not run yet (pp, data), a
-    mesh whose axes do not multiply to the process count, a
+    multi-slice job without its exchange directory, with a model of
+    mutable state (ResNet's batch statistics) or with --data-dir (the JAX
+    messages), a mesh whose axes do not multiply to the process count, a
     tp that splits a head, a global batch the data axes do not divide, a
     sequence sp does not divide, Ulysses forced on local heads sp does not
     divide (the JAX message) and --data-dir under sp, by the operator's
@@ -382,6 +389,28 @@ def test_a_two_process_job_trains_one_model(tmp_path):
     np.testing.assert_allclose(firsts[0]["loss"], firsts[2]["loss"], rtol=1e-5)
 
 
+@pytest.mark.parametrize("axis", ["data", "pp"])
+def test_a_data_or_pp_world_of_two_trains_as_one_process(tmp_path, axis):
+    """TPUJOB_MESH {"data": 2} splits the batch as dp does (the outermost
+    data axis); {"pp": 2} is the JAX trainer's replicated axis (both ranks
+    train on the whole batch). Either world of two follows one process at
+    the same global batch (f32, rtol 1e-5) and reports its mesh."""
+    from torch_dist import assert_ok, progress_losses, run_world
+
+    argv = ["--model", "mnist-mlp", "--device", "cpu", "--steps", "3", "--batch", "8",
+            "--log-every", "1"]
+    two = run_world(tmp_path, argv, 2, mesh={axis: 2}, tag=axis)
+    one = run_world(tmp_path, argv, 1, tag="one")
+    assert_ok(two + one)
+    want = progress_losses(one[0]["events"])
+    for r in two:
+        got = progress_losses(r["events"])
+        assert sorted(got) == sorted(want) == [2, 3]
+        np.testing.assert_allclose([got[s] for s in want], list(want.values()), rtol=1e-5)
+        first = next(e for e in r["events"] if e["event"] == "first_step")
+        assert first["mesh"] == {axis: 2}
+
+
 def test_chip_smoke_fails_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -404,7 +433,7 @@ def test_import_hygiene_in_a_fresh_process():
         "assert 'tf_operator_tpu_torch.data.staging' in names, names\n"
         "assert {'tf_operator_tpu_torch.parallel.' + m for m in ('distributed', 'mesh',\n"
         "        'sharding_rules', 'collectives', 'train_step', 'ring_attention',\n"
-        "        'ulysses')} <= set(names), names\n"
+        "        'ulysses', 'multislice', 'pipeline')} <= set(names), names\n"
         "assert {'tf_operator_tpu_torch.models.moe',\n"
         "        'tf_operator_tpu_torch.ops.grouped_matmul'} <= set(names), names\n"
         "assert {'tf_operator_tpu_torch.serve.server', 'tf_operator_tpu_torch.models.decode',\n"
@@ -426,7 +455,7 @@ def test_import_hygiene_ast_scan():
     for name in ("dataset", "prefetch", "staging"):
         assert ROOT / "tf_operator_tpu_torch" / "data" / f"{name}.py" in files
     for name in ("distributed", "mesh", "sharding_rules", "collectives", "train_step",
-                 "ring_attention", "ulysses"):
+                 "ring_attention", "ulysses", "multislice", "pipeline"):
         assert ROOT / "tf_operator_tpu_torch" / "parallel" / f"{name}.py" in files
     for name in ("models/moe.py", "ops/grouped_matmul.py", "serve/server.py", "models/decode.py",
                  "status/metrics.py"):

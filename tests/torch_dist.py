@@ -90,6 +90,63 @@ def run_world(tmp: Path, argv: list[str], n: int, mesh: dict | None = None,
     return out
 
 
+def start_slice(tmp: Path, argv: list[str], sid: int, slices: int = 2, rank: int = 0,
+                ranks: int = 1, port: int = 0, mesh: dict | None = None, tag: str = "slice",
+                f32: bool = True, env: dict | None = None):
+    """One pod of a multi-slice job as the operator starts it: worker `sid`
+    (of a job without a chief, so worker 0 writes the checkpoints) of slice
+    `sid`'s world of `ranks` processes (coordinator on `port`), with
+    TPUJOB_NUM_SLICES, TPUJOB_SLICE_ID and the shared TPUJOB_DCN_DIR
+    (tmp/dcn). Returns (Popen, metrics path)."""
+    dcn = tmp / "dcn"
+    dcn.mkdir(exist_ok=True)
+    metrics = tmp / f"{tag}-s{sid}-{rank}.jsonl"
+    metrics.unlink(missing_ok=True)
+    child_env = {k: v for k, v in os.environ.items() if not k.startswith(("JAX_", "TPUJOB_"))}
+    child_env.update(PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1", TPUJOB_METRICS_FILE=str(metrics),
+                     TPUJOB_NUM_SLICES=str(slices), TPUJOB_SLICE_ID=str(sid),
+                     TPUJOB_DCN_DIR=str(dcn), TPUJOB_REPLICA_TYPE="worker",
+                     TPUJOB_REPLICA_INDEX=str(sid * ranks + rank), **(env or {}))
+    if ranks > 1:
+        child_env.update(JAX_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                         JAX_PROCESS_ID=str(rank), JAX_NUM_PROCESSES=str(ranks))
+    if mesh is not None:
+        child_env["TPUJOB_MESH"] = json.dumps(mesh)
+    head = [PY, "-c", _F32_CHILD] if f32 else [PY, "-m", "tf_operator_tpu_torch.models.train"]
+    return subprocess.Popen(head + list(argv), cwd=tmp, env=child_env,
+                            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+                            text=True), metrics
+
+
+def finish(procs: list, timeout: float = 240) -> list[dict]:
+    """Wait for start_slice's (Popen, metrics) pairs: [{"rc", "events",
+    "stderr"}] in order; any left running is killed."""
+    out = []
+    try:
+        for proc, metrics in procs:
+            _, err = proc.communicate(timeout=timeout)
+            out.append({"rc": proc.returncode, "events": read_events(metrics), "stderr": err})
+    finally:
+        for proc, _ in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    return out
+
+
+def run_slices(tmp: Path, argv: list[str], slices: int = 2, ranks: int = 1,
+               mesh: dict | None = None, tag: str = "slice", f32: bool = True,
+               env: dict | None = None, timeout: float = 240) -> list[dict]:
+    """A multi-slice job: `slices` worlds of `ranks` processes each
+    (start_slice), run to their end: results slice by slice, rank by rank."""
+    procs = []
+    for sid in range(slices):
+        port = free_port()
+        procs += [start_slice(tmp, argv, sid, slices, rank, ranks, port, mesh, tag, f32, env)
+                  for rank in range(ranks)]
+    return finish(procs, timeout)
+
+
 def assert_ok(runs: list[dict]) -> None:
     for rank, r in enumerate(runs):
         assert r["rc"] == 0, f"rank {rank} exited {r['rc']}: {r['stderr'][-3000:]}"

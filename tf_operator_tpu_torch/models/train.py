@@ -76,9 +76,21 @@ rank, as the JAX step replicates their batch there). Rank 0 writes
 the checkpoints, gathered to full tensors; the replicas agree on the resume
 step, on a preemption, and exit together (distributed_goodbye) on clean
 completion only. A collective that fails because a peer died exits 138
-(retryable). A multi-slice job (TPUJOB_NUM_SLICES > 1) and the pp and
-data axes are refused with exit 2, naming the ROADMAP item that ports
-them.
+(retryable). The data axis splits the batch as dp does; pp is replicated,
+as the JAX trainer makes it (the GPipe schedule, parallel/pipeline.py, is
+on no trainer path there either).
+
+A multi-slice job (TPUJOB_NUM_SLICES > 1, `_train_multislice`): each
+slice is its own world, and the slices meet in parallel/multislice.py's
+DCN exchange under TPUJOB_DCN_DIR (one exchange a rank pair when a slice
+has several ranks). Each step's global batch is cut into slices x
+--dcn-microbatches row blocks; each block's gradients stream to the
+exchange while the next block's backward runs (`dcn_sync` is the visible
+wait; the done event's `dcn` block the exchange's accounting). The global
+worker 0 alone writes checkpoints; a slice whose peer was rolled holds at
+the barrier and rewinds in process to the checkpoint the peer resumed
+from (`dcn_rewind`); a peer that never comes exits 138. A model with
+mutable state (ResNet) and --data-dir are refused, as in the JAX trainer.
 
 It runs on CUDA unless `--device cpu` asks for the CPU, and exits nonzero
 when CUDA is asked for and absent. Flags and models of the JAX trainer
@@ -105,6 +117,8 @@ from tf_operator_tpu_torch.parallel.collectives import PeerLostError
 
 MODELS = ("mnist-mlp", "mnist-conv", "resnet18", "resnet50", "transformer-lm",
           "bert-base", "bert-tiny", "moe-lm")
+# The models whose state holds more than parameters (batch-norm statistics).
+STATEFUL_MODELS = ("resnet18", "resnet50")
 # The layers' compute dtype, the JAX trainer's bf16. The CPU tests that hold
 # a multi-process run against one process at f32 tolerances set f32 here in
 # their child processes.
@@ -249,6 +263,21 @@ def build_parser() -> argparse.ArgumentParser:
                          "on the producer leg, decoded by the lane before its "
                          "copy (numerics bit-identical); measures what a "
                          "compressed remote wire would save")
+    ap.add_argument("--dcn-microbatches", type=int, default=2,
+                    help="multi-slice jobs (TPUJOB_NUM_SLICES > 1): split each step's "
+                         "backward into M microbatches so the cross-slice (DCN) gradient "
+                         "exchange of microbatch m streams while m+1 computes; the done "
+                         "event's dcn.hidden_fraction measures the overlap. 1 = one "
+                         "backward, the exchange fully visible. Ignored single-slice")
+    ap.add_argument("--dcn-buckets", type=int, default=4,
+                    help="gradient buckets per microbatch for the cross-slice exchange "
+                         "(transfer granularity; byte-balanced over the leaves). Ignored "
+                         "single-slice")
+    ap.add_argument("--dcn-peer-timeout", type=float, default=600.0,
+                    help="multi-slice: how long a slice holds at the DCN barrier waiting "
+                         "for its peers before exiting retryable (a rolled peer announces "
+                         "its resume well inside this; the timeout is the net under "
+                         "double failures)")
     ap.add_argument("--wire-dtype", default="auto", choices=["auto", "uint8", "f32"],
                     help="with --data-dir: the host->device wire. auto = arrays "
                          "as stored (uint8 images normalised on the device); "
@@ -277,6 +306,12 @@ def check_flags(ap: argparse.ArgumentParser, args) -> None:
         ap.error("--staging-chunks must be >= 1")
     if args.staging_lanes < 1:
         ap.error("--staging-lanes must be >= 1")
+    if args.dcn_microbatches < 1:
+        ap.error("--dcn-microbatches must be >= 1")
+    if args.dcn_buckets < 1:
+        ap.error("--dcn-buckets must be >= 1")
+    if args.dcn_peer_timeout <= 0:
+        ap.error("--dcn-peer-timeout must be > 0")
     if not args.data_dir and (args.input_staging != "prefetch"
                               or args.wire_dtype != "auto"
                               or args.wire_codec != "none"
@@ -335,9 +370,11 @@ def _env_count(ap: argparse.ArgumentParser, name: str) -> int:
 
 def check_gang(ap: argparse.ArgumentParser, args) -> None:
     """The operator's env against what the trainer runs, before any event
-    (ap.error, exit 2): one slice (a multi-slice job waits for A12), a
-    TPUJOB_MESH whose axes the port runs and whose sizes multiply to the
-    process count (the JAX message), a global batch the data axes divide,
+    (ap.error, exit 2): a multi-slice job's exchange directory, a stateless
+    model, no --data-dir and a batch the slices x microbatches divide (the
+    JAX messages), a TPUJOB_MESH whose axes the port knows and whose sizes
+    multiply to the process count (the JAX message), a global batch (of a
+    multi-slice job: each microbatch's rows) the data axes divide,
     attention heads the tp axis divides, a transformer's sequence the sp
     axis divides, local heads that sp divides when TPUJOB_SP_MODE forces
     Ulysses (the JAX message), and no --data-dir under tp or sp (each
@@ -346,15 +383,30 @@ def check_gang(ap: argparse.ArgumentParser, args) -> None:
     from tf_operator_tpu_torch.models import transformer as tfm
     from tf_operator_tpu_torch.parallel import distributed
     from tf_operator_tpu_torch.parallel import mesh as mesh_lib
+    from tf_operator_tpu_torch.parallel import multislice
 
-    slices = _env_count(ap, distributed.ENV_NUM_SLICES)
-    if slices > 1:
-        ap.error(f"{distributed.ENV_NUM_SLICES}={slices}: multi-slice training is not "
-                 f"ported to the PyTorch trainer yet (ROADMAP A12)")
+    try:
+        world = multislice.SliceWorld.from_env()
+    except (RuntimeError, ValueError) as e:
+        ap.error(str(e))
+    rows = args.batch
+    if world is not None:
+        if args.data_dir:
+            ap.error("multi-slice training (TPUJOB_NUM_SLICES > 1) drives the synthetic "
+                     "on-device batch path; --data-dir is not supported yet")
+        if args.model in STATEFUL_MODELS:
+            ap.error(f"--model {args.model} carries mutable model state (batch stats), "
+                     f"which does not cross the DCN exchange; pick a stateless model "
+                     f"for multi-slice")
+        blocks = world.num_slices * args.dcn_microbatches
+        if args.batch % blocks:
+            ap.error(f"--batch {args.batch} not divisible by slices x microbatches "
+                     f"({world.num_slices} x {args.dcn_microbatches})")
+        rows = args.batch // blocks
     nprocs = _env_count(ap, distributed.ENV_NUM_PROCESSES)
     try:
         axes = mesh_lib.check_axes(mesh_lib.env_axes() or {}, nprocs)
-        mesh_lib.local_batch_size(mesh_lib.Mesh(axes), args.batch)
+        mesh_lib.local_batch_size(mesh_lib.Mesh(axes), rows)
     except ValueError as e:
         ap.error(str(e))
     tp = axes.get("tp", 1)
@@ -1441,6 +1493,163 @@ def _train_on_dataset(args, device: torch.device, state, start_step: int, loss_f
                   _ingest_block(args, prefetch_stats, staging_stats, lanes, chunks, tune))
 
 
+def _host_grads(loss, grads) -> tuple[list, Any]:
+    """Enqueue the copy of one microbatch's loss and gradients to the host
+    as one f32 buffer (pinned, on CUDA) and return (numpy views of it, the
+    loss first, each gradient in its shape; the event the copy records,
+    None on the CPU). The views own their buffer: the exchange's engine
+    may write them after the next microbatch's copy has begun."""
+    leaves = [loss.reshape(1)] + list(grads)
+    flat = torch.cat([g.detach().reshape(-1).float() for g in leaves])
+    if flat.device.type == "cuda":
+        host = torch.empty(flat.shape, dtype=torch.float32, pin_memory=True)
+        host.copy_(flat, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+    else:
+        host, done = flat, None
+    views, off = [], 0
+    for g in leaves:
+        n = g.numel()
+        views.append(host[off:off + n].view(g.shape).numpy())
+        off += n
+    return views, done
+
+
+def _train_multislice(args, device, state, start_step: int, loss_fn, tx, make_batch, plan,
+                      world, heartbeat, guard, t_start: float, maybe_checkpoint,
+                      check_boundary, finish, rewind) -> int:
+    """The multi-slice step loop (TPUJOB_NUM_SLICES > 1), the JAX trainer's
+    _train_multislice: this world spans one slice, and the slices meet in
+    the DCN exchange (parallel/multislice.py).
+
+    A global step makes its whole batch once; each of the M microbatches
+    runs its backward on this slice's rows block (make_multislice_step_fns),
+    its loss and gradients are copied to the host and submitted, so that
+    the engine streams microbatch m while m+1 computes (on the card, m is
+    submitted once m+1's backward is queued behind its copy); the loop then waits
+    for the exchange's tail (the `dcn_sync` phase) and applies the mean.
+    The mean over every slice x microbatch block of the same global batch
+    is the full batch's mean, so the trajectory follows one process's.
+
+    When a peer slice is rolled, collect() holds at the barrier (the tick
+    keeps the heartbeat fresh) until the restarted peer announces its
+    resume from the shared checkpoint; SliceRewind then re-restores that
+    checkpoint in process (`rewind`) and the loop replays forward. A peer
+    that never returns exits retryable (138); a latched preemption signal
+    leaves the hold through the graceful path."""
+    from tf_operator_tpu_torch.parallel import multislice
+    from tf_operator_tpu_torch.parallel.train_step import make_multislice_step_fns
+    from tf_operator_tpu_torch.telemetry.phases import make_step_accounting
+    from tf_operator_tpu_torch.utils.exit_codes import EXIT_USER_RETRYABLE
+
+    S, M = world.num_slices, args.dcn_microbatches
+    rows = args.batch // (S * M)
+    if plan.mesh.world > 1:
+        # One exchange per rank of the slice, each with its counterpart in
+        # the other slices: the ranks of a sharded slice hold different parts.
+        world = dataclasses.replace(
+            world, dcn_dir=os.path.join(world.dcn_dir, f"rank{plan.mesh.rank}"))
+    # The slice's ranks share each bucket's transfer after the in-slice
+    # reduction: the bandwidth dial charges the 1/ici_degree fraction only.
+    world.ici_degree = plan.mesh.world
+    gen_batch, backward, apply = make_multislice_step_fns(
+        loss_fn, tx, make_batch, device, rows, seed=0, remat=args.remat, plan=plan)
+    ex = multislice.DcnExchange(world, resume_step=start_step, microbatches=M,
+                                buckets=args.dcn_buckets,
+                                peer_timeout_s=args.dcn_peer_timeout)
+    sid = world.slice_id
+    done = start_step
+    t0, steady_start, gloss = None, start_step, None
+    acct = make_step_accounting()
+
+    def tick():
+        # Holding at the barrier is live: the heartbeat's t moves, its step not.
+        heartbeat.write(done)
+
+    try:
+        while done < args.steps:
+            try:
+                with acct.step(done + 1) as st:
+                    step = done + 1
+                    ex.begin_step(step)
+                    pending = []
+
+                    def submit():
+                        # The copy of a microbatch whose backward was queued
+                        # on the card lands while the next one's runs.
+                        m, views, event = pending.pop()
+                        if event is not None:
+                            with st.phase("device_blocked"):
+                                event.synchronize()
+                        ex.submit(step, m, views)
+
+                    with st.phase("dispatch"):
+                        batch = gen_batch(done)
+                    for m in range(M):
+                        with st.phase("dispatch"):
+                            loss_m, grads_m = backward(state, batch, (sid * M + m) * rows)
+                            views, event = _host_grads(loss_m, grads_m)
+                            del loss_m, grads_m
+                        if pending:
+                            submit()
+                        pending.append((m, views, event))
+                        if event is None:
+                            submit()  # computed already (the CPU): stream it now
+                    if pending:
+                        submit()
+                    del batch
+                    with st.phase("dcn_sync"):
+                        reduced = ex.collect(step, tick=tick,
+                                             should_stop=lambda: guard.triggered)
+                    gloss = float(reduced[0][0])
+                    with st.phase("dispatch"):
+                        state, _ = apply(state, reduced[1:])
+                    done = step
+                    ex.step_done(done)
+                    if t0 is None:
+                        t_first = time.time()
+                        _emit({"event": "first_step", "t": t_first,
+                               "startup_s": round(t_first - t_start, 3),
+                               "steps_in_first_call": 1, "loss": gloss, **_mesh_fields(plan),
+                               "backend": device.type, "device_kind": _device_kind(device),
+                               "slices": S, "slice_id": sid})
+                        heartbeat.write(done, force=True)
+                        t0, steady_start = time.time(), done
+                    elif done % args.log_every == 0 or done == args.steps:
+                        # The exchange's loss is already on the host.
+                        _emit({"event": "progress", "step": done, "loss": gloss})
+                    maybe_checkpoint(done, state, st)
+                    rc = check_boundary(done, state, st)
+                    if rc is not None:
+                        return rc
+            except multislice.DcnInterrupted:
+                # A preemption latched while holding at the barrier (a whole-job
+                # eviction signals every slice): the graceful path at the last
+                # completed step; the resumed job replays the abandoned one.
+                return check_boundary(done, state)
+            except multislice.SliceRewind as rw:
+                # A peer's gang was rolled and resumed behind us: meet it at
+                # the shared checkpoint without restarting this pod.
+                _emit({"event": "dcn_rewind", "from_step": done, "peer_slice": rw.peer,
+                       "peer_resume": rw.to_step})
+                state, done = rewind(state)
+                ex.rewind_to(done)
+                heartbeat.write(done, force=True)
+    except multislice.DcnPeerTimeout as e:
+        # A peer never came back: exit retryable, so this slice's gang rolls
+        # too and the job recovers whole from the shared checkpoint.
+        print(f"dcn exchange: {e}; exiting retryable", file=sys.stderr)
+        _emit({"event": "dcn_peer_timeout", "step": done, "detail": str(e)})
+        return EXIT_USER_RETRYABLE
+    finally:
+        dcn_stats = ex.stats()
+        ex.close()
+    dt = time.time() - t0 if t0 is not None else 0.0
+    return finish(state, {"loss": gloss}, args.steps - steady_start, dt, acct,
+                  {"dcn": dcn_stats})
+
+
 def _mesh_fields(plan) -> dict:
     """The first_step event's mesh and device count."""
     shape = _gang_shape(plan)
@@ -1505,6 +1714,7 @@ def _run_trainer(args, device: torch.device, heartbeat, guard, chaos=None,
     from tf_operator_tpu_torch.models import checkpoint as ckpt_lib
     from tf_operator_tpu_torch.parallel import distributed
     from tf_operator_tpu_torch.parallel import mesh as mesh_lib
+    from tf_operator_tpu_torch.parallel import multislice
     from tf_operator_tpu_torch.parallel.train_step import (
         create_train_state,
         make_chunked_train_step,
@@ -1532,10 +1742,17 @@ def _run_trainer(args, device: torch.device, heartbeat, guard, chaos=None,
 
     mesh = mesh_lib.mesh_from_env()
     multi = mesh.world > 1
+    # A multi-slice job: this world spans one slice; the slices meet in the
+    # DCN exchange (parallel/multislice.py).
+    ms_world = multislice.SliceWorld.from_env()
     # One writer: rank 0 of a world of several processes (the JAX trainer's
-    # rule), else the chief (or worker 0).
-    saver = bool(args.checkpoint_dir) and (mesh.rank == 0 if multi
-                                           else _is_checkpoint_writer())
+    # rule), else the chief (or worker 0). Across slices, every slice's world
+    # has its own rank 0: the global worker 0 (slice 0's rank 0) alone writes.
+    if ms_world is not None:
+        saver = bool(args.checkpoint_dir) and _is_checkpoint_writer() and mesh.rank == 0
+    else:
+        saver = bool(args.checkpoint_dir) and (mesh.rank == 0 if multi
+                                               else _is_checkpoint_writer())
     allow_reshape = args.allow_reshape or os.environ.get("TPUJOB_ALLOW_RESHAPE") == "1"
     if saver:
         # A preempt/retry loop strands tmp dirs (a save killed before its
@@ -1568,7 +1785,8 @@ def _run_trainer(args, device: torch.device, heartbeat, guard, chaos=None,
         return 0
 
     ck = None
-    if saver or (args.checkpoint_dir and multi and plan.sharded):
+    joins_saves = ms_world is None or ms_world.slice_id == 0
+    if saver or (args.checkpoint_dir and multi and plan.sharded and joins_saves):
         # Digests (the resumed event's bit-equality witness) ride the writer
         # thread in async mode, and are kept in sync mode for jobs that may
         # reshape. The other ranks of a sharded world join each snapshot's
@@ -1658,6 +1876,31 @@ def _run_trainer(args, device: torch.device, heartbeat, guard, chaos=None,
         if args.data_dir:
             return _train_on_dataset(args, device, state, start_step, loss_fn, tx, t_start,
                                      maybe_checkpoint, check_boundary, finish, plan)
+        if ms_world is not None:
+            from tf_operator_tpu_torch.parallel.train_step import (
+                load_state_tensors,
+                state_tensors,
+            )
+
+            # A peer that finds no checkpoint resumes at step 0: a rewind
+            # there restores this rank's initial state, kept on the host.
+            init = None if start_step else {
+                k: v.detach().to("cpu", copy=True) if isinstance(v, torch.Tensor) else v
+                for k, v in state_tensors(state).items()}
+
+            def rewind(state):
+                # The writer's in-flight save may be the one the peer resumed
+                # from: drain it before the walk, which overwrites the state
+                # in place when it finds a checkpoint.
+                if ck is not None and ck.writer is not None:
+                    ck.writer.drain()
+                if init is not None:
+                    state = load_state_tensors(state, init)
+                return _try_resume(args.checkpoint_dir, state, tx, allow_reshape, plan)
+
+            return _train_multislice(args, device, state, start_step, loss_fn, tx,
+                                     make_batch, plan, ms_world, heartbeat, guard, t_start,
+                                     maybe_checkpoint, check_boundary, finish, rewind)
 
         state, metrics = step_chunk(state, chunk)
         # The loss fetch waits for the first chunk's device work: startup_s

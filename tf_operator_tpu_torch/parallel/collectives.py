@@ -30,8 +30,9 @@ lax.all_to_all; its backward is the reverse all-to-all).
 
 gloo's point-to-point ops take no CUDA tensor (the process aborts), so
 where the backend is gloo and the tensors live on a GPU (two ranks sharing
-one card) `rotate` stages its bytes through pinned host buffers; gloo's
-all_to_all_single takes CUDA tensors as they are.
+one card) `rotate`, `send` and `recv` (the pipeline's hops) stage their
+bytes through pinned host buffers; gloo's all_to_all_single takes CUDA
+tensors as they are.
 """
 
 from __future__ import annotations
@@ -336,6 +337,27 @@ def _exchange(buf: torch.Tensor, dst: int, src: int, group) -> torch.Tensor:
         _call(work.wait)
     if staged:
         _wire(out).copy_(recv)
+    return out
+
+
+def send(x: torch.Tensor, dst: int, group, tag: int = 0) -> None:
+    """Send x to group rank `dst` (the pipeline's hop); under gloo a CUDA
+    tensor goes through a pinned host buffer."""
+    buf = _wire(x.detach().contiguous())
+    if buf.is_cuda and dist.get_backend(group) == "gloo":
+        buf = _pinned(buf).copy_(buf)
+    _call(dist.send, buf, dist.get_global_rank(group, dst), group=group, tag=tag)
+
+
+def recv(shape, dtype: torch.dtype, device, src: int, group, tag: int = 0) -> torch.Tensor:
+    """A tensor of `shape` and `dtype` on `device` received from group rank
+    `src` (send's other end)."""
+    out = torch.empty(shape, dtype=dtype, device=device)
+    staged = out.is_cuda and dist.get_backend(group) == "gloo"
+    buf = _pinned(_wire(out)) if staged else _wire(out)
+    _call(dist.recv, buf, dist.get_global_rank(group, src), group=group, tag=tag)
+    if staged:
+        _wire(out).copy_(buf)
     return out
 
 

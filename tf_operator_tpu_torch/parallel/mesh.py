@@ -11,12 +11,16 @@ Axis semantics, as in the JAX package:
   tp    tensor parallel (megatron-style within attention and the MLP)
   sp    sequence parallel (ring attention or Ulysses over the sequence)
   ep    expert parallel (the MoE LM's experts; not a data axis)
-  pp    pipeline parallel (A12)
-  data  the cross-slice axis of a multi-slice job (A12)
+  pp    pipeline parallel: the trainer replicates over it, as the JAX
+        trainer does (neither the batch nor a parameter is split over it;
+        parallel/pipeline.py runs the GPipe schedule over a pp group)
+  data  the outermost data axis; across slices, the cross-slice axis
+        (hierarchical_mesh; a multi-slice job's slices are separate worlds
+        joined by parallel/multislice.py's exchange)
 
-Batches split over (dp, fsdp), and a transformer's sequence over sp;
-parameters shard over (fsdp, ep, tp) by sharding_rules. An axis of the last
-two above 1 is refused by name.
+Batches split over (data, dp, fsdp), and a transformer's sequence over sp;
+parameters shard over (fsdp, ep, tp) by sharding_rules. An unknown axis is
+refused by name.
 
 `Mesh` is a rank grid with one process group for each axis this rank
 needs a collective over, made with the backend of the world's group.
@@ -41,8 +45,6 @@ AXIS_ORDER = ("data", "pp", "dp", "fsdp", "ep", "sp", "tp")
 # collectives are latency-bound, the gradient all-reduce crosses the slowest
 # links only at the slowest level); "data" is the cross-slice axis.
 DATA_AXIS = "data"
-# Axes the port does not run yet, with the ROADMAP item that ports them.
-UNPORTED_AXES = {"data": "A12 (multi-slice)", "pp": "A12 (the pipeline schedule)"}
 # The axes a sequence-parallel model sums its gradients over, beside the
 # fsdp-less ones its fsdp shards are summed over after their reduce-scatter.
 GRAD_AXES = ("data", "dp", "fsdp", "sp")
@@ -53,7 +55,7 @@ EXPERT_AXES = ("ep", "tp")
 
 
 class UnportedAxisError(ValueError):
-    """A mesh axis above 1 that the port cannot run yet."""
+    """A mesh axis the port does not know."""
 
 
 def normalize_axes(axes: dict[str, int]) -> dict[str, int]:
@@ -70,15 +72,11 @@ def normalize_axes(axes: dict[str, int]) -> dict[str, int]:
 
 
 def check_axes(axes: dict[str, int], world: int) -> dict[str, int]:
-    """The normalised axes, or the error that refuses them: an axis the
-    port does not run yet (UnportedAxisError, naming its ROADMAP item), or
-    sizes whose product is not the world's (the JAX message)."""
+    """The normalised axes, or the error that refuses them: an unknown
+    axis (UnportedAxisError, naming it), or sizes whose product is not the
+    world's (the JAX message)."""
     axes = normalize_axes(axes) if axes else {"dp": world}
-    for name, size in axes.items():
-        if size > 1 and name in UNPORTED_AXES:
-            raise UnportedAxisError(
-                f"mesh axis {name}={size} is not ported to the PyTorch trainer yet; it "
-                f"waits for ROADMAP {UNPORTED_AXES[name]}")
+    for name in axes:
         if name not in AXIS_ORDER:
             raise UnportedAxisError(f"unknown mesh axis {name!r} (axes: {AXIS_ORDER})")
     n = int(np.prod(list(axes.values())))
@@ -178,6 +176,30 @@ def make_mesh(axes: dict[str, int] | None = None) -> Mesh:
 def mesh_from_env() -> Mesh:
     """Mesh from the operator-injected TPUJOB_MESH (pure dp when unset)."""
     return make_mesh(env_axes())
+
+
+def hierarchical_mesh(axes: dict[str, int] | None, num_slices: int,
+                      world: int | None = None) -> Mesh:
+    """The mesh of one world spanning every slice: the cross-slice `data`
+    axis outermost over the per-slice `axes` (pure dp over a slice's ranks
+    when None), so the ranks group by slice. `world` defaults to the
+    torch.distributed world's size; the groups are made when it is that
+    world. A multi-slice trainer does not use this: each slice is its own
+    world there, and the data axis is parallel/multislice.py's exchange."""
+    if num_slices < 1:
+        raise ValueError(f"num_slices must be >= 1, got {num_slices}")
+    live = dist.get_world_size() if dist.is_initialized() else 1
+    world = live if world is None else world
+    if world % num_slices:
+        raise ValueError(f"{world} devices do not partition into {num_slices} slices")
+    inner = dict(axes) if axes else {"dp": world // num_slices}
+    if DATA_AXIS in inner:
+        raise ValueError("mesh axes describe ONE slice; the cross-slice 'data' axis is "
+                         "implied by num_slices and may not appear in them")
+    full = {DATA_AXIS: num_slices, **inner}
+    if world == live:
+        return make_mesh(full)
+    return Mesh(check_axes(full, world))
 
 
 def data_axes(mesh: Mesh) -> tuple[str, ...]:

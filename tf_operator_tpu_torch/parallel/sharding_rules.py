@@ -113,11 +113,12 @@ def sharding_for(path: str, shape: tuple[int, ...], axes: dict[str, int],
 
 def _flax_leaf(module: nn.Module, leaf: str, ndim: int) -> tuple[str, tuple[int, ...]]:
     """(flax leaf name, perm) of a port parameter: perm[i] is the flax
-    dimension of the port's dimension i."""
+    dimension of the port's dimension i. A Dense weight with leading
+    dimensions (a pipeline stage's stack) keeps them in place."""
     kind = type(module).__name__
     if leaf == "weight":
         if kind == "Dense":
-            return "kernel", (1, 0)
+            return "kernel", tuple(range(ndim - 2)) + (ndim - 1, ndim - 2)
         if kind == "Conv":
             return "kernel", (3, 2, 0, 1)  # OIHW -> HWIO
         if kind == "Embed":

@@ -425,11 +425,12 @@ def state_tensors(state: TrainState) -> dict[str, Any]:
 
 
 def load_state_tensors(state: TrainState, tensors: dict[str, Any]) -> TrainState:
-    """The inverse of state_tensors into a freshly built `state`: the
-    parameters and buffers are copied into the model in place, the
-    optimizer's tensors replaced, each cast to the dtype and device it has
-    in `state`. ValueError when the names differ from the state's (a
-    trainstate written without master weights, restored with them)."""
+    """The inverse of state_tensors into `state`: the parameters, buffers
+    and optimizer tensors are copied in place, each cast to the dtype and
+    device it has in `state` (so a restore into a live state allocates
+    nothing on the device). ValueError when the names differ from the
+    state's (a trainstate written without master weights, restored with
+    them)."""
     want = state_tensors(state)
     if set(tensors) != set(want):
         missing, extra = sorted(set(want) - set(tensors)), sorted(set(tensors) - set(want))
@@ -443,8 +444,9 @@ def load_state_tensors(state: TrainState, tensors: dict[str, Any]) -> TrainState
     names = [n for n, _ in state.model.named_parameters()]
 
     def field(name):
-        return [tensors[f"{name}/{n}"].to(device=t.device, dtype=t.dtype)
-                for n, t in zip(names, getattr(state.opt_state, name))]
+        with torch.no_grad():
+            return [t.copy_(tensors[f"{name}/{n}"])
+                    for n, t in zip(names, getattr(state.opt_state, name))]
 
     opt = optim_lib.MixedAdamState(int(tensors["count"]), field("mu"), field("nu"),
                                    field("master"))
@@ -564,3 +566,57 @@ def make_chunked_train_step(loss_fn: LossFn,
         return state, metrics
 
     return run
+
+
+def make_multislice_step_fns(loss_fn: LossFn,
+                             tx: optim_lib.MixedPrecisionTransformation,
+                             make_batch: Callable[[torch.Generator], Any],
+                             device, rows: int, seed: int = 0, remat: bool = False,
+                             plan: ParallelPlan | None = None):
+    """(gen_batch, backward, apply) of the multi-slice step loop
+    (models/train.py's _train_multislice): the optimizer step split at the
+    gradient boundary, so that the cross-slice exchange
+    (parallel/multislice.py) runs between the two halves, one microbatch at
+    a time.
+
+      gen_batch(i) -> global step i's whole batch, made once from
+        batch_generator(seed, i) as make_chunked_train_step makes it; every
+        slice makes the same one.
+      backward(state, batch, offset) -> (loss, grads) over `rows` rows of
+        that batch from `offset`: this rank's part of them under `plan`
+        (the slice's world), the gradients reduced over the slice as
+        train_step reduces them, the loss the rows' mean. Fresh tensors on
+        every call (torch.autograd.grad), so each microbatch's gradients go
+        to the exchange alone. The mean over every slice x microbatch block
+        of the global batch is the global batch's mean.
+      apply(state, grads) -> (state', grad_norm): the exchange's mean
+        gradients (host arrays or tensors, f32 on the wire) cast to each
+        parameter's dtype, then AdamW, as train_step applies it."""
+    plan = plan or ParallelPlan()
+    if remat:
+        loss_fn = remat_loss(loss_fn)
+
+    def gen_batch(i: int):
+        return make_batch(batch_generator(seed, i, device))
+
+    def backward(state: TrainState, batch, offset: int):
+        sub = {k: v[offset:offset + rows] if v.dim() else v for k, v in batch.items()}
+        sub = plan.local_rows(sub)
+        state.model.train()
+        loss = loss_fn(state.model, sub)
+        if plan.loss_group is not None:
+            loss = loss * plan.loss_weight(sub)
+        grads = plan.reduce_grads(list(torch.autograd.grad(loss, state.params)))
+        return collectives.all_reduce(loss.detach(), plan.loss_group), grads
+
+    def apply(state: TrainState, grads):
+        params = state.params
+        grads = [torch.as_tensor(g).to(device=p.device, dtype=p.dtype)
+                 for g, p in zip(grads, params)]
+        new_params, new_opt = tx.update(grads, state.opt_state, params)
+        with torch.no_grad():
+            for p, new in zip(params, new_params):
+                p.copy_(new)
+        return TrainState(state.step + 1, state.model, new_opt), plan.global_norm(grads)
+
+    return gen_batch, backward, apply
