@@ -13,8 +13,10 @@
     python3 chip_smoke.py --phases build,k5           # K5's checks and times alone
     python3 chip_smoke.py --phases build,serve        # the inference server (A13)
     python3 chip_smoke.py --phases build,multislice,pipeline  # A12: slices, the GPipe schedule
+    python3 chip_smoke.py --phases build,pod          # pods of several local ranks (A14)
     python3 chip_smoke.py --phases build,dist4        # four GPUs over NCCL (not default)
     python3 chip_smoke.py --phases build,moe4         # dist4's MoE runs alone (four GPUs)
+    python3 chip_smoke.py --phases build,pod4         # pods over four GPUs (not default)
 
 Phases, in order:
   1. identify the card (nvidia-smi name and power limit);
@@ -175,7 +177,20 @@ Phases, in order:
      weights, a zero hop over it, each flash kernel launched 24 times a
      rank a step; the step (and its backward / reduction split) beside one
      process's, the bubble;
- 17. (only with --phases ...,dist4, on four GPUs) the dist runs and dp = 4,
+ 17. pods of several GPUs (pod): the full-width LM (train phase's argv,
+     every step logged) as 2 pods x 2 local ranks at {"dp": 2, "tp": 2},
+     each pod started as the operator starts one (JAX_COORDINATOR_ADDRESS,
+     JAX_PROCESS_ID, JAX_NUM_PROCESSES=2, TPUJOB_MESH, its own metrics and
+     heartbeat files) and its supervisor given 2 ranks through the explicit
+     count (the card is one: the four ranks share it over gloo); K1-K3 and
+     delta first held against their plain versions at the ranks' [2, 3,
+     8192, 128] causal; every pod must exit 0 with one jax_ready,
+     first_step (n_devices 4) and done in its metrics file, every rank
+     launch K1-K3 and delta once a layer a step at 3 local heads, and the
+     run hold against one process at the same argv on dist_gaps' limits,
+     while dp without the gradient reduction across the pods must fail
+     them: global tokens/s, step time, each rank's peak;
+ 18. (only with --phases ...,dist4, on four GPUs) the dist runs and dp = 4,
      dp x tp = 2 x 2 and fsdp = 4 with one GPU a rank (CUDA_VISIBLE_DEVICES),
      where the backend rule picks NCCL; then the 64k LM at sp = 4 (ring)
      and sp x tp = 2 x 2 (ring, 3 local heads) at batch 1 and dp x sp = 2
@@ -185,11 +200,17 @@ Phases, in order:
      whole tensors are too large); then the MoE cell (sparse) at ep = 4 and
      dp x ep = 2 x 2, each held against one process (moe4 runs these
      alone);
- 18. (only with --phases ...,profile) both trainers' runs, the 64k LM,
+ 19. (only with --phases ...,pod4, on four GPUs) one pod seeing GPUs 0-3,
+     its local rank count taken from them, at dp = 4 and dp x tp = 2 x 2,
+     then 2 pods seeing 0,1 and 2,3 at dp x tp = 2 x 2, one GPU a rank
+     (NCCL), each held against one process at its global batch;
+ 20. (only with --phases ...,profile) both trainers' runs, the 64k LM,
      BERT-base at seq 512 and the MoE cell (sparse) under torch.profiler:
      device time by kernel group over their steady steps.
+Every trainer subprocess that is not given GPUs of its own sees this
+process's first GPU alone (CUDA_VISIBLE_DEVICES), a pod given one card.
 The last lines are the eval, longctx, preempt, bert, data, dist, sp, moe,
-serve, multislice and pipeline phases' records as one JSON object ({"phases": ...}), the kernels' JSON record,
+serve, multislice, pipeline and pod phases' records as one JSON object ({"phases": ...}), the kernels' JSON record,
 the card, and
 {"ok": true, "device": {...}}. Any failed phase exits nonzero with no
 result line. Needs a CUDA device: it never runs on the CPU.
@@ -1532,17 +1553,27 @@ _CHILD = (
 )
 
 
+def first_card() -> str:
+    """This process's first visible GPU, as CUDA_VISIBLE_DEVICES names it."""
+    return (os.environ.get("CUDA_VISIBLE_DEVICES") or "0").split(",")[0].strip()
+
+
 def start_child(argv: list[str], tag: str, env: dict | None = None, child: str = _CHILD):
     """python -m tf_operator_tpu_torch.models.train `argv` started in a
     subprocess (through `child`, with `env` added to this process's), with
-    its events in a metrics file; pass the result to finish_child."""
+    its events in a metrics file; pass the result to finish_child. The
+    child sees this process's first GPU alone unless `env` sets
+    CUDA_VISIBLE_DEVICES: a pod given one card, so co-located ranks stay
+    one process each on a machine of several GPUs (the trainer runs a local
+    rank for every GPU its pod sees)."""
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     events_path = OUT_DIR / f"chip_smoke_events{tag}.jsonl"
     counts_path = OUT_DIR / f"chip_smoke_launches{tag}.json"
     for path in (events_path, counts_path):
         path.unlink(missing_ok=True)
-    env = dict(os.environ, **(env or {}), TPUJOB_METRICS_FILE=str(events_path),
-               PYTHONPATH=str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": first_card(), **(env or {}),
+           "TPUJOB_METRICS_FILE": str(events_path),
+           "PYTHONPATH": str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", "")}
     log("child: python -m tf_operator_tpu_torch.models.train " + " ".join(argv))
     proc = subprocess.Popen([sys.executable, "-c", child, str(counts_path), *argv],
                             cwd=ROOT, env=env, stdout=subprocess.DEVNULL,
@@ -2045,8 +2076,9 @@ def _plant_fault(fault: str) -> None:
 
 def dist_child(argv: list[str]) -> int:
     """The trainer's entry point on argv[1:] as a dist rank: records every
-    step's global gradient norm and the parameters before the first step;
-    at the end writes its launches, peak memory, norms and each
+    step's global gradient norm, the parameters before the first step and
+    the [B * H, T, D] shapes K1 ran at; at the end writes its launches, peak
+    memory, norms, those shapes and each
     parameter's bytes (its shard's, under fsdp) to argv[0], and, with
     CHIP_SMOKE_DIST_ROLE=reference, its initial and final parameters to
     CHIP_SMOKE_DIST_REF (DIST_REF by default), or else the gap of its local
@@ -2061,8 +2093,12 @@ def dist_child(argv: list[str]) -> int:
 
     path, argv = argv[0], argv[1:]
     ref_path = Path(os.environ.get("CHIP_SMOKE_DIST_REF") or DIST_REF)
-    norms, init, plans = [], [], []
-    real_step, real_parallelize = ts.train_step, ts.parallelize
+    norms, init, plans, shapes = [], [], [], set()
+    real_step, real_parallelize, real_fwd = ts.train_step, ts.parallelize, fa._fwd_at
+
+    def fwd_at(q, *args, **kwargs):
+        shapes.add(tuple(q.shape))
+        return real_fwd(q, *args, **kwargs)
 
     def parallelize(*args, **kwargs):
         plans.append(real_parallelize(*args, **kwargs))
@@ -2089,13 +2125,14 @@ def dist_child(argv: list[str]) -> int:
 
         return gen_batch, backward, recorded
 
-    ts.parallelize, ts.train_step = parallelize, train_step
+    ts.parallelize, ts.train_step, fa._fwd_at = parallelize, train_step, fwd_at
     ts.make_multislice_step_fns = make_multislice_step_fns
     _plant_fault(os.environ.get("CHIP_SMOKE_DIST_FAULT", ""))
     out: dict = {}
     rc = train.main(argv, out)
     rec = {"launches": dict(fa.LAUNCHES), "k5_launches": dict(gm.LAUNCHES), "grad_norms": norms,
-           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "flash_fwd_shapes": sorted(map(list, shapes))}
     if rc == 0:
         model = out["state"].model
         names = [n for n, _ in model.named_parameters()]
@@ -3854,6 +3891,7 @@ def pipeline_phase(records: dict, card: str, cell: PipeCell = PIPE) -> dict:
         path.unlink(missing_ok=True)
         env = dict(os.environ, JAX_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
                    JAX_PROCESS_ID=str(rank), JAX_NUM_PROCESSES=str(cell.stages),
+                   CUDA_VISIBLE_DEVICES=first_card(),
                    PYTHONPATH=str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", ""))
         procs.append((subprocess.Popen([sys.executable, "-c", _PP_CHILD, str(path),
                                         json.dumps(dataclasses.asdict(cell))], cwd=ROOT,
@@ -3895,6 +3933,191 @@ def pipeline_phase(records: dict, card: str, cell: PipeCell = PIPE) -> dict:
     if failures:
         raise SmokeFailure("pipeline: " + "; ".join(failures))
     return res
+
+
+# The pod phase: the trainer's "one pod, all its GPUs" (parallel/launch.py).
+# The full-width LM (the train phase's argv, every step logged) as POD_PODS
+# pods of POD_LOCAL local ranks each at POD_MESH, started as the operator
+# starts pods, each supervisor given its count through the explicit API
+# (the card is one, so the four ranks share it over gloo), held against one
+# process at the same argv on dist_gaps' limits, with dist's planted fault
+# (dp without the gradient reduction, here across the pods) rejected.
+POD_PODS, POD_LOCAL, POD_STEPS = 2, 2, 6
+POD_MESH = {"dp": 2, "tp": 2}
+POD_FAULT = ("dp without the gradient reduction, across the pods", POD_MESH,
+             "no-grad-reduce", None)
+# A pod: pod_child.
+_POD_CHILD = "import sys, chip_smoke\nsys.exit(chip_smoke.pod_child(sys.argv[1:]))\n"
+# (only with --phases ...,pod4, on four GPUs) pods that take their count from
+# the GPUs they see: (name, mesh, pods, each pod's CUDA_VISIBLE_DEVICES).
+POD4_RUNS = (("pod-dp4", {"dp": 4}, 1, ("0,1,2,3",)),
+             ("pod-dp-tp", {"dp": 2, "tp": 2}, 1, ("0,1,2,3",)),
+             ("pods-dp-tp", {"dp": 2, "tp": 2}, 2, ("0,1", "2,3")))
+
+
+def pod_job() -> DistJob:
+    """The train phase's LM argv, every step logged, over POD_STEPS steps."""
+    argv = lm_argv(POD_STEPS)
+    argv[argv.index("--log-every") + 1] = "1"
+    return DistJob(f"lm {SEQ}", tuple(argv), SEQ, BATCH, POD_STEPS, LAYERS, 6, 1,
+                   OUT_DIR / "pod_reference.pt")
+
+
+def pod_child(argv: list[str]) -> int:
+    """A pod: the trainer's main on argv[1:] with CHIP_SMOKE_POD_RANKS local
+    ranks (else the count of GPUs the pod sees). Its supervisor replays this
+    command line in each local rank, which runs dist_child with its record
+    in argv[0].<local rank>."""
+    from tf_operator_tpu_torch.models import train
+    from tf_operator_tpu_torch.parallel import distributed
+
+    local = distributed.local_rank()
+    if local is None:
+        count = os.environ.get("CHIP_SMOKE_POD_RANKS")
+        return train.main(argv[1:], local_ranks=int(count) if count else None)
+    return dist_child([f"{argv[0]}.{local}", *argv[1:]])
+
+
+def pod_world(name: str, job: DistJob, mesh: dict, visible, local: int | None,
+              backend: str, fault: str = "") -> dict:
+    """`job` as len(visible) pods at `mesh`, pod p seeing visible[p], each
+    with its own metrics and heartbeat files and the operator's env, its
+    supervisor given `local` ranks (None: the count of GPUs it sees). Every
+    pod must exit 0 with one jax_ready, first_step and done in its metrics
+    file (n_devices the world), every rank launch K1, K2, K3 and the delta
+    pass once a layer a step at its local [rows * heads, T, D], with a finite
+    gradient norm at every step and `backend` picked by the rule."""
+    pods = len(visible)
+    world = int(math.prod(mesh.values()))
+    port = free_port()
+    children = []
+    for p, cards in enumerate(visible):
+        env = {"CHIP_SMOKE_DIST_ROLE": "run", "CHIP_SMOKE_DIST_FAULT": fault,
+               "CHIP_SMOKE_DIST_REF": str(job.ref), "TPUJOB_MESH": json.dumps(mesh),
+               "CUDA_VISIBLE_DEVICES": cards,
+               "TPUJOB_HEARTBEAT_FILE": str(OUT_DIR / f"chip_smoke_heartbeat_{name}_{p}")}
+        if pods > 1:
+            env.update(JAX_COORDINATOR_ADDRESS=f"127.0.0.1:{port}", JAX_PROCESS_ID=str(p),
+                       JAX_NUM_PROCESSES=str(pods))
+        if local is not None:
+            env["CHIP_SMOKE_POD_RANKS"] = str(local)
+        record = OUT_DIR / f"chip_smoke_launches_pod_{name}_{p}.json"  # start_child's
+        for i in range(world // pods):
+            Path(f"{record}.{i}").unlink(missing_ok=True)
+        children.append(start_child(list(job.argv), f"_pod_{name}_{p}", env, _POD_CHILD))
+    results = [(finish_child(c, timeout=900), c[2]) for c in children]
+    want = job.launches(mesh, None)
+    rows, heads, t, d = job.local_shape(mesh, None)
+    ranks, dones = [], []
+    for p, ((rc, events, _), record) in enumerate(results):
+        if rc != 0:
+            raise SmokeFailure(f"pod {name}: pod {p} exited {rc}")
+        names = [e["event"] for e in events]
+        if any(names.count(k) != 1 for k in ("jax_ready", "first_step", "done")):
+            raise SmokeFailure(f"pod {name}: pod {p}'s events are not one stream: {names}")
+        by = {e["event"]: e for e in events}
+        if by["first_step"]["n_devices"] != world or by["first_step"]["mesh"] != mesh or \
+                by["jax_ready"].get("dist_backend") != backend:
+            raise SmokeFailure(f"pod {name}: pod {p} reports {by['first_step']['n_devices']} "
+                               f"devices, mesh {by['first_step']['mesh']}, backend "
+                               f"{by['jax_ready'].get('dist_backend')}")
+        losses = _step_losses(events)
+        if sorted(losses) != list(range(1, job.steps + 1)) or \
+                not all(math.isfinite(x) for x in losses.values()):
+            raise SmokeFailure(f"pod {name}: pod {p} losses {losses}")
+        dones.append(by["done"])
+        for i in range(world // pods):
+            rec = json.loads(Path(f"{record}.{i}").read_text())
+            norms = rec["grad_norms"]
+            if rec["launches"] != want or rec["flash_fwd_shapes"] != [[rows * heads, t, d]] \
+                    or len(norms) != job.steps or not all(map(math.isfinite, norms)):
+                raise SmokeFailure(f"pod {name}: pod {p} rank {i} launches {rec['launches']} "
+                                   f"at {rec['flash_fwd_shapes']}, not {want} at "
+                                   f"{[rows * heads, t, d]}; norms {norms}")
+            ranks.append({**rec, "losses": losses, "pod": p, "local_rank": i})
+    return {"ranks": ranks, "dones": dones}
+
+
+def pod_summary(name: str, job: DistJob, mesh: dict, world: dict, ref: dict,
+                card: str) -> dict:
+    """Global tokens/s and step time (pod 0's done event), each rank's peak
+    and the gaps to the one-process run."""
+    done = world["dones"][0]
+    eps = done.get("examples_per_sec")
+    return {"run": name, "model": job.label, "mesh": mesh, "pods": len(world["dones"]),
+            "ranks_per_pod": len(world["ranks"]) // len(world["dones"]),
+            "tokens_per_s": eps * job.seq if eps else None,
+            "step_time_s": (done.get("step_time_s") or {}).get("mean"),
+            "phase_breakdown": done.get("phase_breakdown"),
+            "peak_gb": [r["peak_gb"] for r in world["ranks"]],
+            "kernel_shape": list(job.local_shape(mesh, None)),
+            "launches_per_step_per_rank": {k: n / job.steps for k, n in
+                                           job.launches(mesh, None).items()},
+            "gaps": dist_gaps(ref, world), "losses": world["ranks"][0]["losses"],
+            "grad_norms": world["ranks"][0]["grad_norms"], "card": card}
+
+
+def pod_phase(records: dict, card: str) -> dict:
+    """The full-width LM as POD_PODS pods x POD_LOCAL local ranks on the one
+    card against one process (dist_gaps' limits), the kernels held first at
+    the ranks' shape, and POD_FAULT rejected."""
+    import torch
+
+    torch.cuda.empty_cache()
+    job = pod_job()
+    shape_kernel_check(records, [job.local_shape(POD_MESH, None)], "pod", 8193, causal=True)
+    ref, reference = one_process(card, job)
+    visible = (first_card(),) * POD_PODS
+    try:
+        res = pod_summary("pods", job, POD_MESH,
+                          pod_world("pods", job, POD_MESH, visible, POD_LOCAL, "gloo"),
+                          ref, card)
+        log("pod: " + json.dumps({k: v for k, v in res.items()
+                                  if k not in ("losses", "grad_norms")}))
+        failed = dist_verdict(res["gaps"])
+        if failed:
+            raise SmokeFailure(f"the pods are off one process's run: {failed}")
+        label, mesh, kind, _ = POD_FAULT
+        gaps = dist_gaps(ref, pod_world("fault", job, mesh, visible, POD_LOCAL, "gloo", kind))
+        rejected = [f for f in dist_verdict(gaps) if not f.startswith("loss")]
+        fault = {"run": label, "mesh": mesh, "gaps": gaps, "rejected_on": rejected}
+        log("pod: planted fault " + json.dumps(fault))
+        if not rejected:
+            raise SmokeFailure(f"the pod check accepts a run with {label}: {gaps}")
+    finally:
+        job.ref.unlink(missing_ok=True)
+    for name, key, _ in KERNELS:
+        records.setdefault(name, {})["pod_launches_per_step_per_rank"] = \
+            res["launches_per_step_per_rank"][key]
+    return {"reference": reference, "run": res, "fault_control": fault}
+
+
+def pod4_phase(records: dict, card: str) -> dict:
+    """(only with --phases ...,pod4, on four GPUs) POD4_RUNS: pods that take
+    their local rank count from the GPUs they see, one a rank (NCCL), each
+    held against one process at the same global batch."""
+    import torch
+
+    if torch.cuda.device_count() < 4:
+        raise SmokeFailure(f"the pod4 phase needs four GPUs, sees {torch.cuda.device_count()}")
+    torch.cuda.empty_cache()
+    job = pod_job()
+    ref, reference = one_process(card, job)
+    out = {"reference": reference, "gpus": torch.cuda.device_count(), "runs": []}
+    try:
+        for name, mesh, _pods, visible in POD4_RUNS:
+            res = pod_summary(name, job, mesh,
+                              pod_world(name, job, mesh, visible, None, "nccl"), ref, card)
+            res["visible"] = list(visible)
+            log("pod4: " + json.dumps({k: v for k, v in res.items()
+                                       if k not in ("losses", "grad_norms")}))
+            failed = dist_verdict(res["gaps"])
+            if failed:
+                raise SmokeFailure(f"pod4 {name} is off one process's run: {failed}")
+            out["runs"].append(res)
+    finally:
+        job.ref.unlink(missing_ok=True)
+    return out
 
 
 # (only with --phases ...,dist4, on a machine of four GPUs) the dist runs
@@ -4044,13 +4267,13 @@ def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="build,check,train,ckpt,eval,longctx,preempt,bert,data,dist,sp,moe,"
-                            "serve,multislice,pipeline",
+                            "serve,multislice,pipeline,pod",
                     help="comma-separated subset of build,check,train,ckpt,eval,longctx,"
-                         "preempt,bert,data,dist,sp,moe,serve,multislice,pipeline,profile; k4 for "
-                         "the fused bottleneck's "
+                         "preempt,bert,data,dist,sp,moe,serve,multislice,pipeline,pod,profile; "
+                         "k4 for the fused bottleneck's "
                          "checks alone, k5 for the grouped matmul's (moe runs them too; "
                          "eval follows the ckpt phase's directory); dist4 "
-                         "(or its MoE runs alone, moe4) on a machine of four GPUs")
+                         "(or its MoE runs alone, moe4) and pod4 on a machine of four GPUs")
     ap.add_argument("--steps", type=int, default=6)
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -4116,10 +4339,14 @@ def main(argv: list[str] | None = None) -> int:
             results["multislice"] = multislice_phase(records, card)
         if "pipeline" in phases:
             results["pipeline"] = pipeline_phase(records, card)
+        if "pod" in phases:
+            results["pod"] = pod_phase(records, card)
         if "dist4" in phases:
             results["dist4"] = dist4_phase(records, card)
         elif "moe4" in phases:
             results["moe4"] = moe4_phase(card)
+        if "pod4" in phases:
+            results["pod4"] = pod4_phase(records, card)
         if "profile" in phases:
             profile_phase(args, card)
     except Exception as e:  # every phase failure ends the run without a result
@@ -4140,7 +4367,8 @@ def main(argv: list[str] | None = None) -> int:
         }
         for extra in (f"at_batch_{BATCH}", "head_widths", "at_T_65536", "bert", "dist",
                       "sp", "sp_launches_per_step_per_rank", "moe",
-                      "multislice_launches_per_slice", "pipeline_launches_per_step_per_rank"):
+                      "multislice_launches_per_slice", "pipeline_launches_per_step_per_rank",
+                      "pod", "pod_launches_per_step_per_rank"):
             if extra in rec:
                 entry[extra] = rec[extra]
         if name in KERNEL_NOTES:

@@ -1085,3 +1085,68 @@ def test_pipeline_phase_runs_on_cpu_at_a_tiny_size(tmp_path, monkeypatch, broken
     assert res["zero_hop"]["logits"] > chip_smoke.PP_LIMIT
     assert len(res["step_s"]) == 2 and len(res["one_process_step_s"]) == 3
     assert records["flash_fwd"]["pipeline_launches_per_step_per_rank"] == 0
+
+
+def test_pod_runs_are_the_cells():
+    """The pod phase's argv is the train phase's full-width LM (every step
+    logged); each rank of 2 pods x 2 at dp x tp = 2 x 2 launches K1-K3 and
+    delta once a layer a step at [2, 3, 8192, 128]; the pod4 runs span four
+    GPUs, as one pod and as two."""
+    job = chip_smoke.pod_job()
+    for flag, value in (("--layers", "12"), ("--hidden", "768"), ("--heads", "6"),
+                        ("--seq", "8192"), ("--batch", "4"), ("--steps", "6"),
+                        ("--log-every", "1"), ("--device", "cuda")):
+        assert job.argv[job.argv.index(flag) + 1] == value, flag
+    assert chip_smoke.POD_PODS * chip_smoke.POD_LOCAL == \
+        int(np.prod(list(chip_smoke.POD_MESH.values()))) == 4
+    assert job.launches(chip_smoke.POD_MESH, None) == \
+        dict.fromkeys(chip_smoke.FLASH_LAUNCH_KEYS, 12 * 6)
+    assert job.local_shape(chip_smoke.POD_MESH, None) == (2, 3, 8192, 128)
+    for _, mesh, pods, visible in chip_smoke.POD4_RUNS:
+        assert len(visible) == pods and int(np.prod(list(mesh.values()))) == 4
+        assert sorted(",".join(visible).split(",")) == ["0", "1", "2", "3"]
+
+
+def test_children_see_one_card_unless_given_their_own(tmp_path, monkeypatch):
+    """start_child pins a trainer child to this process's first GPU (a pod
+    given one card), unless its env names the GPUs it sees."""
+    monkeypatch.setattr(chip_smoke, "OUT_DIR", tmp_path)
+    code = "import os, sys; open(sys.argv[1], 'w').write(os.environ['CUDA_VISIBLE_DEVICES'])\n"
+    for parent, given, want in (("2,3", None, "2"), (None, None, "0"), ("0,1", "1", "1")):
+        if parent is None:
+            monkeypatch.delenv("CUDA_VISIBLE_DEVICES", raising=False)
+        else:
+            monkeypatch.setenv("CUDA_VISIBLE_DEVICES", parent)
+        env = None if given is None else {"CUDA_VISIBLE_DEVICES": given}
+        child = chip_smoke.start_child([], "_cards", env, code)
+        assert chip_smoke.finish_child(child, 60)[0] == 0
+        assert child[2].read_text() == want
+
+
+def test_pod_phase_holds_pods_and_rejects_its_fault_on_cpu(tmp_path, monkeypatch):
+    """The pod phase's machinery at a tiny LM on the CPU (where no kernel
+    launches): one process, then 2 pods x 2 local ranks at dp x tp = 2 x 2
+    (pod_child: each supervisor given 2 ranks, each rank dist_child) held
+    against it at the dist limits, with one event stream a pod and every
+    rank's K1 at its [rows * local heads, T, D]; dp without the gradient
+    reduction rejected on what a wrong update moves."""
+    monkeypatch.setattr(chip_smoke, "OUT_DIR", tmp_path)
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    monkeypatch.setattr(chip_smoke.DistJob, "launches",
+                        lambda self, mesh, mode: dict.fromkeys(chip_smoke.FLASH_LAUNCH_KEYS, 0))
+    argv = ("--model", "transformer-lm", "--steps", "3", "--batch", "4", "--seq", "32",
+            "--layers", "2", "--hidden", "128", "--heads", "2", "--log-every", "1",
+            "--device", "cpu")
+    job = chip_smoke.DistJob("tiny", argv, 32, 4, 3, 2, 2, 1, tmp_path / "ref.pt", 128)
+    ref, _ = chip_smoke.one_process("cpu", job)
+    mesh = chip_smoke.POD_MESH
+    world = chip_smoke.pod_world("pods", job, mesh, ("0", "0"), 2, "gloo")
+    assert [(r["pod"], r["local_rank"]) for r in world["ranks"]] == \
+        [(0, 0), (0, 1), (1, 0), (1, 1)]
+    assert all(r["flash_fwd_shapes"] == [[2, 32, 64]] for r in world["ranks"])
+    res = chip_smoke.pod_summary("pods", job, mesh, world, ref, "cpu")
+    assert not chip_smoke.dist_verdict(res["gaps"]), res["gaps"]
+    assert (res["pods"], res["ranks_per_pod"], len(res["peak_gb"])) == (2, 2, 4)
+    gaps = chip_smoke.dist_gaps(ref, chip_smoke.pod_world("fault", job, mesh, ("0", "0"), 2,
+                                                          "gloo", "no-grad-reduce"))
+    assert [f for f in chip_smoke.dist_verdict(gaps) if not f.startswith("loss")], gaps

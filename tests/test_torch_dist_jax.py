@@ -64,7 +64,8 @@ def _jax_run(jmodel, params, mesh_axes):
         return jtfm.lm_loss(jmodel.apply({"params": p}, batch["tokens"]),
                             batch["tokens"]), model_state
 
-    mesh = jmesh.make_mesh(mesh_axes, devices=jax.devices()[:2])
+    mesh = jmesh.make_mesh(mesh_axes, devices=jax.devices()[:int(np.prod(list(
+        mesh_axes.values())))])
     jtx = joptim.make_optimizer(joptim.OptimizerConfig(learning_rate=LR))
     _, compile_step = jts.make_train_step(jloss, jtx, mesh, jrules.TRANSFORMER_TP_RULES)
     state = jts.shard_state(jts.create_train_state(params, jtx), mesh,

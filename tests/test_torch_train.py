@@ -433,7 +433,7 @@ def test_import_hygiene_in_a_fresh_process():
         "assert 'tf_operator_tpu_torch.data.staging' in names, names\n"
         "assert {'tf_operator_tpu_torch.parallel.' + m for m in ('distributed', 'mesh',\n"
         "        'sharding_rules', 'collectives', 'train_step', 'ring_attention',\n"
-        "        'ulysses', 'multislice', 'pipeline')} <= set(names), names\n"
+        "        'ulysses', 'multislice', 'pipeline', 'launch')} <= set(names), names\n"
         "assert {'tf_operator_tpu_torch.models.moe',\n"
         "        'tf_operator_tpu_torch.ops.grouped_matmul'} <= set(names), names\n"
         "assert {'tf_operator_tpu_torch.serve.server', 'tf_operator_tpu_torch.models.decode',\n"
@@ -455,7 +455,7 @@ def test_import_hygiene_ast_scan():
     for name in ("dataset", "prefetch", "staging"):
         assert ROOT / "tf_operator_tpu_torch" / "data" / f"{name}.py" in files
     for name in ("distributed", "mesh", "sharding_rules", "collectives", "train_step",
-                 "ring_attention", "ulysses", "multislice", "pipeline"):
+                 "ring_attention", "ulysses", "multislice", "pipeline", "launch"):
         assert ROOT / "tf_operator_tpu_torch" / "parallel" / f"{name}.py" in files
     for name in ("models/moe.py", "ops/grouped_matmul.py", "serve/server.py", "models/decode.py",
                  "status/metrics.py"):

@@ -1,4 +1,5 @@
-"""Helpers of the PyTorch port's multi-process tests (tests/test_torch_dist_*.py).
+"""Helpers of the PyTorch port's multi-process tests (tests/test_torch_dist_*.py,
+tests/test_torch_pod.py).
 
 `run_world` starts the port trainer as the operator starts a gang's pods:
 one process per rank, each with JAX_COORDINATOR_ADDRESS, JAX_PROCESS_ID,
@@ -9,6 +10,8 @@ order of its f32 sums, which the rtol 1e-4 gates need (in bf16 the two
 round partial sums at other places). `change_gap` holds a run's final
 parameters against a reference's where the elementwise gates cannot bind
 (ResNet; bf16), and a planted fault shows where its limit sits.
+`run_pods` starts pods of several local ranks each through the pod
+supervisor (parallel/launch.py) with an explicit local rank count.
 """
 
 from __future__ import annotations
@@ -82,6 +85,68 @@ def run_world(tmp: Path, argv: list[str], n: int, mesh: dict | None = None,
         for proc, metrics in procs:
             _, err = proc.communicate(timeout=timeout)
             out.append({"rc": proc.returncode, "events": read_events(metrics), "stderr": err})
+    finally:
+        for proc, _ in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    return out
+
+
+# A pod through the trainer's own entry: main with an explicit local rank
+# count (argv[1]), at f32; each rank the supervisor starts replays this
+# command line and trains as a rank.
+_F32_POD = ("import sys, torch\n"
+            "from tf_operator_tpu_torch.models import train\n"
+            "train.COMPUTE_DTYPE = torch.float32\n"
+            "sys.exit(train.main(sys.argv[2:], local_ranks=int(sys.argv[1])))\n")
+# A pod of argv[1] local ranks each running `python -c argv[2] argv[3:]`.
+_CODE_POD = ("import sys\n"
+             "from tf_operator_tpu_torch.parallel import launch\n"
+             "sys.exit(launch.run_pod([sys.executable, '-c', *sys.argv[2:]], "
+             "int(sys.argv[1])))\n")
+
+
+def start_pod(tmp: Path, argv: list[str], pod: int, pods: int, local: int, port: int,
+              mesh: dict | None = None, tag: str = "pod", env: dict | None = None,
+              code: str | None = None, pod_code: str = _F32_POD):
+    """Pod `pod` of `pods` as the operator starts one (JAX_* env when
+    pods > 1, TPUJOB_MESH, its own metrics and heartbeat files), whose
+    supervisor is given `local` ranks through the explicit count: the
+    trainer at f32 on `argv` (`pod_code`, called as _F32_POD is), or
+    `python -c code argv` in each rank. Returns (Popen, metrics path)."""
+    metrics = tmp / f"{tag}-{pod}.jsonl"
+    metrics.unlink(missing_ok=True)
+    child_env = {k: v for k, v in os.environ.items() if not k.startswith(("JAX_", "TPUJOB_"))}
+    child_env.update(PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1",
+                     TPUJOB_METRICS_FILE=str(metrics),
+                     TPUJOB_HEARTBEAT_FILE=str(tmp / f"{tag}-{pod}.heartbeat"), **(env or {}))
+    if pods > 1:
+        child_env.update(JAX_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                         JAX_PROCESS_ID=str(pod), JAX_NUM_PROCESSES=str(pods))
+    if mesh is not None:
+        child_env["TPUJOB_MESH"] = json.dumps(mesh)
+    head = ([PY, "-c", _CODE_POD, str(local), code] if code
+            else [PY, "-c", pod_code, str(local)])
+    return subprocess.Popen(head + list(argv), cwd=tmp, env=child_env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True), metrics
+
+
+def run_pods(tmp: Path, argv: list[str], pods: int, local: int, mesh: dict | None = None,
+             tag: str = "pod", env: dict | None = None, code: str | None = None,
+             timeout: float = 240) -> list[dict]:
+    """`pods` pods of `local` ranks each (start_pod), run to their end:
+    [{"rc", "events", "stdout", "stderr"}] by pod."""
+    port = free_port()
+    procs = [start_pod(tmp, argv, p, pods, local, port, mesh, tag, env, code)
+             for p in range(pods)]
+    out = []
+    try:
+        for proc, metrics in procs:
+            stdout, err = proc.communicate(timeout=timeout)
+            out.append({"rc": proc.returncode, "events": read_events(metrics),
+                        "stdout": stdout, "stderr": err})
     finally:
         for proc, _ in procs:
             if proc.poll() is None:

@@ -10,7 +10,10 @@ against each other on one directory):
     pages its batches read;
   - `shard_from_env()` picks this replica's shard list from the process
     env the operator injects (JAX_PROCESS_ID / JAX_NUM_PROCESSES), giving
-    disjoint coverage with no coordination;
+    disjoint coverage with no coordination; a pod of several local ranks
+    reads as one replica, each rank taking its block of the pod's rows
+    (`local_part`: the port's addition, the JAX module has one process a
+    pod);
   - batches are numpy dicts with a fixed shape (the remainder of an epoch
     is dropped), shuffled per epoch from (seed + epoch), and `start_batch`
     fast-forwards the stream so a resumed trainer continues it.
@@ -63,10 +66,34 @@ def write_array_shards(
 
 def shard_from_env() -> tuple[int, int]:
     """(shard_index, num_readers) from the operator-injected process env;
-    (0, 1) for standalone runs."""
-    pid = int(os.environ.get("JAX_PROCESS_ID", "0"))
-    nprocs = int(os.environ.get("JAX_NUM_PROCESSES", "1"))
+    (0, 1) for standalone runs. The reader is the pod: a pod's local ranks
+    (parallel/launch.py, which rewrites JAX_PROCESS_ID to the global rank
+    and keeps the pod's own in TPUJOB_POD_PROCESS_ID) read its shards, as
+    the JAX trainer's one process a pod does."""
+    pid = int(os.environ.get("TPUJOB_POD_PROCESS_ID") or os.environ.get("JAX_PROCESS_ID", "0"))
+    nprocs = int(os.environ.get("TPUJOB_POD_NUM_PROCESSES")
+                 or os.environ.get("JAX_NUM_PROCESSES", "1"))
     return pid, max(nprocs, 1)
+
+
+def local_part_from_env() -> tuple[int, int]:
+    """(local rank, local ranks) of this process in its pod (parallel/
+    launch.py's TPUJOB_LOCAL_RANK / TPUJOB_LOCAL_RANKS); (0, 1) in a pod of
+    one process."""
+    return (int(os.environ.get("TPUJOB_LOCAL_RANK", "0")),
+            max(int(os.environ.get("TPUJOB_LOCAL_RANKS", "1")), 1))
+
+
+def local_part(batches: Iterator[dict], index: int, parts: int) -> Iterator[dict]:
+    """The `index`-th of `parts` equal row blocks of each of the pod's
+    batches, in device order: the rows the JAX trainer's process places on
+    its `index`-th local device (its batch sharded over the data axes)."""
+    if parts == 1:
+        yield from batches
+        return
+    for batch in batches:
+        rows = next(iter(batch.values())).shape[0] // parts
+        yield {k: v[index * rows:(index + 1) * rows] for k, v in batch.items()}
 
 
 class ShardedDataset:

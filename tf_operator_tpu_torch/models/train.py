@@ -114,6 +114,7 @@ import torch
 import torch.distributed as dist
 
 from tf_operator_tpu_torch.parallel.collectives import PeerLostError
+from tf_operator_tpu_torch.parallel.distributed import ENV_LOCAL_RANK
 
 MODELS = ("mnist-mlp", "mnist-conv", "resnet18", "resnet50", "transformer-lm",
           "bert-base", "bert-tiny", "moe-lm")
@@ -132,6 +133,8 @@ _emit_lock = threading.Lock()
 
 
 def _emit(event: dict) -> None:
+    if os.environ.get(ENV_LOCAL_RANK, "0") != "0":
+        return  # a pod's one event stream is its local rank 0's
     line = json.dumps(event)
     with _emit_lock:
         print(line, flush=True)
@@ -286,9 +289,10 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def check_flags(ap: argparse.ArgumentParser, args) -> None:
+def check_flags(ap: argparse.ArgumentParser, args, local_ranks: int = 1) -> None:
     """The JAX trainer's flag-only checks, with its messages (ap.error:
-    exit 2), then the gang the operator's env describes (check_gang)."""
+    exit 2), then the gang the operator's env describes (check_gang) with
+    the pod's `local_ranks`."""
     if ((args.remat_save_flash or args.remat_save_flash_layers)
             and not args.remat):
         ap.error("--remat-save-flash[-layers] requires --remat (it selects "
@@ -349,7 +353,7 @@ def check_flags(ap: argparse.ArgumentParser, args) -> None:
         ap.error("--allow-reshape shapes the --checkpoint-dir resume walk; "
                  "without one there is nothing to restore")
     if not args.eval:
-        check_gang(ap, args)
+        check_gang(ap, args, local_ranks)
     for name in ("steps", "batch", "seq", "layers", "hidden", "heads", "log_every",
                  "image_size"):
         if getattr(args, name) < 1:
@@ -368,12 +372,14 @@ def _env_count(ap: argparse.ArgumentParser, name: str) -> int:
         ap.error(f"{name}={value!r} is not a process count")
 
 
-def check_gang(ap: argparse.ArgumentParser, args) -> None:
+def check_gang(ap: argparse.ArgumentParser, args, local_ranks: int = 1) -> None:
     """The operator's env against what the trainer runs, before any event
     (ap.error, exit 2): a multi-slice job's exchange directory, a stateless
     model, no --data-dir and a batch the slices x microbatches divide (the
     JAX messages), a TPUJOB_MESH whose axes the port knows and whose sizes
-    multiply to the process count (the JAX message), a global batch (of a
+    multiply to the world (the JAX message: JAX_NUM_PROCESSES x the pod's
+    `local_ranks`, as the JAX mesh spans every process's local chips), under
+    --data-dir a batch whose pod rows the local ranks divide, a global batch (of a
     multi-slice job: each microbatch's rows) the data axes divide,
     attention heads the tp axis divides, a transformer's sequence the sp
     axis divides, local heads that sp divides when TPUJOB_SP_MODE forces
@@ -403,7 +409,9 @@ def check_gang(ap: argparse.ArgumentParser, args) -> None:
             ap.error(f"--batch {args.batch} not divisible by slices x microbatches "
                      f"({world.num_slices} x {args.dcn_microbatches})")
         rows = args.batch // blocks
-    nprocs = _env_count(ap, distributed.ENV_NUM_PROCESSES)
+    nprocs = _env_count(ap, distributed.ENV_NUM_PROCESSES) * local_ranks
+    if args.data_dir and args.batch % nprocs:
+        ap.error(f"--batch {args.batch} not divisible by {nprocs} processes")
     try:
         axes = mesh_lib.check_axes(mesh_lib.env_axes() or {}, nprocs)
         mesh_lib.local_batch_size(mesh_lib.Mesh(axes), rows)
@@ -430,16 +438,40 @@ def check_gang(ap: argparse.ArgumentParser, args) -> None:
                      f"so the {axis} peers of a data shard would train on different rows")
 
 
-def main(argv: list[str] | None = None, state_out: dict | None = None) -> int:
+def _local_ranks(args, explicit: int | None) -> int:
+    """How many local ranks this pod runs: 1 in a local rank and in the
+    Evaluator (one process a pod), else `explicit` when the caller gives it
+    (ranks then share the visible devices round-robin), else the pod's
+    visible CUDA devices (1 on the CPU)."""
+    from tf_operator_tpu_torch.parallel import distributed
+
+    if args.eval or distributed.local_rank() is not None:
+        return 1
+    if explicit is not None:
+        return explicit
+    return distributed.local_device_count(args.device)
+
+
+def main(argv: list[str] | None = None, state_out: dict | None = None,
+         local_ranks: int | None = None) -> int:
     """Parse, check and train (or evaluate). When `state_out` is a dict, the
-    final TrainState is left in it under "state" for an in-process caller."""
+    final TrainState is left in it under "state" for an in-process caller.
+    A pod that sees N > 1 CUDA devices (or is given `local_ranks` > 1) runs
+    as N local ranks under the pod supervisor (parallel/launch.py) and
+    returns the pod's exit code; with one it trains in this process."""
+    argv = sys.argv[1:] if argv is None else argv
     ap = build_parser()
     args = ap.parse_args(argv)
-    check_flags(ap, args)
+    n_local = _local_ranks(args, local_ranks)
+    check_flags(ap, args, n_local)
     if args.device == "cuda" and not torch.cuda.is_available():
         print("error: --device cuda was asked for but no CUDA device is "
               "available; pass --device cpu to run on the CPU", file=sys.stderr)
         return 1
+    if n_local > 1:
+        from tf_operator_tpu_torch.parallel import launch
+
+        return launch.run_pod(launch.rank_command(argv), n_local)
 
     from tf_operator_tpu_torch import chaos as chaos_lib
     from tf_operator_tpu_torch.telemetry import tracer
@@ -497,9 +529,12 @@ def main(argv: list[str] | None = None, state_out: dict | None = None) -> int:
 
 
 def _rank() -> str:
-    """Replica identity for per-pod trace and profile files."""
-    return (f"{os.environ.get('TPUJOB_REPLICA_TYPE') or 'local'}-"
+    """Replica identity for per-pod trace and profile files; a pod's local
+    ranks past 0 add their own suffix."""
+    name = (f"{os.environ.get('TPUJOB_REPLICA_TYPE') or 'local'}-"
             f"{os.environ.get('TPUJOB_REPLICA_INDEX', '0')}")
+    local = os.environ.get(ENV_LOCAL_RANK, "0")
+    return name if local == "0" else f"{name}-local{local}"
 
 
 def _trace_window_check(args, steps_done: int) -> None:
@@ -1387,7 +1422,8 @@ def _train_on_dataset(args, device: torch.device, state, start_step: int, loss_f
                       t_start: float, maybe_checkpoint, check_boundary, finish,
                       plan) -> int:
     """The --data-dir loop: host batches from the sharded dataset (this
-    process's shards and its --batch / nprocs rows of each global step,
+    pod's shards and its --batch / pods rows of each global step, of which
+    a pod's local rank i of N takes the i-th N-th,
     from start_step on, so a resumed run continues the uninterrupted
     sequence), fed through the prefetch thread or the staging ring, one
     step at a time. The uint8 wire is normalised here, on the step's
@@ -1403,7 +1439,9 @@ def _train_on_dataset(args, device: torch.device, state, start_step: int, loss_f
 
     reader, readers = dataset_lib.shard_from_env()
     ds = dataset_lib.ShardedDataset(args.data_dir, reader, readers)
-    host_it = ds.batches(args.batch // readers, seed=0, start_batch=start_step)
+    host_it = dataset_lib.local_part(
+        ds.batches(args.batch // readers, seed=0, start_batch=start_step),
+        *dataset_lib.local_part_from_env())
     prefetch_stats: dict = {}
     staging_stats: dict = {}
     tune = None
@@ -1548,6 +1586,8 @@ def _train_multislice(args, device, state, start_step: int, loss_fn, tx, make_ba
     if plan.mesh.world > 1:
         # One exchange per rank of the slice, each with its counterpart in
         # the other slices: the ranks of a sharded slice hold different parts.
+        # The rank is the slice-local global one (a pod's local ranks count
+        # p * N + i within their slice's world), never the pod's.
         world = dataclasses.replace(
             world, dcn_dir=os.path.join(world.dcn_dir, f"rank{plan.mesh.rank}"))
     # The slice's ranks share each bucket's transfer after the in-slice

@@ -16,13 +16,23 @@ The backend is chosen by a rule, never by catching a failure:
     through the store before the group exists, so every process reaches
     the same verdict.
 
-One process uses one GPU, the pod's first visible device.
+One process uses one GPU, its first visible device. A pod that sees N > 1
+GPUs runs N such processes, its local ranks (parallel/launch.py, the JAX
+package's one process over `jax.local_devices()`): the supervisor gives
+local rank i of pod p (of P pods) the global rank p * N + i in a world of
+P * N, and CUDA_VISIBLE_DEVICES = the pod's i-th device, so the rule above
+holds unchanged. The pod's own identity stays in the env beside the
+rewritten one (TPUJOB_POD_PROCESS_ID, TPUJOB_POD_NUM_PROCESSES), and every
+process publishes its pod's N to the store before the group exists: pods
+that see different counts are refused, naming both.
 """
 
 from __future__ import annotations
 
 import datetime
 import os
+import signal
+import sys
 import threading
 
 import torch
@@ -40,6 +50,15 @@ ENV_MESH = "TPUJOB_MESH"
 ENV_NUM_SLICES = "TPUJOB_NUM_SLICES"
 # The coordinator's own listen port where the local runtime maps it.
 ENV_COORD_LISTEN_PORT = "TPUJOB_COORD_LISTEN_PORT"
+# Set by the pod supervisor (parallel/launch.py) in each local rank it
+# starts, never by the operator: this process is local rank i of the pod's
+# N, the pod being process p of P, started by the supervisor's pid.
+ENV_LOCAL_RANK = "TPUJOB_LOCAL_RANK"
+ENV_LOCAL_RANKS = "TPUJOB_LOCAL_RANKS"
+ENV_POD_PROCESS_ID = "TPUJOB_POD_PROCESS_ID"
+ENV_POD_NUM_PROCESSES = "TPUJOB_POD_NUM_PROCESSES"
+ENV_SUPERVISOR_PID = "TPUJOB_POD_SUPERVISOR_PID"
+ENV_VISIBLE_DEVICES = "CUDA_VISIBLE_DEVICES"
 
 # How long the store waits for every process to join, and a collective for
 # its peers: a dead peer closes its sockets and fails a collective at once,
@@ -57,6 +76,74 @@ def distributed_env() -> tuple[str | None, int, int]:
     pid = int(os.environ.get(ENV_PROCESS_ID, "0"))
     nprocs = int(os.environ.get(ENV_NUM_PROCESSES, "1"))
     return coord, pid, nprocs
+
+
+def local_rank() -> int | None:
+    """This process's local rank when a pod supervisor started it, else
+    None (a pod of one process, or the supervisor itself)."""
+    value = os.environ.get(ENV_LOCAL_RANK)
+    return None if value is None else int(value)
+
+
+def pod_identity() -> tuple[int, int, int, int]:
+    """(pod, pods, local rank, local ranks): the pod's own JAX_PROCESS_ID
+    and JAX_NUM_PROCESSES and this process's place among its local ranks;
+    (JAX_PROCESS_ID, JAX_NUM_PROCESSES, 0, 1) in a pod of one process."""
+    if local_rank() is None:
+        _, pid, nprocs = distributed_env()
+        return pid, nprocs, 0, 1
+    return (int(os.environ[ENV_POD_PROCESS_ID]), int(os.environ[ENV_POD_NUM_PROCESSES]),
+            int(os.environ[ENV_LOCAL_RANK]), int(os.environ[ENV_LOCAL_RANKS]))
+
+
+def visible_devices() -> list[str]:
+    """The CUDA devices this process sees, as CUDA_VISIBLE_DEVICES names
+    them (indices or UUIDs; 0..n-1 when it is unset), as the NVIDIA device
+    plugin sets it for a pod. torch.cuda.device_count() counts them through
+    NVML (or cudaGetDeviceCount) and creates no CUDA context, so a process
+    that will start children may ask. Empty on a CPU-only build."""
+    n = torch.cuda.device_count()
+    listed = os.environ.get(ENV_VISIBLE_DEVICES)
+    if listed is None:
+        return [str(i) for i in range(n)]
+    return [d.strip() for d in listed.split(",") if d.strip()][:n]
+
+
+def local_device_count(device_type: str) -> int:
+    """The pod's local device count: the visible CUDA devices for a pod on
+    CUDA (at least 1: a pod without one fails on its own), 1 on the CPU."""
+    if device_type != "cuda":
+        return 1
+    return max(1, len(visible_devices()))
+
+
+def agree_local_ranks(store: dist.Store) -> None:
+    """Every pod of the world publishes its local rank count and reads
+    every other pod's (blocking gets): pods that see different counts would
+    number their ranks differently, so the world is refused, naming both."""
+    pod, pods, _, n = pod_identity()
+    store.set(f"tfo/local_ranks/{pod}", str(n))
+    for other in range(pods):
+        m = int(store.get(f"tfo/local_ranks/{other}").decode())
+        if m != n:
+            raise RuntimeError(
+                f"pod {other} runs {m} local rank(s) and pod {pod} runs {n}: every pod "
+                f"of a job must see the same number of devices")
+
+
+def bind_to_supervisor() -> None:
+    """A local rank dies with its supervisor: PR_SET_PDEATHSIG (SIGKILL), set
+    after the exec, then a check that the supervisor had not died before
+    it was set. No-op outside a supervised pod."""
+    sup = os.environ.get(ENV_SUPERVISOR_PID)
+    if sup is None or not sys.platform.startswith("linux"):
+        return
+    import ctypes
+
+    pr_set_pdeathsig = 1
+    ctypes.CDLL(None, use_errno=True).prctl(pr_set_pdeathsig, signal.SIGKILL, 0, 0, 0)
+    if os.getppid() != int(sup):
+        os._exit(128 + signal.SIGKILL)
 
 
 def choose_backend(store: dist.Store, pid: int, nprocs: int, device: torch.device) -> str:
@@ -92,8 +179,12 @@ def initialize_from_env(force: bool = False,
     listen = os.environ.get(ENV_COORD_LISTEN_PORT)
     if pid == 0 and listen:
         host, port = "127.0.0.1", listen
+    bind_to_supervisor()
+    # The agreement on the local rank count comes before the world size is
+    # trusted, so the store does not wait for `nprocs` clients.
     store = dist.TCPStore(host, int(port), world_size=nprocs, is_master=pid == 0,
-                          timeout=TIMEOUT)
+                          timeout=TIMEOUT, wait_for_workers=False)
+    agree_local_ranks(store)
     backend = choose_backend(store, pid, nprocs, device)
     dist.init_process_group(backend, store=store, rank=pid, world_size=nprocs,
                             timeout=TIMEOUT)

@@ -4,6 +4,11 @@ The operator injects TPUJOB_MESH (logical axes, e.g. {"dp": 2, "tp": 4});
 this module turns it into a `Mesh` over the job's torch.distributed world.
 One process drives one device, so the world's ranks are the mesh's devices,
 laid out as np.arange(world).reshape(sizes) in the canonical axis order.
+A pod of N local ranks (parallel/launch.py) numbers them p * N + i, pod
+major, as JAX orders `jax.devices()` process by process: the grid's
+innermost axes then stay inside a pod, so a {"dp": P, "tp": N} mesh keeps
+every tp group on one pod's GPUs (NVLink) and crosses pods only over dp,
+the layout the JAX package gets from its process-major devices.
 Axis semantics, as in the JAX package:
 
   dp    pure data parallel (params replicated)
