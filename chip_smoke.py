@@ -30,10 +30,14 @@ Phases, in order:
      backward's delta pass at the LM trainer's attention shape and four
      small ones (f32 with a ragged tail, f32 causal, bf16 at head_dim 64
      with a ragged causal tail, bf16 full attention at head_dim 128 with a
-     ragged tail) and at the head widths the kernels reach zero-padded (32,
+     ragged tail, bf16 [2, 3, 2048, 256] causal and full: the wide K2/K3
+     with several heads and whole tiles, every MUTATIONS entry rejected)
+     and at the head widths the kernels reach zero-padded (32,
      96, 192, 256, 320 and 512, f32 and bf16, causal and full, T = 1000; each of
      MUTATIONS must be rejected there too, and each width is timed at
-     [1, 768 // D, 8192, D] bf16 causal beside SDPA), timed at the
+     [1, 768 // D, 8192, D] bf16 causal beside SDPA, with the kernel each
+     pass ran there: bf16 K2 and K3 at 192 and 256 on the wide route),
+     timed at the
      trainer's shape at batch 1 beside their
      bound, their plain version and PyTorch's scaled_dot_product_attention,
      and at the trainer's batch 4 beside their bound and that call (the
@@ -53,7 +57,11 @@ Phases, in order:
      statistics (no hand-written kernel is on that path: the fused
      bottleneck, as in the JAX package, is on no trainer path); then the
      LM at head width 32 (--hidden 128 --heads 4, seq 8192), which must
-     end finite and launch every flash kernel;
+     end finite and launch every flash kernel; then the LM at head width
+     256 (--hidden 768 --heads 3, batch 4, 4 steps) under torch.profiler
+     (device activity only): its loss finite and falling, by the
+     profiler's kernel names 12 launches a step of the wide K2 and K3 and
+     none of their FMA kernels, tokens/s beside the head-width-128 LM's;
   5. checkpoints (ckpt): the full-width LM saves every 2 steps to step 4
      (async), a second run resumes it to step 6, and its step-6 loss must
      equal the train phase's uninterrupted one (or, if not bit for bit,
@@ -124,7 +132,8 @@ Phases, in order:
      dist runs are, with the flash kernels launched sp times a layer a
      forward pass for the ring and once for Ulysses; two planted faults
      (sp = 2 without the gradient sum over sp, a ring without the
-     visibility mask) must each fail that comparison;
+     visibility mask), at FAULT_LAYERS (4) layers, must each fail that
+     comparison against one process at that depth;
  13. the MoE LM (moe): K5, the grouped matmul of the dropless dispatch
      (gmm NN and NT, tgmm with an f32 and a bf16 output), held against its
      plain version at bench.py's MoE cell (12 x 768, 8 experts top-2, seq
@@ -188,8 +197,9 @@ Phases, in order:
      first_step (n_devices 4) and done in its metrics file, every rank
      launch K1-K3 and delta once a layer a step at 3 local heads, and the
      run hold against one process at the same argv on dist_gaps' limits,
-     while dp without the gradient reduction across the pods must fail
-     them: global tokens/s, step time, each rank's peak;
+     while dp without the gradient reduction across the pods, at
+     FAULT_LAYERS (4) layers, must fail them against one process at that
+     depth: global tokens/s, step time, each rank's peak;
  18. (only with --phases ...,dist4, on four GPUs) the dist runs and dp = 4,
      dp x tp = 2 x 2 and fsdp = 4 with one GPU a rank (CUDA_VISIBLE_DEVICES),
      where the backend rule picks NCCL; then the 64k LM at sp = 4 (ring)
@@ -209,7 +219,7 @@ Phases, in order:
      device time by kernel group over their steady steps.
 Every trainer subprocess that is not given GPUs of its own sees this
 process's first GPU alone (CUDA_VISIBLE_DEVICES), a pod given one card.
-The last lines are the eval, longctx, preempt, bert, data, dist, sp, moe,
+The last lines are the wide_lm, eval, longctx, preempt, bert, data, dist, sp, moe,
 serve, multislice, pipeline and pod phases' records as one JSON object ({"phases": ...}), the kernels' JSON record,
 the card, and
 {"ok": true, "device": {...}}. Any failed phase exits nonzero with no
@@ -254,6 +264,9 @@ CHECK_CASES = (
     ((2, 2, 192, 128), "float32", True),
     ((1, 3, 1000, 64), "bfloat16", True),  # bf16 at D=64 with a ragged causal tail
     ((2, 2, 1000, 128), "bfloat16", False),  # bf16 full attention, ragged tail
+    # bf16 at D = 256 (the wide K2/K3) with several heads and whole tiles
+    ((2, 3, 2048, 256), "bfloat16", True),
+    ((2, 3, 2048, 256), "bfloat16", False),
 )
 # Head widths that run zero-padded (to 64, 128, 256, 256, 384, 512): each
 # checked in f32 and bf16, causal and full, at a T that is no multiple of
@@ -707,12 +720,24 @@ def _time_head_widths(records: dict) -> None:
                        for _ in range(4))
         o, lse = fa.flash_fwd(q, k, v, True)
         recs = _time_kernels(q, k, v, o, lse, do, True, shape, "bfloat16", with_plain=False)
-        for name, rec in recs.items():
+        width = fa.kernel_head_dim(d)
+        for name, key, _ in KERNELS:
             records.setdefault(name, {}).setdefault("head_widths", {})[str(d)] = {
-                "shape": list(shape), "padded_to": fa.kernel_head_dim(d),
-                **{key: rec[key] for key in ("ms", "bound_ms", "bound_by", "library_ms")}}
+                "shape": list(shape), "padded_to": width,
+                "kernel": kernel_function(key, torch.bfloat16, width),
+                **{field: recs[name][field]
+                   for field in ("ms", "bound_ms", "bound_by", "library_ms")}}
         del q, k, v, do, o, lse
         torch.cuda.empty_cache()
+
+
+def kernel_function(key: str, dtype, d: int) -> str:
+    """The __global__ kernel that a CUDA call of KERNELS' `key` runs at
+    the built width d: the wrapper's route (ops/flash_attention.py::route);
+    the delta pass has one kernel."""
+    from tf_operator_tpu_torch.ops import flash_attention as fa
+
+    return "bwd_delta_kernel" if key == "bwd_delta" else fa.kernel_name(key, dtype, d)
 
 
 def _time_main_shape(records, q, k, v, o, lse, do, causal, shape, dtype_name):
@@ -1090,6 +1115,12 @@ def lm_argv(steps: int, layers: int = LAYERS, hidden: int = 768, heads: int = 6)
 # The LM at head width 32 (bench.py's CPU LM widths at the trainer's seq):
 # (layers, hidden, heads, steps).
 NARROW_LM = (2, 128, 4, 2)
+# The LM at head width 256 (Gemma-2B's, at the LM's hidden width), where K2
+# and K3 take the wide route: (layers, hidden, heads, steps).
+WIDE_LM = (LAYERS, 768, 3, 4)
+# Its attention shapes [B, H, T, D]: the head widths' timed one and the
+# trained one.
+WIDE_LM_SHAPES = [(1, 3, SEQ, 256), (BATCH, 3, SEQ, 256)]
 # The checkpoint phase's runs: A saves every CKPT_EVERY steps to CKPT_STEPS
 # (async); B resumes it to the train phase's step count.
 CKPT_STEPS, CKPT_EVERY = 4, 2
@@ -1185,6 +1216,77 @@ def narrow_lm_phase(card: str) -> None:
         f"width {hidden // heads}, padded to {fa.kernel_head_dim(hidden // heads)}): "
         f"final_loss={done['final_loss']:.4f} tokens/s={eps * SEQ if eps else None} "
         f"launches={launches} [{card}]")
+
+
+def profiled_kernel_count(names, kernel: str) -> int:
+    """How many of the profiled kernel names (`names`, as the profiler
+    demangles them) are launches of the __global__ kernel `kernel`."""
+    return sum(bool(re.search(rf"\b{kernel}\b", n)) for n in names)
+
+
+def wide_lm_phase(records: dict, card: str, base: dict | None, steps: int) -> dict:
+    """The LM at head width 256 (WIDE_LM) through the trainer. First K1-K3
+    and the delta pass at WIDE_LM_SHAPES (the timed and the trained
+    attention shape), held against their plain versions (shape_kernel_check,
+    records[kernel]["wide_lm"]). Then `steps` steps as the D 128 LM ran
+    (`base`, the train phase's done event), unprofiled: tokens/s beside
+    the D 128 LM's, K2 and K3 counted once a layer a step. Then WIDE_LM's
+    steps under torch.profiler, device activity only: its loss finite and
+    falling; by the profiler's kernel names, K2 and K3 launched layers
+    times a step on the wide route and never on the FMA kernels, K1 on its
+    route."""
+    import torch
+    from torch.profiler import DeviceType, ProfilerActivity, profile
+
+    from tf_operator_tpu_torch.ops import flash_attention as fa
+
+    shape_kernel_check(records, WIDE_LM_SHAPES, "wide_lm", 256, causal=True)
+    layers, hidden, heads, prof_steps = WIDE_LM
+    width = fa.kernel_head_dim(hidden // heads)
+    fa.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    timed = run_trainer(lm_argv(steps, layers, hidden, heads), tag="_wide_timed")
+    counted = dict(fa.LAUNCHES)
+    argv = lm_argv(prof_steps, layers, hidden, heads)
+    argv[argv.index("--log-every") + 1] = "1"
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        events = run_trainer(argv, tag="_wide", all_events=True)
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    need = layers * prof_steps
+    kernels = {key: kernel_function(key, torch.bfloat16, width)
+               for key in ("fwd", "bwd_dq", "bwd_dkv", "bwd_delta")}
+    seen = {kernels[key]: profiled_kernel_count(names, kernels[key]) for key in kernels}
+    fma = {n: profiled_kernel_count(names, n)
+           for n in (fa.ROUTE_KERNELS["fma"][key] for key in ("bwd_dq", "bwd_dkv"))}
+    losses = _step_losses(events)
+    # K2 and K3 once a layer a step, exactly; K1 and delta at least that.
+    exact = (kernels["bwd_dq"], kernels["bwd_dkv"])
+    failures = [f"{k}: {n} launches, not {need}" for k, n in seen.items()
+                if n != need and (k in exact or n < need)]
+    failures += [f"{k} launched {n} times" for k, n in fma.items() if n]
+    failures += [f"{k} counted {n} in {steps} steps, not {layers * steps}"
+                 for k, n in counted.items()
+                 if n != layers * steps and (k in ("bwd_dq", "bwd_dkv") or n < layers * steps)]
+    if sorted(losses) != list(range(1, prof_steps + 1)) \
+            or not losses[prof_steps] < losses[1]:
+        failures.append(f"the loss does not fall: {losses}")
+    if failures:
+        raise SmokeFailure(f"the head-width-{hidden // heads} LM: " + "; ".join(failures))
+    done = timed["done"]
+    tps = done["examples_per_sec"] * SEQ
+    base_eps = (base or {}).get("examples_per_sec")
+    rec = {"argv": argv, "timed_steps": steps, "head_width": hidden // heads,
+           "kernel_launches": seen, "fma_backward_launches": fma,
+           "launches_per_step": {k: n // prof_steps for k, n in seen.items()},
+           "counted_launches": counted, "losses": losses, "tokens_per_s": tps,
+           "d128_tokens_per_s": base_eps * SEQ if base_eps else None,
+           "step_time_mean_s": (done.get("step_time_s") or {}).get("mean"),
+           "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9, "card": card}
+    log(f"train wide LM (--layers {layers} --hidden {hidden} --heads {heads}, head width "
+        f"{hidden // heads}): tokens/s={tps} over {steps} steps unprofiled, beside the D 128 "
+        f"LM's {rec['d128_tokens_per_s']}; under the profiler losses={losses}, launches "
+        f"{seen}, FMA backward {fma} [{card}]")
+    return rec
 
 
 def snapshot_split(state) -> list[float]:
@@ -1350,8 +1452,10 @@ def resnet_train_phase(args, card: str) -> float | None:
 # its Hopper GEMMs nvjet_*, older ones *gemm*/*xmma*; cuDNN's convolutions
 # carry fprop/dgrad/wgrad or implicit-GEMM names.
 LM_GROUPS = (("flash_fwd", ("fwd_kernel", "fwd_wgmma_kernel")),
-             ("flash_bwd_dq", ("bwd_dq_kernel", "bwd_dq_wgmma_kernel")),
-             ("flash_bwd_dkv", ("bwd_dkv_kernel", "bwd_dkv_wgmma_kernel")),
+             ("flash_bwd_dq", ("bwd_dq_kernel", "bwd_dq_wgmma_kernel",
+                               "bwd_dq_wide_wgmma_kernel")),
+             ("flash_bwd_dkv", ("bwd_dkv_kernel", "bwd_dkv_wgmma_kernel",
+                                "bwd_dkv_wide_wgmma_kernel")),
              ("flash_bwd_delta", ("bwd_delta_kernel",)),
              ("matmul", ("nvjet", "gemm", "xmma", "cutlass")))
 # The MoE LM's: K5's kernels on each route (tgmm first: "gmm_wgmma",
@@ -2251,14 +2355,16 @@ BERT_DIST = DistJob("bert-base", tuple(dist_argv()), DIST_SEQ, DIST_BATCH, DIST_
                     DIST_LAYERS, 12, 1, DIST_REF)
 
 
-def sp_lm_job(seq: int, batch: int, ref: str) -> DistJob:
-    """The full-width LM (12L x 768h, 6 heads x 128) at `seq`, global
-    `batch`, 6 steps, --remat --remat-save-flash, as the long-context
-    bench runs it."""
+def sp_lm_job(seq: int, batch: int, ref: str, layers: int = LAYERS) -> DistJob:
+    """The full-width LM (12L x 768h, 6 heads x 128; or `layers` deep) at
+    `seq`, global `batch`, 6 steps, --remat --remat-save-flash, as the
+    long-context bench runs it."""
     argv = longctx_argv(seq, SP_STEPS, ["--remat", "--remat-save-flash"])
     argv[argv.index("--batch") + 1] = str(batch)
-    return DistJob(f"lm {seq} batch {batch}", tuple(argv), seq, batch, SP_STEPS, LAYERS,
-                   LONG_HEADS, 2, OUT_DIR / ref)
+    argv[argv.index("--layers") + 1] = str(layers)
+    label = f"lm {seq} batch {batch}" + ("" if layers == LAYERS else f", {layers} layers")
+    return DistJob(label, tuple(argv), seq, batch, SP_STEPS, layers, LONG_HEADS, 2,
+                   OUT_DIR / ref)
 
 
 def dist_world(name: str, mesh: dict | None, own_gpus: bool = False,
@@ -2450,6 +2556,11 @@ def dist_phase(records: dict, card: str) -> dict:
 # The sp phase: sequence parallelism on the full-width LM at SP_SEQ, two
 # co-located ranks on the one card (gloo, by the backend rule).
 SP_SEQ, SP_STEPS = 16384, 6
+# The depth of the sp and pod phases' planted faults, each held against a
+# one-process run of its own at that depth (a missing sum shows at any
+# depth; cut from 12 layers for the default run's time, as the moe and
+# multislice phases' faults are).
+FAULT_LAYERS = 4
 # The kernels at the local shapes of SP_RUNS: the ring's [1, 6, T/2, 128]
 # blocks (the diagonal causal, the others full) and Ulysses' [1, 3, T, 128]
 # causal, bf16.
@@ -2494,16 +2605,19 @@ def sp_phase(records: dict, card: str) -> dict:
     torch.cuda.empty_cache()
     sp_kernel_check(records, SP_SHAPES, 16384)
     job = sp_lm_job(SP_SEQ, 1, "sp_reference.pt")
+    fault_job = sp_lm_job(SP_SEQ, 1, "sp_fault_reference.pt", FAULT_LAYERS)
     ref, reference = one_process(card, job)
     try:
         runs = held_against(ref, SP_RUNS, "gloo", False, card, job)
         for name, key, _ in KERNELS:
             records.setdefault(name, {})["sp_launches_per_step_per_rank"] = {
                 r["run"]: r["launches_per_step_per_rank"][key] for r in runs}
+        fault_ref, _ = one_process(card, fault_job)
         return {"reference": reference, "runs": runs,
-                "fault_control": [fault_control(ref, f, job) for f in SP_FAULTS]}
+                "fault_control": [fault_control(fault_ref, f, fault_job) for f in SP_FAULTS]}
     finally:
         job.ref.unlink(missing_ok=True)
+        fault_job.ref.unlink(missing_ok=True)
 
 
 # The moe phase: the MoE LM at bench.py's cell (bench.py:1122-1140: 12 x
@@ -3955,12 +4069,14 @@ POD4_RUNS = (("pod-dp4", {"dp": 4}, 1, ("0,1,2,3",)),
              ("pods-dp-tp", {"dp": 2, "tp": 2}, 2, ("0,1", "2,3")))
 
 
-def pod_job() -> DistJob:
-    """The train phase's LM argv, every step logged, over POD_STEPS steps."""
-    argv = lm_argv(POD_STEPS)
+def pod_job(layers: int = LAYERS) -> DistJob:
+    """The train phase's LM argv (or `layers` deep), every step logged, over
+    POD_STEPS steps."""
+    argv = lm_argv(POD_STEPS, layers)
     argv[argv.index("--log-every") + 1] = "1"
-    return DistJob(f"lm {SEQ}", tuple(argv), SEQ, BATCH, POD_STEPS, LAYERS, 6, 1,
-                   OUT_DIR / "pod_reference.pt")
+    label = f"lm {SEQ}" + ("" if layers == LAYERS else f", {layers} layers")
+    return DistJob(label, tuple(argv), SEQ, BATCH, POD_STEPS, layers, 6, 1,
+                   OUT_DIR / f"pod_reference_{layers}.pt")
 
 
 def pod_child(argv: list[str]) -> int:
@@ -4060,11 +4176,12 @@ def pod_summary(name: str, job: DistJob, mesh: dict, world: dict, ref: dict,
 def pod_phase(records: dict, card: str) -> dict:
     """The full-width LM as POD_PODS pods x POD_LOCAL local ranks on the one
     card against one process (dist_gaps' limits), the kernels held first at
-    the ranks' shape, and POD_FAULT rejected."""
+    the ranks' shape, and POD_FAULT rejected at FAULT_LAYERS against one
+    process at that depth."""
     import torch
 
     torch.cuda.empty_cache()
-    job = pod_job()
+    job, fault_job = pod_job(), pod_job(FAULT_LAYERS)
     shape_kernel_check(records, [job.local_shape(POD_MESH, None)], "pod", 8193, causal=True)
     ref, reference = one_process(card, job)
     visible = (first_card(),) * POD_PODS
@@ -4078,14 +4195,18 @@ def pod_phase(records: dict, card: str) -> dict:
         if failed:
             raise SmokeFailure(f"the pods are off one process's run: {failed}")
         label, mesh, kind, _ = POD_FAULT
-        gaps = dist_gaps(ref, pod_world("fault", job, mesh, visible, POD_LOCAL, "gloo", kind))
+        fault_ref, _ = one_process(card, fault_job)
+        gaps = dist_gaps(fault_ref, pod_world("fault", fault_job, mesh, visible, POD_LOCAL,
+                                              "gloo", kind))
         rejected = [f for f in dist_verdict(gaps) if not f.startswith("loss")]
-        fault = {"run": label, "mesh": mesh, "gaps": gaps, "rejected_on": rejected}
+        fault = {"run": label, "model": fault_job.label, "mesh": mesh, "gaps": gaps,
+                 "rejected_on": rejected}
         log("pod: planted fault " + json.dumps(fault))
         if not rejected:
             raise SmokeFailure(f"the pod check accepts a run with {label}: {gaps}")
     finally:
         job.ref.unlink(missing_ok=True)
+        fault_job.ref.unlink(missing_ok=True)
     for name, key, _ in KERNELS:
         records.setdefault(name, {})["pod_launches_per_step_per_rank"] = \
             res["launches_per_step_per_rank"][key]
@@ -4313,6 +4434,7 @@ def main(argv: list[str] | None = None) -> int:
             launches, uninterrupted = train_phase(args, card)
             synthetic_ips = resnet_train_phase(args, card)
             narrow_lm_phase(card)
+            results["wide_lm"] = wide_lm_phase(records, card, uninterrupted, args.steps)
         if "ckpt" in phases:
             _, final_state = ckpt_phase(args, card, uninterrupted)
             if "eval" in phases:
@@ -4354,6 +4476,8 @@ def main(argv: list[str] | None = None) -> int:
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}", file=sys.stderr)
         return 1
 
+    from tf_operator_tpu_torch.ops import flash_attention as fa
+
     kernels = []
     for name, key, replaces in KERNELS:
         rec = records.get(name, {})
@@ -4368,9 +4492,16 @@ def main(argv: list[str] | None = None) -> int:
         for extra in (f"at_batch_{BATCH}", "head_widths", "at_T_65536", "bert", "dist",
                       "sp", "sp_launches_per_step_per_rank", "moe",
                       "multislice_launches_per_slice", "pipeline_launches_per_step_per_rank",
-                      "pod", "pod_launches_per_step_per_rank"):
+                      "pod", "pod_launches_per_step_per_rank", "wide_lm"):
             if extra in rec:
                 entry[extra] = rec[extra]
+        entry["kernel_functions"] = (
+            {"every route": "bwd_delta_kernel"} if key == "bwd_delta" else
+            {route: names[key] for route, names in fa.ROUTE_KERNELS.items() if key in names})
+        if "wide_lm" in results:
+            wide = kernel_function(key, torch.bfloat16, 256)
+            entry["wide_lm_kernel"] = wide
+            entry["wide_lm_launches"] = results["wide_lm"]["kernel_launches"][wide]
         if name in KERNEL_NOTES:
             entry["note"] = KERNEL_NOTES[name]
         kernels.append(entry)

@@ -236,15 +236,73 @@ def test_every_flash_kernel_has_an_lm_profile_group():
     each wrapper fall in that wrapper's group."""
     names = _flash_kernel_names()
     assert {"fwd_kernel", "bwd_dq_kernel", "bwd_dkv_kernel", "bwd_delta_kernel",
-            "fwd_wgmma_kernel", "bwd_dq_wgmma_kernel", "bwd_dkv_wgmma_kernel"} <= set(names)
+            "fwd_wgmma_kernel", "bwd_dq_wgmma_kernel", "bwd_dkv_wgmma_kernel",
+            "bwd_dq_wide_wgmma_kernel", "bwd_dkv_wide_wgmma_kernel"} <= set(names)
     want = {"fwd": "flash_fwd", "bwd_dq": "flash_bwd_dq", "bwd_dkv": "flash_bwd_dkv",
             "bwd_delta": "flash_bwd_delta"}
     for name in names:
         profiled = f"void (anonymous namespace)::{name}<__nv_bfloat16, 128>(__nv_bfloat16 const*)"
         group = chip_smoke.kernel_group(profiled, chip_smoke.LM_GROUPS)
         assert group != "other", name
-        stem = re.sub(r"(_wgmma)?_kernel$", "", name)
+        stem = re.sub(r"(_wide)?(_wgmma)?_kernel$", "", name)
         assert group == want[stem], (name, group)
+
+
+@pytest.mark.parametrize("d", fa.SUPPORTED_HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_route_names_are_kernels_of_the_source(dtype, d):
+    """The kernel that the wrapper reports for each built width and dtype
+    is a __global__ kernel of flash_attention.cu, and chip_smoke names the
+    same one (its wide LM phase holds the names against the profiler's)."""
+    names = set(_flash_kernel_names())
+    for key in ("fwd", "bwd_dq", "bwd_dkv"):
+        assert fa.kernel_name(key, dtype, d) in names
+        assert chip_smoke.kernel_function(key, dtype, d) == fa.kernel_name(key, dtype, d)
+    assert chip_smoke.kernel_function("bwd_delta", dtype, d) in names
+
+
+def test_bf16_d256_backward_takes_the_wide_kernels():
+    """bf16 K2 and K3 at D 256 (and every width padded to it) run the wide
+    kernels; K1 there, f32 at every width and bf16 at 384 and 512 keep
+    the FMA kernels; bf16 at 64 and 128 the first wgmma kernels."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    for d in (129, 192, 256):
+        width = fa.kernel_head_dim(d)
+        assert fa.kernel_name("bwd_dq", bf16, width) == "bwd_dq_wide_wgmma_kernel"
+        assert fa.kernel_name("bwd_dkv", bf16, width) == "bwd_dkv_wide_wgmma_kernel"
+        assert fa.kernel_name("fwd", bf16, width) == "fwd_kernel"
+    for key in ("fwd", "bwd_dq", "bwd_dkv"):
+        for d in fa.SUPPORTED_HEAD_DIMS:
+            assert fa.route(key, f32, d) == "fma"
+        for d in (384, 512):
+            assert fa.route(key, bf16, d) == "fma"
+        for d in (64, 128):
+            assert fa.route(key, bf16, d) == "wgmma"
+    layers, hidden, heads, _ = chip_smoke.WIDE_LM
+    assert hidden // heads == 256
+    # The wide LM phase checks the timed shape and the trained one.
+    assert (1, heads, chip_smoke.SEQ, 256) in chip_smoke.WIDE_LM_SHAPES
+    assert (chip_smoke.BATCH, heads, chip_smoke.SEQ, 256) in chip_smoke.WIDE_LM_SHAPES
+    assert ((2, 3, 2048, 256), "bfloat16", True) in chip_smoke.CHECK_CASES
+    assert ((2, 3, 2048, 256), "bfloat16", False) in chip_smoke.CHECK_CASES
+
+
+def test_profiled_kernel_count_tells_the_routes_apart():
+    """The wide LM's count of each kernel in the profiler's demangled names:
+    a route's name never counts another route's launches."""
+    names = ["void (anonymous namespace)::bwd_dq_wide_wgmma_kernel(CUtensorMap_st, "
+             "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, float const*, float const*, "
+             "__nv_bfloat16*, int, int, int, float)"] * 3 + [
+        "void (anonymous namespace)::bwd_dq_kernel<__nv_bfloat16, 256, 32>(__nv_bfloat16 "
+        "const*, __nv_bfloat16 const*)",
+        "void (anonymous namespace)::bwd_dq_wgmma_kernel<128>(CUtensorMap_st)",
+        "void (anonymous namespace)::bwd_dkv_wide_wgmma_kernel(CUtensorMap_st)"]
+    count = chip_smoke.profiled_kernel_count
+    assert count(names, "bwd_dq_wide_wgmma_kernel") == 3
+    assert count(names, "bwd_dq_kernel") == 1
+    assert count(names, "bwd_dq_wgmma_kernel") == 1
+    assert count(names, "bwd_dkv_wide_wgmma_kernel") == 1
+    assert count(names, "bwd_dkv_kernel") == 0
 
 
 def test_profile_step_marker_names_only_the_forward():
@@ -1085,6 +1143,24 @@ def test_pipeline_phase_runs_on_cpu_at_a_tiny_size(tmp_path, monkeypatch, broken
     assert res["zero_hop"]["logits"] > chip_smoke.PP_LIMIT
     assert len(res["step_s"]) == 2 and len(res["one_process_step_s"]) == 3
     assert records["flash_fwd"]["pipeline_launches_per_step_per_rank"] == 0
+
+
+@pytest.mark.parametrize("make", [
+    lambda layers: chip_smoke.sp_lm_job(chip_smoke.SP_SEQ, 1, "ref.pt", layers),
+    lambda layers: chip_smoke.pod_job(layers)], ids=["sp", "pod"])
+def test_planted_faults_run_at_their_own_depth(make):
+    """The sp and pod phases hold their planted faults at FAULT_LAYERS
+    against a one-process run of that depth: the fault job differs from
+    the sound runs' only in its layers (argv and launches) and label."""
+    full, fault = make(chip_smoke.LAYERS), make(chip_smoke.FAULT_LAYERS)
+    assert chip_smoke.FAULT_LAYERS < chip_smoke.LAYERS
+    at = full.argv.index("--layers") + 1
+    assert fault.argv[at] == str(chip_smoke.FAULT_LAYERS)
+    assert fault.argv[:at] + fault.argv[at + 1:] == full.argv[:at] + full.argv[at + 1:]
+    mesh = {"sp": 2}
+    assert {k: n * chip_smoke.LAYERS for k, n in fault.launches(mesh, "ring").items()} == \
+        {k: n * chip_smoke.FAULT_LAYERS for k, n in full.launches(mesh, "ring").items()}
+    assert fault.label != full.label and fault.layers == chip_smoke.FAULT_LAYERS
 
 
 def test_pod_runs_are_the_cells():

@@ -385,6 +385,42 @@ class TestHeadWidthPadding:
             assert gt.shape == (1, 2, 128, 320)
             np.testing.assert_allclose(_np(gt), _np(gj), atol=F32_GRAD)
 
+    @pytest.mark.parametrize("causal", [False, True])
+    @pytest.mark.parametrize("d", [256, 192])
+    def test_binding_at_the_wide_widths_matches_the_pallas_kernel(self, d, causal):
+        """D = 256, and 192 padded to it: the widths whose bf16 backward
+        runs the wide K2/K3 kernels on the card (here, as there, held
+        through their plain version); f32 at the f32 limits."""
+        arrs = _inputs(44, (1, 2, 128, d))
+        expected, vjp = jax.vjp(
+            lambda *x: jfa.flash_attention_pallas(*x, causal, 128, 128, True), *_jax(arrs))
+        qkv = _torch(arrs, grad=True)
+        got = fa.FlashAttention.apply(*qkv, causal)
+        np.testing.assert_allclose(_np(got), _np(expected), atol=F32_OUT)
+        g = _inputs(45, (1, 2, 128, d), n=1)[0]
+        got_grads = torch.autograd.grad(got, qkv, torch.from_numpy(g))
+        for gt, gj in zip(got_grads, vjp(jnp.asarray(g))):
+            assert gt.shape == (1, 2, 128, d)
+            np.testing.assert_allclose(_np(gt), _np(gj), atol=F32_GRAD)
+
+    @pytest.mark.parametrize("causal", [False, True])
+    @pytest.mark.parametrize("d", [256, 192])
+    def test_bf16_binding_at_the_wide_widths_matches_the_pallas_kernel(self, d, causal):
+        """The same in bf16, the dtype the wide route takes, at the bf16
+        limits (8-bit mantissas, contraction order)."""
+        arrs = _inputs(46, (1, 2, 128, d))
+        expected, vjp = jax.vjp(
+            lambda *x: jfa.flash_attention_pallas(*x, causal, 128, 128, True),
+            *_jax(arrs, jnp.bfloat16))
+        qkv = _torch(arrs, torch.bfloat16, grad=True)
+        got = fa.FlashAttention.apply(*qkv, causal)
+        np.testing.assert_allclose(_np(got), _np(expected), atol=BF16_OUT, rtol=BF16_OUT)
+        g = _inputs(47, (1, 2, 128, d), n=1)[0]
+        got_grads = torch.autograd.grad(got, qkv, torch.from_numpy(g).to(torch.bfloat16))
+        for gt, gj in zip(got_grads, vjp(jnp.asarray(g, jnp.bfloat16))):
+            assert gt.dtype == torch.bfloat16 and gt.shape == (1, 2, 128, d)
+            np.testing.assert_allclose(_np(gt), _np(gj), atol=BF16_GRAD, rtol=BF16_GRAD)
+
     def test_a_built_width_is_passed_through_without_a_copy(self):
         x = torch.randn(2, 8, 128)
         assert fa.pad_head(x, 128) is x and fa.unpad_head(x, 128) is x

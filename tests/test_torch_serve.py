@@ -323,6 +323,24 @@ def test_staging_slot_backpressure_and_close(mod):
     assert slot.is_closed()
 
 
+def test_http_server_queues_a_burst_of_clients():
+    """The server's socket holds 48 connections that it has not accepted
+    yet (a burst, while its handler threads are busy): each connect
+    completes at once, where a backlog of 5 leaves the later ones waiting
+    on dropped handshakes."""
+    httpd = tserver._HTTPServer(("127.0.0.1", 0), object)
+    socks = []
+    try:
+        for _ in range(48):
+            s = socket.create_connection(httpd.server_address, timeout=2.0)
+            socks.append(s)
+        assert httpd.request_queue_size >= len(socks)
+    finally:
+        for s in socks:
+            s.close()
+        httpd.server_close()
+
+
 @BOTH
 @pytest.mark.parametrize("bucketing", [True, False])
 def test_classifier_pipeline_pads_demuxes_and_isolates_errors(mod, bucketing):

@@ -8,6 +8,7 @@ GELU), so logits are held at atol 0.1 and the loss at rtol 1e-2.
 """
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -16,6 +17,7 @@ import pytest
 import torch
 
 from tf_operator_tpu.models import transformer as jtfm
+from tf_operator_tpu.ops.attention import flash_attention as jflash
 from tf_operator_tpu_torch.models import transformer as tfm
 from tf_operator_tpu_torch.parallel.ring_attention import make_attention_fn
 
@@ -84,6 +86,52 @@ def test_logits_and_loss_bf16():
     np.testing.assert_allclose(logits_t.numpy(), np.array(logits_j), atol=0.1)
     np.testing.assert_allclose(float(tfm.lm_loss(logits_t, tt)),
                                float(jtfm.lm_loss(logits_j, jnp.asarray(tok))), rtol=1e-2)
+
+
+@pytest.mark.parametrize("dtype_name,tol", [("float32", 1e-4), ("bfloat16", 3e-2)])
+def test_head_width_256_loss_and_grads(dtype_name, tol):
+    """The LM at hidden 256 and one head (head width 256, where the port's
+    bf16 K2 and K3 take the wide kernels on the card) against the flax LM
+    on the same weights, its attention the Pallas kernel in interpret mode:
+    loss and every parameter gradient. f32: atol 1e-4 (summation order).
+    bf16 compute: the loss at rtol 3e-2 and each gradient at |got - ref| /
+    |ref| <= 3e-2 (the two sides round activations, P and dS at slightly
+    different places: 0.6-1.4e-2 seen); the key biases, whose exact
+    gradient is 0 (q . b_k shifts a whole row of scores), hold rounding
+    noise on both sides and are held under 3e-2 of the key weight's."""
+    jcfg = dataclasses.replace(jtfm.TINY_LM, hidden=256, num_heads=1,
+                               dtype=getattr(jnp, dtype_name))
+    tcfg = dataclasses.replace(tfm.TINY_LM, hidden=256, num_heads=1,
+                               dtype=getattr(torch, dtype_name))
+    jmodel = jtfm.TransformerLM(jcfg, attn_fn=functools.partial(
+        jflash, causal=True, force_pallas=True, interpret=True))
+    params = jmodel.init(jax.random.key(0), jnp.zeros((1, T), jnp.int32))["params"]
+    tmodel = tfm.TransformerLM(tcfg, attn_fn=make_attention_fn(causal=True))
+    tmodel.load_state_dict(tfm.params_from_flax(jax.tree.map(np.array, params)))
+    tok = _tokens(3)
+
+    def loss_fn(p):
+        return jtfm.lm_loss(jmodel.apply({"params": p}, jnp.asarray(tok)), jnp.asarray(tok))
+
+    loss_j, grads_j = jax.value_and_grad(loss_fn)(params)
+    tt = torch.from_numpy(tok).long()
+    loss_t = tfm.lm_loss(tmodel(tt), tt)
+    loss_t.backward()
+    grads_j = tfm.params_from_flax(jax.tree.map(lambda g: np.array(g, np.float32), grads_j))
+    if dtype_name == "float32":
+        np.testing.assert_allclose(loss_t.item(), float(loss_j), atol=tol)
+        for name, p in tmodel.named_parameters():
+            np.testing.assert_allclose(p.grad.numpy(), grads_j[name].numpy(), atol=tol,
+                                       err_msg=name)
+        return
+    np.testing.assert_allclose(loss_t.item(), float(loss_j), rtol=tol)
+    for name, p in tmodel.named_parameters():
+        got, want = p.grad.float(), grads_j[name].float()
+        if name.endswith("attn.key.bias"):
+            scale = float(grads_j[name.replace("bias", "weight")].norm())
+            assert float(got.norm()) < tol * scale and float(want.norm()) < tol * scale, name
+            continue
+        assert float((got - want).norm()) <= tol * float(want.norm()), name
 
 
 def test_lm_loss_chunked_equals_lm_loss_both_sides():

@@ -19,11 +19,14 @@
 // pre-pass (bwd_delta_kernel), launched once for both.
 //
 // The bf16 kernels at D = 64 and 128 (fwd_wgmma_kernel, bwd_dq_wgmma_kernel
-// and bwd_dkv_wgmma_kernel, at the end of the file) run their products on
-// the tensor cores with wgmma, fed by TMA through shared-memory rings; see
-// the notes above them. The FMA kernels (fwd_kernel, bwd_dq_kernel and
-// bwd_dkv_kernel), the first versions, described below, run f32 at every
-// width and bf16 at D = 256, 384 and 512.
+// and bwd_dkv_wgmma_kernel, after the FMA kernels) and the bf16 backward
+// kernels at D = 256 (bwd_dq_wide_wgmma_kernel and bwd_dkv_wide_wgmma_kernel)
+// run their products on the tensor cores with wgmma, fed by TMA through
+// shared-memory rings; see the notes above them. The FMA kernels
+// (fwd_kernel, bwd_dq_kernel and bwd_dkv_kernel), the first versions,
+// described below, run f32 at every width, K1 in bf16 at D = 256, and bf16
+// at D = 384 and 512; the C interface at the end picks the kernel of each
+// call from its dtype and width.
 //
 // Tiles are R x R (R = 64; 32 at D = 256, 16 at D = 384 and 512, see
 // fma_rows) and a block has 256
@@ -651,9 +654,10 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// The rows of an accumulator fragment as bf16 into out[(row0 + r) * D + c]
-// for the warpgroup's rows r < 64 with row0 + r < n_rows.
-template <int N>
+// The rows of an accumulator fragment of N columns as bf16 into
+// out[(row0 + r) * LD + c] for the warpgroup's rows r < 64 with row0 + r <
+// n_rows.
+template <int N, int LD = N>
 __device__ __forceinline__ void store_rows(bf16* out, const float (&acc)[N / 2],
                                            int row0, int n_rows) {
   const int lane = threadIdx.x & 31;
@@ -665,7 +669,7 @@ __device__ __forceinline__ void store_rows(bf16* out, const float (&acc)[N / 2],
       const int row = row0 + r + 8 * h;
       if (row < n_rows) {
         const int i = 4 * j + 2 * h;
-        *reinterpret_cast<uint32_t*>(out + static_cast<size_t>(row) * N + 8 * j +
+        *reinterpret_cast<uint32_t*>(out + static_cast<size_t>(row) * LD + 8 * j +
                                      2 * (lane & 3)) = pack_bf16(acc[i], acc[i + 1]);
       }
     }
@@ -981,6 +985,413 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 
   store_rows<D>(dq + static_cast<size_t>(bh) * tq * D, acc_dq, row0, tq);
+}
+
+// ---------------------------------------------------------------------------
+// K2 and K3 in bf16 at D = 256, on the tensor cores: the "wide" kernels.
+// They replace ops/flash_attention.py::_bwd_dq_kernel (:222) and
+// _bwd_dkv_kernel (:295) for bf16 heads of 129-256 columns (the wrapper pads
+// them to 256), and compute what the D = 64/128 kernels above compute, with the same
+// rounding points: P rebuilt from lse, delta from bwd_delta_kernel, dP and
+// dS in f32, bf16 operands with f32 sums, dV from the unrounded P (P_hi +
+// P_lo), causal keys aligned to the start, one writer a row.
+//
+// Bound: compute, as at D = 128 (3 product units for K2, 4 for K3, 5 with
+// the P_lo product). At [1, 3, 8192, 256] causal the 64-row tiles below
+// also move ~1.6 GB a kernel from L2 (every streamed tile read once by each
+// block of its head), which near the L2's rate is a bound of its own.
+//
+// Why not the layout above: at D = 256 its 128 resident rows and three-stage
+// ring need 320 KB of shared memory (the card has 227 KB), and K3's dK and
+// dV, 64 x 256 f32 each a warpgroup, would take 256 registers a thread
+// against setmaxnreg's 240. So:
+//   - a block holds 64 resident rows (K and V for K3, Q and dO for K2) and
+//     streams the other operand's 64-row tiles through a two-stage ring
+//     (2 x 32 KB resident, 2 x 2 x 32 KB ring, 24 KB of exchange);
+//   - the two consumer warpgroups split the head's columns, not the rows:
+//     warpgroup w owns columns [128 w, 128 w + 128) of the accumulators
+//     (dK and dV, 64 x 128 f32 each: 128 registers; dQ: 64);
+//   - the square products are split between them: warpgroup 0 computes
+//     S (K3: S^T) and warpgroup 1 dP (dP^T), each over all 256 columns
+//     with m64n64 SS products. Warpgroup 0 turns S into P and hands P over
+//     in f32; warpgroup 1 computes dS from it and hands bf16(dS) back. The
+//     exchange is in the fragment order (element i of thread t of a
+//     warpgroup at [i * 128 + t]: thread t of the other warpgroup holds the
+//     same (row, column) and reads it without bank conflicts) and each
+//     hand-over is a named barrier (arrive on one side, sync on the other);
+//   - each warpgroup then runs its half of the gradient products as
+//     m64n128 RS products: A (P_hi, P_lo, dS) from registers, B the
+//     streamed tile's 128 columns MN-major.
+// The exchange tiles are written and read by threads only (the products
+// read P and dS from registers), so they need no proxy fence. Hazards:
+// warpgroup 0 writes P for tile i + 1 only after the dS barrier of tile i,
+// which warpgroup 1 reaches after reading P of tile i; warpgroup 1 writes
+// dS of tile i + 1 only after the P barrier of tile i + 1, which warpgroup 0
+// reaches after reading dS of tile i.
+// ---------------------------------------------------------------------------
+constexpr int kWideD = 256;
+constexpr int kWideStages = 2;
+constexpr int kWideHalf = kWideD / kConsumerWGs;  // columns a warpgroup owns
+constexpr int kConsumerThreads = kConsumerWGs * kWgThreads;
+constexpr int kBarP = 1, kBarDs = 2;  // named barriers of the exchange
+
+struct WideDkvSmem {
+  alignas(1024) bf16 k[64 * kWideD];  // resident rows [k0, k0 + 64)
+  alignas(1024) bf16 v[64 * kWideD];
+  alignas(1024) bf16 q[kWideStages][64 * kWideD];  // the ring of q-tiles
+  alignas(1024) bf16 dout[kWideStages][64 * kWideD];
+  float p[32 * kWgThreads];      // P^T in f32, in the fragment order
+  uint32_t ds[16 * kWgThreads];  // bf16(dS^T) pairs, in the fragment order
+  float lse2[kWideStages][64];   // lse * log2(e); +inf for a row whose P is 0
+  float delta[kWideStages][64];
+  uint64_t full[kWideStages], empty[kWideStages], kv_full;
+};
+
+struct WideDqSmem {
+  alignas(1024) bf16 q[64 * kWideD];  // resident rows [q0, q0 + 64)
+  alignas(1024) bf16 dout[64 * kWideD];
+  alignas(1024) bf16 k[kWideStages][64 * kWideD];  // the ring of k-tiles
+  alignas(1024) bf16 v[kWideStages][64 * kWideD];
+  float p[32 * kWgThreads];      // P in f32, in the fragment order
+  uint32_t ds[16 * kWgThreads];  // bf16(dS) pairs, in the fragment order
+  uint64_t full[kWideStages], empty[kWideStages], q_full;
+};
+static_assert(sizeof(WideDkvSmem) + 1024 <= 232448, "K3's wide layout fits in 227 KB");
+static_assert(sizeof(WideDqSmem) + 1024 <= 232448, "K2's wide layout fits in 227 KB");
+
+// P as the two bf16 pairs of the A fragment of the dV product: P_hi =
+// bf16(P) and P_lo = bf16(P - P_hi) (pair m holds elements 2 m and 2 m + 1).
+__device__ __forceinline__ void split_p(const float (&p)[32], uint32_t (&hi)[16],
+                                        uint32_t (&lo)[16]) {
+#pragma unroll
+  for (int m = 0; m < 16; ++m) {
+    hi[m] = pack_bf16(p[2 * m], p[2 * m + 1]);
+    const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&hi[m]);
+    lo[m] = pack_bf16(p[2 * m] - __low2float(h), p[2 * m + 1] - __high2float(h));
+  }
+}
+
+// K3 (dK/dV) at bf16 D = 256. One block per (bh, 64 k-rows) walks the
+// q-tiles: blockIdx.x = bh, blockIdx.y = the k-block, so the heaviest
+// causal blocks (small k0) launch first.
+__global__ void __launch_bounds__(kWsThreads, 1)
+bwd_dkv_wide_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                          const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v,
+                          const __grid_constant__ CUtensorMap tm_do,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          bf16* __restrict__ dk, bf16* __restrict__ dv, int tq, int tk,
+                          int causal, float scale) {
+  auto& sm = hopper::smem_as<WideDkvSmem>();
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * 64;
+  const int n_qt = (tq + 63) / 64;
+  const int qt0 = causal ? k0 / 64 : 0;  // q-tiles wholly before k0 are all masked
+  const int wg = hopper::warpgroup();
+  const int lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kWideStages; ++s) {
+      hopper::mbar_init(&sm.full[s], 1);
+      hopper::mbar_init(&sm.empty[s], kConsumerWGs * 4);
+    }
+    hopper::mbar_init(&sm.kv_full, 1);
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == kConsumerWGs) {
+    // Producer: its first warp fills the ring; lane 0 issues the TMA loads,
+    // all 32 lanes stage each q-tile's lse and delta.
+    hopper::regs_dealloc<24>();
+    if (threadIdx.x / 32 != kConsumerWGs * 4) return;
+    if (lane == 0) {
+      hopper::mbar_arrive_expect_tx(&sm.kv_full, 2 * tile_bytes<kWideD>());
+      tma_tile<kWideD>(sm.k, &tm_k, &sm.kv_full, k0, bh);
+      tma_tile<kWideD>(sm.v, &tm_v, &sm.kv_full, k0, bh);
+    }
+    const float* lse_b = lse + static_cast<size_t>(bh) * tq;
+    const float* delta_b = delta + static_cast<size_t>(bh) * tq;
+    int s = 0;
+    uint32_t phase = 0;
+    for (int qt = qt0; qt < n_qt; ++qt) {
+      const int q0 = qt * 64;
+      hopper::mbar_wait(&sm.empty[s], phase ^ 1);
+      for (int r = lane; r < 64; r += 32) {
+        const int qp = q0 + r;
+        const float L = qp < tq ? lse_b[qp] : kNegInf;
+        sm.lse2[s][r] = L > kNegInf ? L * kLog2e : pos_inf();
+        sm.delta[s][r] = qp < tq ? delta_b[qp] : 0.f;
+      }
+      __syncwarp();
+      if (lane == 0) {
+        hopper::mbar_arrive_expect_tx(&sm.full[s], 2 * tile_bytes<kWideD>());
+        tma_tile<kWideD>(sm.q[s], &tm_q, &sm.full[s], q0, bh);
+        tma_tile<kWideD>(sm.dout[s], &tm_do, &sm.full[s], q0, bh);
+      }
+      if (++s == kWideStages) {
+        s = 0;
+        phase ^= 1;
+      }
+    }
+    return;
+  }
+
+  // Consumers: both hold k rows kp and kp + 8 of each 64 x 64 fragment, q
+  // columns 8 j + cq + {0, 1}; warpgroup wg owns columns [half, half + 128)
+  // of dK and dV.
+  hopper::regs_alloc<240>();
+  const int t = threadIdx.x % kWgThreads;
+  const int kp = k0 + 16 * (t / 32) + (lane >> 2);
+  const int cq = 2 * (lane & 3);
+  const int half = wg * kWideHalf;
+  const float sl2 = scale * kLog2e;
+  const bool k_tail = k0 + 64 > tk;
+  const bf16* sq_a = wg == 0 ? sm.k : sm.v;  // A of this warpgroup's square product
+  float acc_dk[kWideHalf / 2], acc_dv[kWideHalf / 2];
+#pragma unroll
+  for (int i = 0; i < kWideHalf / 2; ++i) acc_dk[i] = acc_dv[i] = 0.f;
+  hopper::mbar_wait(&sm.kv_full, 0);
+
+  int s = 0;
+  uint32_t phase = 0;
+  for (int qt = qt0; qt < n_qt; ++qt) {
+    const int q0 = qt * 64;
+    hopper::mbar_wait(&sm.full[s], phase);
+
+    // Warpgroup 0: S^T = K Q^T; warpgroup 1: dP^T = V dO^T.
+    float sq[32];
+    hopper::wg_fence();
+    scores<kWideD>(sq, sq_a, wg == 0 ? sm.q[s] : sm.dout[s]);
+    hopper::wg_commit();
+    hopper::wg_wait<0>();
+    hopper::pin(sq);
+
+    const bool mask = k_tail || (causal && q0 < k0 + 64);
+    uint32_t p_hi[16], p_lo[16], ds[16];
+    if (wg == 0) {
+      // P^T from lse (0 where lse2 is +inf: padded or fully-masked q rows),
+      // masked by position where a k row may lie past tk or after a q
+      // column; handed over in f32.
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = 8 * j + cq;
+        const float2 L = *reinterpret_cast<const float2*>(&sm.lse2[s][c]);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int i = 4 * j + 2 * h + e;
+            float p = exp2f(sq[i] * sl2 - (e ? L.y : L.x));
+            if (mask) {
+              const int kr = kp + 8 * h;
+              if (kr >= tk || (causal && q0 + c + e < kr)) p = 0.f;
+            }
+            sq[i] = p;
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) sm.p[i * kWgThreads + t] = sq[i];
+      hopper::bar_arrive(kBarP, kConsumerThreads);
+      split_p(sq, p_hi, p_lo);
+      hopper::bar_sync(kBarDs, kConsumerThreads);
+#pragma unroll
+      for (int m = 0; m < 16; ++m) ds[m] = sm.ds[m * kWgThreads + t];
+    } else {
+      // dS^T = P^T o (dP^T - delta) * scale, handed back as bf16 pairs.
+      hopper::bar_sync(kBarP, kConsumerThreads);
+      float p[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) p[i] = sm.p[i * kWgThreads + t];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 dl = *reinterpret_cast<const float2*>(&sm.delta[s][8 * j + cq]);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int i = 4 * j + 2 * h;
+          ds[2 * j + h] = pack_bf16(p[i] * (sq[i] - dl.x) * scale,
+                                    p[i + 1] * (sq[i + 1] - dl.y) * scale);
+        }
+      }
+#pragma unroll
+      for (int m = 0; m < 16; ++m) sm.ds[m * kWgThreads + t] = ds[m];
+      hopper::bar_arrive(kBarDs, kConsumerThreads);
+      split_p(p, p_hi, p_lo);
+    }
+
+    // dV[:, half] += P_hi^T dO + P_lo^T dO and dK[:, half] += bf16(dS^T) Q.
+    hopper::wg_fence();
+    hopper::pin(acc_dv);
+    hopper::pin(acc_dk);
+    grad_product<kWideHalf>(acc_dv, p_hi, sm.dout[s] + half * 64);
+    grad_product<kWideHalf>(acc_dv, p_lo, sm.dout[s] + half * 64);
+    grad_product<kWideHalf>(acc_dk, ds, sm.q[s] + half * 64);
+    hopper::wg_commit();
+    hopper::wg_wait<0>();
+    hopper::pin(acc_dv);
+    hopper::pin(acc_dk);
+    hopper::pin(p_hi);
+    hopper::pin(p_lo);
+    hopper::pin(ds);
+
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&sm.empty[s]);
+    if (++s == kWideStages) {
+      s = 0;
+      phase ^= 1;
+    }
+  }
+
+  const size_t koff = static_cast<size_t>(bh) * tk * kWideD + half;
+  store_rows<kWideHalf, kWideD>(dk + koff, acc_dk, k0, tk);
+  store_rows<kWideHalf, kWideD>(dv + koff, acc_dv, k0, tk);
+}
+
+// K2 (dQ) at bf16 D = 256. One block per (bh, 64 q-rows) walks the
+// k-tiles: blockIdx.x = bh, and causal blocks run from the last q rows (the
+// most k-tiles) to the first.
+__global__ void __launch_bounds__(kWsThreads, 1)
+bwd_dq_wide_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                         const __grid_constant__ CUtensorMap tm_k,
+                         const __grid_constant__ CUtensorMap tm_v,
+                         const __grid_constant__ CUtensorMap tm_do,
+                         const float* __restrict__ lse, const float* __restrict__ delta,
+                         bf16* __restrict__ dq, int tq, int tk, int causal, float scale) {
+  auto& sm = hopper::smem_as<WideDqSmem>();
+  const int bh = blockIdx.x;
+  const int qb = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qb * 64;
+  int n_kt = (tk + 63) / 64;
+  if (causal) n_kt = min(n_kt, q0 / 64 + 1);
+  const int wg = hopper::warpgroup();
+  const int lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kWideStages; ++s) {
+      hopper::mbar_init(&sm.full[s], 1);
+      hopper::mbar_init(&sm.empty[s], kConsumerWGs * 4);
+    }
+    hopper::mbar_init(&sm.q_full, 1);
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == kConsumerWGs) {
+    // Producer: one thread issues every TMA load.
+    hopper::regs_dealloc<24>();
+    if (threadIdx.x != kConsumerWGs * kWgThreads) return;
+    hopper::mbar_arrive_expect_tx(&sm.q_full, 2 * tile_bytes<kWideD>());
+    tma_tile<kWideD>(sm.q, &tm_q, &sm.q_full, q0, bh);
+    tma_tile<kWideD>(sm.dout, &tm_do, &sm.q_full, q0, bh);
+    int s = 0;
+    uint32_t phase = 0;
+    for (int kt = 0; kt < n_kt; ++kt) {
+      hopper::mbar_wait(&sm.empty[s], phase ^ 1);
+      hopper::mbar_arrive_expect_tx(&sm.full[s], 2 * tile_bytes<kWideD>());
+      tma_tile<kWideD>(sm.k[s], &tm_k, &sm.full[s], kt * 64, bh);
+      tma_tile<kWideD>(sm.v[s], &tm_v, &sm.full[s], kt * 64, bh);
+      if (++s == kWideStages) {
+        s = 0;
+        phase ^= 1;
+      }
+    }
+    return;
+  }
+
+  // Consumers: both hold q rows qp and qp + 8 of each 64 x 64 fragment, k
+  // columns 8 j + ck + {0, 1}; warpgroup wg owns columns [half, half + 128)
+  // of dQ.
+  hopper::regs_alloc<240>();
+  const int t = threadIdx.x % kWgThreads;
+  const int qp = q0 + 16 * (t / 32) + (lane >> 2);
+  const int ck = 2 * (lane & 3);
+  const int half = wg * kWideHalf;
+  const float sl2 = scale * kLog2e;
+  const bf16* sq_a = wg == 0 ? sm.q : sm.dout;  // A of this warpgroup's square product
+  float L2[2], dl[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = qp + 8 * h;
+    const size_t row = static_cast<size_t>(bh) * tq + r;
+    const float L = r < tq ? lse[row] : kNegInf;
+    L2[h] = L > kNegInf ? L * kLog2e : pos_inf();  // +inf: P = 0 on the row
+    dl[h] = r < tq ? delta[row] : 0.f;
+  }
+  float acc_dq[kWideHalf / 2];
+#pragma unroll
+  for (int i = 0; i < kWideHalf / 2; ++i) acc_dq[i] = 0.f;
+  hopper::mbar_wait(&sm.q_full, 0);
+
+  int s = 0;
+  uint32_t phase = 0;
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * 64;
+    hopper::mbar_wait(&sm.full[s], phase);
+
+    // Warpgroup 0: S = Q K^T; warpgroup 1: dP = dO V^T.
+    float sq[32];
+    hopper::wg_fence();
+    scores<kWideD>(sq, sq_a, wg == 0 ? sm.k[s] : sm.v[s]);
+    hopper::wg_commit();
+    hopper::wg_wait<0>();
+    hopper::pin(sq);
+
+    uint32_t ds[16];
+    if (wg == 0) {
+      // P from lse, masked by position where a k column may lie past tk
+      // or after a row; handed over in f32.
+      const bool mask = k0 + 64 > tk || (causal && k0 + 63 > q0);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int h = (i >> 1) & 1;
+        float p = exp2f(sq[i] * sl2 - L2[h]);
+        if (mask) {
+          const int kc = k0 + 8 * (i >> 2) + ck + (i & 1);
+          if (kc >= tk || (causal && qp + 8 * h < kc)) p = 0.f;
+        }
+        sm.p[i * kWgThreads + t] = p;
+      }
+      hopper::bar_arrive(kBarP, kConsumerThreads);
+      hopper::bar_sync(kBarDs, kConsumerThreads);
+#pragma unroll
+      for (int m = 0; m < 16; ++m) ds[m] = sm.ds[m * kWgThreads + t];
+    } else {
+      // dS = P o (dP - delta) * scale, handed back as bf16 pairs.
+      hopper::bar_sync(kBarP, kConsumerThreads);
+#pragma unroll
+      for (int m = 0; m < 16; ++m) {
+        float v2[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 2 * m + e;
+          v2[e] = sm.p[i * kWgThreads + t] * (sq[i] - dl[(i >> 1) & 1]) * scale;
+        }
+        ds[m] = pack_bf16(v2[0], v2[1]);
+        sm.ds[m * kWgThreads + t] = ds[m];
+      }
+      hopper::bar_arrive(kBarDs, kConsumerThreads);
+    }
+
+    // dQ[:, half] += bf16(dS) K[:, half].
+    hopper::wg_fence();
+    hopper::pin(acc_dq);
+    grad_product<kWideHalf>(acc_dq, ds, sm.k[s] + half * 64);
+    hopper::wg_commit();
+    hopper::wg_wait<0>();
+    hopper::pin(acc_dq);
+    hopper::pin(ds);
+
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&sm.empty[s]);
+    if (++s == kWideStages) {
+      s = 0;
+      phase ^= 1;
+    }
+  }
+
+  store_rows<kWideHalf, kWideD>(dq + static_cast<size_t>(bh) * tq * kWideD + half, acc_dq, q0,
+                                tq);
 }
 
 // ---------------------------------------------------------------------------
@@ -1479,27 +1890,60 @@ int launch_dkv_wgmma(const void* q, const void* k, const void* v, const void* do
   return cudaGetLastError();
 }
 
+int launch_dq_wide(const void* q, const void* k, const void* v, const void* dout,
+                   const void* lse, const void* delta, void* dq, int bh, int tq, int tk,
+                   int causal, float scale, cudaStream_t stream) {
+  CUtensorMap m[4];
+  const int map_err = encode_maps(m, q, k, v, dout, bh, tq, tk, kWideD);
+  if (map_err != 0) return map_err;
+  const size_t smem = sizeof(WideDqSmem) + 1024;  // + alignment slack
+  cudaError_t err = allow_smem(bwd_dq_wide_wgmma_kernel, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(bh, (tq + 63) / 64);
+  bwd_dq_wide_wgmma_kernel<<<grid, kWsThreads, smem, stream>>>(
+      m[0], m[1], m[2], m[3], static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dq), tq, tk, causal, scale);
+  return cudaGetLastError();
+}
+
+int launch_dkv_wide(const void* q, const void* k, const void* v, const void* dout,
+                    const void* lse, const void* delta, void* dk, void* dv, int bh, int tq,
+                    int tk, int causal, float scale, cudaStream_t stream) {
+  CUtensorMap m[4];
+  const int map_err = encode_maps(m, q, k, v, dout, bh, tq, tk, kWideD);
+  if (map_err != 0) return map_err;
+  const size_t smem = sizeof(WideDkvSmem) + 1024;  // + alignment slack
+  cudaError_t err = allow_smem(bwd_dkv_wide_wgmma_kernel, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(bh, (tk + 63) / 64);
+  bwd_dkv_wide_wgmma_kernel<<<grid, kWsThreads, smem, stream>>>(
+      m[0], m[1], m[2], m[3], static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv), tq,
+      tk, causal, scale);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C interface. dtype: 0 = f32, 1 = bf16; d, the head width, is 64,
 // 128, 256, 384 or 512 (the wrapper zero-pads other widths up to one of
-// them). scale
-// is the softmax scale of the caller's unpadded width. lse (forward) and
-// glse (the delta pass) may be NULL. Each returns the launch's
-// cudaGetLastError(), cudaErrorInvalidValue for a shape or type outside the
-// kernels' scope, or kTensorMapError + the CUresult of a refused
+// them). scale is the softmax scale of the caller's unpadded width. lse
+// (forward) and glse (the delta pass) may be NULL. Each returns the
+// launch's cudaGetLastError(), cudaErrorInvalidValue for a shape or type
+// outside the kernels' scope, or kTensorMapError + the CUresult of a refused
 // cuTensorMapEncodeTiled; it never synchronises. The backward passes take
-// delta from tfo_flash_bwd_delta. f32 runs the FMA kernels; bf16 the wgmma
-// kernels at D = 64 and 128 and the FMA kernels at D = 256, 384 and 512 (a
-// 128-row Q tile and a K/V ring of 256 columns do not fit K1's wgmma
-// layout).
-#define TFO_DISPATCH(DTYPE, D, CALL_F32, CALL_BF16, CALL_BF16_FMA)           \
+// delta from tfo_flash_bwd_delta. f32 runs the FMA kernels at every width;
+// bf16 the wgmma kernels at D = 64 and 128, the wide backward kernels and
+// K1's FMA kernel at D = 256 (a 128-row Q tile and a K/V ring of 256
+// columns do not fit K1's wgmma layout), and the FMA kernels at 384 and
+// 512.
+#define TFO_DISPATCH(DTYPE, D, CALL_F32, CALL_BF16, CALL_BF16_256, CALL_BF16_FMA)    \
   if ((DTYPE) == 0 && (D) == 64) return static_cast<int>(CALL_F32(float, 64));     \
   if ((DTYPE) == 0 && (D) == 128) return static_cast<int>(CALL_F32(float, 128));   \
   if ((DTYPE) == 0 && (D) == 256) return static_cast<int>(CALL_F32(float, 256));   \
   if ((DTYPE) == 1 && (D) == 64) return static_cast<int>(CALL_BF16(64));           \
   if ((DTYPE) == 1 && (D) == 128) return static_cast<int>(CALL_BF16(128));         \
-  if ((DTYPE) == 1 && (D) == 256) return static_cast<int>(CALL_BF16_FMA(bf16, 256)); \
+  if ((DTYPE) == 1 && (D) == 256) return static_cast<int>(CALL_BF16_256);          \
   if ((DTYPE) == 0 && (D) == 384) return static_cast<int>(CALL_F32(float, 384));   \
   if ((DTYPE) == 0 && (D) == 512) return static_cast<int>(CALL_F32(float, 512));   \
   if ((DTYPE) == 1 && (D) == 384) return static_cast<int>(CALL_BF16_FMA(bf16, 384)); \
@@ -1512,7 +1956,7 @@ extern "C" int tfo_flash_fwd(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define FMA(T, DD) launch_fwd<T, DD>(q, k, v, o, lse, bh, tq, tk, causal, scale, s)
 #define WG(DD) launch_fwd_wgmma<DD>(q, k, v, o, lse, bh, tq, tk, causal, scale, s)
-  TFO_DISPATCH(dtype, d, FMA, WG, FMA)
+  TFO_DISPATCH(dtype, d, FMA, WG, FMA(bf16, 256), FMA)
 #undef FMA
 #undef WG
 }
@@ -1523,7 +1967,7 @@ extern "C" int tfo_flash_bwd_delta(const void* o, const void* dout,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define FMA(T, DD) launch_delta<T, DD>(o, dout, glse, delta, rows, s)
 #define BF(DD) launch_delta<bf16, DD>(o, dout, glse, delta, rows, s)
-  TFO_DISPATCH(dtype, d, FMA, BF, FMA)
+  TFO_DISPATCH(dtype, d, FMA, BF, BF(256), FMA)
 #undef FMA
 #undef BF
 }
@@ -1536,9 +1980,11 @@ extern "C" int tfo_flash_bwd_dq(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define FMA(T, DD) launch_dq<T, DD>(q, k, v, dout, lse, delta, dq, bh, tq, tk, causal, scale, s)
 #define WG(DD) launch_dq_wgmma<DD>(q, k, v, dout, lse, delta, dq, bh, tq, tk, causal, scale, s)
-  TFO_DISPATCH(dtype, d, FMA, WG, FMA)
+#define WIDE launch_dq_wide(q, k, v, dout, lse, delta, dq, bh, tq, tk, causal, scale, s)
+  TFO_DISPATCH(dtype, d, FMA, WG, WIDE, FMA)
 #undef FMA
 #undef WG
+#undef WIDE
 }
 
 extern "C" int tfo_flash_bwd_dkv(const void* q, const void* k, const void* v,
@@ -1551,7 +1997,9 @@ extern "C" int tfo_flash_bwd_dkv(const void* q, const void* k, const void* v,
   launch_dkv<T, DD>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, causal, scale, s)
 #define WG(DD) \
   launch_dkv_wgmma<DD>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, causal, scale, s)
-  TFO_DISPATCH(dtype, d, FMA, WG, FMA)
+#define WIDE launch_dkv_wide(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, causal, scale, s)
+  TFO_DISPATCH(dtype, d, FMA, WG, WIDE, FMA)
 #undef FMA
 #undef WG
+#undef WIDE
 }

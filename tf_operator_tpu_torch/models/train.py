@@ -125,7 +125,7 @@ STATEFUL_MODELS = ("resnet18", "resnet50")
 # their child processes.
 COMPUTE_DTYPE = torch.bfloat16
 # Per-device f32 logits bytes at which the loss switches to the chunked head
-# (the JAX trainer's cutover).
+# (the JAX trainer's cutover; see use_chunked_loss).
 CHUNKED_LOSS_BYTES = 6e9
 VOCAB = 32000
 
@@ -584,6 +584,20 @@ class _Profile:
         return path
 
 
+def use_chunked_loss(args, mesh, vocab_size: int) -> bool:
+    """Whether the LM losses take the chunked head: the JAX trainer's
+    cutover, _logits_bytes(args, mesh, vocab) >= 6e9. The f32 logits
+    [batch, seq, vocab] are divided by dp x fsdp, the axes that split the
+    batch. tp and sp stay out on purpose, as there: tp splits the vocab, but
+    the loss's gather along it may bring back the whole row a device, and
+    sp's split of the sequence is not one the JAX trainer makes itself, so
+    the estimate errs on the side of the chunked head."""
+    from tf_operator_tpu_torch.parallel.mesh import axis_size
+
+    shards = 1 if mesh is None else max(1, axis_size(mesh, "dp") * axis_size(mesh, "fsdp"))
+    return 4.0 * args.batch * args.seq * vocab_size / shards >= CHUNKED_LOSS_BYTES
+
+
 def _build_model(args, device: torch.device, mesh=None):
     """(model, loss_fn(model, batch), make_batch(generator)) of --model,
     with weights from a seeded flax-like init; the transformers' attention
@@ -607,8 +621,9 @@ def _build_model(args, device: torch.device, mesh=None):
         )
         model = tfm.TransformerLM(cfg, attn_fn=make_attention_fn(mesh, causal=True),
                                   device=device, generator=gen)
-        # Past ~6 GB of f32 logits the head and softmax run per sequence chunk.
-        chunked_loss = 4.0 * args.batch * args.seq * cfg.vocab_size >= CHUNKED_LOSS_BYTES
+        # Past ~6 GB of f32 logits a device the head and softmax run per
+        # sequence chunk.
+        chunked_loss = use_chunked_loss(args, mesh, cfg.vocab_size)
 
         def loss_fn(model, batch):
             tokens, seq = batch["tokens"], model.trunk.seq_shard
@@ -635,7 +650,7 @@ def _build_model(args, device: torch.device, mesh=None):
                             moe_every=2, dispatch=args.moe_dispatch, dtype=COMPUTE_DTYPE)
         model = moe.MoETransformerLM(cfg, attn_fn=make_attention_fn(mesh, causal=True),
                                      device=device, generator=gen)
-        chunked_loss = 4.0 * args.batch * args.seq * cfg.vocab_size >= CHUNKED_LOSS_BYTES
+        chunked_loss = use_chunked_loss(args, mesh, cfg.vocab_size)
 
         def loss_fn(model, batch):
             head = _full_head(model) if chunked_loss else None

@@ -9,9 +9,12 @@ kernels in ``csrc/flash_attention.cu`` replace the three Pallas kernels:
 
 and a fourth, ``bwd_delta`` (LAUNCHES["bwd_delta"]), computes the backward's
 delta = rowsum(dO o O) - g_lse once for both backward kernels, which the
-Pallas kernels computed in-block. In bf16 the forward and backward kernels
-run their products on the tensor cores (wgmma fed by TMA); in f32 on FMA
-units.
+Pallas kernels computed in-block. The C interface picks each call's
+kernel from its dtype and head width: in bf16 the forward and backward
+kernels run their products on the tensor cores (wgmma fed by TMA) at head
+widths 64 and 128, and K2 and K3 at 256 too (the "wide" kernels); the
+forward at bf16 256, bf16 at 384 and 512, and f32 at every width run on FMA
+units. ``route`` and ``kernel_name`` name that choice for reports.
 
 Each wrapper takes ``[BH, T, D]`` operands (batch*heads flattened) and lse
 as ``[BH, T]`` f32; the TPU's ``[BH, T, 128]`` lane-broadcast lse layout was
@@ -66,6 +69,16 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # Launch counts of each kernel, incremented where the wrapper launches it.
 LAUNCHES = {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 0, "bwd_delta": 0}
 
+# The __global__ kernel of each route and wrapper (csrc/flash_attention.cu),
+# for reports only: the C interface chooses the kernel; the delta pass has
+# one kernel on every route, bwd_delta_kernel.
+ROUTE_KERNELS = {
+    "fma": {"fwd": "fwd_kernel", "bwd_dq": "bwd_dq_kernel", "bwd_dkv": "bwd_dkv_kernel"},
+    "wgmma": {"fwd": "fwd_wgmma_kernel", "bwd_dq": "bwd_dq_wgmma_kernel",
+              "bwd_dkv": "bwd_dkv_wgmma_kernel"},
+    "wide": {"bwd_dq": "bwd_dq_wide_wgmma_kernel", "bwd_dkv": "bwd_dkv_wide_wgmma_kernel"},
+}
+
 _lib_handle = None
 
 
@@ -108,6 +121,26 @@ def kernel_head_dim(d: int) -> int:
             return width
     raise ValueError(f"flash kernels take head_dim 1..{SUPPORTED_HEAD_DIMS[-1]} "
                      f"(zero-padded to one of {SUPPORTED_HEAD_DIMS}), got {d}")
+
+
+def route(kernel: str, dtype: torch.dtype, d: int) -> str:
+    """The route that the C interface's dispatch (TFO_DISPATCH) takes for a
+    CUDA call of `kernel` ("fwd", "bwd_dq" or "bwd_dkv") on operands of
+    `dtype` at the built head width d, for reports: "wgmma" in bf16 at 64
+    and 128; "wide" for K2 and K3 in bf16 at 256 (two consumer warpgroups
+    split the head's columns); "fma" otherwise (f32 at every width, K1 at
+    bf16 256, bf16 at 384 and 512). ROUTE_KERNELS names each route's
+    kernels; chip_smoke.py holds them against the profiler's names."""
+    if dtype == torch.bfloat16 and d in (64, 128):
+        return "wgmma"
+    if dtype == torch.bfloat16 and d == 256 and kernel != "fwd":
+        return "wide"
+    return "fma"
+
+
+def kernel_name(kernel: str, dtype: torch.dtype, d: int) -> str:
+    """The __global__ kernel that a CUDA call of `kernel` runs (route)."""
+    return ROUTE_KERNELS[route(kernel, dtype, d)][kernel]
 
 
 def pad_head(x: torch.Tensor, width: int) -> torch.Tensor:

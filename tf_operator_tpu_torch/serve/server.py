@@ -86,6 +86,7 @@ import signal
 import sys
 import threading
 import time
+from http.server import ThreadingHTTPServer
 
 import numpy as np
 import torch
@@ -94,6 +95,13 @@ from tf_operator_tpu_torch.status import metrics as metrics_mod
 from tf_operator_tpu_torch.utils.preemption import HeartbeatWriter
 
 ENV_STATS_FILE = "TPUJOB_SERVE_STATS_FILE"
+
+
+class _HTTPServer(ThreadingHTTPServer):
+    """ThreadingHTTPServer with a listen backlog of 128: socketserver's 5
+    can refuse a burst of clients with a reset instead of queueing them."""
+
+    request_queue_size = 128
 
 
 def _host(x) -> np.ndarray:
@@ -1319,8 +1327,6 @@ class InferenceServer:
         return threads
 
     def run(self) -> int:
-        from http.server import ThreadingHTTPServer
-
         _emit({"event": "start", "t": time.time(), "role": "serve",
                "model": self.model_name})
         self._hb.write(0, force=True)
@@ -1349,8 +1355,7 @@ class InferenceServer:
         # its DNS identity (TPUJOB_SERVE_ENDPOINT); standalone runs bind
         # the declared port directly.
         port = int(os.environ.get("TPUJOB_SERVE_LISTEN_PORT", self.port))
-        httpd = ThreadingHTTPServer(("127.0.0.1", port),
-                                    self._make_handler())
+        httpd = _HTTPServer(("127.0.0.1", port), self._make_handler())
         httpd.daemon_threads = True
         threading.Thread(target=httpd.serve_forever, daemon=True,
                          name="serve-http").start()
