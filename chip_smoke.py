@@ -30,13 +30,14 @@ Phases, in order:
      backward's delta pass at the LM trainer's attention shape and four
      small ones (f32 with a ragged tail, f32 causal, bf16 at head_dim 64
      with a ragged causal tail, bf16 full attention at head_dim 128 with a
-     ragged tail, bf16 [2, 3, 2048, 256] causal and full: the wide K2/K3
-     with several heads and whole tiles, every MUTATIONS entry rejected)
+     ragged tail, bf16 [2, 3, 2048, 256] causal and full: the wide K1-K3
+     with several heads and whole tiles, every MUTATIONS entry rejected;
+     K1 at D 256 and 192 at the wide forward's tile edges and tq != tk)
      and at the head widths the kernels reach zero-padded (32,
      96, 192, 256, 320 and 512, f32 and bf16, causal and full, T = 1000; each of
      MUTATIONS must be rejected there too, and each width is timed at
      [1, 768 // D, 8192, D] bf16 causal beside SDPA, with the kernel each
-     pass ran there: bf16 K2 and K3 at 192 and 256 on the wide route),
+     pass ran there: bf16 K1-K3 at 192 and 256 on the wide route),
      timed at the
      trainer's shape at batch 1 beside their
      bound, their plain version and PyTorch's scaled_dot_product_attention,
@@ -60,8 +61,9 @@ Phases, in order:
      end finite and launch every flash kernel; then the LM at head width
      256 (--hidden 768 --heads 3, batch 4, 4 steps) under torch.profiler
      (device activity only): its loss finite and falling, by the
-     profiler's kernel names 12 launches a step of the wide K2 and K3 and
-     none of their FMA kernels, tokens/s beside the head-width-128 LM's;
+     profiler's kernel names 12 launches a step of the wide K2 and K3, at
+     least 12 of the wide K1, and none of the FMA K1-K3, tokens/s and the
+     step beside the head-width-128 LM's;
   5. checkpoints (ckpt): the full-width LM saves every 2 steps to step 4
      (async), a second run resumes it to step 6, and its step-6 loss must
      equal the train phase's uninterrupted one (or, if not bit for bit,
@@ -125,15 +127,15 @@ Phases, in order:
      nonzero lse cotangent, K2 and K3 held against their plain versions
      (every MUTATIONS entry rejected) and timed at the ring's local blocks
      [1, 6, 8192, 128] bf16, causal and full, and at Ulysses' [1, 3,
-     16384, 128] causal; then the full-width LM at seq 16384, batch 1,
-     --remat --remat-save-flash, 6 steps, as one process and at sp = 2 as
-     two co-located trainer processes (gloo) through ring attention and
-     through Ulysses (TPUJOB_SP_MODE), each held against one process as the
-     dist runs are, with the flash kernels launched sp times a layer a
-     forward pass for the ring and once for Ulysses; two planted faults
-     (sp = 2 without the gradient sum over sp, a ring without the
-     visibility mask), at FAULT_LAYERS (4) layers, must each fail that
-     comparison against one process at that depth;
+     16384, 128] causal; then the LM at its full width and FAULT_LAYERS
+     (4) layers deep at seq 16384, batch 1, --remat --remat-save-flash, 6
+     steps, as one process and at sp = 2 as two co-located trainer
+     processes (gloo) through ring attention and through Ulysses
+     (TPUJOB_SP_MODE), each held against one process as the dist runs
+     are, with the flash kernels launched sp times a layer a forward pass
+     for the ring and once for Ulysses; two planted faults (sp = 2 without
+     the gradient sum over sp, a ring without the visibility mask) must
+     each fail that comparison;
  13. the MoE LM (moe): K5, the grouped matmul of the dropless dispatch
      (gmm NN and NT, tgmm with an f32 and a bf16 output), held against its
      plain version at bench.py's MoE cell (12 x 768, 8 experts top-2, seq
@@ -276,6 +278,14 @@ HEAD_WIDTHS = (32, 96, 192, 256, 320, 512)
 HEAD_WIDTH_HIDDEN = 768
 WIDTH_CASES = tuple(((1, 2, 1000, d), dt, causal) for d in HEAD_WIDTHS
                     for dt in ("float32", "bfloat16") for causal in (True, False))
+# K1 in bf16 at the widths of its wide route (256, and 192 padded to it),
+# at (tq, tk) on either side of the wide forward's 128-row q blocks and
+# 64-row k tiles, and with tq != tk (causal keys aligned to the start): o
+# and lse against the plain version, each rerun bit for bit. Too short for
+# MUTATIONS (a causal row with one visible key has dq = 0).
+K1_EDGE_WIDTHS = (256, 192)
+K1_EDGE_LENGTHS = ((1, 1), (63, 63), (64, 64), (65, 65), (127, 127), (128, 128),
+                   (129, 129), (200, 200), (1000, 700), (700, 1000), (64, 300), (300, 64))
 # Every element must satisfy |got - ref| <= rtol * |ref| + atol * s.
 # f32 as tests/test_ops.py: absolute (s = 1). bf16 o and grads: s is the rms
 # of ref's own row, since a causal row i averages i values and its scale
@@ -696,10 +706,36 @@ def check_phase(records: dict) -> None:
         del tensors
         torch.cuda.empty_cache()
 
+    failures += k1_edge_failures(gen)
     if failures:
         raise SmokeFailure("kernel disagrees with its plain version: " + "; ".join(failures))
     _time_head_widths(records)
     k4_check_phase(records)
+
+
+def k1_edge_failures(gen) -> list[str]:
+    """K1 at K1_EDGE_WIDTHS x K1_EDGE_LENGTHS, causal and full, 6 heads of
+    bf16: the cases whose o or lse is off the plain version, or whose rerun
+    differs."""
+    import torch
+
+    from tf_operator_tpu_torch.ops import flash_attention as fa
+
+    failures, worst = [], 0.0
+    for d in K1_EDGE_WIDTHS:
+        for tq, tk in K1_EDGE_LENGTHS:
+            for causal in (True, False):
+                q, k, v = (torch.randn(6, t, d, generator=gen, device="cuda").to(torch.bfloat16)
+                           for t in (tq, tk, tk))
+                o, lse = fa.flash_fwd(q, k, v, causal)
+                o_p, lse_p = fa.flash_fwd_plain(q, k, v, causal)
+                e = max(excess(o, o_p, "bfloat16", "o"), excess(lse, lse_p, "bfloat16", "lse"))
+                worst = max(worst, e)
+                if not e <= 1.0 or not torch.equal(fa.flash_fwd(q, k, v, causal)[0], o):
+                    failures.append(f"K1 D {d} tq {tq} tk {tk} causal={causal}: excess {e:.3g}")
+    log(f"check K1 at its tile edges (D {K1_EDGE_WIDTHS}, (tq, tk) {K1_EDGE_LENGTHS}, bf16, "
+        f"causal and full): worst excess {worst:.3g}, reruns bit for bit")
+    return failures
 
 
 def _time_head_widths(records: dict) -> None:
@@ -1229,12 +1265,10 @@ def wide_lm_phase(records: dict, card: str, base: dict | None, steps: int) -> di
     and the delta pass at WIDE_LM_SHAPES (the timed and the trained
     attention shape), held against their plain versions (shape_kernel_check,
     records[kernel]["wide_lm"]). Then `steps` steps as the D 128 LM ran
-    (`base`, the train phase's done event), unprofiled: tokens/s beside
-    the D 128 LM's, K2 and K3 counted once a layer a step. Then WIDE_LM's
-    steps under torch.profiler, device activity only: its loss finite and
-    falling; by the profiler's kernel names, K2 and K3 launched layers
-    times a step on the wide route and never on the FMA kernels, K1 on its
-    route."""
+    (`base`, the train phase's done event), unprofiled: tokens/s and the
+    step beside the D 128 LM's, K2 and K3 counted once a layer a step. Then
+    WIDE_LM's steps under torch.profiler, device activity only, held by
+    wide_lm_verdict."""
     import torch
     from torch.profiler import DeviceType, ProfilerActivity, profile
 
@@ -1252,13 +1286,53 @@ def wide_lm_phase(records: dict, card: str, base: dict | None, steps: int) -> di
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         events = run_trainer(argv, tag="_wide", all_events=True)
     names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    losses = _step_losses(events)
+    verdict = wide_lm_verdict(names, counted, losses, layers, prof_steps, steps, width)
+    if verdict["failures"]:
+        raise SmokeFailure(f"the head-width-{hidden // heads} LM: "
+                           + "; ".join(verdict["failures"]))
+    seen, fma = verdict["kernel_launches"], verdict["fma_launches"]
+    done = timed["done"]
+    tps = done["examples_per_sec"] * SEQ
+    base_eps = (base or {}).get("examples_per_sec")
+    base_step = ((base or {}).get("step_time_s") or {}).get("mean")
+    k1 = kernel_function("fwd", torch.bfloat16, width)
+    rec = {"argv": argv, "timed_steps": steps, "head_width": hidden // heads,
+           "kernel_launches": seen, "fma_launches": fma,
+           "k1_kernel": k1, "k1_launches": seen[k1],
+           "launches_per_step": {k: n // prof_steps for k, n in seen.items()},
+           "counted_launches": counted, "losses": losses, "tokens_per_s": tps,
+           "d128_tokens_per_s": base_eps * SEQ if base_eps else None,
+           "step_time_mean_s": (done.get("step_time_s") or {}).get("mean"),
+           "d128_step_time_mean_s": base_step,
+           "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9, "card": card}
+    log(f"train wide LM (--layers {layers} --hidden {hidden} --heads {heads}, head width "
+        f"{hidden // heads}): tokens/s={tps}, step {rec['step_time_mean_s']} s over {steps} "
+        f"steps unprofiled, beside the D 128 LM's {rec['d128_tokens_per_s']}, "
+        f"{base_step} s; under the profiler losses={losses}, launches {seen}, FMA {fma} "
+        f"[{card}]")
+    return rec
+
+
+def wide_lm_verdict(names, counted: dict, losses: dict, layers: int, prof_steps: int,
+                    steps: int, width: int = 256) -> dict:
+    """The wide LM phase's rule on one run: `names`, the profiled kernel
+    names of prof_steps steps; `counted`, the wrappers' counts (LAUNCHES)
+    over `steps` unprofiled steps; `losses`, the profiled run's by step.
+    K2 and K3 on their bf16 route at `width` exactly once a layer a step,
+    K1 and the delta pass at least that (in both runs); no launch of an
+    FMA K1-K3 kernel; the loss falling. Returns {"kernel_launches": {route
+    kernel: profiled count}, "fma_launches": {FMA kernel: count},
+    "failures": [...]}."""
+    import torch
+
+    from tf_operator_tpu_torch.ops import flash_attention as fa
+
     need = layers * prof_steps
-    kernels = {key: kernel_function(key, torch.bfloat16, width)
-               for key in ("fwd", "bwd_dq", "bwd_dkv", "bwd_delta")}
+    kernels = {key: kernel_function(key, torch.bfloat16, width) for key in FLASH_LAUNCH_KEYS}
     seen = {kernels[key]: profiled_kernel_count(names, kernels[key]) for key in kernels}
     fma = {n: profiled_kernel_count(names, n)
-           for n in (fa.ROUTE_KERNELS["fma"][key] for key in ("bwd_dq", "bwd_dkv"))}
-    losses = _step_losses(events)
+           for n in (fa.ROUTE_KERNELS["fma"][key] for key in ("fwd", "bwd_dq", "bwd_dkv"))}
     # K2 and K3 once a layer a step, exactly; K1 and delta at least that.
     exact = (kernels["bwd_dq"], kernels["bwd_dkv"])
     failures = [f"{k}: {n} launches, not {need}" for k, n in seen.items()
@@ -1270,23 +1344,7 @@ def wide_lm_phase(records: dict, card: str, base: dict | None, steps: int) -> di
     if sorted(losses) != list(range(1, prof_steps + 1)) \
             or not losses[prof_steps] < losses[1]:
         failures.append(f"the loss does not fall: {losses}")
-    if failures:
-        raise SmokeFailure(f"the head-width-{hidden // heads} LM: " + "; ".join(failures))
-    done = timed["done"]
-    tps = done["examples_per_sec"] * SEQ
-    base_eps = (base or {}).get("examples_per_sec")
-    rec = {"argv": argv, "timed_steps": steps, "head_width": hidden // heads,
-           "kernel_launches": seen, "fma_backward_launches": fma,
-           "launches_per_step": {k: n // prof_steps for k, n in seen.items()},
-           "counted_launches": counted, "losses": losses, "tokens_per_s": tps,
-           "d128_tokens_per_s": base_eps * SEQ if base_eps else None,
-           "step_time_mean_s": (done.get("step_time_s") or {}).get("mean"),
-           "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9, "card": card}
-    log(f"train wide LM (--layers {layers} --hidden {hidden} --heads {heads}, head width "
-        f"{hidden // heads}): tokens/s={tps} over {steps} steps unprofiled, beside the D 128 "
-        f"LM's {rec['d128_tokens_per_s']}; under the profiler losses={losses}, launches "
-        f"{seen}, FMA backward {fma} [{card}]")
-    return rec
+    return {"kernel_launches": seen, "fma_launches": fma, "failures": failures}
 
 
 def snapshot_split(state) -> list[float]:
@@ -1451,7 +1509,7 @@ def resnet_train_phase(args, card: str) -> float | None:
 # lower-cased name), first match wins; the rest is "other". cuBLAS names
 # its Hopper GEMMs nvjet_*, older ones *gemm*/*xmma*; cuDNN's convolutions
 # carry fprop/dgrad/wgrad or implicit-GEMM names.
-LM_GROUPS = (("flash_fwd", ("fwd_kernel", "fwd_wgmma_kernel")),
+LM_GROUPS = (("flash_fwd", ("fwd_kernel", "fwd_wgmma_kernel", "fwd_wide_wgmma_kernel")),
              ("flash_bwd_dq", ("bwd_dq_kernel", "bwd_dq_wgmma_kernel",
                                "bwd_dq_wide_wgmma_kernel")),
              ("flash_bwd_dkv", ("bwd_dkv_kernel", "bwd_dkv_wgmma_kernel",
@@ -2559,7 +2617,9 @@ SP_SEQ, SP_STEPS = 16384, 6
 # The depth of the sp and pod phases' planted faults, each held against a
 # one-process run of its own at that depth (a missing sum shows at any
 # depth; cut from 12 layers for the default run's time, as the moe and
-# multislice phases' faults are).
+# multislice phases' faults are), and of the sp phase's sound runs, which
+# share the faults' one-process run (cut from 12 layers when a default run
+# took 1040.4 s of its 1200 s limit).
 FAULT_LAYERS = 4
 # The kernels at the local shapes of SP_RUNS: the ring's [1, 6, T/2, 128]
 # blocks (the diagonal causal, the others full) and Ulysses' [1, 3, T, 128]
@@ -2594,30 +2654,27 @@ def sp_kernel_check(records: dict, shapes, seed: int) -> None:
 
 
 def sp_phase(records: dict, card: str) -> dict:
-    """The flash kernels at SP_SHAPES; the full-width LM at SP_SEQ, batch
-    1, --remat --remat-save-flash, as one process and at sp = 2 through the
-    ring and through Ulysses (two co-located ranks, gloo), each held
-    against one process (held_against: launches sp times a layer a pass
-    for the ring, once for Ulysses); and the planted faults of SP_FAULTS
-    rejected."""
+    """The flash kernels at SP_SHAPES; the LM at its full width and
+    FAULT_LAYERS deep at SP_SEQ, batch 1, --remat --remat-save-flash, as
+    one process and at sp = 2 through the ring and through Ulysses (two
+    co-located ranks, gloo), each held against one process (held_against:
+    launches sp times a layer a pass for the ring, once for Ulysses); and
+    the planted faults of SP_FAULTS rejected against the same process."""
     import torch
 
     torch.cuda.empty_cache()
     sp_kernel_check(records, SP_SHAPES, 16384)
-    job = sp_lm_job(SP_SEQ, 1, "sp_reference.pt")
-    fault_job = sp_lm_job(SP_SEQ, 1, "sp_fault_reference.pt", FAULT_LAYERS)
+    job = sp_lm_job(SP_SEQ, 1, "sp_reference.pt", FAULT_LAYERS)
     ref, reference = one_process(card, job)
     try:
         runs = held_against(ref, SP_RUNS, "gloo", False, card, job)
         for name, key, _ in KERNELS:
             records.setdefault(name, {})["sp_launches_per_step_per_rank"] = {
                 r["run"]: r["launches_per_step_per_rank"][key] for r in runs}
-        fault_ref, _ = one_process(card, fault_job)
         return {"reference": reference, "runs": runs,
-                "fault_control": [fault_control(fault_ref, f, fault_job) for f in SP_FAULTS]}
+                "fault_control": [fault_control(ref, f, job) for f in SP_FAULTS]}
     finally:
         job.ref.unlink(missing_ok=True)
-        fault_job.ref.unlink(missing_ok=True)
 
 
 # The moe phase: the MoE LM at bench.py's cell (bench.py:1122-1140: 12 x
@@ -4304,8 +4361,9 @@ def moe4_phase(card: str) -> dict:
 
 
 # The LM profile cuts its steps at the attention forward: a kernel whose
-# lower-cased name holds both substrings (fwd_kernel in f32,
-# fwd_wgmma_kernel in bf16; no other kernel of csrc/).
+# lower-cased name holds both substrings (fwd_kernel in f32 and bf16 at
+# 384/512, fwd_wgmma_kernel and fwd_wide_wgmma_kernel in bf16; no other
+# kernel of csrc/).
 LM_STEP_MARKER = ("fwd_", "_kernel")
 
 

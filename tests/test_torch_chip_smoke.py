@@ -237,7 +237,8 @@ def test_every_flash_kernel_has_an_lm_profile_group():
     names = _flash_kernel_names()
     assert {"fwd_kernel", "bwd_dq_kernel", "bwd_dkv_kernel", "bwd_delta_kernel",
             "fwd_wgmma_kernel", "bwd_dq_wgmma_kernel", "bwd_dkv_wgmma_kernel",
-            "bwd_dq_wide_wgmma_kernel", "bwd_dkv_wide_wgmma_kernel"} <= set(names)
+            "fwd_wide_wgmma_kernel", "bwd_dq_wide_wgmma_kernel",
+            "bwd_dkv_wide_wgmma_kernel"} <= set(names)
     want = {"fwd": "flash_fwd", "bwd_dq": "flash_bwd_dq", "bwd_dkv": "flash_bwd_dkv",
             "bwd_delta": "flash_bwd_delta"}
     for name in names:
@@ -261,16 +262,24 @@ def test_flash_route_names_are_kernels_of_the_source(dtype, d):
     assert chip_smoke.kernel_function("bwd_delta", dtype, d) in names
 
 
-def test_bf16_d256_backward_takes_the_wide_kernels():
-    """bf16 K2 and K3 at D 256 (and every width padded to it) run the wide
-    kernels; K1 there, f32 at every width and bf16 at 384 and 512 keep
+def test_bf16_d256_takes_the_wide_kernels():
+    """bf16 K1, K2 and K3 at D 256 (and every width padded to it, 129-256)
+    run the wide kernels; f32 at every width and bf16 at 384 and 512 keep
     the FMA kernels; bf16 at 64 and 128 the first wgmma kernels."""
     bf16, f32 = torch.bfloat16, torch.float32
-    for d in (129, 192, 256):
+    for key in ("fwd", "bwd_dq", "bwd_dkv"):
+        assert fa.route(key, bf16, 256) == "wide"
+    for d in range(129, 257):
         width = fa.kernel_head_dim(d)
+        assert fa.kernel_name("fwd", bf16, width) == "fwd_wide_wgmma_kernel"
         assert fa.kernel_name("bwd_dq", bf16, width) == "bwd_dq_wide_wgmma_kernel"
         assert fa.kernel_name("bwd_dkv", bf16, width) == "bwd_dkv_wide_wgmma_kernel"
-        assert fa.kernel_name("fwd", bf16, width) == "fwd_kernel"
+    for d in (64, 128):
+        assert fa.kernel_name("fwd", bf16, d) == "fwd_wgmma_kernel"
+    for d in (384, 512):
+        assert fa.kernel_name("fwd", bf16, d) == "fwd_kernel"
+    for d in fa.SUPPORTED_HEAD_DIMS:
+        assert fa.kernel_name("fwd", f32, d) == "fwd_kernel"
     for key in ("fwd", "bwd_dq", "bwd_dkv"):
         for d in fa.SUPPORTED_HEAD_DIMS:
             assert fa.route(key, f32, d) == "fma"
@@ -296,13 +305,93 @@ def test_profiled_kernel_count_tells_the_routes_apart():
         "void (anonymous namespace)::bwd_dq_kernel<__nv_bfloat16, 256, 32>(__nv_bfloat16 "
         "const*, __nv_bfloat16 const*)",
         "void (anonymous namespace)::bwd_dq_wgmma_kernel<128>(CUtensorMap_st)",
-        "void (anonymous namespace)::bwd_dkv_wide_wgmma_kernel(CUtensorMap_st)"]
+        "void (anonymous namespace)::bwd_dkv_wide_wgmma_kernel(CUtensorMap_st)"] + [
+        "void (anonymous namespace)::fwd_wide_wgmma_kernel(CUtensorMap_st, CUtensorMap_st, "
+        "CUtensorMap_st, __nv_bfloat16*, float*, int, int, int, float)"] * 2
     count = chip_smoke.profiled_kernel_count
     assert count(names, "bwd_dq_wide_wgmma_kernel") == 3
     assert count(names, "bwd_dq_kernel") == 1
     assert count(names, "bwd_dq_wgmma_kernel") == 1
     assert count(names, "bwd_dkv_wide_wgmma_kernel") == 1
     assert count(names, "bwd_dkv_kernel") == 0
+    assert count(names, "fwd_wide_wgmma_kernel") == 2
+    assert count(names, "fwd_kernel") == 0
+    assert count(names, "fwd_wgmma_kernel") == 0
+
+
+def test_k1_edge_cases_straddle_the_wide_forwards_tiles():
+    """The check phase's K1 edge cases run the wide forward (bf16 at 256
+    and 192) at lengths on either side of its 64-row k tiles and 128-row q
+    blocks, for q rows and keys alike, and with fewer and more keys than
+    q rows."""
+    for d in chip_smoke.K1_EDGE_WIDTHS:
+        assert fa.kernel_name("fwd", torch.bfloat16, fa.kernel_head_dim(d)) \
+            == "fwd_wide_wgmma_kernel"
+    lengths = chip_smoke.K1_EDGE_LENGTHS
+    for side in (0, 1):
+        seen = {pair[side] for pair in lengths}
+        for edge in (64, 128):
+            assert {edge - 1, edge, edge + 1} <= seen
+        assert 1 in seen and any(t % 64 and t > 128 for t in seen)
+    assert any(tq < tk for tq, tk in lengths) and any(tq > tk for tq, tk in lengths)
+
+
+def _wide_lm_profile(layers=12, steps=4, fwd=None, extra=()):
+    """Profiler names of `steps` steps of the D 256 LM as the wide route
+    launches its kernels (fwd: K1's kernel, wide by default), plus
+    `extra`; the wrappers' counts over 6 unprofiled steps; falling losses."""
+    k = {key: chip_smoke.kernel_function(key, torch.bfloat16, 256)
+         for key in chip_smoke.FLASH_LAUNCH_KEYS}
+    fwd = k["fwd"] if fwd is None else fwd
+    names = [f"void (anonymous namespace)::{n}(CUtensorMap_st)"
+             for n in (fwd, k["bwd_delta"], k["bwd_dq"], k["bwd_dkv"])] * (layers * steps)
+    names += [f"void (anonymous namespace)::{n}(int)" for n in extra]
+    names += ["nvjet_hsh_128x256_64x4_2x1_v_bz_coopA_NNT"] * 5
+    counted = {key: layers * 6 for key in chip_smoke.FLASH_LAUNCH_KEYS}
+    losses = {s: 10.9 - 0.05 * s for s in range(1, steps + 1)}
+    return names, counted, losses
+
+
+def test_wide_lm_verdict_passes_the_wide_route():
+    names, counted, losses = _wide_lm_profile()
+    verdict = chip_smoke.wide_lm_verdict(names, counted, losses, 12, 4, 6)
+    assert verdict["failures"] == []
+    assert verdict["kernel_launches"]["fwd_wide_wgmma_kernel"] == 48
+    assert verdict["fma_launches"] == {"fwd_kernel": 0, "bwd_dq_kernel": 0,
+                                       "bwd_dkv_kernel": 0}
+
+
+@pytest.mark.parametrize("fwd,extra,losses_fall,fault", [
+    ("fwd_kernel", (), True, "fwd_kernel launched 48 times"),
+    (None, ("fwd_kernel<__nv_bfloat16, 256, 32>",), True, "fwd_kernel launched 1 times"),
+    ("fwd_wgmma_kernel<256>", (), True, "fwd_wide_wgmma_kernel: 0 launches, not 48"),
+    (None, ("bwd_dq_kernel<__nv_bfloat16, 256, 32>",), True, "bwd_dq_kernel launched 1"),
+    (None, ("bwd_dkv_wide_wgmma_kernel",), True, "bwd_dkv_wide_wgmma_kernel: 49 launches"),
+    (None, (), False, "the loss does not fall"),
+])
+def test_wide_lm_verdict_fails_a_profile_off_the_wide_route(fwd, extra, losses_fall, fault):
+    """The wide LM phase fails a run whose profile shows an FMA K1 (or
+    K2/K3) launch, fewer than layers x steps of the wide K1, a count of
+    the wide K2/K3 other than layers x steps, or a loss that does not fall."""
+    names, counted, losses = _wide_lm_profile(fwd=fwd, extra=extra)
+    if not losses_fall:
+        losses[4] = losses[1] + 0.1
+    failures = chip_smoke.wide_lm_verdict(names, counted, losses, 12, 4, 6)["failures"]
+    assert any(fault in f for f in failures), failures
+
+
+def test_wide_lm_verdict_fails_short_wide_forward_counts():
+    """Fewer than layers x steps profiled launches of the wide K1 (one
+    layer's forward missing in one step), or fewer counted by its wrapper
+    in the unprofiled run, fail the phase."""
+    names, counted, losses = _wide_lm_profile()
+    names.remove(next(n for n in names if "fwd_wide_wgmma_kernel" in n))
+    failures = chip_smoke.wide_lm_verdict(names, counted, losses, 12, 4, 6)["failures"]
+    assert failures == ["fwd_wide_wgmma_kernel: 47 launches, not 48"]
+    names, counted, losses = _wide_lm_profile()
+    counted["fwd"] = 71
+    failures = chip_smoke.wide_lm_verdict(names, counted, losses, 12, 4, 6)["failures"]
+    assert failures == ["fwd counted 71 in 6 steps, not 72"]
 
 
 def test_profile_step_marker_names_only_the_forward():
@@ -314,7 +403,7 @@ def test_profile_step_marker_names_only_the_forward():
     marked = {n for n in names
               if all(k in f"void (anonymous namespace)::{n}<128>(CUtensorMap_st)".lower()
                      for k in chip_smoke.LM_STEP_MARKER)}
-    assert marked == {"fwd_kernel", "fwd_wgmma_kernel"}
+    assert marked == {"fwd_kernel", "fwd_wgmma_kernel", "fwd_wide_wgmma_kernel"}
 
 
 def _mangled(name, targs=""):

@@ -421,6 +421,29 @@ class TestHeadWidthPadding:
             assert gt.dtype == torch.bfloat16 and gt.shape == (1, 2, 128, d)
             np.testing.assert_allclose(_np(gt), _np(gj), atol=BF16_GRAD, rtol=BF16_GRAD)
 
+    @pytest.mark.parametrize("t", [1, 63, 64, 65, 127, 128, 129, 200])
+    @pytest.mark.parametrize("causal", [False, True])
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("d", [256, 192])
+    def test_forward_at_the_wide_kernels_tile_edges_matches_the_pallas_kernel(
+            self, d, dtype, causal, t):
+        """K1 at D 256 and 192 (padded to 256; bf16 runs the wide forward
+        on the card: 128-row q blocks, 64-row k tiles) at T on either side
+        of those tiles' edges: o and lse of flash_fwd (here its plain
+        version) against the Pallas _fwd_kernel in interpret mode, at the
+        limits of the wide-width binding tests above."""
+        arrs = _inputs(48 + t, (2, t, d))
+        jdt, tdt = (jnp.float32, torch.float32) if dtype == "float32" else \
+            (jnp.bfloat16, torch.bfloat16)
+        o_j, lse_j = jfa._flash_fwd(*_jax(arrs, jdt), causal, 128, 128, True,
+                                    save_residuals=True)
+        o_t, lse_t = fa.flash_fwd(*_torch(arrs, tdt), causal)
+        assert o_t.dtype == tdt and o_t.shape == (2, t, d) and lse_t.shape == (2, t)
+        tol = F32_OUT if dtype == "float32" else BF16_OUT
+        rtol = 0.0 if dtype == "float32" else BF16_OUT
+        np.testing.assert_allclose(_np(o_t), _np(o_j), atol=tol, rtol=rtol)
+        np.testing.assert_allclose(_np(lse_t), _np(lse_j)[:, :, 0], atol=tol, rtol=rtol)
+
     def test_a_built_width_is_passed_through_without_a_copy(self):
         x = torch.randn(2, 8, 128)
         assert fa.pad_head(x, 128) is x and fa.unpad_head(x, 128) is x

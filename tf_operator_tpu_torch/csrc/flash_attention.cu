@@ -19,13 +19,13 @@
 // pre-pass (bwd_delta_kernel), launched once for both.
 //
 // The bf16 kernels at D = 64 and 128 (fwd_wgmma_kernel, bwd_dq_wgmma_kernel
-// and bwd_dkv_wgmma_kernel, after the FMA kernels) and the bf16 backward
-// kernels at D = 256 (bwd_dq_wide_wgmma_kernel and bwd_dkv_wide_wgmma_kernel)
-// run their products on the tensor cores with wgmma, fed by TMA through
-// shared-memory rings; see the notes above them. The FMA kernels
-// (fwd_kernel, bwd_dq_kernel and bwd_dkv_kernel), the first versions,
-// described below, run f32 at every width, K1 in bf16 at D = 256, and bf16
-// at D = 384 and 512; the C interface at the end picks the kernel of each
+// and bwd_dkv_wgmma_kernel, after the FMA kernels) and at D = 256
+// (fwd_wide_wgmma_kernel, bwd_dq_wide_wgmma_kernel and
+// bwd_dkv_wide_wgmma_kernel) run their products on the tensor cores with
+// wgmma, fed by TMA through shared-memory rings; see the notes above them.
+// The FMA kernels (fwd_kernel, bwd_dq_kernel and bwd_dkv_kernel), the
+// first versions, described below, run f32 at every width and bf16 at
+// D = 384 and 512; the C interface at the end picks the kernel of each
 // call from its dtype and width.
 //
 // Tiles are R x R (R = 64; 32 at D = 256, 16 at D = 384 and 512, see
@@ -1478,20 +1478,22 @@ __device__ __forceinline__ float exp2_approx(float x) {
   return y;
 }
 
-// One online-softmax step of a warpgroup over the 64 x kFwdN tile of raw
-// scores s = Q.K^T at k-column k0, in the fragment layout: this thread holds
+// One online-softmax step of a warpgroup over the 64 x N tile of raw
+// scores s = Q.K^T at k-column k0 (N = kFwdN, or kWideFwdN in the wide
+// kernel), in the fragment layout: this thread holds
 // rows qp and qp + 8, columns k0 + ck + 8 j + {0, 1}. m is each row's running
 // max of its visible raw scores (kNegInf while it has none), l the thread's
 // partial sums of the unrounded P. Leaves in s the tile's P = exp(scale (s -
 // m)) in f32, and in alpha the factor by which the accumulator's rows are to
 // be rescaled. Scores are masked by position only on a tile that may hold a
 // column past tk or after a row of the warpgroup (rows from row0).
-__device__ __forceinline__ void online_softmax(float (&s)[kFwdS], float (&m)[2], float (&l)[2],
+template <int N = kFwdN>
+__device__ __forceinline__ void online_softmax(float (&s)[N / 2], float (&m)[2], float (&l)[2],
                                                float (&alpha)[2], float sl2, int qp, int ck,
                                                int k0, int row0, int tk, int causal) {
-  if (k0 + kFwdN > tk || (causal && k0 + kFwdN - 1 > row0)) {
+  if (k0 + N > tk || (causal && k0 + N - 1 > row0)) {
 #pragma unroll
-    for (int i = 0; i < kFwdS; ++i) {
+    for (int i = 0; i < N / 2; ++i) {
       const int c = k0 + ck + 8 * (i >> 2) + (i & 1);
       const int r = qp + 8 * ((i >> 1) & 1);
       if (c >= tk || (causal && r < c)) s[i] = kNegInf;
@@ -1502,7 +1504,7 @@ __device__ __forceinline__ void online_softmax(float (&s)[kFwdS], float (&m)[2],
   for (int h = 0; h < 2; ++h) {
     float mx = m[h];
 #pragma unroll
-    for (int j = 0; j < kFwdS / 4; ++j) {
+    for (int j = 0; j < N / 8; ++j) {
       mx = fmaxf(mx, fmaxf(s[4 * j + 2 * h], s[4 * j + 2 * h + 1]));
     }
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
@@ -1517,7 +1519,7 @@ __device__ __forceinline__ void online_softmax(float (&s)[kFwdS], float (&m)[2],
   }
   float rs[2] = {0.f, 0.f};
 #pragma unroll
-  for (int i = 0; i < kFwdS; ++i) {
+  for (int i = 0; i < N / 2; ++i) {
     const int h = (i >> 1) & 1;
     s[i] = exp2_approx(fmaf(s[i], sl2, -off[h]));
     rs[h] += s[i];
@@ -1528,9 +1530,35 @@ __device__ __forceinline__ void online_softmax(float (&s)[kFwdS], float (&m)[2],
 
 // P rounded to bf16 pairs: the A fragment of P.V (pair j holds elements 2 j
 // and 2 j + 1 of the accumulator fragment).
-__device__ __forceinline__ void pack_p(const float (&pf)[kFwdS], uint32_t (&p)[kFwdS / 2]) {
+template <int S>
+__device__ __forceinline__ void pack_p(const float (&pf)[S], uint32_t (&p)[S / 2]) {
 #pragma unroll
-  for (int j = 0; j < kFwdS / 2; ++j) p[j] = pack_bf16(pf[2 * j], pf[2 * j + 1]);
+  for (int j = 0; j < S / 2; ++j) p[j] = pack_bf16(pf[2 * j], pf[2 * j + 1]);
+}
+
+// The end of a forward warpgroup's walk, for its rows qp and qp + 8: l
+// summed over the quad, lse = m scale + log l written for the rows before
+// tq (NEG_INF on a row with no visible key), and inv = 1 / l, the factor
+// of o's rows (0 on such a row, so o = 0 there).
+__device__ __forceinline__ void finish_rows(float (&inv)[2], float (&l)[2], const float (&m)[2],
+                                            float* __restrict__ lse, int bh, int qp, int tq,
+                                            float scale) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    inv[h] = l[h] == 0.f ? 0.f : 1.f / l[h];
+  }
+  if (lse != nullptr && (threadIdx.x & 3) == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = qp + 8 * h;
+      if (r < tq) {
+        lse[static_cast<size_t>(bh) * tq + r] =
+            l[h] == 0.f ? kNegInf : m[h] * scale + logf(l[h]);
+      }
+    }
+  }
 }
 
 template <int D>
@@ -1682,28 +1710,220 @@ fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     hopper::pin(p);
   }
 
-  // o = acc / l (0 on a row with no visible key) and lse = m scale + log l.
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
-    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
-  }
   float inv[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) inv[h] = l[h] == 0.f ? 0.f : 1.f / l[h];
+  finish_rows(inv, l, m, lse, bh, qp, tq, scale);
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) acc[i] *= inv[(i >> 1) & 1];
-  if (lse != nullptr && (lane & 3) == 0) {
+  store_rows<D>(o + static_cast<size_t>(bh) * tq * D, acc, row0, tq);
+}
+
+// ---------------------------------------------------------------------------
+// K1 in bf16 at D = 256, on the tensor cores: the wide forward. Replaces
+// ops/flash_attention.py::_fwd_kernel (:51, launched by _flash_fwd) for bf16
+// heads of 129-256 columns (the wrapper pads them to 256), and computes what
+// fwd_wgmma_kernel computes, with its rounding points: P rounded to bf16
+// against the running max, l summing the unrounded P, lse = m scale + log l,
+// o = 0 and lse = NEG_INF on a row with no visible key, causal keys aligned
+// to the start. One block per (bh, 128 q-rows) walks the k-tiles:
+// blockIdx.x = bh, and causal blocks run from the last q rows to the first.
+//
+// Bound: compute, two product units as at D = 128. At [1, 3, 8192, 256]
+// causal the 64-row k-tiles below are read from L2 once by each block of
+// their head, ~0.8 GB a call, which near the L2's rate is ~0.16 ms of its
+// own beside the products' 0.10.
+//
+// Why not fwd_wgmma_kernel's layout: at D = 256 its 128-row Q and a
+// three-stage ring of 128-row K and V tiles need ~448 KB of shared memory
+// (the card has 227 KB), and Q as register A fragments (64 registers a
+// thread) beside the 64 x 256 O accumulator (128) and a 64 x 128 S tile
+// (64) is more than setmaxnreg's 240. So, unlike the wide backward, the
+// warpgroups split the rows, not the columns (the forward exchanges
+// nothing between them, and one warpgroup's 64 x 256 f32 O is 128
+// registers a thread):
+//   - Q (two 64-row tiles, 64 KB) loads once by TMA; K and V stream as
+//     64-row tiles (kWideFwdN) through a two-stage ring (128 KB). K and V
+//     have barriers of their own: K_j's stage goes back to the producer as
+//     soon as S_j is done, V_j's once P_j.V_j is, so each load is issued an
+//     iteration ahead of its use although the ring has two stages only;
+//   - S = Q.K^T takes both operands K-major from shared memory (16 m64n64
+//     SS products); Q is not held in registers;
+//   - O += P.V takes P from registers (the S fragment's exponentials
+//     rounded to bf16 pairs) and V MN-major, as two m64n128 RS products a
+//     k-step on V's column halves; O is two 64 x 128 halves;
+//   - registers: O 128 + S 32 + P 16 + the softmax's few.
+// Overlap as in fwd_wgmma_kernel, on both levels: each warpgroup issues S_j
+// and P_{j-1}.V_{j-1} back to back and runs tile j's softmax while
+// P_{j-1}.V_{j-1} is on the tensor cores (P is packed only after that
+// product is done), and the two warpgroups take turns to issue behind
+// named barriers 1 and 2. Masks apply only to the tiles that cross the
+// diagonal or hold the ragged tail; TMA zero-fills rows past T, so V's
+// tail rows are 0 and never NaN.
+// ---------------------------------------------------------------------------
+constexpr int kWideFwdN = 64;  // k-tile rows of the wide K1
+static_assert(kWideStages == 2, "the wide K1's stage and parity are bits of the tile index");
+
+struct WideFwdSmem {
+  alignas(1024) bf16 q[kConsumerWGs][64 * kWideD];     // resident rows [q0, q0 + 128)
+  alignas(1024) bf16 k[kWideStages][kWideFwdN * kWideD];  // the ring of k-tiles
+  alignas(1024) bf16 v[kWideStages][kWideFwdN * kWideD];
+  uint64_t k_full[kWideStages], k_empty[kWideStages];
+  uint64_t v_full[kWideStages], v_empty[kWideStages], q_full;
+};
+static_assert(sizeof(WideFwdSmem) + 1024 <= 232448, "K1's wide layout fits in 227 KB");
+
+__global__ void __launch_bounds__(kWsThreads, 1)
+fwd_wide_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                      const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v, bf16* __restrict__ o,
+                      float* __restrict__ lse, int tq, int tk, int causal, float scale) {
+  auto& sm = hopper::smem_as<WideFwdSmem>();
+  const int bh = blockIdx.x;
+  const int qb = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qb * kBlockRows;
+  int n_kt = (tk + kWideFwdN - 1) / kWideFwdN;
+  if (causal) n_kt = min(n_kt, (q0 + kBlockRows - 1) / kWideFwdN + 1);
+  const int wg = hopper::warpgroup();
+  const int lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kWideStages; ++s) {
+      hopper::mbar_init(&sm.k_full[s], 1);
+      hopper::mbar_init(&sm.k_empty[s], kConsumerWGs * 4);
+      hopper::mbar_init(&sm.v_full[s], 1);
+      hopper::mbar_init(&sm.v_empty[s], kConsumerWGs * 4);
+    }
+    hopper::mbar_init(&sm.q_full, 1);
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+
+  // Tile kt lies in stage kt & 1, in that stage's phase (kt >> 1) & 1.
+  if (wg == kConsumerWGs) {
+    // Producer: one thread issues every TMA load, K_kt then V_kt.
+    hopper::regs_dealloc<24>();
+    if (threadIdx.x != kConsumerWGs * kWgThreads) return;
+    hopper::mbar_arrive_expect_tx(&sm.q_full, kConsumerWGs * tile_bytes<kWideD>());
+    for (int h = 0; h < kConsumerWGs; ++h) {
+      tma_tile<kWideD>(sm.q[h], &tm_q, &sm.q_full, q0 + 64 * h, bh);
+    }
+    for (int kt = 0; kt < n_kt; ++kt) {
+      const int s = kt & 1;
+      const uint32_t phase = (kt >> 1) & 1;
+      hopper::mbar_wait(&sm.k_empty[s], phase ^ 1);
+      hopper::mbar_arrive_expect_tx(&sm.k_full[s], tile_bytes<kWideD, kWideFwdN>());
+      tma_tile<kWideD, kWideFwdN>(sm.k[s], &tm_k, &sm.k_full[s], kt * kWideFwdN, bh);
+      hopper::mbar_wait(&sm.v_empty[s], phase ^ 1);
+      hopper::mbar_arrive_expect_tx(&sm.v_full[s], tile_bytes<kWideD, kWideFwdN>());
+      tma_tile<kWideD, kWideFwdN>(sm.v[s], &tm_v, &sm.v_full[s], kt * kWideFwdN, bh);
+    }
+    return;
+  }
+
+  // Consumers: warpgroup wg owns q rows [row0, row0 + 64) and all 256
+  // columns of their O. A warpgroup releases each K stage after its S and
+  // each V stage but its last tile's after its P.V: no later load waits
+  // for that one.
+  hopper::regs_alloc<240>();
+  const int row0 = q0 + 64 * wg;
+  const int qp = row0 + 16 * ((threadIdx.x % kWgThreads) / 32) + (lane >> 2);
+  const int ck = 2 * (lane & 3);
+  const float sl2 = scale * kLog2e;
+  const bf16* q_tile = sm.q[wg];
+  float acc0[kWideHalf / 2], acc1[kWideHalf / 2];  // O's columns [0, 128) and [128, 256)
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = qp + 8 * h;
-      if (r < tq) {
-        lse[static_cast<size_t>(bh) * tq + r] =
-            l[h] == 0.f ? kNegInf : m[h] * scale + logf(l[h]);
+  for (int i = 0; i < kWideHalf / 2; ++i) acc0[i] = acc1[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  hopper::mbar_wait(&sm.q_full, 0);
+
+  // The pipeline and the ping-pong are fwd_wgmma_kernel's (see there).
+  const int my_bar = 1 + wg, other_bar = 2 - wg;
+  if (wg == 1 && n_kt > 0) hopper::bar_arrive(other_bar, kConsumerThreads);
+  uint32_t p[kWideFwdN / 4];
+  if (n_kt > 0) {
+    hopper::mbar_wait(&sm.k_full[0], 0);
+    float sc[kWideFwdN / 2], alpha[2];
+    hopper::bar_sync(my_bar, kConsumerThreads);
+    hopper::wg_fence();
+    scores<kWideD>(sc, q_tile, sm.k[0]);
+    hopper::wg_commit();
+    hopper::bar_arrive(other_bar, kConsumerThreads);
+    hopper::wg_wait<0>();
+    hopper::pin(sc);
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&sm.k_empty[0]);
+    online_softmax<kWideFwdN>(sc, m, l, alpha, sl2, qp, ck, 0, row0, tk, causal);  // O is 0
+    pack_p(sc, p);
+  }
+  for (int kt = 1; kt < n_kt; ++kt) {
+    const int s = kt & 1, prev = s ^ 1;  // the stages of tiles kt and kt - 1
+    hopper::mbar_wait(&sm.k_full[s], (kt >> 1) & 1);
+    hopper::mbar_wait(&sm.v_full[prev], ((kt - 1) >> 1) & 1);
+
+    float sc[kWideFwdN / 2], alpha[2];
+    hopper::bar_sync(my_bar, kConsumerThreads);
+    hopper::wg_fence();
+    scores<kWideD>(sc, q_tile, sm.k[s]);
+    hopper::wg_commit();
+    hopper::pin(acc0);
+    hopper::pin(acc1);
+    hopper::pin(p);
+    hopper::wg_fence();
+    grad_product<kWideHalf, kWideFwdN>(acc0, p, sm.v[prev]);
+    grad_product<kWideHalf, kWideFwdN>(acc1, p, sm.v[prev] + kWideHalf * kWideFwdN);
+    hopper::wg_commit();
+    hopper::bar_arrive(other_bar, kConsumerThreads);
+    hopper::wg_wait<1>();
+    hopper::pin(sc);
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&sm.k_empty[s]);
+    online_softmax<kWideFwdN>(sc, m, l, alpha, sl2, qp, ck, kt * kWideFwdN, row0, tk, causal);
+    hopper::pin(sc);
+    hopper::pin(alpha);
+    hopper::pin(l);
+    hopper::wg_wait<0>();
+    hopper::pin(acc0);
+    hopper::pin(acc1);
+    hopper::pin(p);
+
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&sm.v_empty[prev]);
+    if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+      for (int i = 0; i < kWideHalf / 2; ++i) {
+        acc0[i] *= alpha[(i >> 1) & 1];
+        acc1[i] *= alpha[(i >> 1) & 1];
       }
     }
+    pack_p(sc, p);
   }
-  store_rows<D>(o + static_cast<size_t>(bh) * tq * D, acc, row0, tq);
+  if (n_kt > 0) {  // O += P V of the last tile
+    const int s = (n_kt - 1) & 1;
+    hopper::mbar_wait(&sm.v_full[s], ((n_kt - 1) >> 1) & 1);
+    hopper::pin(acc0);
+    hopper::pin(acc1);
+    hopper::pin(p);
+    hopper::bar_sync(my_bar, kConsumerThreads);
+    hopper::wg_fence();
+    grad_product<kWideHalf, kWideFwdN>(acc0, p, sm.v[s]);
+    grad_product<kWideHalf, kWideFwdN>(acc1, p, sm.v[s] + kWideHalf * kWideFwdN);
+    hopper::wg_commit();
+    if (wg == 0) hopper::bar_arrive(other_bar, kConsumerThreads);
+    hopper::wg_wait<0>();
+    hopper::pin(acc0);
+    hopper::pin(acc1);
+    hopper::pin(p);
+  }
+
+  float inv[2];
+  finish_rows(inv, l, m, lse, bh, qp, tq, scale);
+#pragma unroll
+  for (int i = 0; i < kWideHalf / 2; ++i) {
+    acc0[i] *= inv[(i >> 1) & 1];
+    acc1[i] *= inv[(i >> 1) & 1];
+  }
+  bf16* ob = o + static_cast<size_t>(bh) * tq * kWideD;
+  store_rows<kWideHalf, kWideD>(ob, acc0, row0, tq);
+  store_rows<kWideHalf, kWideD>(ob + kWideHalf, acc1, row0, tq);
 }
 
 // Tile rows of the FMA kernels at head width D: 64; 32 at D = 256, where
@@ -1906,6 +2126,23 @@ int launch_dq_wide(const void* q, const void* k, const void* v, const void* dout
   return cudaGetLastError();
 }
 
+int launch_fwd_wide(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
+                    int tq, int tk, int causal, float scale, cudaStream_t stream) {
+  CUtensorMap m[3];
+  int map_err = encode_map(&m[0], q, bh, tq, kWideD);
+  if (map_err == 0) map_err = encode_map(&m[1], k, bh, tk, kWideD, kWideFwdN);
+  if (map_err == 0) map_err = encode_map(&m[2], v, bh, tk, kWideD, kWideFwdN);
+  if (map_err != 0) return map_err;
+  const size_t smem = sizeof(WideFwdSmem) + 1024;  // + alignment slack
+  cudaError_t err = allow_smem(fwd_wide_wgmma_kernel, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(bh, (tq + kBlockRows - 1) / kBlockRows);
+  fwd_wide_wgmma_kernel<<<grid, kWsThreads, smem, stream>>>(
+      m[0], m[1], m[2], static_cast<bf16*>(o), static_cast<float*>(lse), tq, tk, causal,
+      scale);
+  return cudaGetLastError();
+}
+
 int launch_dkv_wide(const void* q, const void* k, const void* v, const void* dout,
                     const void* lse, const void* delta, void* dk, void* dv, int bh, int tq,
                     int tk, int causal, float scale, cudaStream_t stream) {
@@ -1933,10 +2170,9 @@ int launch_dkv_wide(const void* q, const void* k, const void* v, const void* dou
 // outside the kernels' scope, or kTensorMapError + the CUresult of a refused
 // cuTensorMapEncodeTiled; it never synchronises. The backward passes take
 // delta from tfo_flash_bwd_delta. f32 runs the FMA kernels at every width;
-// bf16 the wgmma kernels at D = 64 and 128, the wide backward kernels and
-// K1's FMA kernel at D = 256 (a 128-row Q tile and a K/V ring of 256
-// columns do not fit K1's wgmma layout), and the FMA kernels at 384 and
-// 512.
+// bf16 the wgmma kernels at D = 64 and 128, the wide kernels at D = 256
+// (fwd_wide_wgmma_kernel, bwd_dq_wide_wgmma_kernel and
+// bwd_dkv_wide_wgmma_kernel), and the FMA kernels at 384 and 512.
 #define TFO_DISPATCH(DTYPE, D, CALL_F32, CALL_BF16, CALL_BF16_256, CALL_BF16_FMA)    \
   if ((DTYPE) == 0 && (D) == 64) return static_cast<int>(CALL_F32(float, 64));     \
   if ((DTYPE) == 0 && (D) == 128) return static_cast<int>(CALL_F32(float, 128));   \
@@ -1956,9 +2192,11 @@ extern "C" int tfo_flash_fwd(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define FMA(T, DD) launch_fwd<T, DD>(q, k, v, o, lse, bh, tq, tk, causal, scale, s)
 #define WG(DD) launch_fwd_wgmma<DD>(q, k, v, o, lse, bh, tq, tk, causal, scale, s)
-  TFO_DISPATCH(dtype, d, FMA, WG, FMA(bf16, 256), FMA)
+#define WIDE launch_fwd_wide(q, k, v, o, lse, bh, tq, tk, causal, scale, s)
+  TFO_DISPATCH(dtype, d, FMA, WG, WIDE, FMA)
 #undef FMA
 #undef WG
+#undef WIDE
 }
 
 extern "C" int tfo_flash_bwd_delta(const void* o, const void* dout,

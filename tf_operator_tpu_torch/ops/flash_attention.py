@@ -12,9 +12,9 @@ delta = rowsum(dO o O) - g_lse once for both backward kernels, which the
 Pallas kernels computed in-block. The C interface picks each call's
 kernel from its dtype and head width: in bf16 the forward and backward
 kernels run their products on the tensor cores (wgmma fed by TMA) at head
-widths 64 and 128, and K2 and K3 at 256 too (the "wide" kernels); the
-forward at bf16 256, bf16 at 384 and 512, and f32 at every width run on FMA
-units. ``route`` and ``kernel_name`` name that choice for reports.
+widths 64 and 128, and at 256 too (the "wide" kernels); bf16 at 384 and
+512 and f32 at every width run on FMA units. ``route`` and
+``kernel_name`` name that choice for reports.
 
 Each wrapper takes ``[BH, T, D]`` operands (batch*heads flattened) and lse
 as ``[BH, T]`` f32; the TPU's ``[BH, T, 128]`` lane-broadcast lse layout was
@@ -76,7 +76,8 @@ ROUTE_KERNELS = {
     "fma": {"fwd": "fwd_kernel", "bwd_dq": "bwd_dq_kernel", "bwd_dkv": "bwd_dkv_kernel"},
     "wgmma": {"fwd": "fwd_wgmma_kernel", "bwd_dq": "bwd_dq_wgmma_kernel",
               "bwd_dkv": "bwd_dkv_wgmma_kernel"},
-    "wide": {"bwd_dq": "bwd_dq_wide_wgmma_kernel", "bwd_dkv": "bwd_dkv_wide_wgmma_kernel"},
+    "wide": {"fwd": "fwd_wide_wgmma_kernel", "bwd_dq": "bwd_dq_wide_wgmma_kernel",
+             "bwd_dkv": "bwd_dkv_wide_wgmma_kernel"},
 }
 
 _lib_handle = None
@@ -127,13 +128,14 @@ def route(kernel: str, dtype: torch.dtype, d: int) -> str:
     """The route that the C interface's dispatch (TFO_DISPATCH) takes for a
     CUDA call of `kernel` ("fwd", "bwd_dq" or "bwd_dkv") on operands of
     `dtype` at the built head width d, for reports: "wgmma" in bf16 at 64
-    and 128; "wide" for K2 and K3 in bf16 at 256 (two consumer warpgroups
-    split the head's columns); "fma" otherwise (f32 at every width, K1 at
-    bf16 256, bf16 at 384 and 512). ROUTE_KERNELS names each route's
-    kernels; chip_smoke.py holds them against the profiler's names."""
+    and 128; "wide" in bf16 at 256 (K1: each consumer warpgroup owns 64 of
+    a block's 128 q rows; K2 and K3: the two split the head's columns);
+    "fma" otherwise (f32 at every width, bf16 at 384 and 512).
+    ROUTE_KERNELS names each route's kernels; chip_smoke.py holds them
+    against the profiler's names."""
     if dtype == torch.bfloat16 and d in (64, 128):
         return "wgmma"
-    if dtype == torch.bfloat16 and d == 256 and kernel != "fwd":
+    if dtype == torch.bfloat16 and d == 256:
         return "wide"
     return "fma"
 
