@@ -63,7 +63,16 @@ Phases, in order:
      (device activity only): its loss finite and falling, by the
      profiler's kernel names 12 launches a step of the wide K2 and K3, at
      least 12 of the wide K1, and none of the FMA K1-K3, tokens/s and the
-     step beside the head-width-128 LM's;
+     step beside the head-width-128 LM's; then the graph check
+     (graph_check): the full-width LM's chunks replayed as CUDA graphs
+     against the eager train_step loop on the same seed, in process, 6
+     steps: every step's loss and gradient norm and the final parameters,
+     mu, nu and master bit-equal, K1-K3 and the delta pass 12 launches a
+     step in both, and two planted faults (GRAPH_FAULTS: a replay without
+     the generator re-seed, bias corrections frozen at the capture) each
+     rejected by name; and the card's f32 pow against the CPU's over the
+     first 200000 Adam counts (the bias corrections' only op that may
+     round differently);
   5. checkpoints (ckpt): the full-width LM saves every 2 steps to step 4
      (async), a second run resumes it to step 6, and its step-6 loss must
      equal the train phase's uninterrupted one (or, if not bit for bit,
@@ -169,14 +178,15 @@ Phases, in order:
      must equal a naive f32 re-forward; time to ready, prefill and decode
      tokens/s, tick ms against its bound, request latencies, the cache's
      bytes and the peak memory are logged;
- 15. multi-slice (multislice): the full-width LM (train phase's argv, every
-     step logged) as 2 slices, one process a slice on the card, each a
-     one-rank world with TPUJOB_NUM_SLICES=2, its TPUJOB_SLICE_ID and one
-     TPUJOB_DCN_DIR (on /dev/shm when it has MS_SHM_BYTES free), 2
-     microbatches a step, held against one process at the same argv on
-     dist_gaps' limits with K1-K3 and delta launched once a layer a
-     microbatch a step in each slice; at 4 layers each slice applying its
-     own mean (no-dcn-sum) must fail those limits, and slice 1 killed
+ 15. multi-slice (multislice): the LM (train phase's argv at
+     MS_REWIND_LAYERS = 4 layers, every step logged) as 2 slices, one
+     process a slice on the card, each a one-rank world with
+     TPUJOB_NUM_SLICES=2, its TPUJOB_SLICE_ID and one TPUJOB_DCN_DIR (on
+     /dev/shm when it has MS_SHM_BYTES free), 2 microbatches a step, held
+     against one process at the same argv on dist_gaps' limits with K1-K3
+     and delta launched once a layer a microbatch a step in each slice;
+     against the same one-process run each slice applying its own mean
+     (no-dcn-sum) must fail those limits, and slice 1 killed
      (SIGKILL, --chaos) at step 5, two after worker 0's step-3 save, then
      relaunched, must resume from step 3 while slice 0, never restarted,
      emits dcn_rewind and ends on the uninterrupted run's losses: global
@@ -218,12 +228,14 @@ Phases, in order:
      (NCCL), each held against one process at its global batch;
  20. (only with --phases ...,profile) both trainers' runs, the 64k LM,
      BERT-base at seq 512 and the MoE cell (sparse) under torch.profiler:
-     device time by kernel group over their steady steps.
+     device time by kernel group over their steady steps, and the host API
+     that launched each kernel there (launch_census): on the graphed step
+     one cudaGraphLaunch a step and no K1-K3 launched one by one.
 Every trainer subprocess that is not given GPUs of its own sees this
 process's first GPU alone (CUDA_VISIBLE_DEVICES), a pod given one card.
-The last lines are the wide_lm, eval, longctx, preempt, bert, data, dist, sp, moe,
-serve, multislice, pipeline and pod phases' records as one JSON object ({"phases": ...}), the kernels' JSON record,
-the card, and
+The last lines are the wide_lm, graph, eval, longctx, preempt, bert, data,
+dist, sp, moe, serve, multislice, pipeline and pod phases' records as one
+JSON object ({"phases": ...}), the kernels' JSON record, the card, and
 {"ok": true, "device": {...}}. Any failed phase exits nonzero with no
 result line. Needs a CUDA device: it never runs on the CPU.
 """
@@ -2256,7 +2268,8 @@ def dist_child(argv: list[str]) -> int:
     path, argv = argv[0], argv[1:]
     ref_path = Path(os.environ.get("CHIP_SMOKE_DIST_REF") or DIST_REF)
     norms, init, plans, shapes = [], [], [], set()
-    real_step, real_parallelize, real_fwd = ts.train_step, ts.parallelize, fa._fwd_at
+    real_chunks, real_parallelize, real_fwd = (ts.make_chunked_train_step, ts.parallelize,
+                                               fa._fwd_at)
 
     def fwd_at(q, *args, **kwargs):
         shapes.add(tuple(q.shape))
@@ -2266,12 +2279,21 @@ def dist_child(argv: list[str]) -> int:
         plans.append(real_parallelize(*args, **kwargs))
         return plans[-1]
 
-    def train_step(state, *args, **kwargs):
-        if not init:
-            init.extend(p.detach().clone() for p in state.params)
-        state, metrics = real_step(state, *args, **kwargs)
-        norms.append(float(metrics["grad_norm"]))
-        return state, metrics
+    def make_chunked_train_step(*args, **kwargs):
+        # Every step's metrics, on the eager and the graphed route alike.
+        run = real_chunks(*args, **kwargs)
+
+        def recorded(state, n, every=None):
+            if not init:
+                init.extend(p.detach().clone() for p in state.params)
+            steps: list = []
+            state, metrics = run(state, n, steps)
+            norms.extend(float(m["grad_norm"]) for m in steps)
+            if every is not None:
+                every.extend(steps)
+            return state, metrics
+
+        return recorded
 
     real_ms = ts.make_multislice_step_fns
 
@@ -2287,7 +2309,8 @@ def dist_child(argv: list[str]) -> int:
 
         return gen_batch, backward, recorded
 
-    ts.parallelize, ts.train_step, fa._fwd_at = parallelize, train_step, fwd_at
+    ts.parallelize, ts.make_chunked_train_step, fa._fwd_at = (
+        parallelize, make_chunked_train_step, fwd_at)
     ts.make_multislice_step_fns = make_multislice_step_fns
     _plant_fault(os.environ.get("CHIP_SMOKE_DIST_FAULT", ""))
     out: dict = {}
@@ -3669,15 +3692,17 @@ def serve_verdict(readings: dict) -> list[str]:
     return out
 
 
-# The multislice phase: a 2-slice job of the full-width LM (one process a
-# slice, one-rank worlds sharing the card) meeting in the DCN exchange
-# (parallel/multislice.py) through a directory on /dev/shm when it has the
-# room, held against one process at the same global batch and seed on
-# dist_gaps' limits; at MS_REWIND_LAYERS layers, the planted fault (each
-# slice applies its own mean) must fail them, and a kill of slice 1 two
-# steps after a save (checkpoint every MS_CKPT_EVERY, kill at MS_KILL), its
-# relaunch and slice 0's in-process rewind must end on the uninterrupted
-# run's losses.
+# The multislice phase: a 2-slice job of the LM at MS_REWIND_LAYERS layers (one
+# process a slice, one-rank worlds sharing the card) meeting in the DCN
+# exchange (parallel/multislice.py) through a directory on /dev/shm when it
+# has the room, held against one process at the same global batch and seed
+# on dist_gaps' limits; against the same one-process run the planted fault
+# (each slice applies its own mean) must fail them, and a kill of slice 1
+# two steps after a save (checkpoint every MS_CKPT_EVERY, kill at MS_KILL),
+# its relaunch and slice 0's in-process rewind must end on the
+# uninterrupted run's losses. The sound run was cut from 12 layers to the
+# fault's 4 when the graph check joined the default run (as the sp phase's
+# was when a default run took 1040.4 s of its 1200 s limit).
 MS_SLICES, MS_MICRO, MS_STEPS = 2, 2, 6
 MS_REWIND_LAYERS, MS_CKPT_EVERY, MS_KILL = 4, 3, 5
 MS_FAULT = ("each slice applies its own mean", "no-dcn-sum")
@@ -3824,41 +3849,37 @@ def ms_rewind(job: DistJob, ref: dict, card: str) -> dict:
 
 
 def multislice_phase(records: dict, card: str) -> dict:
-    """(a) the full-width LM as 2 slices x 2 microbatches against one
-    process; (b) at MS_REWIND_LAYERS layers: one process, the planted
-    fault rejected, the kill, relaunch and rewind."""
+    """At MS_REWIND_LAYERS layers, against one process: the LM as 2 slices x 2
+    microbatches, the planted fault rejected, the kill, relaunch and
+    rewind."""
     import torch
 
     torch.cuda.empty_cache()
     out = {}
-    for layers, ref_file in ((LAYERS, "ms_reference.pt"),
-                             (MS_REWIND_LAYERS, "ms_reference_small.pt")):
-        job = ms_job(layers, ref_file)
-        ref, reference = one_process(card, job)
-        try:
-            if layers == LAYERS:
-                res = ms_summary("2 slices", job, slice_world("full", job), ref, card)
-                log("multislice: " + json.dumps({k: v for k, v in res.items()
-                                                 if k not in ("losses", "grad_norms")}))
-                failed = dist_verdict(res["gaps"])
-                if failed:
-                    raise SmokeFailure(f"multislice is off one process's run: {failed}")
-                for name, key, _ in KERNELS:
-                    records.setdefault(name, {})["multislice_launches_per_slice"] = \
-                        res["launches_per_slice"][key]
-                out.update(reference=reference, run=res)
-                continue
-            label, kind = MS_FAULT
-            gaps = dist_gaps(ref, slice_world("fault", job, kind))
-            failed = [f for f in dist_verdict(gaps) if not f.startswith("loss")]
-            out["fault_control"] = {"run": label, "layers": layers, "gaps": gaps,
-                                    "rejected_on": failed}
-            log("multislice: planted fault " + json.dumps(out["fault_control"]))
-            if not failed:
-                raise SmokeFailure(f"the multislice check accepts a run where {label}: {gaps}")
-            out["rewind"] = ms_rewind(job, ref, card)
-        finally:
-            job.ref.unlink(missing_ok=True)
+    job = ms_job(MS_REWIND_LAYERS, "ms_reference.pt")
+    ref, reference = one_process(card, job)
+    try:
+        res = ms_summary("2 slices", job, slice_world("full", job), ref, card)
+        log("multislice: " + json.dumps({k: v for k, v in res.items()
+                                         if k not in ("losses", "grad_norms")}))
+        failed = dist_verdict(res["gaps"])
+        if failed:
+            raise SmokeFailure(f"multislice is off one process's run: {failed}")
+        for name, key, _ in KERNELS:
+            records.setdefault(name, {})["multislice_launches_per_slice"] = \
+                res["launches_per_slice"][key]
+        out.update(reference=reference, run=res)
+        label, kind = MS_FAULT
+        gaps = dist_gaps(ref, slice_world("fault", job, kind))
+        failed = [f for f in dist_verdict(gaps) if not f.startswith("loss")]
+        out["fault_control"] = {"run": label, "layers": MS_REWIND_LAYERS, "gaps": gaps,
+                                "rejected_on": failed}
+        log("multislice: planted fault " + json.dumps(out["fault_control"]))
+        if not failed:
+            raise SmokeFailure(f"the multislice check accepts a run where {label}: {gaps}")
+        out["rewind"] = ms_rewind(job, ref, card)
+    finally:
+        job.ref.unlink(missing_ok=True)
     return out
 
 
@@ -4235,9 +4256,16 @@ def pod_phase(records: dict, card: str) -> dict:
     card against one process (dist_gaps' limits), the kernels held first at
     the ranks' shape, and POD_FAULT rejected at FAULT_LAYERS against one
     process at that depth."""
+    import gc
+
     import torch
 
+    gc.collect()
     torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    log(f"pod: this process holds {torch.cuda.memory_allocated() / 1e9:.3f} GB allocated, "
+        f"{torch.cuda.memory_reserved() / 1e9:.3f} GB reserved; the card has "
+        f"{free / 1e9:.3f} of {total / 1e9:.3f} GB free [{card}]")
     job, fault_job = pod_job(), pod_job(FAULT_LAYERS)
     shape_kernel_check(records, [job.local_shape(POD_MESH, None)], "pod", 8193, causal=True)
     ref, reference = one_process(card, job)
@@ -4364,6 +4392,195 @@ def moe4_phase(card: str) -> dict:
 # lower-cased name holds both substrings (fwd_kernel in f32 and bf16 at
 # 384/512, fwd_wgmma_kernel and fwd_wide_wgmma_kernel in bf16; no other
 # kernel of csrc/).
+# The graph check: the full-width LM (lm_argv) for GRAPH_STEPS steps in
+# chunks of LOG_EVERY, graphed against eager, and the planted faults, each
+# (what it breaks, its name in planted_graph_fault, the failure that must
+# name it: graph_verdict's first word).
+GRAPH_STEPS = 6
+GRAPH_FAULTS = (("a replay without the generator re-seed", "skip-reseed", "loss"),
+                ("bias corrections frozen at the capture", "frozen-bias", "params"))
+GRAPH_STATE_GROUPS = ("params", "mu", "nu", "master")
+POW_COUNTS = 200000
+
+
+@contextlib.contextmanager
+def planted_graph_fault(fault: str):
+    """skip-reseed: the batch generator is seeded for the first step only,
+    so the replays draw on from the warm-up's Philox offset instead of their
+    own steps' seeds. frozen-bias: the bias corrections as host values (0-dim
+    CPU tensors), read from the count outside the capture and baked into it
+    at the capture's count (the functional update's behaviour under a
+    graph)."""
+    import torch
+
+    from tf_operator_tpu_torch import optim
+    from tf_operator_tpu_torch.parallel import graphed_step
+
+    if fault == "skip-reseed":
+        real, seeded = graphed_step._reseed, []
+
+        def reseed(gen, seed, step):
+            if not seeded:
+                seeded.append(step)
+                real(gen, seed, step)
+
+        graphed_step._reseed = reseed
+        try:
+            yield
+        finally:
+            graphed_step._reseed = real
+    elif fault == "frozen-bias":
+        real, seen = optim.bias_corrections, [0]
+
+        def frozen(cfg, count):
+            if torch.cuda.is_current_stream_capturing():
+                n = seen[0] + 1
+            else:
+                n = seen[0] = int(count)
+            c = torch.tensor(float(n), dtype=torch.float32)
+            return tuple(1.0 - torch.tensor(b, dtype=torch.float32) ** c
+                         for b in (cfg.b1, cfg.b2))
+
+        optim.bias_corrections = frozen
+        try:
+            yield
+        finally:
+            optim.bias_corrections = real
+    elif fault:
+        raise ValueError(f"unknown graph fault {fault!r}")
+    else:
+        yield
+
+
+def graph_run(graphed: bool, fault: str = "", steps: int = GRAPH_STEPS) -> dict:
+    """The trainer's LM cell built as the trainer builds it (its model,
+    loss, batches, one-process plan and optimizer), `steps` steps through
+    make_chunked_train_step in chunks of LOG_EVERY, graphed or eager:
+    every step's loss and gradient norm, the final state on the host and
+    the flash launches."""
+    import torch
+
+    from tf_operator_tpu_torch import optim as optim_lib
+    from tf_operator_tpu_torch.models import train
+    from tf_operator_tpu_torch.ops import flash_attention as fa
+    from tf_operator_tpu_torch.parallel import mesh as mesh_lib
+    from tf_operator_tpu_torch.parallel import train_step as ts
+
+    args = train.build_parser().parse_args(lm_argv(steps))
+    device = torch.device("cuda", 0)
+    model, loss_fn, make_batch = train._build_model(args, device)
+    plan = ts.parallelize(model, mesh_lib.Mesh({"dp": 1}), train._sharding_rules(args), device)
+    tx = optim_lib.make_optimizer(optim_lib.OptimizerConfig(
+        name=args.optimizer, learning_rate=args.lr, moment_dtype=args.moment_dtype,
+        master_weights=args.master_weights))
+    state = ts.create_train_state(model, tx, plan)
+    run = ts.make_chunked_train_step(loss_fn, tx, make_batch, device, seed=0,
+                                     remat=args.remat, plan=plan, graphed=graphed)
+    fa.reset_launches()
+    every: list = []
+    t0 = time.time()
+    with planted_graph_fault(fault):
+        for _ in range(steps // LOG_EVERY):
+            state, _ = run(state, LOG_EVERY, every)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    return {"loss": [float(m["loss"]) for m in every],
+            "grad_norm": [float(m["grad_norm"]) for m in every],
+            "state": {k: v.detach().cpu() for k, v in ts.state_tensors(state).items()
+                      if isinstance(v, torch.Tensor)},
+            "count": int(state.opt_state.count), "launches": dict(fa.LAUNCHES),
+            "wall_s": wall}
+
+
+def graph_verdict(eager: dict, graphed: dict, layers: int, steps: int) -> list[str]:
+    """The failures of a graphed run against the eager one (graph_run's
+    records), each starting with what differs: every step's loss and
+    grad_norm bit-equal, the final state's params, mu, nu and master
+    tensors equal, the same count, and K1-K3 and the delta pass launched
+    layers x steps times in both runs."""
+    import torch
+
+    fails = []
+    for key in ("loss", "grad_norm"):
+        if len(eager[key]) != steps or len(graphed[key]) != steps:
+            fails.append(f"{key} recorded for {len(eager[key])} (eager) and "
+                         f"{len(graphed[key])} (graphed) steps, not {steps}")
+        bad = [i + 1 for i, (a, b) in enumerate(zip(eager[key], graphed[key])) if not a == b]
+        if bad:
+            fails.append(f"{key} differs at steps {bad}")
+    for group in GRAPH_STATE_GROUPS:
+        keys = [k for k in eager["state"] if k.startswith(group + "/")]
+        bad = [k for k in keys if k not in graphed["state"]
+               or not torch.equal(eager["state"][k], graphed["state"][k])]
+        if bad:
+            fails.append(f"{group} differ in {len(bad)} of {len(keys)} tensors ({bad[0]} first)")
+    if eager["count"] != graphed["count"]:
+        fails.append(f"count {graphed['count']} after the graphed run, {eager['count']} eager")
+    need = layers * steps
+    for name, rec in (("eager", eager), ("graphed", graphed)):
+        off = {k: rec["launches"].get(k, 0) for k in FLASH_LAUNCH_KEYS
+               if rec["launches"].get(k, 0) != need}
+        if off:
+            fails.append(f"launches in the {name} run {off}, not {layers} x {steps} = {need}")
+    return fails
+
+
+def pow_mismatches(b: float, n: int = POW_COUNTS) -> dict:
+    """Counts 1..n at which the card's f32 1 - b^count differs from the
+    CPU's: how many, and the first."""
+    import torch
+
+    c = torch.arange(1, n + 1, dtype=torch.float32)
+    host = 1.0 - torch.pow(b, c)
+    card = (1.0 - torch.pow(b, c.cuda())).cpu()
+    bad = (host != card).nonzero().flatten()
+    return {"b": b, "counts": n, "mismatches": int(bad.numel()),
+            "first": int(c[bad[0]]) if bad.numel() else None}
+
+
+def graph_check(card: str) -> dict:
+    """The graph check (module docstring, phase 4): eager, graphed, then
+    each planted fault, one run at a time in this process."""
+    import gc
+
+    import torch
+
+    from tf_operator_tpu_torch import optim
+
+    def fresh(graphed, fault=""):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        rec = graph_run(graphed, fault)
+        rec["peak_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        rec["peak_reserved_gb"] = torch.cuda.max_memory_reserved() / 1e9
+        return rec
+
+    eager = fresh(False)
+    graphed = fresh(True)
+    fails = graph_verdict(eager, graphed, LAYERS, GRAPH_STEPS)
+    if fails:
+        raise SmokeFailure("graph check: the graphed chunk differs from the eager loop: "
+                           + "; ".join(fails))
+    faults = {}
+    for label, fault, must in GRAPH_FAULTS:
+        got = graph_verdict(eager, fresh(True, fault), LAYERS, GRAPH_STEPS)
+        if not any(f.startswith(must) for f in got):
+            raise SmokeFailure(f"graph check: the planted fault '{label}' was not rejected "
+                               f"by '{must}': {got}")
+        faults[fault] = got
+    cfg = optim.OptimizerConfig()
+    res = {"steps": GRAPH_STEPS, "bit_equal": True, "loss": graphed["loss"],
+           "grad_norm": graphed["grad_norm"], "launches": graphed["launches"],
+           "eager_wall_s": eager["wall_s"], "graphed_wall_s": graphed["wall_s"],
+           "peak_gb": {k: {"eager": eager[k], "graphed": graphed[k]}
+                       for k in ("peak_allocated_gb", "peak_reserved_gb")},
+           "faults_rejected": faults,
+           "pow_vs_cpu": [pow_mismatches(cfg.b1), pow_mismatches(cfg.b2)], "card": card}
+    log("graph: " + json.dumps(res))
+    return res
+
+
 LM_STEP_MARKER = ("fwd_", "_kernel")
 
 
@@ -4374,13 +4591,70 @@ def kernel_group(name: str, groups) -> str:
     return next((g for g, keys in groups if any(k in low for k in keys)), "other")
 
 
+# The flash kernels whose launches the census follows (K1-K3).
+K123_KEYS = ("fwd_kernel", "fwd_wgmma_kernel", "fwd_wide_wgmma_kernel", "bwd_dq_kernel",
+             "bwd_dq_wgmma_kernel", "bwd_dq_wide_wgmma_kernel", "bwd_dkv_kernel",
+             "bwd_dkv_wgmma_kernel", "bwd_dkv_wide_wgmma_kernel")
+GRAPH_LAUNCH = "cudaGraphLaunch"
+
+
+def is_k123(name: str) -> bool:
+    low = name.lower()
+    return any(k in low for k in K123_KEYS) and "delta" not in low
+
+
+def launch_census(kernels, runtime: dict, marker: tuple, per_step: int, steps: int) -> dict:
+    """Which host API launched each kernel of a profiled run's steady
+    window. `kernels`: the device kernels as (name, start, correlation id);
+    `runtime`: correlation id -> the host runtime call's name (cudaLaunchKernel,
+    cudaGraphLaunch, ...). The window is _profile_trainer's (from the first
+    marker kernel of step LOG_EVERY + 1 to that of the last step); the
+    graph launches counted are the distinct cudaGraphLaunch calls of the
+    window's marker kernels, one a step when every step is one graph."""
+    kernels = sorted(kernels, key=lambda k: k[1])
+    marks = [k for k in kernels if all(m in k[0].lower() for m in marker)]
+    if len(marks) != per_step * steps:
+        raise SmokeFailure(f"the census saw {len(marks)} '{marker}' kernels, not "
+                           f"{per_step} x {steps} steps")
+    t0, t1 = marks[per_step * LOG_EVERY][1], marks[per_step * (steps - 1)][1]
+    window = [k for k in kernels if t0 <= k[1] < t1]
+    by_api: dict[str, int] = {}
+    k123_by_api: dict[str, int] = {}
+    for name, _, corr in window:
+        api = runtime.get(corr, "unattributed")
+        by_api[api] = by_api.get(api, 0) + 1
+        if is_k123(name):
+            k123_by_api[api] = k123_by_api.get(api, 0) + 1
+    graphs = {runtime.get(corr) == GRAPH_LAUNCH and corr for name, _, corr in window
+              if all(m in name.lower() for m in marker)} - {False}
+    n = steps - 1 - LOG_EVERY
+    return {"steps": n, "graph_launches": len(graphs),
+            "graph_launches_per_step": len(graphs) / n,
+            "kernels_by_launch_api": by_api, "k123_by_launch_api": k123_by_api}
+
+
+def census_failures(census: dict) -> list[str]:
+    """A graphed trainer's window must hold one cudaGraphLaunch a step and
+    no K1-K3 kernel launched by another call."""
+    fails = []
+    if census["graph_launches"] != census["steps"]:
+        fails.append(f"{census['graph_launches']} cudaGraphLaunch calls over "
+                     f"{census['steps']} steps")
+    other = {api: n for api, n in census["k123_by_launch_api"].items() if api != GRAPH_LAUNCH}
+    if other:
+        fails.append(f"K1-K3 kernels launched outside a graph: {other}")
+    return fails
+
+
 def _profile_trainer(argv, steps: int, marker: tuple, per_step: int, groups,
-                     batch: int, card: str, trace: str) -> None:
+                     batch: int, card: str, trace: str, graphed: bool = True) -> dict:
     """One trainer run under torch.profiler: device time by kernel group
     over its steady steps, the steps after its first chunk. Each step is
     cut at its first kernel whose lower-cased name holds every substring of
     `marker` (the kernel stream's (per_step * i)-th such kernel), so the
-    window holds whole steps of device work and the gaps between them."""
+    window holds whole steps of device work and the gaps between them.
+    Also the launch census (launch_census); a `graphed` run must pass
+    census_failures. Returns the summary."""
     from torch.profiler import DeviceType, ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -4414,8 +4688,19 @@ def _profile_trainer(argv, steps: int, marker: tuple, per_step: int, groups,
         "device_ms_by_group": dict(sorted(by_group.items(), key=lambda kv: -kv[1])),
         "top_kernels_ms": dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:8]),
         "card": card}}
+    raw = prof.profiler.kineto_results.events()
+    summary["profile"]["launches"] = census = launch_census(
+        [(e.name(), e.start_ns(), e.correlation_id()) for e in raw
+         if e.device_type() == DeviceType.CUDA],
+        {e.correlation_id(): e.name() for e in raw
+         if e.device_type() == DeviceType.CPU and e.name().startswith(("cuda", "cu"))},
+        marker, per_step, steps)
     prof.export_chrome_trace(str(OUT_DIR / trace))
     log("profile: " + json.dumps(summary))
+    fails = census_failures(census) if graphed else []
+    if fails:
+        raise SmokeFailure(f"profile {argv[1]}: " + "; ".join(fails))
+    return summary["profile"]
 
 
 def profile_phase(args, card: str) -> None:
@@ -4493,6 +4778,7 @@ def main(argv: list[str] | None = None) -> int:
             synthetic_ips = resnet_train_phase(args, card)
             narrow_lm_phase(card)
             results["wide_lm"] = wide_lm_phase(records, card, uninterrupted, args.steps)
+            results["graph"] = graph_check(card)
         if "ckpt" in phases:
             _, final_state = ckpt_phase(args, card, uninterrupted)
             if "eval" in phases:

@@ -1315,3 +1315,115 @@ def test_pod_phase_holds_pods_and_rejects_its_fault_on_cpu(tmp_path, monkeypatch
     gaps = chip_smoke.dist_gaps(ref, chip_smoke.pod_world("fault", job, mesh, ("0", "0"), 2,
                                                           "gloo", "no-grad-reduce"))
     assert [f for f in chip_smoke.dist_verdict(gaps) if not f.startswith("loss")], gaps
+
+
+def _graph_record(losses, norms, state, launches_per_step=12, steps=6):
+    return {"loss": list(losses), "grad_norm": list(norms), "state": state,
+            "count": steps, "launches": {k: launches_per_step * steps
+                                         for k in chip_smoke.FLASH_LAUNCH_KEYS}}
+
+
+@pytest.fixture
+def graph_records():
+    """Stand-ins of graph_run's records: an eager run, a graphed run equal
+    to it bit for bit, and what each planted fault gives."""
+    rng = np.random.default_rng(0)
+    steps = chip_smoke.GRAPH_STEPS
+    names = ("trunk.embed.weight", "lm_head.weight")
+    state = {f"{g}/{n}": torch.from_numpy(rng.standard_normal((4, 3)).astype(np.float32))
+             for g in chip_smoke.GRAPH_STATE_GROUPS for n in names}
+    losses = [10.88 - 0.05 * i for i in range(steps)]
+    norms = [0.86 / (i + 1) for i in range(steps)]
+    eager = _graph_record(losses, norms, state)
+    same = _graph_record(losses, norms, {k: v.clone() for k, v in state.items()})
+    # skip-reseed: the replays (steps 2 on) train on other batches.
+    other = [x + 1e-3 for x in losses[1:]]
+    reseed = _graph_record(losses[:1] + other, norms[:1] + [x * 1.01 for x in norms[1:]],
+                           {k: v + 1e-3 for k, v in state.items()})
+    # frozen-bias: the corrections of the captured step reused from step 3
+    # on: the losses move a step later, the parameters and masters too.
+    frozen_state = {k: (v + 1e-4 if k.startswith(("params/", "master/")) else v.clone())
+                    for k, v in state.items()}
+    frozen = _graph_record(losses[:3] + [x + 1e-4 for x in losses[3:]], norms, frozen_state)
+    return eager, same, {"skip-reseed": reseed, "frozen-bias": frozen}
+
+
+def test_graph_verdict_accepts_the_bit_equal_run(graph_records):
+    eager, same, _ = graph_records
+    assert chip_smoke.graph_verdict(eager, same, chip_smoke.LAYERS,
+                                    chip_smoke.GRAPH_STEPS) == []
+
+
+@pytest.mark.parametrize("label,fault,must", chip_smoke.GRAPH_FAULTS)
+def test_graph_verdict_rejects_each_planted_fault_by_name(graph_records, label, fault, must):
+    eager, _, faults = graph_records
+    fails = chip_smoke.graph_verdict(eager, faults[fault], chip_smoke.LAYERS,
+                                     chip_smoke.GRAPH_STEPS)
+    assert any(f.startswith(must) for f in fails), (label, fails)
+
+
+def test_graph_verdict_rejects_one_ulp_and_missing_launches(graph_records):
+    eager, same, _ = graph_records
+    k = "mu/lm_head.weight"
+    same["state"][k] = torch.nextafter(same["state"][k], torch.full_like(same["state"][k], 9))
+    same["launches"]["bwd_dkv"] -= 12  # a step whose K3 did not replay
+    same["grad_norm"][4] = float(np.nextafter(same["grad_norm"][4], 1.0))
+    fails = chip_smoke.graph_verdict(eager, same, chip_smoke.LAYERS, chip_smoke.GRAPH_STEPS)
+    assert [f.split()[0] for f in fails] == ["grad_norm", "mu", "launches"], fails
+
+
+def _census_events(graphed: bool, steps: int = 6, layers: int = 12):
+    """A synthetic profile of `steps` LM steps: each step's device kernels
+    (12 K1, 12 K2, 12 K3, 12 delta, a GEMM, a copy) and the host call
+    behind each: one cudaGraphLaunch a step when graphed, else one
+    cudaLaunchKernel (cudaMemcpyAsync for the copy) a kernel."""
+    kernels, runtime, t, corr = [], {}, 0, 0
+    for _ in range(steps):
+        names = [n for n in ("fwd_wgmma_kernel<128>", "bwd_dq_wgmma_kernel<128>",
+                             "bwd_dkv_wgmma_kernel<128>", "bwd_delta_kernel<bf16, 128>")
+                 for _ in range(layers)] + ["nvjet_tst_128x256", "Memcpy DtoD"]
+        names = names[:1] + names[-2:] + names[1:-2]  # the step opens with K1
+        if graphed:
+            corr += 1
+            runtime[corr] = "cudaGraphLaunch"
+        for name in names:
+            if not graphed:
+                corr += 1
+                runtime[corr] = "cudaMemcpyAsync" if "Memcpy" in name else "cudaLaunchKernel"
+            kernels.append((name, t, corr))
+            t += 10
+    return kernels, runtime
+
+
+def test_launch_census_counts_one_graph_launch_a_step():
+    kernels, runtime = _census_events(graphed=True)
+    census = chip_smoke.launch_census(kernels, runtime, chip_smoke.LM_STEP_MARKER, 12, 6)
+    assert census["steps"] == 3 and census["graph_launches"] == 3
+    assert census["graph_launches_per_step"] == 1.0
+    assert census["k123_by_launch_api"] == {"cudaGraphLaunch": 3 * 36}
+    assert census["kernels_by_launch_api"] == {"cudaGraphLaunch": 3 * 50}
+    assert chip_smoke.census_failures(census) == []
+
+
+def test_launch_census_rejects_kernels_launched_one_by_one():
+    kernels, runtime = _census_events(graphed=False)
+    census = chip_smoke.launch_census(kernels, runtime, chip_smoke.LM_STEP_MARKER, 12, 6)
+    assert census["graph_launches"] == 0
+    assert census["k123_by_launch_api"] == {"cudaLaunchKernel": 3 * 36}
+    assert census["kernels_by_launch_api"] == {"cudaLaunchKernel": 3 * 49,
+                                               "cudaMemcpyAsync": 3}
+    fails = chip_smoke.census_failures(census)
+    assert len(fails) == 2 and "cudaGraphLaunch" in fails[0] and "outside a graph" in fails[1]
+
+
+def test_launch_census_needs_every_step_marker():
+    kernels, runtime = _census_events(graphed=True)
+    with pytest.raises(chip_smoke.SmokeFailure, match="census saw"):
+        chip_smoke.launch_census(kernels[1:], runtime, chip_smoke.LM_STEP_MARKER, 12, 6)
+
+
+def test_is_k123_leaves_out_the_delta_pass_and_k5():
+    assert chip_smoke.is_k123("void fwd_wide_wgmma_kernel(...)")
+    assert chip_smoke.is_k123("bwd_dkv_kernel<float, 64, 64>")
+    assert not chip_smoke.is_k123("bwd_delta_kernel<bf16, 128>")
+    assert not chip_smoke.is_k123("gmm_wgmma_kernel<false>")

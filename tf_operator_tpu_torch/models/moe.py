@@ -150,6 +150,15 @@ def topk_routing(router_logits: torch.Tensor, top_k: int, capacity: int,
     return combine, combine > 0.0, aux
 
 
+def expert_counts(flat_e: torch.Tensor, num_experts: int) -> torch.Tensor:
+    """The rows routed to each expert (int64 [E]): the JAX dispatch's
+    bincount(flat_e, length=E). torch.bincount reads its input's maximum
+    back to the host on CUDA, which a CUDA graph cannot capture; a
+    scatter-add into E zeros gives the same counts on the device."""
+    counts = torch.zeros(num_experts, dtype=torch.int64, device=flat_e.device)
+    return counts.scatter_add_(0, flat_e, torch.ones_like(flat_e))
+
+
 class _DispatchGather(torch.autograd.Function):
     """x_sorted[i] = xf[token_of[i]]. Its VJP is the JAX hand VJP: the
     cotangent gathered by the inverse permutation (row a is token a // k's
@@ -205,7 +214,7 @@ def sparse_moe_ffn(x: torch.Tensor, w_router: torch.Tensor, experts_in: torch.Te
     flat_e = topi.reshape(n * k)           # assignment a <-> token a // k
     order = torch.argsort(flat_e, stable=True)
     token_of = order // k
-    group_sizes = torch.bincount(flat_e, minlength=cfg.num_experts)
+    group_sizes = expert_counts(flat_e, cfg.num_experts)
     inv = torch.argsort(order, stable=True)
 
     # The experts' inputs and gates through Megatron's f over `group`: each

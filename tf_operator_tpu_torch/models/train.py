@@ -29,6 +29,12 @@ appended to `TPUJOB_METRICS_FILE`, plus the `TPUJOB_HEARTBEAT_FILE`
 heartbeat. ResNet's batch-norm running statistics are updated once per
 step and stay f32 under `--master-weights`.
 
+One process on CUDA runs each optimizer step as a replay of a CUDA graph
+(parallel/graphed_step.py), as the JAX trainer compiles its chunk and its
+dataset step: the first step runs eagerly and is then captured, batches
+included, and `model_ready` names the route (`step_route`, and why). The
+CPU, a world of several processes and a multi-slice job step eagerly.
+
 Checkpoints (`--checkpoint-dir`, models/checkpoint.py) follow the JAX
 trainer: step_<N> holds the parameters and trainstate_<N> the resume
 payload (buffers, optimizer state, step); the chief (or worker 0) saves at
@@ -1435,7 +1441,7 @@ def _device_kind(device: torch.device) -> str:
 
 def _train_on_dataset(args, device: torch.device, state, start_step: int, loss_fn, tx,
                       t_start: float, maybe_checkpoint, check_boundary, finish,
-                      plan) -> int:
+                      plan, graphed: bool) -> int:
     """The --data-dir loop: host batches from the sharded dataset (this
     pod's shards and its --batch / pods rows of each global step, of which
     a pod's local rank i of N takes the i-th N-th,
@@ -1443,12 +1449,16 @@ def _train_on_dataset(args, device: torch.device, state, start_step: int, loss_f
     sequence), fed through the prefetch thread or the staging ring, one
     step at a time. The uint8 wire is normalised here, on the step's
     thread, before the loss. The done event gets the ingest's `prefetch`
-    or `staging` block."""
+    or `staging` block. With `graphed` (graphed_step.step_route) each step
+    is a replay of one captured CUDA graph, the counterpart of the JAX
+    loop's jitted step: the batch is copied into the graph's static input
+    on the step's stream first."""
     import itertools
 
     from tf_operator_tpu_torch.data import dataset as dataset_lib
     from tf_operator_tpu_torch.data import prefetch as prefetch_lib
     from tf_operator_tpu_torch.data import staging as staging_lib
+    from tf_operator_tpu_torch.parallel import graphed_step
     from tf_operator_tpu_torch.parallel.train_step import remat_loss, train_step
     from tf_operator_tpu_torch.telemetry.phases import make_step_accounting
 
@@ -1484,9 +1494,11 @@ def _train_on_dataset(args, device: torch.device, state, start_step: int, loss_f
             device=device, stats=prefetch_stats)
     preprocess = staging_lib.make_preprocess_fn()
     loss = remat_loss(loss_fn) if args.remat else loss_fn
-
-    def step(state, batch):
-        return train_step(state, preprocess(batch), loss, tx, plan)
+    if graphed:
+        step = graphed_step.graphed_batches(loss, tx, preprocess, plan)
+    else:
+        def step(state, batch):
+            return train_step(state, preprocess(batch), loss, tx, plan)
 
     try:
         state, metrics = step(state, next(it))
@@ -1770,6 +1782,7 @@ def _run_trainer(args, device: torch.device, heartbeat, guard, chaos=None,
     from tf_operator_tpu_torch.parallel import distributed
     from tf_operator_tpu_torch.parallel import mesh as mesh_lib
     from tf_operator_tpu_torch.parallel import multislice
+    from tf_operator_tpu_torch.parallel.graphed_step import step_route
     from tf_operator_tpu_torch.parallel.train_step import (
         create_train_state,
         make_chunked_train_step,
@@ -1824,8 +1837,14 @@ def _run_trainer(args, device: torch.device, heartbeat, guard, chaos=None,
     ))
     state = create_train_state(model, tx, plan)
     state, start_step = _try_resume(args.checkpoint_dir, state, tx, allow_reshape, plan)
+    # One process on CUDA replays a CUDA graph of each step; the CPU, a world
+    # of several processes (gloo cannot be captured; NCCL capture is a later
+    # port) and a multi-slice job (its exchange runs on the host between the
+    # halves of a step) step eagerly. No fallback: a failed capture raises.
+    route, route_why = step_route(device.type, mesh.world, dist_backend, ms_world is not None)
 
-    _emit({"event": "model_ready", "t": time.time()})
+    _emit({"event": "model_ready", "t": time.time(), "step_route": route,
+           "step_route_why": route_why})
     heartbeat.write(start_step, force=True)
     if start_step >= args.steps:
         # Already trained to (or past) the target: a restart is idempotent.
@@ -1853,7 +1872,8 @@ def _run_trainer(args, device: torch.device, heartbeat, guard, chaos=None,
             ck.writer = _CkptWriter(ck.write)
     try:
         step_chunk = make_chunked_train_step(loss_fn, tx, make_batch, device, seed=0,
-                                             remat=args.remat, plan=plan)
+                                             remat=args.remat, plan=plan,
+                                             graphed=route == "graph")
         chunk = max(1, min(args.log_every, args.steps - start_step))
         if args.checkpoint_dir and args.checkpoint_every:
             # Chunk boundaries land on every multiple of --checkpoint-every.
@@ -1930,7 +1950,8 @@ def _run_trainer(args, device: torch.device, heartbeat, guard, chaos=None,
 
         if args.data_dir:
             return _train_on_dataset(args, device, state, start_step, loss_fn, tx, t_start,
-                                     maybe_checkpoint, check_boundary, finish, plan)
+                                     maybe_checkpoint, check_boundary, finish, plan,
+                                     graphed=route == "graph")
         if ms_world is not None:
             from tf_operator_tpu_torch.parallel.train_step import (
                 load_state_tensors,

@@ -12,7 +12,13 @@ Two knobs on `OptimizerConfig`:
 `update` has replacement semantics, as in the JAX package: it returns the
 NEW parameters, not a delta, because deriving bf16 params from the f32
 master is a cast and `p + (new - p)` in low precision need not round back
-to `new`. The trainer copies them into the model's parameters in place.
+to `new`. `update_in_place` is the same arithmetic on the live tensors:
+it bumps the step count, writes mu, nu and the master and copies the new
+parameters into the given ones, so a CUDA graph of a whole train step
+(parallel/graphed_step.py) replays it. The count is an int32 tensor on the
+parameters' device and the f32 bias corrections are computed from it
+there, so a replay never reuses the corrections of the step it captured.
+`update` is `update_in_place` on copies.
 
 Parameters, gradients and moments are flat lists of tensors in the model's
 parameter order. State field order (count, mu, nu, master) is kept. Under
@@ -67,7 +73,7 @@ class OptimizerConfig:
 
 
 class MixedAdamState(NamedTuple):
-    count: int
+    count: torch.Tensor  # int32, 0-dim, on the parameters' device
     mu: list[torch.Tensor]
     nu: list[torch.Tensor]
     master: list[torch.Tensor]  # f32 copies under master_weights, else []
@@ -77,6 +83,23 @@ class MixedPrecisionTransformation(NamedTuple):
     init: Callable[[list[torch.Tensor]], MixedAdamState]
     update: Callable[..., tuple[list[torch.Tensor], MixedAdamState]]
     config: OptimizerConfig
+    update_in_place: Callable[..., None]
+
+
+def bias_corrections(cfg: OptimizerConfig, count: torch.Tensor):
+    """(1 - b1^count, 1 - b2^count) as f32 tensors on count's device, as
+    the JAX update computes them."""
+    c = count.float()
+    return 1.0 - torch.pow(cfg.b1, c), 1.0 - torch.pow(cfg.b2, c)
+
+
+def _divide(x: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """x / d for a bias correction d, rounded as the update rounded it when
+    d was a host float: PyTorch's CUDA division by a host scalar multiplies
+    by the scalar's f32 reciprocal, its CPU division divides. So the card's
+    trajectories stay those of the update before it went on the device (a
+    routing-sensitive model, the MoE, amplifies one ulp into its routing)."""
+    return x * torch.reciprocal(d) if x.is_cuda else x / d
 
 
 def make_optimizer(cfg: OptimizerConfig) -> MixedPrecisionTransformation:
@@ -84,8 +107,9 @@ def make_optimizer(cfg: OptimizerConfig) -> MixedPrecisionTransformation:
         def moments_like(p):
             return torch.zeros_like(p, dtype=cfg.moment_dtype or p.dtype)
 
+        device = params[0].device if params else None
         return MixedAdamState(
-            count=0,
+            count=torch.zeros((), dtype=torch.int32, device=device),
             mu=[moments_like(p) for p in params],
             nu=[moments_like(p) for p in params],
             master=([p.detach().float().clone() for p in params]
@@ -93,32 +117,37 @@ def make_optimizer(cfg: OptimizerConfig) -> MixedPrecisionTransformation:
         )
 
     @torch.no_grad()
-    def update(grads: list[torch.Tensor], state: MixedAdamState,
-               params: list[torch.Tensor]):
-        count = state.count + 1
-        c = torch.tensor(float(count), dtype=torch.float32)
-        # Bias corrections in f32, as the JAX update computes them.
-        bc1 = float(1.0 - torch.tensor(cfg.b1, dtype=torch.float32) ** c)
-        bc2 = float(1.0 - torch.tensor(cfg.b2, dtype=torch.float32) ** c)
+    def update_in_place(grads: list[torch.Tensor], state: MixedAdamState,
+                        params: list[torch.Tensor]) -> None:
+        state.count.add_(1)
+        bc1, bc2 = bias_corrections(cfg, state.count)
         masters = state.master if cfg.master_weights else params
-        new_mu, new_nu, new_master, new_params = [], [], [], []
         for g, mu, nu, p, m in zip(grads, state.mu, state.nu, params, masters):
             g32 = g.float()
             mu32 = cfg.b1 * mu.float() + (1.0 - cfg.b1) * g32
             nu32 = cfg.b2 * nu.float() + (1.0 - cfg.b2) * g32 * g32
-            step = (mu32 / bc1) / (torch.sqrt(nu32 / bc2) + cfg.eps)
+            step = _divide(mu32, bc1) / (torch.sqrt(_divide(nu32, bc2)) + cfg.eps)
             target = m.float()
             if cfg.name == "adamw" and cfg.weight_decay:
                 step = step + cfg.weight_decay * target
             upd = target - cfg.learning_rate * step
-            new_mu.append(mu32.to(mu.dtype))
-            new_nu.append(nu32.to(nu.dtype))
+            mu.copy_(mu32)
+            nu.copy_(nu32)
             if cfg.master_weights:
-                new_master.append(upd)
-            new_params.append(upd.to(p.dtype))
-        return new_params, MixedAdamState(count, new_mu, new_nu, new_master)
+                m.copy_(upd)
+            p.copy_(upd)
 
-    return MixedPrecisionTransformation(init=init, update=update, config=cfg)
+    @torch.no_grad()
+    def update(grads: list[torch.Tensor], state: MixedAdamState,
+               params: list[torch.Tensor]):
+        new = MixedAdamState(*(f.clone() if isinstance(f, torch.Tensor) else
+                               [t.clone() for t in f] for f in state))
+        new_params = [p.detach().clone() for p in params]
+        update_in_place(grads, new, new_params)
+        return new_params, new
+
+    return MixedPrecisionTransformation(init=init, update=update, config=cfg,
+                                        update_in_place=update_in_place)
 
 
 def compute_dtype(tx: MixedPrecisionTransformation) -> torch.dtype | None:
@@ -142,5 +171,6 @@ def state_from_jax(count, mu, nu, master, to_named: Callable[[Any], dict],
         return [named[n].to(device=t.device, dtype=t.dtype) for n, t in zip(names, template)]
 
     return MixedAdamState(
-        count=int(count), mu=carry(mu, like.mu), nu=carry(nu, like.nu),
+        count=torch.tensor(int(count), dtype=torch.int32, device=like.count.device),
+        mu=carry(mu, like.mu), nu=carry(nu, like.nu),
         master=carry(master, like.master) if like.master else [])

@@ -1,0 +1,209 @@
+"""One-process training as CUDA graphs: the counterpart of the JAX
+trainer's compiled step (`make_scanned_train_step`'s chunk on synthetic
+batches, `make_train_step`'s jitted step on a dataset's).
+
+`step_route` is the rule: one process on CUDA replays a captured graph of
+each optimizer step; every other run steps eagerly, for the reason it
+returns. There is no fallback: a capture or a replay that fails raises.
+
+`GraphedStep` runs one step a call. Its first call runs the step eagerly on
+a side stream (the warm-up the PyTorch documentation asks for before a
+capture: cuBLAS handles, workspaces and the flash kernels' shared-memory
+attributes are set up there, outside the graph), which is the step itself,
+so no step runs twice or is skipped; it then captures the step, which
+records the kernels without running them. Every later call replays the
+graph. The step reads and writes only tensors that outlive the call: the
+model's parameters and buffers, the optimizer state (updated in place, its
+count on the device) and the static inputs.
+
+The kernel wrappers count launches in Python (ops/*.LAUNCHES), so a capture
+would count once kernels that never ran and a replay would count nothing.
+`GraphedStep` takes the capture's counts back and adds them again on every
+replay: a counter still says how many times the card ran the kernel.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable
+
+import torch
+
+from tf_operator_tpu_torch.parallel.train_step import TrainState, batch_seed, train_step
+
+
+def step_route(device_type: str, world: int, backend: str | None,
+               multislice: bool) -> tuple[str, str]:
+    """("graph" or "eager", why) for a trainer on `device_type` in a world
+    of `world` processes joined over `backend`, in a multi-slice job or
+    not."""
+    if device_type != "cuda":
+        return "eager", "CUDA graphs exist only on a CUDA device"
+    if multislice:
+        return "eager", ("the multi-slice exchange runs on the host between the "
+                         "halves of a step")
+    if world > 1:
+        if backend == "gloo":
+            return "eager", "gloo's collectives run on the host and cannot be captured"
+        return "eager", (f"a world of {world} processes: the capture of NCCL "
+                         "collectives is not ported yet")
+    return "graph", "one process on CUDA: each step replays one captured CUDA graph"
+
+
+def launch_counters() -> tuple[dict, ...]:
+    """The kernel wrappers' launch counters."""
+    from tf_operator_tpu_torch.ops import flash_attention, fused_bottleneck, grouped_matmul
+
+    return (flash_attention.LAUNCHES, fused_bottleneck.LAUNCHES, grouped_matmul.LAUNCHES,
+            grouped_matmul.ROUTE_LAUNCHES)
+
+
+def counts_since(counters, before) -> list[dict]:
+    """Each counter's increase over its snapshot in `before`."""
+    return [{k: c[k] - b.get(k, 0) for k in c} for c, b in zip(counters, before)]
+
+
+def add_counts(counters, delta) -> None:
+    for c, d in zip(counters, delta):
+        for k, n in d.items():
+            c[k] += n
+
+
+_side_stream = None
+
+
+def _warm_up_stream():
+    """The one side stream of every warm-up in this process: cuBLAS keeps a
+    workspace for each (handle, stream) it has run on until the process
+    ends, so a fresh stream for each trainer run in one process (the
+    in-process runs of chip_smoke.py) would leave one behind each time."""
+    global _side_stream
+    if _side_stream is None:
+        _side_stream = torch.cuda.Stream()
+    return _side_stream
+
+
+class GraphedStep:
+    """step() runs body() once on the card: eagerly at the first call, then
+    captured; a graph replay at every later call. Returns body's metrics
+    (the graph's static tensors after a replay: valid until the next
+    call). `generators` are the CUDA generators body draws from; the
+    default generator is registered by the capture itself."""
+
+    def __init__(self, body: Callable[[], dict], generators=(), counters=None):
+        self.body = body
+        self.generators = tuple(generators)
+        self.counters = launch_counters() if counters is None else counters
+        self.graph = None
+        self.metrics: dict = {}
+        self.recorded: list[dict] = []
+
+    def __call__(self) -> dict:
+        if self.graph is None:
+            metrics = self._warm_up()
+            self._capture()
+            return metrics
+        self.graph.replay()
+        add_counts(self.counters, self.recorded)
+        return self.metrics
+
+    def _warm_up(self) -> dict:
+        current = torch.cuda.current_stream()
+        side = _warm_up_stream()
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            metrics = self.body()
+        current.wait_stream(side)
+        for v in metrics.values():
+            v.record_stream(current)
+        return metrics
+
+    def _capture(self) -> None:
+        before = [dict(c) for c in self.counters]
+        graph = torch.cuda.CUDAGraph()
+        for gen in self.generators:
+            graph.register_generator_state(gen)
+        # The flash and grouped-matmul wrappers build their TMA descriptors on
+        # the host from the operands' addresses and pass them by value
+        # (__grid_constant__), so the graph holds them as they were at the
+        # capture. That is sound only because the graph's private pool gives
+        # every operand the same address on every replay, and the state and
+        # static inputs are never reallocated. Thread-local capture: the
+        # input threads of the --data-dir loop may copy to the card meanwhile.
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            self.metrics = self.body()
+        self.recorded = counts_since(self.counters, before)
+        for c, b in zip(self.counters, before):
+            c.update(b)  # the capture ran nothing
+        self.graph = graph
+
+
+def _same_state(state: TrainState, captured: TrainState) -> None:
+    if state.model is not captured.model or state.opt_state.count is not captured.opt_state.count:
+        raise RuntimeError("the graphed step was captured on another train state")
+
+
+def _reseed(gen: torch.Generator, seed: int, step: int) -> None:
+    gen.manual_seed(batch_seed(seed, step))
+
+
+def graphed_chunks(loss_fn, tx, make_batch: Callable[[torch.Generator], Any], device,
+                   seed: int, plan=None):
+    """make_chunked_train_step's run(state, n, every=None) with each step a
+    GraphedStep: the batch is made inside the graph from one generator,
+    re-seeded on the host before each step with batch_seed(seed, step). A
+    fresh generator and a re-seeded one start at the same Philox offset, so
+    the batches are batch_generator's."""
+    gen = torch.Generator(device=device)
+    held: dict = {}
+
+    def run(state: TrainState, n: int, every: list | None = None):
+        if not held:
+            captured = state
+
+            def body() -> dict:
+                batch = make_batch(gen)
+                if plan is not None:
+                    batch = plan.local_rows(batch)
+                return train_step(captured, batch, loss_fn, tx, plan)[1]
+
+            held.update(state=captured, step=GraphedStep(body, [gen]))
+        _same_state(state, held["state"])
+        metrics = None
+        for _ in range(n):
+            _reseed(gen, seed, state.step)
+            metrics = held["step"]()
+            state = TrainState(state.step + 1, state.model, state.opt_state)
+            if every is not None:
+                every.append({k: v.clone() for k, v in metrics.items()})
+        return state, {k: v.clone() for k, v in metrics.items()}
+
+    return run
+
+
+def graphed_batches(loss_fn, tx, preprocess: Callable[[dict], dict], plan=None):
+    """The --data-dir loop's step(state, batch) -> (state, metrics) as a
+    GraphedStep: each host batch is copied into the graph's static input on
+    the current stream, then the graph (preprocess, then the step) replays.
+    Every batch must have the first one's shapes and dtypes."""
+    static: dict = {}
+    held: dict = {}
+
+    def step(state: TrainState, batch: dict):
+        if not held:
+            static.update({k: v.clone() for k, v in batch.items()})
+            captured = state
+            held.update(state=captured, step=GraphedStep(
+                lambda: train_step(captured, preprocess(static), loss_fn, tx, plan)[1]))
+        else:
+            for k, v in batch.items():
+                if v.shape != static[k].shape or v.dtype != static[k].dtype:
+                    raise ValueError(
+                        f"batch {k!r} is {tuple(v.shape)} {v.dtype}; the graphed step was "
+                        f"captured at {tuple(static[k].shape)} {static[k].dtype}")
+                static[k].copy_(v)
+        _same_state(state, held["state"])
+        metrics = held["step"]()
+        return (TrainState(state.step + 1, state.model, state.opt_state),
+                {k: v.clone() for k, v in metrics.items()})
+
+    return step

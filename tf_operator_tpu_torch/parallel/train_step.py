@@ -3,14 +3,18 @@
 `TrainState` holds the model (its parameters are the compute copy, its
 buffers the model state, such as batch-norm running statistics), the
 optimizer state and the step. `train_step` runs loss, gradients, the
-optimizer update and the gradient norm; the optimizer's replacement
-parameters are copied into the model's parameters in place, so the step
-allocates no second parameter set. The loss runs with the model in train
+optimizer update and the gradient norm; the optimizer updates its state
+and the model's parameters in place (`update_in_place`), so the step
+allocates no second parameter set and a CUDA graph of it replays against
+the live state. The loss runs with the model in train
 mode, so a model with running statistics updates them once per step, as
 the JAX step's `mutable=["batch_stats"]` does. `make_chunked_train_step` is the
-`--log-every` loop: batches are made on the device from a generator seeded
+`--log-every` loop, the counterpart of the JAX `make_scanned_train_step`:
+batches are made on the device from a generator seeded
 from (seed, global step), so how the steps are chunked does not change the
-stream. With `remat=True` the loss runs under a non-reentrant
+stream. With `graphed=True` (one process on CUDA, graphed_step.step_route)
+it captures one step as a CUDA graph and replays it for every later step.
+With `remat=True` the loss runs under a non-reentrant
 torch.utils.checkpoint (the JAX step's `jax.checkpoint(loss_fn)`): the
 forward keeps only its inputs and the backward replays it; a model that
 also remats per block (TransformerConfig.remat_layers) nests its blocks'
@@ -441,6 +445,8 @@ def load_state_tensors(state: TrainState, tensors: dict[str, Any]) -> TrainState
         for key, live in want.items():
             if key.startswith(("params/", "buffers/")):
                 live.copy_(tensors[key])
+        # The live count too: a graph captured on this state reads it.
+        state.opt_state.count.fill_(int(tensors["count"]))
     names = [n for n, _ in state.model.named_parameters()]
 
     def field(name):
@@ -448,7 +454,7 @@ def load_state_tensors(state: TrainState, tensors: dict[str, Any]) -> TrainState
             return [t.copy_(tensors[f"{name}/{n}"])
                     for n, t in zip(names, getattr(state.opt_state, name))]
 
-    opt = optim_lib.MixedAdamState(int(tensors["count"]), field("mu"), field("nu"),
+    opt = optim_lib.MixedAdamState(state.opt_state.count, field("mu"), field("nu"),
                                    field("master"))
     return TrainState(int(tensors["step"]), state.model, opt)
 
@@ -490,11 +496,13 @@ def local_state_tensors(full: dict[str, Any], plan: ParallelPlan) -> dict[str, A
 def train_step(state: TrainState, batch, loss_fn: LossFn,
                tx: optim_lib.MixedPrecisionTransformation,
                plan: ParallelPlan | None = None):
-    """One optimizer step on this rank's rows `batch`; returns (state,
-    {"loss", "grad_norm"}) with the metrics as device scalars (no host sync
-    in one process). Under a plan of several data (or sequence) ranks the
-    loss is weighted to this rank's share of the global loss, and the
-    metrics are the global batch's."""
+    """One optimizer step on this rank's rows `batch`, written into the
+    state's tensors (the model's parameters and buffers, the optimizer
+    state); returns (the state at the next step, {"loss", "grad_norm"})
+    with the metrics as device scalars (no host sync in one process).
+    Under a plan of several data (or sequence) ranks the loss is weighted
+    to this rank's share of the global loss, and the metrics are the
+    global batch's."""
     plan = plan or ParallelPlan()
     params = state.params
     state.model.train()
@@ -502,20 +510,21 @@ def train_step(state: TrainState, batch, loss_fn: LossFn,
     if plan.loss_group is not None:
         loss = loss * plan.loss_weight(batch)
     grads = plan.reduce_grads(list(torch.autograd.grad(loss, params)))
-    new_params, new_opt = tx.update(grads, state.opt_state, params)
-    with torch.no_grad():
-        for p, new in zip(params, new_params):
-            p.copy_(new)
+    tx.update_in_place(grads, state.opt_state, params)
     metrics = {"loss": collectives.all_reduce(loss.detach(), plan.loss_group),
                "grad_norm": plan.global_norm(grads)}
-    return TrainState(state.step + 1, state.model, new_opt), metrics
+    return TrainState(state.step + 1, state.model, state.opt_state), metrics
+
+
+def batch_seed(seed: int, step: int) -> int:
+    """The seed of global step `step`'s batch: it depends on (seed, step)
+    only, never on how the steps are chunked."""
+    return (seed * 0x9E3779B97F4A7C15 + step) % (1 << 63)
 
 
 def batch_generator(seed: int, step: int, device) -> torch.Generator:
-    """The generator of global step `step`'s batch: its seed depends on
-    (seed, step) only, never on how the steps are chunked."""
-    return torch.Generator(device=device).manual_seed(
-        (seed * 0x9E3779B97F4A7C15 + step) % (1 << 63))
+    """The generator of global step `step`'s batch."""
+    return torch.Generator(device=device).manual_seed(batch_seed(seed, step))
 
 
 @contextlib.contextmanager
@@ -550,19 +559,32 @@ def make_chunked_train_step(loss_fn: LossFn,
                             tx: optim_lib.MixedPrecisionTransformation,
                             make_batch: Callable[[torch.Generator], Any],
                             device, seed: int = 0, remat: bool = False,
-                            plan: ParallelPlan | None = None):
-    """run(state, n) -> (state, metrics of the last of its n steps). Under
-    a plan each step trains on this rank's rows of the global batch."""
+                            plan: ParallelPlan | None = None, graphed: bool = False):
+    """run(state, n, every=None) -> (state, metrics of the last of its n
+    steps); with a list `every`, each step's metrics are appended to it.
+    Under a plan each step trains on this rank's rows of the global batch.
+
+    graphed: one generator, re-seeded on the host with batch_seed(seed,
+    step) before each step, makes the batch inside a CUDA graph of the
+    whole step (graphed_step.GraphedStep); the stream of batches is
+    batch_generator's bit for bit. The graph is captured on the first
+    call's state, and every later call must pass that state."""
     if remat:
         loss_fn = remat_loss(loss_fn)
+    if graphed:
+        from tf_operator_tpu_torch.parallel import graphed_step
 
-    def run(state: TrainState, n: int):
+        return graphed_step.graphed_chunks(loss_fn, tx, make_batch, device, seed, plan)
+
+    def run(state: TrainState, n: int, every: list | None = None):
         metrics = None
         for _ in range(n):
             batch = make_batch(batch_generator(seed, state.step, device))
             if plan is not None:
                 batch = plan.local_rows(batch)
             state, metrics = train_step(state, batch, loss_fn, tx, plan)
+            if every is not None:
+                every.append(metrics)
         return state, metrics
 
     return run
@@ -613,10 +635,8 @@ def make_multislice_step_fns(loss_fn: LossFn,
         params = state.params
         grads = [torch.as_tensor(g).to(device=p.device, dtype=p.dtype)
                  for g, p in zip(grads, params)]
-        new_params, new_opt = tx.update(grads, state.opt_state, params)
-        with torch.no_grad():
-            for p, new in zip(params, new_params):
-                p.copy_(new)
-        return TrainState(state.step + 1, state.model, new_opt), plan.global_norm(grads)
+        tx.update_in_place(grads, state.opt_state, params)
+        return (TrainState(state.step + 1, state.model, state.opt_state),
+                plan.global_norm(grads))
 
     return gen_batch, backward, apply
