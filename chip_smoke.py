@@ -175,9 +175,19 @@ Phases, in order:
      last logits must match the port's TransformerLM forward (K1) and each
      decode tick's logits a prefill of the same context (bf16, within
      SERVE_LIMITS, each of SERVE_FAULTS rejected), and f32 greedy chains
-     must equal a naive f32 re-forward; time to ready, prefill and decode
-     tokens/s, tick ms against its bound, request latencies, the cache's
-     bytes and the peak memory are logged;
+     must equal a naive f32 re-forward; on the card the server takes the
+     graph route (serve/decode_graphs.py: its tick and every prefill grid
+     point replay CUDA graphs captured at load), its tick under
+     torch.profiler (beside the eager decode_step's) must show one
+     cudaGraphLaunch a tick and no kernel launched outside the graph
+     (tick_census), and the serve graph check holds the graphed tick
+     (SERVE_GRAPH_TICKS at every slot, then 4 with one slot parked at 0)
+     and the graphed prefill at SERVE_GRAPH_POINTS bit-equal to the eager
+     functions from the same cache state, before and after a swap to
+     perturbed weights, with each of SERVE_GRAPH_FAULTS failing by its
+     name; time to ready, prefill and decode tokens/s, tick ms against its
+     bound (graphed and eager), request latencies, the cache's bytes, the
+     peak memory and a swap's copy time are logged;
  15. multi-slice (multislice): the LM (train phase's argv at
      MS_REWIND_LAYERS = 4 layers, every step logged) as 2 slices, one
      process a slice on the card, each a one-rank world with
@@ -3363,15 +3373,20 @@ def reference_answers(ckpt_dir, cell: ServeCell, rows, max_new: int) -> dict:
     try:
         if dev.type == "cuda":
             torch.cuda.synchronize()
+            torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
             base = torch.cuda.memory_allocated()
+            base_reserved = torch.cuda.memory_reserved()
         srv = srv_mod.InferenceServer(
             "transformer-lm", str(ckpt_dir), 0, batch_max=cell.batch_max,
             batch_timeout_ms=5.0, max_seq_len=cell.seq, max_new_tokens=cell.max_new,
             max_slots=cell.slots, device=cell.device)
+        t0 = time.perf_counter()
         srv.load()
+        load_s = time.perf_counter() - t0
     finally:
         os.environ.pop("TPUJOB_SERVE_NUM_HEADS", None)
+    fns = {"prefill_fn": srv._prefill_fn, "decode_fn": srv._decode_fn}
     margins: dict = {}  # slot -> the top-2 margins of its chain so far
     times = {"prefill": [], "tick": []}
 
@@ -3414,45 +3429,31 @@ def reference_answers(ckpt_dir, cell: ServeCell, rows, max_new: int) -> dict:
     row_margins = [None] * len(rows)
     for slot, i in enumerate(order):
         row_margins[i] = margins[slot][:max_new]
-    peak = torch.cuda.max_memory_allocated() - base if dev.type == "cuda" else None
-    return {"answers": item.result, "margins": row_margins, "times": times,
-            "peak_bytes": peak, "kv_bytes": sum(t.numel() * t.element_size() for t in srv._kv),
-            "cfg": srv._decode_cfg, "params": srv._live[0], "kv": srv._kv}
+    cuda = dev.type == "cuda"
+    return {"answers": item.result, "margins": row_margins, "times": times, "load_s": load_s,
+            "peak_bytes": torch.cuda.max_memory_allocated() - base if cuda else None,
+            "peak_reserved_bytes": torch.cuda.max_memory_reserved() - base_reserved
+            if cuda else None,
+            "kv_bytes": sum(t.numel() * t.element_size() for t in srv._kv),
+            "cfg": srv._decode_cfg, "params": srv._live[0], "kv": srv._kv,
+            "route": getattr(srv, "route", "eager"), "graphs": getattr(srv, "_graphs", None),
+            **fns}
 
 
-def device_profile(ref: dict, cell: ServeCell, rows, ticks: int = 10) -> dict:
-    """On the server's weights and cache, in this process: three more
-    synchronised prefills of `rows` at the bucket the server gave them
-    (their seconds, `prefill_s`), then `ticks` decode ticks under
-    torch.profiler, each ending in the host copy of its next tokens as the
-    scheduler's does, every slot at mid-window (`tick`: the device's busy
-    ms a tick, the idle share of the window from the first kernel's start
-    to the last one's end, device launches a tick, the longest kernels)."""
-    import numpy as np
+def _tick_profile(fn, params, k, v, last, positions, ticks: int) -> tuple[dict, list, list]:
+    """`ticks` calls of a tick function under torch.profiler, each ending in
+    the host copy of its next tokens as the scheduler's does: the device's
+    busy ms a tick, the idle share of the window from the first device
+    event's start to the last one's end, device events a tick, the longest
+    kernels; and the profiler's raw device and host runtime events."""
     import torch
     from torch.profiler import DeviceType, ProfilerActivity, profile
 
-    from tf_operator_tpu_torch.models import decode
-    from tf_operator_tpu_torch.serve.server import select_bucket, seq_bucket_sizes
-
-    params, (k, v), cfg = ref["params"], ref["kv"], ref["cfg"]
-    rows = sorted(rows, key=len)
-    tokens, lengths = _padded(rows, select_bucket(len(rows[-1]), seq_bucket_sizes(cell.seq)),
-                              "cpu")
-    prefill_s = []
-    with torch.inference_mode():
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            decode.prefill_into_slots(params, k, v, tokens, lengths, list(range(len(rows))),
-                                      cfg)[2].cpu()
-            prefill_s.append(time.perf_counter() - t0)
-        last = np.arange(cell.slots + 1) + 100
-        positions = np.array([cell.seq // 2] * cell.slots + [0])
-        decode.decode_step(params, k, v, last, positions, cfg)[2].cpu()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(ticks):
-                decode.decode_step(params, k, v, last, positions, cfg)[2].cpu()
+    fn(params, k, v, last, positions)[2].cpu()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(ticks):
+            fn(params, k, v, last, positions)[2].cpu()
+    torch.cuda.synchronize()
     events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
                     key=lambda e: e.time_range.start)
     window = (max(e.time_range.end for e in events) - events[0].time_range.start) / 1e3
@@ -3461,10 +3462,273 @@ def device_profile(ref: dict, cell: ServeCell, rows, ticks: int = 10) -> dict:
         ms = (e.time_range.end - e.time_range.start) / 1e3
         by_name[e.name[:80]] = by_name.get(e.name[:80], 0.0) + ms / ticks
     busy = sum(by_name.values()) * ticks
-    return {"prefill_s": prefill_s, "tick": {
-        "device_ms_per_tick": busy / ticks, "window_ms_per_tick": window / ticks,
-        "idle_share": 1.0 - busy / window, "launches_per_tick": len(events) / ticks,
-        "top_kernels_ms_per_tick": dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:6])}}
+    raw = prof.profiler.kineto_results.events()
+    device = [(e.name(), e.start_ns(), e.correlation_id()) for e in raw
+              if e.device_type() == DeviceType.CUDA]
+    host = [(e.name(), e.correlation_id()) for e in raw
+            if e.device_type() == DeviceType.CPU and e.name().startswith(("cuda", "cu"))]
+    return ({"device_ms_per_tick": busy / ticks, "window_ms_per_tick": window / ticks,
+             "idle_share": 1.0 - busy / window, "launches_per_tick": len(events) / ticks,
+             "top_kernels_ms_per_tick": dict(sorted(by_name.items(),
+                                                    key=lambda kv: -kv[1])[:6])},
+            device, host)
+
+
+COPY_EVENTS = ("Memcpy", "Memset")
+
+
+def tick_census(device: list, host: list, ticks: int) -> dict:
+    """Which host call launched the device work of `ticks` profiled ticks
+    (_tick_profile's raw events: device events as (name, start, correlation
+    id), host runtime calls as (name, correlation id)): each host call's
+    count a tick; the cudaGraphLaunch calls (the host records, and the
+    correlation ids of kernels whose host record the profile lacks); and
+    the device kernels (not copies) by the host call behind them,
+    "unattributed" where the profile holds none. Counted over the whole
+    profile, not cut into whole ticks by a marker as launch_census cuts a
+    trainer's steps: a profile may miss events (one of a default run's held
+    6563 device events for 10 ticks of 661)."""
+    runtime = {corr: name for name, corr in host}
+    calls: dict[str, int] = {}
+    for name, _ in host:
+        calls[name] = calls.get(name, 0) + 1
+    kernels: dict[str, int] = {}
+    graphs = {corr for name, corr in host if name == GRAPH_LAUNCH}
+    for name, _, corr in device:
+        if name.startswith(COPY_EVENTS):
+            continue
+        api = runtime.get(corr, "unattributed")
+        kernels[api] = kernels.get(api, 0) + 1
+        if api == "unattributed":
+            graphs.add(corr)
+    return {"ticks": ticks, "graph_launches": len(graphs),
+            "device_events_per_tick": len(device) / ticks,
+            "host_calls_per_tick": {k: n / ticks for k, n in calls.items()},
+            "kernels_by_launch_api": kernels}
+
+
+def tick_census_failures(census: dict) -> list[str]:
+    """A graphed tick: one cudaGraphLaunch a tick, and no kernel launched
+    by any other host call (the static inputs' and the next tokens' copies
+    aside; a kernel whose host record the profile lacks is not counted
+    against it)."""
+    fails = []
+    if census["graph_launches"] != census["ticks"]:
+        fails.append(f"{census['graph_launches']} cudaGraphLaunch calls over "
+                     f"{census['ticks']} ticks")
+    other = {api: n for api, n in census["kernels_by_launch_api"].items()
+             if api not in (GRAPH_LAUNCH, "unattributed")}
+    if other:
+        fails.append(f"kernels launched outside the graph: {other}")
+    return fails
+
+
+def device_profile(ref: dict, cell: ServeCell, rows, ticks: int = 10) -> dict:
+    """On the server's weights and cache, in this process, the server's own
+    decode functions (ref's prefill_fn and decode_fn: the graphed ones on
+    the graph route) beside the eager models/decode.py functions: three
+    synchronised prefills of `rows` at the bucket the server gave them with
+    each (their seconds, `prefill_s`), 20 synchronised ticks of each in
+    turn, every slot at mid-window (`tick_ms`), then `ticks` ticks of each
+    under torch.profiler (_tick_profile: `tick` the server's, `eager_tick`)
+    and, on the graph route, the server's tick census (tick_census)."""
+    import functools
+
+    import numpy as np
+    import torch
+
+    from tf_operator_tpu_torch.models import decode
+    from tf_operator_tpu_torch.serve.server import select_bucket, seq_bucket_sizes
+
+    params, (k, v), cfg = ref["params"], ref["kv"], ref["cfg"]
+    fns = {"server": (ref["prefill_fn"], ref["decode_fn"]),
+           "eager": (functools.partial(decode.prefill_into_slots, cfg=cfg),
+                     functools.partial(decode.decode_step, cfg=cfg))}
+    rows = sorted(rows, key=len)
+    tokens, lengths = _padded(rows, select_bucket(len(rows[-1]), seq_bucket_sizes(cell.seq)),
+                              "cpu")
+    ids = list(range(len(rows)))
+    prefill_s = {kind: [] for kind in fns}
+    tick_ms = {kind: [] for kind in fns}
+    last = np.arange(cell.slots + 1) + 100
+    positions = np.array([cell.seq // 2] * cell.slots + [0])
+    out = {"census": None}
+    with torch.inference_mode():
+        for _ in range(3):
+            for kind, (prefill_fn, _) in fns.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                prefill_fn(params, k, v, tokens, lengths, ids)[2].cpu()
+                prefill_s[kind].append(time.perf_counter() - t0)
+        for _ in range(20):
+            for kind, (_, tick_fn) in fns.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                tick_fn(params, k, v, last, positions)[2].cpu()
+                tick_ms[kind].append((time.perf_counter() - t0) * 1e3)
+        for kind, (_, tick_fn) in fns.items():
+            out[kind], device, host = _tick_profile(tick_fn, params, k, v, last, positions,
+                                                    ticks)
+            if kind == "server" and ref["route"] == "graph":
+                out["census"] = tick_census(device, host, ticks)
+    return {"prefill_s": prefill_s, "tick_ms": tick_ms, "tick": out["server"],
+            "eager_tick": out["eager"], "tick_census": out["census"]}
+
+
+# The serve graph check: the grid points held (the smallest, one between,
+# the largest), the ticks at every slot before one slot is parked, and the
+# planted faults, each (what it breaks, its name in
+# planted_serve_graph_fault, the first word of the failures that must name
+# it).
+SERVE_GRAPH_POINTS = ((1, 16), (4, 256), (8, 2048))
+SERVE_GRAPH_TICKS = 16
+SERVE_GRAPH_FAULTS = (("a swap that does not copy into the captured parameters",
+                       "no-swap-copy", "swap"),
+                      ("a tick whose positions are not copied into its static input",
+                       "stale-positions", "tick"))
+
+
+@contextlib.contextmanager
+def planted_serve_graph_fault(fault: str):
+    """no-swap-copy: GraphedDecode.adopt hands back the captured dict
+    without copying the new weights into it. stale-positions: the tick's
+    positions are left out of its pinned staging buffer, so the static
+    input keeps the previous tick's."""
+    from tf_operator_tpu_torch.serve import decode_graphs
+
+    if fault == "no-swap-copy":
+        real = decode_graphs.GraphedDecode.adopt
+        decode_graphs.GraphedDecode.adopt = lambda self, new: self.params
+        try:
+            yield
+        finally:
+            decode_graphs.GraphedDecode.adopt = real
+    elif fault == "stale-positions":
+        real = decode_graphs.stage
+
+        def stage(static, values):
+            real(static, {k: a for k, a in values.items() if k != "positions"})
+
+        decode_graphs.stage = stage
+        try:
+            yield
+        finally:
+            decode_graphs.stage = real
+    else:
+        raise ValueError(f"unknown serve graph fault {fault!r}")
+
+
+def serve_graph_run(graphs, points, ticks: int = SERVE_GRAPH_TICKS, seed: int = 4,
+                    record: dict | None = None) -> list[str]:
+    """The graphed prefill and tick of a loaded server (its GraphedDecode)
+    against the eager decode.prefill_into_slots and decode_step on a copy
+    of the same cache: prefills at each of `points` (rows, tokens), the
+    last filling every slot but the scratch (the rest padded into it);
+    `ticks` ticks over those slots with the scratch parked at position 0,
+    then 4 with the first active slot retired and parked there too; then a swap to
+    perturbed weights (the graph's through GraphedDecode.adopt, as the
+    server's dispatch thread swaps, the eager side's the new dict), the
+    last point prefilled again and 4 ticks. Returns the failures, each
+    named by its step (`prefill (r, t)`, `tick i`, `swap: ...`): next
+    tokens, logits or a cache not bit-equal. The captured weights are
+    restored at the end. `record` gets the swap's copy ms."""
+    import numpy as np
+    import torch
+
+    from tf_operator_tpu_torch.models import decode
+
+    params, cfg, k, v = graphs.params, graphs.cfg, graphs.k, graphs.v
+    slots, window = k.shape[1], k.shape[3]
+    scratch = slots - 1
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=k.device).manual_seed(seed)
+    ek, ev = k.clone(), v.clone()
+    fails: list[str] = []
+
+    def held(what, got, want):
+        for name, a, b in (("next tokens", got[2], want[2]), ("logits", got[3], want[3])):
+            if not torch.equal(a, b):
+                fails.append(f"{what}: {name} differ (max |d| "
+                             f"{float((a.float() - b.float()).abs().max()):.4g})")
+        for name, a, b in (("K", k, ek), ("V", v, ev)):
+            if not torch.equal(a, b):
+                fails.append(f"{what}: the {name} cache differs")
+
+    def prefill(eager_params, rb, tb, top, prefix):
+        n = min(rb, scratch)
+        lengths = np.ones(rb, np.int64)
+        lengths[:n] = rng.integers(1, min(tb, top) + 1, n)
+        tokens = np.zeros((rb, tb), np.int64)
+        for i in range(n):
+            tokens[i, :lengths[i]] = rng.integers(0, cfg.vocab_size, lengths[i])
+        ids = np.full(rb, scratch, np.int64)
+        ids[:n] = rng.permutation(scratch)[:n]
+        got = graphs.prefill(params, k, v, tokens, lengths, ids)
+        want = decode.prefill_into_slots(eager_params, ek, ev, tokens, lengths, ids, cfg)
+        held(f"{prefix}prefill ({rb}, {tb})", got, want)
+        last = np.zeros(slots, np.int64)
+        pos = np.zeros(slots, np.int64)
+        last[ids[:n]] = want[2][:n].cpu().numpy()
+        pos[ids[:n]] = lengths[:n]
+        return last, pos
+
+    def tick(eager_params, last, pos, n, prefix, park=None):
+        for i in range(n):
+            if park is not None and i == n - 4:
+                last[park] = pos[park] = 0
+            got = graphs.decode(params, k, v, last, pos)
+            want = decode.decode_step(eager_params, ek, ev, last, pos, cfg)
+            held(f"{prefix}tick {i + 1}", got, want)
+            active = pos > 0
+            last = np.where(active, want[2].cpu().numpy(), 0)
+            pos = np.where(active, pos + 1, 0)
+
+    top = window - ticks - 6
+    with torch.inference_mode():
+        for rb, tb in points:
+            last, pos = prefill(params, rb, tb, top, "")
+        tick(params, last, pos, ticks + 4, "", park=int(np.flatnonzero(pos)[0]))
+        kept = {name: t.clone() for name, t in params.items()}
+        new = {name: (t.float() + 0.02 * t.float().std()
+                      * torch.randn(t.shape, generator=gen, device=t.device)).to(t.dtype)
+               for name, t in params.items()}
+        if k.is_cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if graphs.adopt(new) is not params:
+            fails.append("swap: adopt did not hand back the captured dict")
+        if k.is_cuda:
+            torch.cuda.synchronize()
+        if record is not None:
+            record["swap_copy_ms"] = (time.perf_counter() - t0) * 1e3
+            record["swap_bytes"] = sum(t.numel() * t.element_size() for t in params.values())
+        rb, tb = points[-1]
+        last, pos = prefill(new, rb, tb, top, "swap: ")
+        tick(new, last, pos, 4, "swap: ")
+        graphs.adopt(kept)
+    return fails
+
+
+def serve_graph_check(graphs, card: str) -> dict:
+    """The serve graph check (module docstring, phase 14): the sound run,
+    then each planted fault, which must fail by its name."""
+    record: dict = {}
+    fails = serve_graph_run(graphs, SERVE_GRAPH_POINTS, record=record)
+    if fails:
+        raise SmokeFailure("serve graph check: the graphed decode differs from the eager "
+                           "functions: " + "; ".join(fails[:6]))
+    faults = {}
+    for label, fault, must in SERVE_GRAPH_FAULTS:
+        with planted_serve_graph_fault(fault):
+            got = serve_graph_run(graphs, SERVE_GRAPH_POINTS)
+        if not any(f.startswith(must) for f in got):
+            raise SmokeFailure(f"serve graph check: the planted fault '{label}' was not "
+                               f"rejected by '{must}': {got[:4]}")
+        faults[fault] = {"failures": len(got), "first": got[:2]}
+    res = {"points": [list(p) for p in SERVE_GRAPH_POINTS], "ticks": SERVE_GRAPH_TICKS + 4,
+           "bit_equal": True, "faults_rejected": faults, **record, "card": card}
+    log("serve graph: " + json.dumps(res))
+    return res
 
 
 def held_answers(got, want, margins, tol: float = SERVE_MARGIN) -> dict:
@@ -3523,12 +3787,13 @@ def _percentile(xs, q: float) -> float:
     return xs[min(len(xs) - 1, int(len(xs) * q))]
 
 
-def run_server(cell: ServeCell, ckpt_dir, a_rows, b_reqs) -> dict:
+def run_server(cell: ServeCell, ckpt_dir, a_rows, b_reqs, tree: Path = ROOT) -> dict:
     """The server as a pod runs it (`python -m
-    tf_operator_tpu_torch.serve.server` with the controller's env): time to
-    ready; request a (the rows, a_new tokens) and then b (concurrent
-    single rows); SIGTERM, which must drain to exit 0 with a done event.
-    Fails on any answer that is not a 200 with its full token count."""
+    tf_operator_tpu_torch.serve.server` with the controller's env, from the
+    checkout `tree`): time to ready; request a (the rows, a_new tokens) and
+    then b (concurrent single rows); SIGTERM, which must drain to exit 0
+    with a done event. Fails on any answer that is not a 200 with its full
+    token count."""
     import urllib.request
     from concurrent.futures import ThreadPoolExecutor as Pool
 
@@ -3538,11 +3803,11 @@ def run_server(cell: ServeCell, ckpt_dir, a_rows, b_reqs) -> dict:
         f.unlink(missing_ok=True)
     port = free_port()
     env = dict(os.environ, **serve_env(cell, ckpt_dir, port, files),
-               PYTHONPATH=str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+               PYTHONPATH=str(tree) + os.pathsep + os.environ.get("PYTHONPATH", ""))
     t0 = time.perf_counter()
     with open(files["log"], "w") as logf:
         proc = subprocess.Popen([sys.executable, "-m", "tf_operator_tpu_torch.serve.server"],
-                                cwd=ROOT, env=env, stdout=logf, stderr=subprocess.STDOUT)
+                                cwd=tree, env=env, stdout=logf, stderr=subprocess.STDOUT)
     try:
         ready_s = None
         while time.perf_counter() - t0 < 300 and proc.poll() is None:
@@ -3621,8 +3886,10 @@ def serve_phase(card: str, cell: ServeCell = SERVE) -> dict:
     if held["mismatch"] is not None:
         raise SmokeFailure(f"the server's answers to a differ from the in-process chains: {held}")
     prefill_first_s = ref["times"]["prefill"][-1]  # the server's own call
+    if cell.device == "cuda" and ref["route"] != "graph":
+        raise SmokeFailure(f"the server on CUDA took the {ref['route']} route")
     prof = device_profile(ref, cell, a_rows) if cell.device == "cuda" else None
-    prefill_s = sum(prof["prefill_s"]) / 3 if prof else prefill_first_s
+    prefill_s = sum(prof["prefill_s"]["server"]) / 3 if prof else prefill_first_s
     ticks = ref["times"]["tick"]
     tick_ms = sorted(t * 1e3 for t in ticks)
     bound_bytes = tick_bound_bytes(ref["params"], ref["cfg"], cell.slots + 1, cell.seq)
@@ -3639,12 +3906,22 @@ def serve_phase(card: str, cell: ServeCell = SERVE) -> dict:
             "served_total", "decode_steps", "tokens_total", "pad_efficiency",
             "latency_p50_ms", "latency_p99_ms")},
         "kv_bytes": ref["kv_bytes"], "peak_bytes": ref["peak_bytes"],
-        "answers_held": held,
+        "peak_reserved_bytes": ref["peak_reserved_bytes"], "load_s": ref["load_s"],
+        "route": ref["route"], "answers_held": held,
     }
     if prof:
-        rec["tick_profile"] = prof["tick"]
-        log(f"serve: prefill repeats {prof['prefill_s']} s; tick under torch.profiler: "
-            f"{json.dumps(prof['tick'])} [{card}]")
+        census = prof["tick_census"]
+        rec.update(tick_profile=prof["tick"], eager_tick_profile=prof["eager_tick"],
+                   tick_census=census, repeats={"prefill_s": prof["prefill_s"],
+                                                "tick_ms": prof["tick_ms"]})
+        log(f"serve: prefill repeats (server, eager) {prof['prefill_s']} s; ticks in turn "
+            f"(server, eager) {prof['tick_ms']} ms; the server's tick under torch.profiler: "
+            f"{json.dumps(prof['tick'])}; the eager tick: {json.dumps(prof['eager_tick'])}; "
+            f"census {json.dumps(census)} [{card}]")
+        fails = tick_census_failures(census)
+        if fails:
+            raise SmokeFailure("serve: the server's tick is not one graph: " + "; ".join(fails))
+        rec["graph_check"] = serve_graph_check(ref["graphs"], card)
     del ref
     host = ckpt.restore(ckpt_dir, ckpt.latest_valid_checkpoint(ckpt_dir))
     before = fa.LAUNCHES["fwd"]

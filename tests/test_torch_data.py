@@ -204,10 +204,14 @@ class TestPrefetch:
 
     def test_stats_measure_overlap(self, tmp_path):
         d, _, _ = _dataset(tmp_path)
+
+        def paced():  # a producer of known cost, 20 ms a batch
+            for batch in dataset.ShardedDataset(d).batches(16, seed=None, loop=False):
+                time.sleep(0.02)
+                yield batch
+
         stats: dict = {}
-        for _ in prefetch.prefetch_to_device(
-                dataset.ShardedDataset(d).batches(16, seed=None, loop=False), depth=2,
-                stats=stats):
+        for _ in prefetch.prefetch_to_device(paced(), depth=2, stats=stats):
             time.sleep(0.05)  # "compute" dominates: the transfers hide
         assert stats["batches_consumed"] == 4 and stats["input_s"] > 0
         eff = prefetch.overlap_efficiency(stats)

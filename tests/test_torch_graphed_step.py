@@ -268,7 +268,7 @@ def fake_cuda(monkeypatch):
     fake = _FakeCuda()
 
     @contextlib.contextmanager
-    def graph(g, capture_error_mode=None):
+    def graph(g, pool=None, capture_error_mode=None):
         fake.graphs.append(g)
         saved = [t.detach().clone() for t in fake.kept]
         yield

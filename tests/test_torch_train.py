@@ -437,6 +437,7 @@ def test_import_hygiene_in_a_fresh_process():
         "assert {'tf_operator_tpu_torch.models.moe',\n"
         "        'tf_operator_tpu_torch.ops.grouped_matmul'} <= set(names), names\n"
         "assert {'tf_operator_tpu_torch.serve.server', 'tf_operator_tpu_torch.models.decode',\n"
+        "        'tf_operator_tpu_torch.serve.decode_graphs',\n"
         "        'tf_operator_tpu_torch.status.metrics'} <= set(names), names\n"
         "for name in names:\n"
         "    __import__(name)\n"
@@ -458,7 +459,7 @@ def test_import_hygiene_ast_scan():
                  "ring_attention", "ulysses", "multislice", "pipeline", "launch"):
         assert ROOT / "tf_operator_tpu_torch" / "parallel" / f"{name}.py" in files
     for name in ("models/moe.py", "ops/grouped_matmul.py", "serve/server.py", "models/decode.py",
-                 "status/metrics.py"):
+                 "serve/decode_graphs.py", "status/metrics.py"):
         assert ROOT / "tf_operator_tpu_torch" / name in files
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):

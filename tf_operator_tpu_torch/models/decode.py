@@ -32,6 +32,15 @@ the ones given). Slot ids and positions are host values (numpy arrays,
 sequences or CPU tensors): they are checked on the host, since an index out
 of range on a CUDA tensor is a device-side assert that poisons the
 context.
+
+Each public function is a host part and a device body. The host part checks
+the index arguments (`check_slot_ids`, `check_positions`) and moves the
+inputs to the device; the body (`prefill_body`, `prefill_into_slots_body`,
+`decode_step_body`) reads only device tensors: the parameters, the cache,
+int64 tokens, lengths, slot ids and positions, and the score scale
+(`score_scale`). A body copies nothing from the host, so the serving graphs
+(serve/decode_graphs.py) capture it over static inputs and give the public
+function's bits.
 """
 
 from __future__ import annotations
@@ -130,12 +139,13 @@ def _layernorm(params, name: str, x: torch.Tensor) -> torch.Tensor:
     return (y * params[f"{name}.weight"].float() + params[f"{name}.bias"].float()).to(x.dtype)
 
 
-def _score_scale(cfg: TransformerConfig, device) -> torch.Tensor:
-    """sqrt(head_dim) computed in f32, rounded to the compute dtype."""
+def score_scale(cfg: TransformerConfig, device) -> torch.Tensor:
+    """sqrt(head_dim) computed in f32, rounded to the compute dtype, on
+    `device` (a host copy: made once by a caller that captures a body)."""
     return torch.tensor(math.sqrt(cfg.head_dim), dtype=torch.float32).to(cfg.dtype).to(device)
 
 
-def _host_index(x, name: str) -> np.ndarray:
+def host_index(x, name: str) -> np.ndarray:
     """A host int64 array of an index argument (numpy, sequence or CPU
     tensor); a CUDA tensor is refused, since checking it would wait for
     the device."""
@@ -144,6 +154,32 @@ def _host_index(x, name: str) -> np.ndarray:
             raise ValueError(f"{name} must be a host array, got a {x.device} tensor")
         x = x.numpy()
     return np.asarray(x, dtype=np.int64)
+
+
+def check_slot_ids(slot_ids, slots: int) -> np.ndarray:
+    """The host part of a slot write: `slot_ids` as host int64, each in
+    [0, slots), and none repeated but the scratch slot (the cache's last,
+    slots - 1), because a repeated index has no defined write order on
+    CUDA."""
+    ids = host_index(slot_ids, "slot_ids")
+    scratch = slots - 1
+    if ids.size and (ids.min() < 0 or ids.max() > scratch):
+        raise ValueError(f"slot ids {ids.tolist()} outside [0, {scratch}]")
+    real = ids[ids != scratch]
+    if len(np.unique(real)) != len(real):
+        raise ValueError(f"slot ids {ids.tolist()} repeat a slot other than the "
+                         f"scratch slot {scratch}")
+    return ids
+
+
+def check_positions(positions, max_len: int) -> np.ndarray:
+    """The host part of a decode tick: `positions` as host int64, each in
+    the cache's [0, max_len)."""
+    pos = host_index(positions, "positions")
+    if pos.size and (pos.min() < 0 or pos.max() >= max_len):
+        raise ValueError(f"decode positions {pos.tolist()} outside the cache's "
+                         f"[0, {max_len})")
+    return pos
 
 
 def last_index(lengths: torch.Tensor) -> torch.Tensor:
@@ -179,15 +215,22 @@ def prefill(params, tokens, lengths, cfg: TransformerConfig):
     LAST real position). Padding rows and positions produce garbage K/V
     past `lengths`, which decode never reads: it masks by position, and
     slot reuse overwrites from 0."""
+    device = params["trunk.embed.weight"].device
+    return prefill_body(params, torch.as_tensor(tokens, device=device).long(),
+                        torch.as_tensor(lengths, device=device).long(),
+                        score_scale(cfg, device), cfg)
+
+
+def prefill_body(params, tokens: torch.Tensor, lengths: torch.Tensor, scale: torch.Tensor,
+                 cfg: TransformerConfig):
+    """prefill's device body: tokens [rows, T] and lengths [rows] int64 and
+    `scale` (score_scale) on the parameters' device."""
     dtype = cfg.dtype
     embed = params["trunk.embed.weight"]
     device = embed.device
-    tokens = torch.as_tensor(tokens, device=device).long()
-    lengths = torch.as_tensor(lengths, device=device).long()
     rows, t = tokens.shape
     x = F.embedding(tokens, embed).to(dtype)
     x = x + params["trunk.pos_embed.weight"][:t].to(dtype)[None]
-    scale = _score_scale(cfg, device)
     mask = torch.ones((t, t), dtype=torch.bool, device=device).tril()
 
     def heads(a):  # [B, T, H*D] -> [B, H, T, D]
@@ -220,30 +263,42 @@ def write_slots(k_cache, v_cache, k_chunk, v_chunk, slot_ids):
     """Write a prefill chunk's K/V ([L, rows, H, T, D]) into cache slots
     `slot_ids` ([rows], host ints) at token positions [0, T), in place.
     The scheduler pads short chunks by repeating its scratch slot (the
-    cache's last): only that slot may repeat, because a repeated index has
-    no defined write order on CUDA."""
-    ids = _host_index(slot_ids, "slot_ids")
-    scratch = k_cache.shape[1] - 1
-    if ids.size and (ids.min() < 0 or ids.max() > scratch):
-        raise ValueError(f"slot ids {ids.tolist()} outside [0, {scratch}]")
-    real = ids[ids != scratch]
-    if len(np.unique(real)) != len(real):
-        raise ValueError(f"slot ids {ids.tolist()} repeat a slot other than the "
-                         f"scratch slot {scratch}")
+    cache's last): only that slot may repeat (check_slot_ids)."""
+    ids = check_slot_ids(slot_ids, k_cache.shape[1])
+    write_slots_body(k_cache, v_cache, k_chunk, v_chunk,
+                     torch.as_tensor(ids, device=k_cache.device))
+    return k_cache, v_cache
+
+
+def write_slots_body(k_cache, v_cache, k_chunk, v_chunk, idx: torch.Tensor) -> None:
+    """write_slots' device body: `idx` the checked slot ids, int64 on the
+    cache's device."""
     t = k_chunk.shape[3]
-    idx = torch.as_tensor(ids, device=k_cache.device)
     k_cache[:, idx, :, :t, :] = k_chunk
     v_cache[:, idx, :, :t, :] = v_chunk
-    return k_cache, v_cache
 
 
 def prefill_into_slots(params, k_cache, v_cache, tokens, lengths, slot_ids,
                        cfg: TransformerConfig):
     """Prefill + slot write: one call per admission chunk. Returns (k_cache,
     v_cache, next_tokens [rows] int32, last_logits [rows, vocab] f32)."""
-    k_chunk, v_chunk, next_tokens, logits = prefill(params, tokens, lengths, cfg)
-    k_cache, v_cache = write_slots(k_cache, v_cache, k_chunk, v_chunk, slot_ids)
+    ids = check_slot_ids(slot_ids, k_cache.shape[1])
+    device = params["trunk.embed.weight"].device
+    next_tokens, logits = prefill_into_slots_body(
+        params, k_cache, v_cache, torch.as_tensor(tokens, device=device).long(),
+        torch.as_tensor(lengths, device=device).long(), torch.as_tensor(ids, device=device),
+        score_scale(cfg, device), cfg)
     return k_cache, v_cache, next_tokens, logits
+
+
+def prefill_into_slots_body(params, k_cache, v_cache, tokens: torch.Tensor,
+                            lengths: torch.Tensor, idx: torch.Tensor, scale: torch.Tensor,
+                            cfg: TransformerConfig):
+    """prefill_into_slots' device body over checked int64 device inputs:
+    the caches updated in place; returns (next_tokens, last_logits)."""
+    k_chunk, v_chunk, next_tokens, logits = prefill_body(params, tokens, lengths, scale, cfg)
+    write_slots_body(k_cache, v_cache, k_chunk, v_chunk, idx)
+    return next_tokens, logits
 
 
 def decode_step(params, k_cache, v_cache, tokens, positions, cfg: TransformerConfig):
@@ -257,28 +312,31 @@ def decode_step(params, k_cache, v_cache, tokens, positions, cfg: TransformerCon
 
     Returns (k_cache, v_cache, next_tokens [slots] int32, logits [slots,
     vocab] f32); the caches are the ones given, updated in place."""
+    pos = check_positions(positions, k_cache.shape[3])
+    device = params["trunk.embed.weight"].device
+    next_tokens, logits = decode_step_body(
+        params, k_cache, v_cache, torch.as_tensor(tokens, device=device).long(),
+        torch.as_tensor(pos, device=device), score_scale(cfg, device), cfg)
+    return k_cache, v_cache, next_tokens, logits
+
+
+def decode_step_body(params, k_cache, v_cache, tokens: torch.Tensor, positions: torch.Tensor,
+                     scale: torch.Tensor, cfg: TransformerConfig):
+    """decode_step's device body over int64 device tokens and checked
+    positions: the caches updated in place; returns (next_tokens, logits)."""
     dtype = cfg.dtype
-    embed = params["trunk.embed.weight"]
-    device = embed.device
     max_len = k_cache.shape[3]
-    pos_host = _host_index(positions, "positions")
-    if pos_host.size and (pos_host.min() < 0 or pos_host.max() >= max_len):
-        raise ValueError(f"decode positions {pos_host.tolist()} outside the cache's "
-                         f"[0, {max_len})")
-    tokens = torch.as_tensor(tokens, device=device).long()
-    positions = torch.as_tensor(pos_host, device=device)
     slots = tokens.shape[0]
-    x = F.embedding(tokens, embed).to(dtype)
+    x = F.embedding(tokens, params["trunk.embed.weight"]).to(dtype)
     x = x + F.embedding(positions, params["trunk.pos_embed.weight"]).to(dtype)  # [S, H*D]
-    scale = _score_scale(cfg, device)
     visible = visible_mask(positions, max_len)  # [S, ML]
+
+    def heads(a):  # [S, hidden] -> [S, H, D]
+        return a.view(slots, cfg.num_heads, cfg.head_dim)
+
     for i in range(cfg.num_layers):
         pre = f"trunk.layers.{i}."
         h = _layernorm(params, pre + "ln1", x)
-
-        def heads(a):  # [S, hidden] -> [S, H, D]
-            return a.view(slots, cfg.num_heads, cfg.head_dim)
-
         q = heads(_dense(params, pre + "attn.query", h, dtype))
         write_token_kv(k_cache, i, positions, heads(_dense(params, pre + "attn.key", h, dtype)))
         write_token_kv(v_cache, i, positions, heads(_dense(params, pre + "attn.value", h, dtype)))
@@ -292,4 +350,4 @@ def decode_step(params, k_cache, v_cache, tokens, positions, cfg: TransformerCon
         x = x + _dense(params, pre + "mlp_out", F.gelu(h, approximate="tanh"), dtype)
     x = _layernorm(params, "trunk.ln_f", x)
     logits = torch.matmul(x, params["lm_head.weight"].to(dtype).t()).float()
-    return k_cache, v_cache, torch.argmax(logits, dim=-1).to(torch.int32), logits
+    return torch.argmax(logits, dim=-1).to(torch.int32), logits

@@ -87,12 +87,15 @@ class GraphedStep:
     captured; a graph replay at every later call. Returns body's metrics
     (the graph's static tensors after a replay: valid until the next
     call). `generators` are the CUDA generators body draws from; the
-    default generator is registered by the capture itself."""
+    default generator is registered by the capture itself. `pool`, a
+    torch.cuda.graph_pool_handle(), shares one memory pool among several
+    graphs (None: a private pool)."""
 
-    def __init__(self, body: Callable[[], dict], generators=(), counters=None):
+    def __init__(self, body: Callable[[], dict], generators=(), counters=None, pool=None):
         self.body = body
         self.generators = tuple(generators)
         self.counters = launch_counters() if counters is None else counters
+        self.pool = pool
         self.graph = None
         self.metrics: dict = {}
         self.recorded: list[dict] = []
@@ -129,7 +132,7 @@ class GraphedStep:
         # every operand the same address on every replay, and the state and
         # static inputs are never reallocated. Thread-local capture: the
         # input threads of the --data-dir loop may copy to the card meanwhile.
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        with torch.cuda.graph(graph, pool=self.pool, capture_error_mode="thread_local"):
             self.metrics = self.body()
         self.recorded = counts_since(self.counters, before)
         for c, b in zip(self.counters, before):

@@ -66,6 +66,14 @@ loop over models/decode.py.
 The compute dtype's copies of the dense weights are made once at load and
 once at each swap (decode.prepare_params), not at each call: the same bits.
 
+On CUDA the decode runs as CUDA graphs (serve/decode_graphs.py, the
+counterpart of the JAX server's jit): load warms and captures prefill at
+every grid point and the tick at its one shape, and serving only replays
+them. A swap's new weights are copied into the captured parameters by the
+dispatch thread between ticks, before the re-prefill. The CPU and the
+classifiers run eagerly (`decode_graphs.serve_route`, reported in the
+serve_ready event).
+
 --device cuda (the default) or cpu; with cuda and no CUDA device the
 server exits 1 with a message, it never runs on the CPU instead.
 
@@ -91,6 +99,7 @@ from http.server import ThreadingHTTPServer
 import numpy as np
 import torch
 
+from tf_operator_tpu_torch.serve.decode_graphs import GraphedDecode, serve_route
 from tf_operator_tpu_torch.status import metrics as metrics_mod
 from tf_operator_tpu_torch.utils.preemption import HeartbeatWriter
 
@@ -374,6 +383,7 @@ class InferenceServer:
         self.batch_max = batch_max
         self.bucketing = bucketing
         self.generative = model_name in GENERATIVE_MODELS
+        self.route, self.route_why = serve_route(self.device.type, self.generative)
         self.max_seq_len = max_seq_len
         self.max_new_tokens = max_new_tokens
         self.max_slots = max_slots
@@ -455,6 +465,9 @@ class InferenceServer:
         # replaces the whole tuple, so a mid-swap batch serves entirely
         # from the old params (never torn).
         self._live: tuple[object, int | None] = (None, None)
+        # The follower's swap and the dispatch thread's hand-back of the
+        # captured dict (_swap_in) write _live under this lock.
+        self._live_lock = threading.Lock()
         self._apply = None
         self._input_shape: tuple[int, ...] = ()
         # (name, shape, dtype) of every leaf of the served checkpoint: the
@@ -464,6 +477,7 @@ class InferenceServer:
         # thread after load()): prefill-into-slots and the decode step, the
         # KV cache pair, and per-slot feed position / last-token host arrays.
         self._decode_cfg = None
+        self._graphs: GraphedDecode | None = None  # the graph route's
         self._prefill_fn = None
         self._decode_fn = None
         self._kv = None
@@ -596,7 +610,8 @@ class InferenceServer:
         """Generative-model load: restore, derive the decode config from
         the state dict, allocate the slot-addressed KV cache, and warm
         prefill over the whole (rows x seq-len) bucket grid plus the one
-        decode-tick shape."""
+        decode-tick shape; on the graph route each of those first calls
+        also captures its graph, and the grid is then sealed."""
         import functools
 
         from tf_operator_tpu_torch.models import decode as decode_mod
@@ -622,9 +637,15 @@ class InferenceServer:
         # nothing is ever scheduled there.
         self._kv = decode_mod.init_kv_cache(cfg, self.max_slots + 1,
                                             self.max_seq_len, self.device)
-        self._prefill_fn = functools.partial(decode_mod.prefill_into_slots,
-                                             cfg=cfg)
-        self._decode_fn = functools.partial(decode_mod.decode_step, cfg=cfg)
+        if self.route == "graph":
+            self._graphs = GraphedDecode(params, self._kv, cfg)
+            self._prefill_fn = self._graphs.prefill
+            self._decode_fn = self._graphs.decode
+        else:
+            self._prefill_fn = functools.partial(
+                decode_mod.prefill_into_slots, cfg=cfg)
+            self._decode_fn = functools.partial(decode_mod.decode_step,
+                                                cfg=cfg)
         s_total = self.max_slots + 1
         with torch.inference_mode():
             for rb in self.buckets:
@@ -637,12 +658,15 @@ class InferenceServer:
                     _host(first)
                     self._kv = (k, v)
                     # Per-grid-point liveness: rows x seq-len first calls
-                    # can take long enough to trip the serving watchdog.
+                    # (warm-up and capture) can take long enough to trip
+                    # the serving watchdog.
                     self._hb.write(0, force=True)
             k, v, nxt, _ = self._decode_fn(
                 params, self._kv[0], self._kv[1],
                 np.zeros((s_total,), np.int32), np.zeros((s_total,), np.int32))
             _host(nxt)
+        if self._graphs is not None:
+            self._graphs.seal()
         self._kv = (k, v)
         self._hb.write(0, force=True)
         self._positions = np.zeros((s_total,), np.int32)
@@ -652,6 +676,21 @@ class InferenceServer:
         # _prefill_fn/_decode_fn).
         self._apply = self._decode_fn
         self._live = (params, step)
+
+    def _swap_in(self, fresh: dict, step: int | None) -> dict:
+        """On the graph route, a swapped-in parameter dict is copied into
+        the captured tensors (GraphedDecode.adopt: in place, on the
+        dispatch thread's stream, so no replay reads the old weights after
+        it or a half-copied set), and _live is handed the captured dict
+        back unless the follower swapped again meanwhile. Returns the dict
+        to serve from."""
+        if self._graphs is None:
+            return fresh
+        captured = self._graphs.adopt(fresh)
+        with self._live_lock:
+            if self._live[0] is fresh:
+                self._live = (captured, step)
+        return captured
 
     # ----------------------------------------------------------- follower
 
@@ -708,7 +747,8 @@ class InferenceServer:
                        "step": step,
                        "reason": f"{type(e).__name__}: {e}"})
                 continue
-            self._live = (new_params, step)
+            with self._live_lock:
+                self._live = (new_params, step)
             metrics_mod.serve_ckpt_follow_total.labels(
                 result="swapped").inc()
             _emit({"event": "ckpt_follow", "result": "swapped",
@@ -1014,6 +1054,10 @@ class InferenceServer:
         k, v, nxt, _ = self._decode_fn(params, self._kv[0], self._kv[1],
                                        self._last_tokens, self._positions)
         self._kv = (k, v)
+        # The host read of nxt waits for the tick; only then does the loop
+        # below rewrite _positions and _last_tokens. The tick has taken its
+        # own copy of them (on the graph route into its pinned staging
+        # buffer, whose copy to the device has run by now).
         nxt = _host(nxt)
         self._batches += 1
         n_active = len(active)
@@ -1079,6 +1123,7 @@ class InferenceServer:
             new_params, new_step = self._live
             if new_params is not params:
                 try:
+                    new_params = self._swap_in(new_params, new_step)
                     if active:
                         self._reprefill_active(new_params, active)
                 except Exception as e:  # noqa: BLE001 — per-request report
@@ -1368,7 +1413,8 @@ class InferenceServer:
                "seq_buckets": list(self.seq_buckets),
                "max_slots": self.max_slots if self.generative else 0,
                "continuous": self.continuous if self.generative else None,
-               "follow": self.follow})
+               "follow": self.follow, "route": self.route,
+               "route_why": self.route_why})
         decode_note = (f", seq_buckets={list(self.seq_buckets)}, "
                        f"slots={self.max_slots}, "
                        f"continuous={int(self.continuous)}"
