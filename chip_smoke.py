@@ -117,7 +117,12 @@ Phases, in order:
      MB/s, overlap and consumer wait beside the synthetic-batch images/s;
  11. torch.distributed (dist): a one-rank NCCL world in a child process
      (initialize_from_env(force=True), an all_reduce and a broadcast of
-     CUDA tensors, the backend reported); then BERT-base at seq 512, global
+     CUDA tensors, the backend reported), and in it the capture probe
+     (nccl_graph_probe: the port's all_reduce, all_gather, reduce_scatter,
+     all_to_all and rotate in one CUDA graph, 3 replays on fresh inputs
+     each bit-equal to the eager calls; the world watch's empty all-reduce
+     ordered after the stream's work with no device event of its own:
+     NCCL_GRAPH_PROBE); then BERT-base at seq 512, global
      batch 32, 6 steps, as one process and at dp = 2, tp = 2 and fsdp = 2
      as two co-located trainer processes started through the operator's
      env (JAX_COORDINATOR_ADDRESS, JAX_PROCESS_ID, JAX_NUM_PROCESSES,
@@ -128,10 +133,10 @@ Phases, in order:
      step, and match the one-process run on every step's loss and global
      gradient norm and on its final parameters (DIST_RTOL,
      DIST_NORM_RTOL, DIST_PARAM_GAP), fsdp's ranks must hold half of each
-     fsdp-sharded parameter's bytes between steps (zero-3), and a planted
-     fault (dp = 2 without the gradient reduction) must fail that
-     comparison: global tokens/s, step time and each rank's peak memory
-     beside the gaps;
+     fsdp-sharded parameter's bytes between steps (zero-3), every rank
+     must step eagerly (gloo: world_route), and a planted fault (dp = 2
+     without the gradient reduction) must fail that comparison: global
+     tokens/s, step time and each rank's peak memory beside the gaps;
  12. sequence parallelism (sp): K1 (with lse), the delta pass with a
      nonzero lse cotangent, K2 and K3 held against their plain versions
      (every MUTATIONS entry rejected) and timed at the ring's local blocks
@@ -208,8 +213,9 @@ Phases, in order:
      weights, a zero hop over it, each flash kernel launched 24 times a
      rank a step; the step (and its backward / reduction split) beside one
      process's, the bubble;
- 17. pods of several GPUs (pod): the full-width LM (train phase's argv,
-     every step logged) as 2 pods x 2 local ranks at {"dp": 2, "tp": 2},
+ 17. pods of several GPUs (pod): the LM at full width and FAULT_LAYERS (4)
+     layers deep (train phase's argv, every step logged) as 2 pods x 2
+     local ranks at {"dp": 2, "tp": 2},
      each pod started as the operator starts one (JAX_COORDINATOR_ADDRESS,
      JAX_PROCESS_ID, JAX_NUM_PROCESSES=2, TPUJOB_MESH, its own metrics and
      heartbeat files) and its supervisor given 2 ranks through the explicit
@@ -219,28 +225,41 @@ Phases, in order:
      first_step (n_devices 4) and done in its metrics file, every rank
      launch K1-K3 and delta once a layer a step at 3 local heads, and the
      run hold against one process at the same argv on dist_gaps' limits,
-     while dp without the gradient reduction across the pods, at
-     FAULT_LAYERS (4) layers, must fail them against one process at that
-     depth: global tokens/s, step time, each rank's peak;
- 18. (only with --phases ...,dist4, on four GPUs) the dist runs and dp = 4,
-     dp x tp = 2 x 2 and fsdp = 4 with one GPU a rank (CUDA_VISIBLE_DEVICES),
-     where the backend rule picks NCCL; then the 64k LM at sp = 4 (ring)
-     and sp x tp = 2 x 2 (ring, 3 local heads) at batch 1 and dp x sp = 2
-     x 2 (Ulysses) at batch 2, each held against one process at its global
-     batch, with sp = 4 without the gradient sum over sp rejected; the
-     kernels at those runs' local shapes first (on three tiles where the
-     whole tensors are too large); then the MoE cell (sparse) at ep = 4 and
-     dp x ep = 2 x 2, each held against one process (moe4 runs these
-     alone);
- 19. (only with --phases ...,pod4, on four GPUs) one pod seeing GPUs 0-3,
+     while dp without the gradient reduction across the pods must fail
+     them against the same process: global tokens/s, step time, each
+     rank's peak;
+ 18. (only with --phases ...,graph4, on four GPUs) the world graph check:
+     the LM cell at dp x tp = 2 x 2 and BERT-base at fsdp = 4, four ranks
+     with a GPU each over NCCL, each rank running GRAPH_STEPS steps eagerly
+     and graphed from the same initial state on the same communicators,
+     every step's loss and gradient norm and every rank's final params,
+     mu, nu and master bit-equal, K1-K3 and delta 12 a step on both routes,
+     WORLD_GRAPH_FAULTS each rejected by name, and a profiled graphed run
+     whose census shows one cudaGraphLaunch a step a rank with every NCCL
+     kernel under it; then the kill check (BERT at dp = 4, the last rank
+     SIGKILLed inside a step, a 60 s collective timeout): how each survivor
+     ends, beside --parent's eager world, which it must end no worse than;
+ 19. (only with --phases ...,dist4, on four GPUs) the dist runs and dp = 4,
+     dp x tp = 2 x 2 and fsdp = 4 (saving every 2 steps) with one GPU a rank
+     (CUDA_VISIBLE_DEVICES), where the backend rule picks NCCL and every
+     rank replays a CUDA graph of its step, and the dist fault at dp = 2;
+     then the 64k LM at sp = 4 (ring) and sp x tp = 2 x 2 (ring, 3 local
+     heads) at batch 1 and dp x sp = 2 x 2 (Ulysses) at batch 2, each held
+     against one process at its global batch, with sp = 4 without the
+     gradient sum over sp rejected; the kernels at those runs' local shapes
+     first (on three tiles where the whole tensors are too large);
+ 20. (only with --phases ...,pod4, on four GPUs) one pod seeing GPUs 0-3,
      its local rank count taken from them, at dp = 4 and dp x tp = 2 x 2,
      then 2 pods seeing 0,1 and 2,3 at dp x tp = 2 x 2, one GPU a rank
-     (NCCL), each held against one process at its global batch;
- 20. (only with --phases ...,profile) both trainers' runs, the 64k LM,
+     (NCCL, graphed), each held against one process at its global batch;
+     (with ...,moe4) the MoE cell (sparse) at ep = 4 and dp x ep = 2 x 2,
+     each held against one process;
+ 21. (only with --phases ...,profile) both trainers' runs, the 64k LM,
      BERT-base at seq 512 and the MoE cell (sparse) under torch.profiler:
      device time by kernel group over their steady steps, and the host API
      that launched each kernel there (launch_census): on the graphed step
-     one cudaGraphLaunch a step and no K1-K3 launched one by one.
+     one cudaGraphLaunch a step and no K1-K3 or NCCL kernel launched one by
+     one.
 Every trainer subprocess that is not given GPUs of its own sees this
 process's first GPU alone (CUDA_VISIBLE_DEVICES), a pod given one card.
 The last lines are the wide_lm, graph, eval, longctx, preempt, bert, data,
@@ -2177,9 +2196,10 @@ DIST_REF = OUT_DIR / "dist_reference.pt"
 # A dist rank (or the one-process reference): dist_child.
 _DIST_CHILD = "import sys, chip_smoke\nsys.exit(chip_smoke.dist_child(sys.argv[1:]))\n"
 # A world of one through initialize_from_env(force=True): the backend, an
-# all_reduce and a broadcast of CUDA tensors.
+# all_reduce and a broadcast of CUDA tensors (the first line it prints),
+# then the capture probe (nccl_graph_probe; the second line).
 _NCCL_CHILD = (
-    "import json, torch, torch.distributed as dist\n"
+    "import json, torch, torch.distributed as dist, chip_smoke\n"
     "from tf_operator_tpu_torch.parallel import distributed\n"
     "dev = torch.device('cuda', 0)\n"
     "backend = distributed.initialize_from_env(force=True, device=dev)\n"
@@ -2190,8 +2210,85 @@ _NCCL_CHILD = (
     "torch.cuda.synchronize()\n"
     "print(json.dumps({'backend': backend, 'world': dist.get_world_size(),\n"
     "                  'all_reduce': x.tolist(), 'broadcast': y.tolist()}))\n"
+    "print(json.dumps(chip_smoke.nccl_graph_probe(dev)))\n"
     "distributed.distributed_goodbye()\n"
 )
+# The capture probe: the port's collectives over the world of one in one
+# CUDA graph, each replay on fresh inputs held against the eager calls.
+NCCL_GRAPH_COLLECTIVES = ("all_reduce", "all_gather", "reduce_scatter", "all_to_all",
+                          "rotate")
+NCCL_GRAPH_REPLAYS = 3
+# What the probe must read: every replay bit-equal; the world watch's empty
+# all-reduce (graphed_step.world_watch) ordered after the stream's earlier
+# work and launching nothing on the card.
+NCCL_GRAPH_PROBE = {"collectives": list(NCCL_GRAPH_COLLECTIVES),
+                    "replays": NCCL_GRAPH_REPLAYS,
+                    "bit_equal": [True] * NCCL_GRAPH_REPLAYS,
+                    "watch_waits_for_the_stream": True, "watch_device_events": 0}
+
+
+def nccl_graph_probe(dev) -> dict:
+    """In a process that joined a world of one over NCCL: the port's
+    all_reduce, all_gather, reduce_scatter_flat, all_to_all and rotate (a
+    point-to-point pair to itself) of one static input captured in one
+    GraphedStep after its eager warm-up, then NCCL_GRAPH_REPLAYS replays,
+    each on fresh inputs copied into the static input and held bit for bit
+    against the same calls made eagerly. Then the world watch's empty
+    all-reduce: enqueued behind half a second of spinning on the stream,
+    whether its work is still pending (ProcessGroupNCCL's watchdog then
+    waits on it as on the stream's collectives) and done after a
+    synchronise, and the device events ten of them make under
+    torch.profiler."""
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import DeviceType, ProfilerActivity, profile
+
+    from tf_operator_tpu_torch.parallel import collectives, graphed_step
+
+    world = dist.group.WORLD
+    static = torch.empty((8, 64), device=dev)
+
+    def body():
+        return {"all_reduce": collectives.all_reduce(static, world),
+                "all_gather": collectives.all_gather(static, 0, world),
+                "reduce_scatter": collectives.reduce_scatter_flat([static], [0], world)[0],
+                "all_to_all": collectives.all_to_all(static, 0, 1, world),
+                "rotate": torch.cat(collectives.rotate(static[:4], static[4:], world))}
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    static.normal_(generator=gen)
+    step = graphed_step.GraphedStep(body)
+    step()  # the eager warm-up, then the capture
+    bit_equal = []
+    for _ in range(NCCL_GRAPH_REPLAYS):
+        static.copy_(torch.randn(static.shape, generator=gen, device=dev))
+        got = {k: v.clone() for k, v in step().items()}
+        want = body()
+        bit_equal.append(sorted(got) == sorted(want) and
+                         all(torch.equal(got[k], want[k]) for k in want))
+    empty = torch.empty(0, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(2 ** 30)
+    work = dist.all_reduce(empty, async_op=True)
+    pending = not work.is_completed()
+    work.wait()
+    torch.cuda.synchronize()
+    waits = pending and work.is_completed()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            dist.all_reduce(empty)
+        torch.cuda.synchronize()
+    events = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return {"collectives": sorted(want, key=NCCL_GRAPH_COLLECTIVES.index),
+            "replays": len(bit_equal), "bit_equal": bit_equal,
+            "watch_waits_for_the_stream": waits, "watch_device_events": len(events),
+            "watch_device_event_names": sorted(set(events))[:4]}
+
+
+def nccl_graph_failures(rec: dict) -> list[str]:
+    """What of the probe's record (nccl_graph_probe) is off NCCL_GRAPH_PROBE."""
+    return [f"{k} {rec.get(k)!r}, not {want!r}" for k, want in NCCL_GRAPH_PROBE.items()
+            if rec.get(k) != want]
 
 
 def free_port() -> int:
@@ -2260,19 +2357,25 @@ def _plant_fault(fault: str) -> None:
 
 def dist_child(argv: list[str]) -> int:
     """The trainer's entry point on argv[1:] as a dist rank: records every
-    step's global gradient norm, the parameters before the first step and
-    the [B * H, T, D] shapes K1 ran at; at the end writes its launches, peak
-    memory, norms, those shapes and each
+    step's global gradient norm, the parameters before the first step, the
+    route step_route gave it and the [B * H, T, D] shapes K1 ran at; at the
+    end writes its launches, peak memory (allocated and reserved), norms,
+    route, those shapes and each
     parameter's bytes (its shard's, under fsdp) to argv[0], and, with
     CHIP_SMOKE_DIST_ROLE=reference, its initial and final parameters to
-    CHIP_SMOKE_DIST_REF (DIST_REF by default), or else the gap of its local
-    parameters to that file's (dist_compare). CHIP_SMOKE_DIST_FAULT plants
-    a fault (_plant_fault)."""
+    CHIP_SMOKE_DIST_REF (DIST_REF by default), with =measure nothing, or
+    else the gap of its local parameters to that file's (dist_compare).
+    CHIP_SMOKE_DIST_FAULT plants
+    a fault (_plant_fault); CHIP_SMOKE_DIST_TIMEOUT_S sets the world's
+    collective timeout (distributed.TIMEOUT) for the kill check."""
+    import datetime
+
     import torch
 
     from tf_operator_tpu_torch.models import train
     from tf_operator_tpu_torch.ops import flash_attention as fa
     from tf_operator_tpu_torch.ops import grouped_matmul as gm
+    from tf_operator_tpu_torch.parallel import distributed, graphed_step
     from tf_operator_tpu_torch.parallel import train_step as ts
 
     path, argv = argv[0], argv[1:]
@@ -2319,14 +2422,27 @@ def dist_child(argv: list[str]) -> int:
 
         return gen_batch, backward, recorded
 
+    routes: list = []
+    real_route = graphed_step.step_route
+
+    def step_route(*args, **kwargs):
+        routes.append(real_route(*args, **kwargs))
+        return routes[-1]
+
     ts.parallelize, ts.make_chunked_train_step, fa._fwd_at = (
         parallelize, make_chunked_train_step, fwd_at)
     ts.make_multislice_step_fns = make_multislice_step_fns
+    graphed_step.step_route = step_route
+    if os.environ.get("CHIP_SMOKE_DIST_TIMEOUT_S"):
+        distributed.TIMEOUT = datetime.timedelta(
+            seconds=float(os.environ["CHIP_SMOKE_DIST_TIMEOUT_S"]))
     _plant_fault(os.environ.get("CHIP_SMOKE_DIST_FAULT", ""))
     out: dict = {}
     rc = train.main(argv, out)
     rec = {"launches": dict(fa.LAUNCHES), "k5_launches": dict(gm.LAUNCHES), "grad_norms": norms,
            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "peak_reserved_gb": torch.cuda.max_memory_reserved() / 1e9,
+           "step_route": routes[0][0] if routes else None,
            "flash_fwd_shapes": sorted(map(list, shapes))}
     if rc == 0:
         model = out["state"].model
@@ -2334,10 +2450,11 @@ def dist_child(argv: list[str]) -> int:
         final = [p.detach() for p in model.parameters()]
         rec["param_bytes"] = {n: p.numel() * p.element_size() for n, p in zip(names, final)}
         rec["fsdp_sharded"] = [n for n, d in zip(names, plans[0].fsdp_dims) if d is not None]
-        if os.environ.get("CHIP_SMOKE_DIST_ROLE") == "reference":
+        role = os.environ.get("CHIP_SMOKE_DIST_ROLE")
+        if role == "reference":
             torch.save({"init": {n: t.cpu() for n, t in zip(names, init)},
                         "final": {n: t.cpu() for n, t in zip(names, final)}}, ref_path)
-        else:
+        elif role != "measure":
             rec.update(dist_compare(torch.load(ref_path), plans[0], names, init, final))
     Path(path).write_text(json.dumps(rec))
     return rc
@@ -2362,6 +2479,9 @@ def dist_compare(ref: dict, plan, names, init, final) -> dict:
 
 
 def nccl_world_of_one(card: str) -> dict:
+    """A world of one over NCCL (_NCCL_CHILD): its backend, an all_reduce
+    and a broadcast, and the capture probe (nccl_graph_probe), which must
+    read NCCL_GRAPH_PROBE."""
     env = dict(os.environ, JAX_COORDINATOR_ADDRESS=f"127.0.0.1:{free_port()}",
                JAX_PROCESS_ID="0", JAX_NUM_PROCESSES="1",
                PYTHONPATH=str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", ""))
@@ -2371,12 +2491,15 @@ def nccl_world_of_one(card: str) -> dict:
     if proc.returncode != 0:
         raise SmokeFailure(f"the one-rank NCCL world exited {proc.returncode}: "
                            f"{proc.stderr[-2000:]}")
-    res = json.loads(proc.stdout.strip().splitlines()[-1])
-    if res != {"backend": "nccl", "world": 1, "all_reduce": [1.0, 2.0, 3.0, 4.0],
-               "broadcast": [7.0, 7.0, 7.0]}:
-        raise SmokeFailure(f"the one-rank world is not NCCL's: {res}")
-    res.update(seconds=time.time() - t0, card=card)
+    first, probe = (json.loads(x) for x in proc.stdout.strip().splitlines()[-2:])
+    if first != {"backend": "nccl", "world": 1, "all_reduce": [1.0, 2.0, 3.0, 4.0],
+                 "broadcast": [7.0, 7.0, 7.0]}:
+        raise SmokeFailure(f"the one-rank world is not NCCL's: {first}")
+    res = {**first, "graph_probe": probe, "seconds": time.time() - t0, "card": card}
     log("dist: " + json.dumps(res))
+    failed = nccl_graph_failures(probe)
+    if failed:
+        raise SmokeFailure("the one-rank NCCL capture probe: " + "; ".join(failed))
     return res
 
 
@@ -2500,8 +2623,16 @@ def dist_world(name: str, mesh: dict | None, own_gpus: bool = False,
         by = {e["event"]: e for e in events}
         out.append({**rec, "losses": losses, "done": by["done"],
                     "dist_backend": by["jax_ready"].get("dist_backend"),
-                    "mesh": by["first_step"]["mesh"]})
+                    "mesh": by["first_step"]["mesh"],
+                    "model_ready_route": by["model_ready"].get("step_route")})
     return {"ranks": out}
+
+
+def world_route(backend: str) -> str:
+    """The step route every rank of a world over `backend` must take on
+    CUDA (graphed_step.step_route): NCCL's ranks replay graphs, gloo's step
+    eagerly."""
+    return "graph" if backend == "nccl" else "eager"
 
 
 def dist_gaps(ref: dict, world: dict) -> dict:
@@ -2562,13 +2693,21 @@ def held_against(ref: dict, runs, backend: str, own_gpus: bool, card: str,
             if r["dist_backend"] != backend or r["mesh"] != mesh:
                 raise SmokeFailure(f"dist {name}: backend {r['dist_backend']}, mesh "
                                    f"{r['mesh']} (the rule picks {backend} here)")
+            if r["step_route"] != world_route(backend) or \
+                    r["model_ready_route"] != r["step_route"]:
+                raise SmokeFailure(f"dist {name}: a rank steps on the {r['step_route']} "
+                                   f"route (model_ready: {r['model_ready_route']}), not "
+                                   f"{world_route(backend)}")
         gaps = dist_gaps(ref, world)
         done = world["ranks"][0]["done"]
         eps = done.get("examples_per_sec")
         res = {"run": name, "model": job.label, "mesh": mesh, "sp_mode": mode,
-               "backend": backend, "tokens_per_s": eps * job.seq if eps else None,
+               "backend": backend, "step_route": world_route(backend),
+               "tokens_per_s": eps * job.seq if eps else None,
                "step_time_s": (done.get("step_time_s") or {}).get("mean"),
-               "peak_gb": [r["peak_gb"] for r in world["ranks"]], "gaps": gaps,
+               "peak_gb": [r["peak_gb"] for r in world["ranks"]],
+               "peak_reserved_gb": [r["peak_reserved_gb"] for r in world["ranks"]],
+               "gaps": gaps,
                "kernel_shape": list(job.local_shape(mesh, mode)),
                "launches_per_step_per_rank": {k: n / job.steps for k, n in
                                               job.launches(mesh, mode).items()},
@@ -4505,6 +4644,9 @@ def pod_world(name: str, job: DistJob, mesh: dict, visible, local: int | None,
                 raise SmokeFailure(f"pod {name}: pod {p} rank {i} launches {rec['launches']} "
                                    f"at {rec['flash_fwd_shapes']}, not {want} at "
                                    f"{[rows * heads, t, d]}; norms {norms}")
+            if rec["step_route"] != world_route(backend):
+                raise SmokeFailure(f"pod {name}: pod {p} rank {i} steps on the "
+                                   f"{rec['step_route']} route, not {world_route(backend)}")
             ranks.append({**rec, "losses": losses, "pod": p, "local_rank": i})
     return {"ranks": ranks, "dones": dones}
 
@@ -4520,7 +4662,9 @@ def pod_summary(name: str, job: DistJob, mesh: dict, world: dict, ref: dict,
             "tokens_per_s": eps * job.seq if eps else None,
             "step_time_s": (done.get("step_time_s") or {}).get("mean"),
             "phase_breakdown": done.get("phase_breakdown"),
+            "step_route": sorted({r["step_route"] for r in world["ranks"]}),
             "peak_gb": [r["peak_gb"] for r in world["ranks"]],
+            "peak_reserved_gb": [r["peak_reserved_gb"] for r in world["ranks"]],
             "kernel_shape": list(job.local_shape(mesh, None)),
             "launches_per_step_per_rank": {k: n / job.steps for k, n in
                                            job.launches(mesh, None).items()},
@@ -4529,10 +4673,11 @@ def pod_summary(name: str, job: DistJob, mesh: dict, world: dict, ref: dict,
 
 
 def pod_phase(records: dict, card: str) -> dict:
-    """The full-width LM as POD_PODS pods x POD_LOCAL local ranks on the one
-    card against one process (dist_gaps' limits), the kernels held first at
-    the ranks' shape, and POD_FAULT rejected at FAULT_LAYERS against one
-    process at that depth."""
+    """The LM at full width, FAULT_LAYERS deep, as POD_PODS pods x POD_LOCAL
+    local ranks on the one card against one process at that depth
+    (dist_gaps' limits), the kernels held first at the ranks' shape, and
+    POD_FAULT rejected against the same process (the sound run went from
+    12 layers to FAULT_LAYERS for the default run's time)."""
     import gc
 
     import torch
@@ -4543,7 +4688,7 @@ def pod_phase(records: dict, card: str) -> dict:
     log(f"pod: this process holds {torch.cuda.memory_allocated() / 1e9:.3f} GB allocated, "
         f"{torch.cuda.memory_reserved() / 1e9:.3f} GB reserved; the card has "
         f"{free / 1e9:.3f} of {total / 1e9:.3f} GB free [{card}]")
-    job, fault_job = pod_job(), pod_job(FAULT_LAYERS)
+    job = pod_job(FAULT_LAYERS)
     shape_kernel_check(records, [job.local_shape(POD_MESH, None)], "pod", 8193, causal=True)
     ref, reference = one_process(card, job)
     visible = (first_card(),) * POD_PODS
@@ -4557,18 +4702,15 @@ def pod_phase(records: dict, card: str) -> dict:
         if failed:
             raise SmokeFailure(f"the pods are off one process's run: {failed}")
         label, mesh, kind, _ = POD_FAULT
-        fault_ref, _ = one_process(card, fault_job)
-        gaps = dist_gaps(fault_ref, pod_world("fault", fault_job, mesh, visible, POD_LOCAL,
-                                              "gloo", kind))
+        gaps = dist_gaps(ref, pod_world("fault", job, mesh, visible, POD_LOCAL, "gloo", kind))
         rejected = [f for f in dist_verdict(gaps) if not f.startswith("loss")]
-        fault = {"run": label, "model": fault_job.label, "mesh": mesh, "gaps": gaps,
+        fault = {"run": label, "model": job.label, "mesh": mesh, "gaps": gaps,
                  "rejected_on": rejected}
         log("pod: planted fault " + json.dumps(fault))
         if not rejected:
             raise SmokeFailure(f"the pod check accepts a run with {label}: {gaps}")
     finally:
         job.ref.unlink(missing_ok=True)
-        fault_job.ref.unlink(missing_ok=True)
     for name, key, _ in KERNELS:
         records.setdefault(name, {})["pod_launches_per_step_per_rank"] = \
             res["launches_per_step_per_rank"][key]
@@ -4579,14 +4721,10 @@ def pod4_phase(records: dict, card: str) -> dict:
     """(only with --phases ...,pod4, on four GPUs) POD4_RUNS: pods that take
     their local rank count from the GPUs they see, one a rank (NCCL), each
     held against one process at the same global batch."""
-    import torch
-
-    if torch.cuda.device_count() < 4:
-        raise SmokeFailure(f"the pod4 phase needs four GPUs, sees {torch.cuda.device_count()}")
-    torch.cuda.empty_cache()
+    four_gpus("pod4")
     job = pod_job()
     ref, reference = one_process(card, job)
-    out = {"reference": reference, "gpus": torch.cuda.device_count(), "runs": []}
+    out = {"reference": reference, "gpus": 4, "runs": []}
     try:
         for name, mesh, _pods, visible in POD4_RUNS:
             res = pod_summary(name, job, mesh,
@@ -4604,58 +4742,102 @@ def pod4_phase(records: dict, card: str) -> dict:
 
 
 # (only with --phases ...,dist4, on a machine of four GPUs) the dist runs
-# with one GPU a rank, as pods of their own: the rule picks NCCL. BERT adds
-# dp = 4, dp x tp and fsdp = 4; the 64k LM runs sp = 4 (ring), sp x tp
-# (ring: 3 local heads) at batch 1 and dp x sp (Ulysses) at batch 2; the
-# MoE cell (12 layers, sparse) runs ep = 4 and dp x ep = 2 x 2.
-DIST4_RUNS = DIST_RUNS + (("dp4", {"dp": 4}), ("dp-tp", {"dp": 2, "tp": 2}),
-                          ("fsdp4", {"fsdp": 4}))
+# with one GPU a rank, as pods of their own: the rule picks NCCL, and every
+# rank replays a CUDA graph of its step. BERT adds dp = 4, dp x tp and fsdp =
+# 4 (saving every 2 steps: a checkpoint's gathers run eagerly between the
+# replays) and the dist fault at dp = 2; the 64k LM runs sp = 4 (ring), sp x
+# tp (ring: 3 local heads) at batch 1 and dp x sp (Ulysses) at batch 2. The
+# MoE cell's ep = 4 and dp x ep = 2 x 2 are the moe4 phase; the world graph
+# check and the kill check the graph4 phase.
+DIST4_RUNS = DIST_RUNS + (("dp4", {"dp": 4}), ("dp-tp", {"dp": 2, "tp": 2}))
+DIST4_CKPT_RUNS = (("fsdp4", {"fsdp": 4}),)
 DIST4_SP = ((1, (("sp4-ring", {"sp": 4}, "ring"), ("sp-tp-ring", {"sp": 2, "tp": 2}, "ring")),
              ("sp = 4 without the gradient sum over sp", {"sp": 4}, "no-sp-grad-sum", "ring")),
             (2, (("dp-sp-ulysses", {"dp": 2, "sp": 2}, "ulysses"),), None))
 DIST4_MOE = (("ep4", {"ep": 4}), ("dp-ep", {"dp": 2, "ep": 2}))
+DIST4_CKPT_DIR = OUT_DIR / "dist4_ckpt"
 
 
-def dist4_phase(records: dict, card: str) -> dict:
+def four_gpus(phase: str) -> None:
     import torch
 
     if torch.cuda.device_count() < 4:
-        raise SmokeFailure(f"the dist4 phase needs four GPUs, sees "
+        raise SmokeFailure(f"the {phase} phase needs four GPUs, sees "
                            f"{torch.cuda.device_count()}")
     torch.cuda.empty_cache()
-    dist_kernel_check(records, DIST4_RUNS)
-    ref, reference = one_process(card)
-    try:
-        out = {"reference": reference, "gpus": torch.cuda.device_count(),
-               "runs": held_against(ref, DIST4_RUNS, "nccl", True, card)}
-    finally:
-        DIST_REF.unlink(missing_ok=True)
-    for batch, runs, fault in DIST4_SP:
+
+
+def dist4_phase(records: dict, card: str) -> dict:
+    """The four-GPU NCCL runs: DIST4_RUNS, DIST4_CKPT_RUNS and DIST_FAULT
+    (BERT), DIST4_SP (the 64k LM), each part run whatever the others gave;
+    the phase fails after the last if any failed."""
+    four_gpus("dist4")
+    out: dict = {"gpus": 4}
+    failed: list[str] = []
+
+    def bert_runs():
+        dist_kernel_check(records, DIST4_RUNS + DIST4_CKPT_RUNS)
+        ref, reference = one_process(card)
+        ckpt_job = dataclasses.replace(BERT_DIST, argv=BERT_DIST.argv + (
+            "--checkpoint-dir", str(DIST4_CKPT_DIR), "--checkpoint-every", "2"))
+        try:
+            return {"reference": reference,
+                    "runs": held_against(ref, DIST4_RUNS, "nccl", True, card)
+                    + held_against(ref, DIST4_CKPT_RUNS, "nccl", True, card, ckpt_job),
+                    "fault_control": fault_control(ref, own_gpus=True)}
+        finally:
+            DIST_REF.unlink(missing_ok=True)
+            shutil.rmtree(DIST4_CKPT_DIR, ignore_errors=True)
+
+    def lm_runs(batch, runs, fault):
         job = sp_lm_job(LONG_SEQ, batch, f"sp4_reference_{batch}.pt")
         sp_kernel_check(records, [(job.local_shape(m, mode), True) for _, m, mode in runs]
                         + [(job.local_shape(m, mode), False) for _, m, mode in runs
                            if mode == "ring"], 65536 + batch)
         ref, reference = one_process(card, job)
         try:
-            out[f"lm_64k_batch_{batch}"] = {
-                "reference": reference,
-                "runs": held_against(ref, runs, "nccl", True, card, job),
-                "fault_control": fault and fault_control(ref, fault, job, own_gpus=True)}
+            return {"reference": reference,
+                    "runs": held_against(ref, runs, "nccl", True, card, job),
+                    "fault_control": fault and fault_control(ref, fault, job, own_gpus=True)}
         finally:
             job.ref.unlink(missing_ok=True)
-    out["moe_sparse"] = moe4_phase(card)
+
+    parts = [("bert", bert_runs, ())] + [(f"lm_64k_batch_{batch}", lm_runs, (batch, runs, fault))
+                                         for batch, runs, fault in DIST4_SP]
+    for name, fn, args in parts:
+        try:
+            out[name] = fn(*args)
+        except SmokeFailure as e:
+            log(f"dist4: {name} FAILED: {e}")
+            failed.append(f"{name}: {e}")
+    if failed:
+        raise SmokeFailure("dist4: " + " | ".join(failed))
+    return out
+
+
+def graph4_phase(card: str, parent: Path | None = None) -> dict:
+    """(only with --phases ...,graph4, on four GPUs) the world graph check,
+    then the kill check (against `parent`'s eager world when given), both
+    run whatever the first gave."""
+    four_gpus("graph4")
+    out: dict = {}
+    failed: list[str] = []
+    try:
+        out["world_graph"] = world_graph_check(card)
+    except SmokeFailure as e:
+        failed.append(str(e))
+    out["kill"] = kill_check(card, {"graph": ROOT, **({"eager": parent} if parent else {})})
+    failed += kill_failures(out["kill"])
+    if failed:
+        raise SmokeFailure("graph4: " + " | ".join(failed))
     return out
 
 
 def moe4_phase(card: str) -> dict:
-    """(dist4's last part, also a phase of its own on four GPUs) the MoE
-    cell, sparse, at ep = 4 and dp x ep = 2 x 2 with one GPU a rank (NCCL),
-    each held against one process."""
-    import torch
-
-    if torch.cuda.device_count() < 4:
-        raise SmokeFailure(f"the MoE's four-GPU runs need four GPUs, see "
-                           f"{torch.cuda.device_count()}")
+    """(only with --phases ...,moe4, on four GPUs) the MoE cell, sparse, at
+    ep = 4 and dp x ep = 2 x 2 with one GPU a rank (NCCL, graphed), each
+    held against one process."""
+    four_gpus("moe4")
     job = moe_ep_job("sparse", MOE_LAYERS)
     ref, reference = one_process(card, job)
     try:
@@ -4687,13 +4869,29 @@ def planted_graph_fault(fault: str):
     own steps' seeds. frozen-bias: the bias corrections as host values (0-dim
     CPU tensors), read from the count outside the capture and baked into it
     at the capture's count (the functional update's behaviour under a
-    graph)."""
+    graph). skip-grad-reduce (a world's): the gradient buckets'
+    all-reduce (collectives.all_reduce_flat) runs in the eager warm-up and
+    is left out of the capture, so every replay steps on this rank's own
+    gradients."""
     import torch
 
     from tf_operator_tpu_torch import optim
-    from tf_operator_tpu_torch.parallel import graphed_step
+    from tf_operator_tpu_torch.parallel import collectives, graphed_step
 
-    if fault == "skip-reseed":
+    if fault == "skip-grad-reduce":
+        real_flat = collectives.all_reduce_flat
+
+        def flat(tensors, group):
+            if torch.cuda.is_current_stream_capturing():
+                return list(tensors)
+            return real_flat(tensors, group)
+
+        collectives.all_reduce_flat = flat
+        try:
+            yield
+        finally:
+            collectives.all_reduce_flat = real_flat
+    elif fault == "skip-reseed":
         real, seeded = graphed_step._reseed, []
 
         def reseed(gen, seed, step):
@@ -4729,12 +4927,14 @@ def planted_graph_fault(fault: str):
         yield
 
 
-def graph_run(graphed: bool, fault: str = "", steps: int = GRAPH_STEPS) -> dict:
-    """The trainer's LM cell built as the trainer builds it (its model,
-    loss, batches, one-process plan and optimizer), `steps` steps through
-    make_chunked_train_step in chunks of LOG_EVERY, graphed or eager:
-    every step's loss and gradient norm, the final state on the host and
-    the flash launches."""
+def graph_run(graphed: bool, fault: str = "", steps: int = GRAPH_STEPS,
+              argv: list[str] | None = None, world: bool = False) -> dict:
+    """The trainer's cell on `argv` (the LM cell's by default) built as the
+    trainer builds it (its model, loss, batches, plan and optimizer: in one
+    process, or with `world` this rank's of the world it joined, over
+    TPUJOB_MESH), `steps` steps through make_chunked_train_step in chunks
+    of LOG_EVERY, graphed or eager: every step's loss and gradient norm,
+    the final state on the host and the flash launches."""
     import torch
 
     from tf_operator_tpu_torch import optim as optim_lib
@@ -4743,10 +4943,11 @@ def graph_run(graphed: bool, fault: str = "", steps: int = GRAPH_STEPS) -> dict:
     from tf_operator_tpu_torch.parallel import mesh as mesh_lib
     from tf_operator_tpu_torch.parallel import train_step as ts
 
-    args = train.build_parser().parse_args(lm_argv(steps))
+    args = train.build_parser().parse_args(argv or lm_argv(steps))
     device = torch.device("cuda", 0)
-    model, loss_fn, make_batch = train._build_model(args, device)
-    plan = ts.parallelize(model, mesh_lib.Mesh({"dp": 1}), train._sharding_rules(args), device)
+    mesh = mesh_lib.mesh_from_env() if world else mesh_lib.Mesh({"dp": 1})
+    model, loss_fn, make_batch = train._build_model(args, device, mesh if world else None)
+    plan = ts.parallelize(model, mesh, train._sharding_rules(args), device)
     tx = optim_lib.make_optimizer(optim_lib.OptimizerConfig(
         name=args.optimizer, learning_rate=args.lr, moment_dtype=args.moment_dtype,
         master_weights=args.master_weights))
@@ -4858,6 +5059,284 @@ def graph_check(card: str) -> dict:
     return res
 
 
+# The world graph check (dist4, four GPUs): graph_check in every rank of a
+# world of four, one GPU a rank over NCCL. Each rank runs its cell's
+# GRAPH_STEPS steps eagerly and graphed, each from a fresh model built from
+# the same seed, on the same communicators; the first world adds
+# WORLD_GRAPH_FAULTS, each (what it breaks, its name in
+# planted_graph_fault, the failure that must name it); every world ends
+# with a graphed run of CENSUS_STEPS steps under torch.profiler for the
+# census a rank. (name, cell of world_graph_argv, mesh) of each world.
+WORLD_GRAPH_RUNS = (("lm dp x tp", "lm", {"dp": 2, "tp": 2}),
+                    ("bert fsdp", "bert", {"fsdp": 4}))
+WORLD_GRAPH_FAULTS = (("a graph whose captured gradient all-reduce is left out of the replay",
+                       "skip-grad-reduce", "grad_norm"),)
+CENSUS_STEPS = 6
+_WORLD_GRAPH_CHILD = ("import sys, chip_smoke\n"
+                      "sys.exit(chip_smoke.world_graph_child(sys.argv[1:]))\n")
+
+
+def world_graph_argv(cell: str, steps: int = GRAPH_STEPS) -> list[str]:
+    """The trainer's argv of a world graph check's cell: the LM cell (lm)
+    or BERT-base at seq 512, batch 32 (bert); both 12 layers."""
+    if cell == "lm":
+        return lm_argv(steps)
+    model, seq, batch, _ = BERT_RUNS[0]
+    return bert_argv(model, seq, batch, steps)
+
+
+def world_graph_child(argv: list[str]) -> int:
+    """A rank of the world graph check: argv = [record path, cell, 1 to run
+    WORLD_GRAPH_FAULTS]. Joins the world from the operator's env, then
+    graph_run eager and graphed (graph_verdict's failures), the faults'
+    failures and the census (launch_census, census_failures for a world),
+    written as JSON to the record path."""
+    import gc
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tf_operator_tpu_torch.parallel import distributed
+
+    path, cell, with_faults = argv[0], argv[1], argv[2] == "1"
+    distributed.initialize_from_env(device=torch.device("cuda", 0))
+
+    def fresh(graphed, fault=""):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        rec = graph_run(graphed, fault, argv=world_graph_argv(cell), world=True)
+        rec["peak_gb"] = [torch.cuda.max_memory_allocated() / 1e9,
+                          torch.cuda.max_memory_reserved() / 1e9]
+        return rec
+
+    eager, graphed = fresh(False), fresh(True)
+    rec = {"fails": graph_verdict(eager, graphed, LAYERS, GRAPH_STEPS),
+           "loss": graphed["loss"], "grad_norm": graphed["grad_norm"],
+           "eager_loss": eager["loss"], "eager_grad_norm": eager["grad_norm"],
+           "launches": {"eager": eager["launches"], "graphed": graphed["launches"]},
+           "wall_s": {"eager": eager["wall_s"], "graphed": graphed["wall_s"]},
+           "peak_allocated_reserved_gb": {"eager": eager["peak_gb"],
+                                          "graphed": graphed["peak_gb"]}}
+    del graphed
+    if with_faults:
+        rec["faults"] = {fault: graph_verdict(eager, fresh(True, fault), LAYERS, GRAPH_STEPS)
+                         for _, fault, _ in WORLD_GRAPH_FAULTS}
+    del eager
+    gc.collect()
+    torch.cuda.empty_cache()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        graph_run(True, steps=CENSUS_STEPS, argv=world_graph_argv(cell, CENSUS_STEPS),
+                  world=True)
+    rec["census"] = profiled_census(prof, LM_STEP_MARKER, LAYERS, CENSUS_STEPS)
+    rec["census_fails"] = census_failures(rec["census"], world=True)
+    Path(path).write_text(json.dumps(rec))
+    distributed.distributed_goodbye()
+    return 0
+
+
+def world_graph_failures(name: str, ranks: list[dict], with_faults: bool) -> list[str]:
+    """What of a world graph check's rank records (world_graph_child's) is
+    wrong: a rank whose graphed run differs from its eager one, a planted
+    fault no rank's check names, a census off census_failures' rule."""
+    fails = []
+    for r, rec in enumerate(ranks):
+        fails += [f"{name} rank {r}: {f}" for f in rec["fails"] + rec["census_fails"]]
+    for label, fault, must in WORLD_GRAPH_FAULTS if with_faults else ():
+        if not all(any(f.startswith(must) for f in rec["faults"][fault]) for rec in ranks):
+            fails.append(f"{name}: the planted fault '{label}' was not rejected by '{must}' "
+                         f"in every rank: {[rec['faults'][fault] for rec in ranks]}")
+    return fails
+
+
+def world_graph_check(card: str) -> dict:
+    """WORLD_GRAPH_RUNS, each as four ranks with a GPU each
+    (world_graph_child), held by world_graph_failures."""
+    out, fails = {}, []
+    for i, (name, cell, mesh) in enumerate(WORLD_GRAPH_RUNS):
+        port, children = free_port(), []
+        for rank in range(4):
+            env = {"JAX_COORDINATOR_ADDRESS": f"127.0.0.1:{port}", "JAX_PROCESS_ID": str(rank),
+                   "JAX_NUM_PROCESSES": "4", "TPUJOB_MESH": json.dumps(mesh),
+                   "CUDA_VISIBLE_DEVICES": str(rank)}
+            children.append(start_child([cell, "1" if i == 0 else "0"],
+                                        f"_world_graph_{cell}_{rank}", env, _WORLD_GRAPH_CHILD))
+        ranks = []
+        for rank, (rc, _, rec) in enumerate(finish_child(c, timeout=900) for c in children):
+            if rc != 0 or not rec:
+                raise SmokeFailure(f"world graph {name}: rank {rank} exited {rc}")
+            ranks.append(rec)
+        fails += world_graph_failures(name, ranks, i == 0)
+        res = {"world": name, "mesh": mesh, "steps": GRAPH_STEPS,
+               "bit_equal": not any(r["fails"] for r in ranks),
+               "loss": ranks[0]["loss"], "grad_norm": ranks[0]["grad_norm"],
+               "launches": ranks[0]["launches"]["graphed"],
+               "wall_s": [r["wall_s"] for r in ranks],
+               "peak_allocated_reserved_gb": [r["peak_allocated_reserved_gb"] for r in ranks],
+               "faults_rejected": ranks[0].get("faults"),
+               "census": [{k: r["census"][k] for k in ("graph_launches_per_step",
+                                                       "k123_by_launch_api",
+                                                       "nccl_by_launch_api")}
+                          for r in ranks],
+               "fails": [f for f in fails if f.startswith(name)], "card": card}
+        log("world graph: " + json.dumps(res))
+        out[name] = res
+    if fails:
+        raise SmokeFailure("world graph check: " + "; ".join(fails))
+    return out
+
+
+# The kill check (dist4): BERT (dist_argv, 12 steps) at dp = 4, one GPU a
+# rank over NCCL, rank 3 killed (SIGKILL, from here) once it has reported
+# step KILL_STEP (its progress event comes after its next step is
+# dispatched: the kill lands inside a step), with the world's collective timeout at KILL_TIMEOUT_S (the
+# trainer's distributed.TIMEOUT is 300 s): how each survivor ends, on this
+# tree's graph route and on a parent tree's eager one.
+KILL_STEP = 3
+KILL_TIMEOUT_S = 60
+KILL_MESH = {"dp": 4}
+# A dist_child (or any chip_smoke function of argv) on another tree's
+# package: argv = [record path, tree, function, *its argv].
+_TREE_CHILD = (
+    "import importlib.util, os, sys\n"
+    "path, tree, fn = sys.argv[1:4]\n"
+    "sys.path.insert(0, tree)\n"
+    f"spec = importlib.util.spec_from_file_location('chip_smoke', {str(Path(__file__))!r})\n"
+    "cs = importlib.util.module_from_spec(spec)\n"
+    "sys.modules['chip_smoke'] = cs\n"
+    "spec.loader.exec_module(cs)\n"
+    "import tf_operator_tpu_torch\n"
+    "assert os.path.realpath(tf_operator_tpu_torch.__file__).startswith(os.path.realpath(tree))\n"
+    "sys.exit(getattr(cs, fn)([path, *sys.argv[4:]]))\n"
+)
+
+
+def link_build(tree: Path) -> None:
+    """Point another tree's kernel build directory at this checkout's, so a
+    tree with the same sources builds nothing (the libraries' names are
+    hashes of their sources)."""
+    shared = ROOT / "build" / "torch_kernels"
+    shared.mkdir(parents=True, exist_ok=True)
+    link = tree / "build" / "torch_kernels"
+    if tree.resolve() != ROOT.resolve() and not link.exists():
+        link.parent.mkdir(parents=True, exist_ok=True)
+        link.symlink_to(shared)
+
+
+def start_tree_world(tree: Path, tag: str, argv: list[str], mesh: dict, env: dict,
+                     fn: str = "dist_child") -> list:
+    """`fn` of chip_smoke on `tree`'s package as the ranks of a world at
+    `mesh`, one GPU a rank (start_child's children)."""
+    n = int(math.prod(mesh.values()))
+    port = free_port()
+    link_build(tree)
+    return [start_child([str(tree), fn, *argv], f"_{tag}_{rank}",
+                        {**env, "JAX_COORDINATOR_ADDRESS": f"127.0.0.1:{port}",
+                         "JAX_PROCESS_ID": str(rank), "JAX_NUM_PROCESSES": str(n),
+                         "TPUJOB_MESH": json.dumps(mesh), "TPUJOB_REPLICA_INDEX": str(rank),
+                         "CUDA_VISIBLE_DEVICES": str(rank)}, _TREE_CHILD)
+            for rank in range(n)]
+
+
+def kill_check(card: str, trees: dict, argv: list[str] | None = None,
+               mesh: dict = KILL_MESH) -> dict:
+    """The kill check on each of `trees` (label -> tree), all at once, on
+    `argv` (the BERT run's by default) at `mesh`, its last rank killed: how
+    every survivor ends (exit code, whether it emitted peer_lost, its last
+    event, seconds from the kill), or that it did not end within
+    KILL_TIMEOUT_S + 300 s (then killed here)."""
+    if argv is None:
+        argv = dist_argv()
+        argv[argv.index("--steps") + 1] = "12"
+    env = {"CHIP_SMOKE_DIST_ROLE": "measure", "CHIP_SMOKE_DIST_TIMEOUT_S": str(KILL_TIMEOUT_S)}
+    worlds = {label: start_tree_world(tree, f"kill_{label}", argv, mesh, env)
+              for label, tree in trees.items()}
+    killed: dict = {}
+    deadline = time.time() + 600
+    while len(killed) < len(worlds) and time.time() < deadline:
+        for label, children in worlds.items():
+            proc, events_path, _ = children[-1]
+            if label not in killed and max(_progress_steps(events_path), default=0) >= KILL_STEP:
+                proc.send_signal(signal.SIGKILL)
+                killed[label] = time.time()
+        time.sleep(0.05)
+
+    def end(label, rank, child):
+        proc, events_path, _ = child
+        t_kill = killed.get(label, time.time())
+        try:
+            _, stderr = proc.communicate(timeout=max(1.0, t_kill + KILL_TIMEOUT_S + 300
+                                                     - time.time()))
+            rc, seconds = proc.returncode, time.time() - t_kill
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            _, stderr = proc.communicate()
+            rc, seconds = None, None
+        events = _events(events_path)
+        return {"rank": rank, "exit_code": rc, "seconds_after_kill": seconds,
+                "peer_lost": any(e["event"] == "peer_lost" for e in events),
+                "last_event": events[-1]["event"] if events else None,
+                "stderr_tail": stderr.strip().splitlines()[-3:]}
+
+    with ThreadPoolExecutor(max_workers=sum(len(c) for c in worlds.values())) as pool:
+        ends = {label: [pool.submit(end, label, r, c) for r, c in enumerate(children[:-1])]
+                for label, children in worlds.items()}
+        out = {"mesh": mesh, "kill_after_step": KILL_STEP, "timeout_s": KILL_TIMEOUT_S,
+               "card": card}
+        for label, futures in ends.items():
+            out[label] = {"tree": str(trees[label]), "killed": label in killed,
+                          "survivors": [f.result() for f in futures]}
+    for children in worlds.values():
+        finish_child(children[-1], timeout=30)
+    log("kill: " + json.dumps(out))
+    return out
+
+
+def _events(path: Path) -> list[dict]:
+    """The events of a metrics file a process may still be writing (a
+    partial last line is left out)."""
+    if not path.exists():
+        return []
+    out = []
+    for line in path.read_text().splitlines():
+        try:
+            out.append(json.loads(line))
+        except json.JSONDecodeError:
+            pass
+    return out
+
+
+def _progress_steps(path: Path) -> list[int]:
+    return [e["step"] for e in _events(path) if e["event"] == "progress"]
+
+
+def kill_failures(res: dict) -> list[str]:
+    """The graph world's survivors (kill_check's `graph`) must end no worse
+    than the parent's eager ones (`eager`): where an eager survivor ends,
+    with the same exit codes and peer_lost events, none later than the
+    eager world's last by more than 30 s; where every eager survivor hangs
+    past the check's wait, any ending is no worse."""
+    graph, eager = res["graph"], res.get("eager")
+    fails = [f"{label}: its last rank was never seen at step {KILL_STEP}"
+             for label in ("graph", "eager") if label in res and not res[label]["killed"]]
+    if fails or eager is None or all(s["exit_code"] is None for s in eager["survivors"]):
+        return fails
+
+    def ending(world):
+        return sorted((s["exit_code"] is None, s["exit_code"] or 0, s["peer_lost"])
+                      for s in world["survivors"])
+
+    if ending(graph) != ending(eager):
+        fails.append(f"the graph world's survivors end {ending(graph)}, the eager world's "
+                     f"{ending(eager)}")
+    late = [s["seconds_after_kill"] for s in graph["survivors"]]
+    slowest = max((s["seconds_after_kill"] or 0.0) for s in eager["survivors"])
+    if any(t is None or t > slowest + 30 for t in late):
+        fails.append(f"the graph world's survivors end {late} s after the kill, the eager "
+                     f"world's by {slowest:.1f} s")
+    return fails
+
+
 LM_STEP_MARKER = ("fwd_", "_kernel")
 
 
@@ -4880,6 +5359,11 @@ def is_k123(name: str) -> bool:
     return any(k in low for k in K123_KEYS) and "delta" not in low
 
 
+def is_nccl(name: str) -> bool:
+    """An NCCL kernel (ncclKernel_*, ncclDevKernel_*)."""
+    return name.lower().startswith("nccl")
+
+
 def launch_census(kernels, runtime: dict, marker: tuple, per_step: int, steps: int) -> dict:
     """Which host API launched each kernel of a profiled run's steady
     window. `kernels`: the device kernels as (name, start, correlation id);
@@ -4897,30 +5381,53 @@ def launch_census(kernels, runtime: dict, marker: tuple, per_step: int, steps: i
     window = [k for k in kernels if t0 <= k[1] < t1]
     by_api: dict[str, int] = {}
     k123_by_api: dict[str, int] = {}
+    nccl_by_api: dict[str, int] = {}
     for name, _, corr in window:
         api = runtime.get(corr, "unattributed")
         by_api[api] = by_api.get(api, 0) + 1
-        if is_k123(name):
-            k123_by_api[api] = k123_by_api.get(api, 0) + 1
+        for kind, counts in ((is_k123(name), k123_by_api), (is_nccl(name), nccl_by_api)):
+            if kind:
+                counts[api] = counts.get(api, 0) + 1
     graphs = {runtime.get(corr) == GRAPH_LAUNCH and corr for name, _, corr in window
               if all(m in name.lower() for m in marker)} - {False}
     n = steps - 1 - LOG_EVERY
     return {"steps": n, "graph_launches": len(graphs),
             "graph_launches_per_step": len(graphs) / n,
-            "kernels_by_launch_api": by_api, "k123_by_launch_api": k123_by_api}
+            "kernels_by_launch_api": by_api, "k123_by_launch_api": k123_by_api,
+            "nccl_by_launch_api": nccl_by_api}
 
 
-def census_failures(census: dict) -> list[str]:
+def census_failures(census: dict, world: bool = False) -> list[str]:
     """A graphed trainer's window must hold one cudaGraphLaunch a step and
-    no K1-K3 kernel launched by another call."""
+    no K1-K3 or NCCL kernel launched by another call; a rank of a `world`
+    must launch its step's NCCL kernels under the graph."""
     fails = []
     if census["graph_launches"] != census["steps"]:
         fails.append(f"{census['graph_launches']} cudaGraphLaunch calls over "
                      f"{census['steps']} steps")
-    other = {api: n for api, n in census["k123_by_launch_api"].items() if api != GRAPH_LAUNCH}
-    if other:
-        fails.append(f"K1-K3 kernels launched outside a graph: {other}")
+    for what in ("k123", "nccl"):
+        other = {api: n for api, n in census[f"{what}_by_launch_api"].items()
+                 if api != GRAPH_LAUNCH}
+        if other:
+            fails.append(f"{'K1-K3' if what == 'k123' else 'NCCL'} kernels launched outside "
+                         f"a graph: {other}")
+    if world and not census["nccl_by_launch_api"].get(GRAPH_LAUNCH):
+        fails.append("no NCCL kernel under the graph launches")
     return fails
+
+
+def profiled_census(prof, marker: tuple, per_step: int, steps: int) -> dict:
+    """launch_census over a finished torch.profiler run's device kernels and
+    host runtime calls."""
+    from torch.profiler import DeviceType
+
+    raw = prof.profiler.kineto_results.events()
+    return launch_census(
+        [(e.name(), e.start_ns(), e.correlation_id()) for e in raw
+         if e.device_type() == DeviceType.CUDA],
+        {e.correlation_id(): e.name() for e in raw
+         if e.device_type() == DeviceType.CPU and e.name().startswith(("cuda", "cu"))},
+        marker, per_step, steps)
 
 
 def _profile_trainer(argv, steps: int, marker: tuple, per_step: int, groups,
@@ -4965,13 +5472,7 @@ def _profile_trainer(argv, steps: int, marker: tuple, per_step: int, groups,
         "device_ms_by_group": dict(sorted(by_group.items(), key=lambda kv: -kv[1])),
         "top_kernels_ms": dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:8]),
         "card": card}}
-    raw = prof.profiler.kineto_results.events()
-    summary["profile"]["launches"] = census = launch_census(
-        [(e.name(), e.start_ns(), e.correlation_id()) for e in raw
-         if e.device_type() == DeviceType.CUDA],
-        {e.correlation_id(): e.name() for e in raw
-         if e.device_type() == DeviceType.CPU and e.name().startswith(("cuda", "cu"))},
-        marker, per_step, steps)
+    summary["profile"]["launches"] = census = profiled_census(prof, marker, per_step, steps)
     prof.export_chrome_trace(str(OUT_DIR / trace))
     log("profile: " + json.dumps(summary))
     fails = census_failures(census) if graphed else []
@@ -5013,9 +5514,13 @@ def main(argv: list[str] | None = None) -> int:
                          "preempt,bert,data,dist,sp,moe,serve,multislice,pipeline,pod,profile; "
                          "k4 for the fused bottleneck's "
                          "checks alone, k5 for the grouped matmul's (moe runs them too; "
-                         "eval follows the ckpt phase's directory); dist4 "
-                         "(or its MoE runs alone, moe4) and pod4 on a machine of four GPUs")
+                         "eval follows the ckpt phase's directory); graph4 (the world "
+                         "graph and kill checks), dist4, pod4 and moe4 (the MoE's) on a "
+                         "machine of four GPUs, in that order")
     ap.add_argument("--steps", type=int, default=6)
+    ap.add_argument("--parent", type=Path, default=None,
+                    help="a tree of the repo (e.g. a git archive of the parent commit) "
+                         "whose eager NCCL world graph4's kill check runs beside this one's")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -5084,12 +5589,14 @@ def main(argv: list[str] | None = None) -> int:
             results["pipeline"] = pipeline_phase(records, card)
         if "pod" in phases:
             results["pod"] = pod_phase(records, card)
+        if "graph4" in phases:
+            results["graph4"] = graph4_phase(card, args.parent)
         if "dist4" in phases:
             results["dist4"] = dist4_phase(records, card)
-        elif "moe4" in phases:
-            results["moe4"] = moe4_phase(card)
         if "pod4" in phases:
             results["pod4"] = pod4_phase(records, card)
+        if "moe4" in phases:
+            results["moe4"] = moe4_phase(card)
         if "profile" in phases:
             profile_phase(args, card)
     except Exception as e:  # every phase failure ends the run without a result

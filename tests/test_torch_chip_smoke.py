@@ -1427,3 +1427,136 @@ def test_is_k123_leaves_out_the_delta_pass_and_k5():
     assert chip_smoke.is_k123("bwd_dkv_kernel<float, 64, 64>")
     assert not chip_smoke.is_k123("bwd_delta_kernel<bf16, 128>")
     assert not chip_smoke.is_k123("gmm_wgmma_kernel<false>")
+
+
+def test_census_holds_a_world_ranks_nccl_kernels_under_the_graph():
+    """A rank of a world: its step's NCCL kernels must replay under the
+    graph launch, and no NCCL kernel may come from another host call (the
+    world watch's empty all-reduce launches none)."""
+    kernels, runtime = _census_events(graphed=True)
+    corr = {c for _, _, c in kernels}
+    under = [("ncclDevKernel_AllReduce_Sum_f32_RING_LL", t + 1, c)
+             for n, t, c in kernels if n.startswith("nvjet")]
+    census = chip_smoke.launch_census(kernels + under, runtime, chip_smoke.LM_STEP_MARKER,
+                                      12, 6)
+    assert census["nccl_by_launch_api"] == {"cudaGraphLaunch": 3}
+    assert chip_smoke.census_failures(census, world=True) == []
+    assert chip_smoke.census_failures(chip_smoke.launch_census(
+        kernels, runtime, chip_smoke.LM_STEP_MARKER, 12, 6), world=True) == \
+        ["no NCCL kernel under the graph launches"]
+    outside = max(corr) + 1
+    runtime[outside] = "cudaLaunchKernelExC"
+    stray = [("ncclDevKernel_AllReduce_Sum_f32_RING_LL", t + 2, outside)
+             for n, t, _ in kernels if n.startswith("nvjet")]
+    fails = chip_smoke.census_failures(chip_smoke.launch_census(
+        kernels + under + stray, runtime, chip_smoke.LM_STEP_MARKER, 12, 6), world=True)
+    assert fails == ["NCCL kernels launched outside a graph: {'cudaLaunchKernelExC': 3}"]
+    assert chip_smoke.is_nccl("ncclKernel_AllGather_RING_LL_Sum_int8_t")
+    assert not chip_smoke.is_nccl("bwd_delta_kernel<bf16, 128>")
+
+
+def test_nccl_graph_probe_record_is_pinned():
+    """The one-rank NCCL capture probe's expected record: the port's five
+    collectives in one graph, 3 replays each bit-equal to the eager calls,
+    and the world watch's empty all-reduce ordered after the stream's work
+    without a device event of its own."""
+    assert chip_smoke.NCCL_GRAPH_PROBE == {
+        "collectives": ["all_reduce", "all_gather", "reduce_scatter", "all_to_all", "rotate"],
+        "replays": 3, "bit_equal": [True, True, True], "watch_waits_for_the_stream": True,
+        "watch_device_events": 0}
+    good = dict(chip_smoke.NCCL_GRAPH_PROBE, watch_device_event_names=[])
+    assert chip_smoke.nccl_graph_failures(good) == []
+    for key, bad in (("bit_equal", [True, False, True]), ("watch_device_events", 1),
+                     ("watch_waits_for_the_stream", False), ("replays", 2)):
+        fails = chip_smoke.nccl_graph_failures(dict(good, **{key: bad}))
+        assert len(fails) == 1 and fails[0].startswith(key), fails
+
+
+def test_world_graph_fault_is_rejected_by_name(graph_records):
+    """WORLD_GRAPH_FAULTS: a graph that left its gradient all-reduce out
+    steps every replay on the rank's own gradients, so graph_verdict's
+    grad_norm (from step 2 on) names it; world_graph_failures demands that
+    of every rank and passes bit-equal ranks."""
+    (label, fault, must), = chip_smoke.WORLD_GRAPH_FAULTS
+    assert (fault, must) == ("skip-grad-reduce", "grad_norm") and "all-reduce" in label
+    eager, same, _ = graph_records
+    local = dict(same, grad_norm=same["grad_norm"][:1] + [x * 1.4 for x in same["grad_norm"][1:]],
+                 loss=same["loss"][:2] + [x + 1e-3 for x in same["loss"][2:]])
+    fails = chip_smoke.graph_verdict(eager, local, chip_smoke.LAYERS, chip_smoke.GRAPH_STEPS)
+    assert [f.split()[0] for f in fails] == ["loss", "grad_norm"], fails
+    good = {"fails": [], "census_fails": [], "faults": {fault: fails}}
+    assert chip_smoke.world_graph_failures("w", [good] * 4, True) == []
+    missed = dict(good, faults={fault: []})
+    assert "was not rejected" in chip_smoke.world_graph_failures("w", [good, missed], True)[0]
+    off = dict(good, fails=["loss differs at steps [3]"])
+    assert chip_smoke.world_graph_failures("w", [good, off], False) == \
+        ["w rank 1: loss differs at steps [3]"]
+
+
+def test_skip_grad_reduce_leaves_the_reduction_out_of_the_capture_only(monkeypatch):
+    from tf_operator_tpu_torch.parallel import collectives
+
+    calls = []
+    monkeypatch.setattr(collectives, "all_reduce_flat",
+                        lambda tensors, group: calls.append(group) or ["reduced"])
+    capturing = [False]
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: capturing[0])
+    g = [torch.ones(2)]
+    with chip_smoke.planted_graph_fault("skip-grad-reduce"):
+        assert collectives.all_reduce_flat(g, "dp") == ["reduced"]
+        capturing[0] = True
+        assert collectives.all_reduce_flat(g, "dp") == g
+    assert calls == ["dp"] and collectives.all_reduce_flat(g, "tp") == ["reduced"]
+
+
+def test_world_route_is_the_backend_rule():
+    from tf_operator_tpu_torch.parallel import graphed_step
+
+    for backend in ("nccl", "gloo"):
+        want = graphed_step.step_route("cuda", 4, backend, False)[0]
+        assert chip_smoke.world_route(backend) == want
+
+
+def _kill_world(ends):
+    return {"killed": True, "survivors": [
+        {"exit_code": rc, "peer_lost": lost, "seconds_after_kill": t} for rc, lost, t in ends]}
+
+
+def test_kill_failures_hold_the_graph_world_to_no_worse_than_the_eager_one():
+    eager = _kill_world([(-6, False, 61.0)] * 3)
+    assert chip_smoke.kill_failures({"graph": _kill_world([(-6, False, 62.5)] * 3),
+                                     "eager": eager}) == []
+    fails = chip_smoke.kill_failures({"graph": _kill_world([(None, False, None)] * 3),
+                                      "eager": eager})
+    assert len(fails) == 2 and "end" in fails[0], fails
+    late = chip_smoke.kill_failures({"graph": _kill_world([(-6, False, 95.0)] * 3),
+                                     "eager": eager})
+    assert len(late) == 1 and "after the kill" in late[0]
+    assert chip_smoke.kill_failures({"graph": _kill_world([(138, True, 1.0)] * 3)}) == []
+    # An eager world that never ends holds the graph world to nothing more.
+    hung = _kill_world([(None, False, None)] * 3)
+    assert chip_smoke.kill_failures({"graph": _kill_world([(-6, False, 131.1)] * 3),
+                                     "eager": hung}) == []
+    unseen = dict(_kill_world([]), killed=False)
+    assert "never seen" in chip_smoke.kill_failures({"graph": unseen, "eager": eager})[0]
+
+
+def test_kill_check_on_cpu(tmp_path, monkeypatch):
+    """The kill check's machinery on the CPU: a tiny LM at dp = 2 over gloo
+    on two "trees" (this checkout twice, through chip_smoke._TREE_CHILD),
+    the last rank killed once it reports step 3; gloo reports the lost
+    peer at once, so each survivor exits 138 with a peer_lost event, and
+    both worlds end alike."""
+    monkeypatch.setattr(chip_smoke, "OUT_DIR", tmp_path)
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    argv = ["--model", "transformer-lm", "--steps", "400", "--batch", "4", "--seq", "32",
+            "--layers", "2", "--hidden", "64", "--heads", "4", "--log-every", "1",
+            "--device", "cpu"]
+    res = chip_smoke.kill_check("cpu", {"graph": chip_smoke.ROOT, "eager": chip_smoke.ROOT},
+                                argv, {"dp": 2})
+    for label in ("graph", "eager"):
+        assert res[label]["killed"], res
+        (end,) = res[label]["survivors"]
+        assert (end["exit_code"], end["peer_lost"]) == (138, True), res
+        assert end["seconds_after_kill"] < 60, res
+    assert chip_smoke.kill_failures(res) == []

@@ -11,15 +11,14 @@ route rule, the launch bookkeeping and the graphed chunk's bookkeeping.
   state_tensors -> load_state_tensors round trip in the middle of the run.
 - step_route as a pure function for every kind of world.
 - GraphedStep's launch bookkeeping and graphed_chunks' re-seeding, with
-  torch.cuda's stream and graph calls replaced by stand-ins that run the
-  step again at each "replay": what a replay computes on the card is held
-  in chip_smoke's graph check, not here.
+  torch.cuda's stream and graph calls replaced by tests/graph_standins.py's
+  stand-ins, which run the step again at each "replay": what a replay
+  computes on the card is held in chip_smoke's graph check, not here.
 - The MoE dispatch's expert counts against torch.bincount and the JAX
   dispatch's jnp.bincount.
 """
 
-import contextlib
-
+import graph_standins
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -216,7 +215,10 @@ def test_a_restore_writes_the_live_count_and_keeps_an_int_on_the_wire():
     ("cuda", 1, None, False, "graph", "one process"),
     ("cuda", 1, "nccl", False, "graph", "one process"),
     ("cuda", 2, "gloo", False, "eager", "gloo"),
-    ("cuda", 4, "nccl", False, "eager", "NCCL"),
+    ("cuda", 2, "nccl", False, "graph", "NCCL"),
+    ("cuda", 4, "nccl", False, "graph", "NCCL"),
+    ("cuda", 8, "nccl", False, "graph", "world of 8"),
+    ("cuda", 4, "gloo", False, "eager", "gloo"),
     ("cuda", 1, None, True, "eager", "multi-slice"),
     ("cuda", 2, "nccl", True, "eager", "multi-slice"),
 ])
@@ -225,71 +227,9 @@ def test_step_route(device, world, backend, multislice, route, why):
     assert got == route and why in reason
 
 
-class _FakeStream:
-    def wait_stream(self, other):
-        pass
-
-
-class _FakeGraph:
-    """A stand-in for torch.cuda.CUDAGraph: a replay runs the captured
-    step's body again, writes its results into the step's static metrics
-    and, like a graph, bumps no Python counter."""
-
-    def __init__(self):
-        self.generators, self.replays, self.step = [], 0, None
-
-    def register_generator_state(self, gen):
-        self.generators.append(gen)
-
-    def replay(self):
-        self.replays += 1
-        before = [dict(c) for c in self.step.counters]
-        out = self.step.body()
-        for c, b in zip(self.step.counters, before):
-            c.update(b)
-        for k, v in out.items():
-            self.step.metrics[k].copy_(v)
-
-
-class _FakeCuda:
-    """The graphs made, and the tensors a stand-in capture restores: a real
-    capture records the step without running it, this one runs it."""
-
-    def __init__(self):
-        self.graphs, self.kept = [], []
-
-    def keep(self, state):
-        o = state.opt_state
-        self.kept.extend([*state.params, o.count, *o.mu, *o.nu, *o.master])
-
-
 @pytest.fixture
 def fake_cuda(monkeypatch):
-    fake = _FakeCuda()
-
-    @contextlib.contextmanager
-    def graph(g, pool=None, capture_error_mode=None):
-        fake.graphs.append(g)
-        saved = [t.detach().clone() for t in fake.kept]
-        yield
-        with torch.no_grad():
-            for t, v in zip(fake.kept, saved):
-                t.copy_(v)
-
-    real_capture = graphed_step.GraphedStep._capture
-
-    def capture(self):
-        real_capture(self)
-        self.graph.step = self
-
-    monkeypatch.setattr(torch.cuda, "CUDAGraph", _FakeGraph)
-    monkeypatch.setattr(torch.cuda, "graph", graph)
-    monkeypatch.setattr(torch.cuda, "Stream", _FakeStream)
-    monkeypatch.setattr(torch.cuda, "current_stream", lambda *a: _FakeStream())
-    monkeypatch.setattr(torch.cuda, "stream", lambda s: contextlib.nullcontext())
-    monkeypatch.setattr(torch.Tensor, "record_stream", lambda self, s: None)
-    monkeypatch.setattr(graphed_step.GraphedStep, "_capture", capture)
-    return fake
+    return graph_standins.install(monkeypatch.setattr, graph_standins.FakeCuda())
 
 
 def test_replays_count_the_captured_launches(fake_cuda):

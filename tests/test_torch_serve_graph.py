@@ -8,7 +8,7 @@ and the graph route of serve/server.py), on the CPU.
   64, 4 heads, window 64, 4 + 1 slots, f32 within tests/test_torch_decode.py's
   atol 1e-5, a retired slot parked at position 0 among the ticks.
 - The server on the graph route with torch.cuda's graph calls replaced by
-  tests/test_torch_graphed_step.py's stand-ins (a "replay" runs the captured
+  tests/graph_standins.py's stand-ins (a "replay" runs the captured
   body again on the captured static inputs, parameters and cache) against
   the JAX server on the scheduler scenarios of tests/test_torch_serve.py,
   with a tiny f32 LM on both: the same tokens, and the eager port server's.
@@ -37,7 +37,8 @@ import pytest
 import torch
 
 import chip_smoke
-from test_torch_graphed_step import _FakeGraph, _FakeStream
+from graph_standins import FakeGraph as _FakeGraph
+from graph_standins import FakeStream as _FakeStream
 from tf_operator_tpu.models import decode as jdecode
 from tf_operator_tpu.models.transformer import TransformerConfig as JConfig
 from tf_operator_tpu.models.transformer import TransformerLM as JLM

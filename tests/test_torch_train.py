@@ -433,7 +433,8 @@ def test_import_hygiene_in_a_fresh_process():
         "assert 'tf_operator_tpu_torch.data.staging' in names, names\n"
         "assert {'tf_operator_tpu_torch.parallel.' + m for m in ('distributed', 'mesh',\n"
         "        'sharding_rules', 'collectives', 'train_step', 'ring_attention',\n"
-        "        'ulysses', 'multislice', 'pipeline', 'launch')} <= set(names), names\n"
+        "        'ulysses', 'multislice', 'pipeline', 'launch',\n"
+        "        'graphed_step')} <= set(names), names\n"
         "assert {'tf_operator_tpu_torch.models.moe',\n"
         "        'tf_operator_tpu_torch.ops.grouped_matmul'} <= set(names), names\n"
         "assert {'tf_operator_tpu_torch.serve.server', 'tf_operator_tpu_torch.models.decode',\n"
@@ -451,12 +452,17 @@ def test_import_hygiene_in_a_fresh_process():
 
 
 def test_import_hygiene_ast_scan():
+    # The port, chip_smoke.py and the tools that time the port's trainers
+    # and servers on the card.
+    tools = [ROOT / "tools" / f"{name}_cells.py" for name in ("graph", "serve", "world")]
     files = sorted((ROOT / "tf_operator_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    assert len(files) > 10
+    files += tools
+    assert len(files) > 10 and all(path.exists() for path in tools)
     for name in ("dataset", "prefetch", "staging"):
         assert ROOT / "tf_operator_tpu_torch" / "data" / f"{name}.py" in files
     for name in ("distributed", "mesh", "sharding_rules", "collectives", "train_step",
-                 "ring_attention", "ulysses", "multislice", "pipeline", "launch"):
+                 "ring_attention", "ulysses", "multislice", "pipeline", "launch",
+                 "graphed_step"):
         assert ROOT / "tf_operator_tpu_torch" / "parallel" / f"{name}.py" in files
     for name in ("models/moe.py", "ops/grouped_matmul.py", "serve/server.py", "models/decode.py",
                  "serve/decode_graphs.py", "status/metrics.py"):

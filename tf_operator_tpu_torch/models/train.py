@@ -29,11 +29,13 @@ appended to `TPUJOB_METRICS_FILE`, plus the `TPUJOB_HEARTBEAT_FILE`
 heartbeat. ResNet's batch-norm running statistics are updated once per
 step and stay f32 under `--master-weights`.
 
-One process on CUDA runs each optimizer step as a replay of a CUDA graph
-(parallel/graphed_step.py), as the JAX trainer compiles its chunk and its
-dataset step: the first step runs eagerly and is then captured, batches
-included, and `model_ready` names the route (`step_route`, and why). The
-CPU, a world of several processes and a multi-slice job step eagerly.
+One process on CUDA, and every rank of a world whose ranks each have a
+GPU of their own (NCCL), runs each optimizer step as a replay of a CUDA
+graph (parallel/graphed_step.py), as the JAX trainer compiles its chunk
+and its dataset step over the whole mesh: the first step runs eagerly and
+is then captured, batches and collectives included, and `model_ready`
+names the route (`step_route`, and why). The CPU, a gloo world and a
+multi-slice job step eagerly.
 
 Checkpoints (`--checkpoint-dir`, models/checkpoint.py) follow the JAX
 trainer: step_<N> holds the parameters and trainstate_<N> the resume
@@ -82,7 +84,10 @@ rank, as the JAX step replicates their batch there). Rank 0 writes
 the checkpoints, gathered to full tensors; the replicas agree on the resume
 step, on a preemption, and exit together (distributed_goodbye) on clean
 completion only. A collective that fails because a peer died exits 138
-(retryable). The data axis splits the batch as dp does; pp is replicated,
+(retryable); in an NCCL world a lost peer shows in no call: a graphed
+rank is ended by the process group's watchdog after its timeout
+(graphed_step.world_watch), an eager one was seen to hang (ROADMAP §C5).
+The data axis splits the batch as dp does; pp is replicated,
 as the JAX trainer makes it (the GPipe schedule, parallel/pipeline.py, is
 on no trainer path there either).
 
@@ -1837,10 +1842,10 @@ def _run_trainer(args, device: torch.device, heartbeat, guard, chaos=None,
     ))
     state = create_train_state(model, tx, plan)
     state, start_step = _try_resume(args.checkpoint_dir, state, tx, allow_reshape, plan)
-    # One process on CUDA replays a CUDA graph of each step; the CPU, a world
-    # of several processes (gloo cannot be captured; NCCL capture is a later
-    # port) and a multi-slice job (its exchange runs on the host between the
-    # halves of a step) step eagerly. No fallback: a failed capture raises.
+    # One process on CUDA and every rank of an NCCL world replay a CUDA graph
+    # of each step; the CPU, a gloo world (its collectives run on the host)
+    # and a multi-slice job (its exchange runs on the host between the halves
+    # of a step) step eagerly. No fallback: a failed capture raises.
     route, route_why = step_route(device.type, mesh.world, dist_backend, ms_world is not None)
 
     _emit({"event": "model_ready", "t": time.time(), "step_route": route,

@@ -28,6 +28,13 @@ their gradients in the backward. Sequence parallelism's two are JAX's:
 gradients go to the previous one) and `all_to_all` (the tiled
 lax.all_to_all; its backward is the reverse all-to-all).
 
+In an NCCL world every rank captures its step's collectives in a CUDA
+graph (graphed_step.py), so none of those the step runs reads the host:
+each makes its buffers on the device and waits on its work at once, which
+under a capture only orders the stream after the collective. Those that
+read the host (broadcast_int, all_gather_int, agree_int) run outside the
+step.
+
 gloo's point-to-point ops take no CUDA tensor (the process aborts), so
 where the backend is gloo and the tensors live on a GPU (two ranks sharing
 one card) `rotate`, `send` and `recv` (the pipeline's hops) stage their

@@ -1,20 +1,36 @@
-"""One-process training as CUDA graphs: the counterpart of the JAX
-trainer's compiled step (`make_scanned_train_step`'s chunk on synthetic
-batches, `make_train_step`'s jitted step on a dataset's).
+"""Training as CUDA graphs: the counterpart of the JAX trainer's compiled
+step (`make_scanned_train_step`'s chunk on synthetic batches,
+`make_train_step`'s jitted step on a dataset's), in one process and on every
+rank of an NCCL world.
 
-`step_route` is the rule: one process on CUDA replays a captured graph of
-each optimizer step; every other run steps eagerly, for the reason it
+`step_route` is the rule: one process on CUDA, and every rank of a world
+whose ranks each have a GPU of their own (NCCL), replays a captured graph
+of each optimizer step; every other run steps eagerly, for the reason it
 returns. There is no fallback: a capture or a replay that fails raises.
 
 `GraphedStep` runs one step a call. Its first call runs the step eagerly on
 a side stream (the warm-up the PyTorch documentation asks for before a
 capture: cuBLAS handles, workspaces and the flash kernels' shared-memory
-attributes are set up there, outside the graph), which is the step itself,
-so no step runs twice or is skipped; it then captures the step, which
-records the kernels without running them. Every later call replays the
-graph. The step reads and writes only tensors that outlive the call: the
-model's parameters and buffers, the optimizer state (updated in place, its
-count on the device) and the static inputs.
+attributes are set up there, outside the graph, and so is every NCCL
+communicator the step's collectives use, point-to-point pairs included,
+since ProcessGroupNCCL creates them at their first collective), which is
+the step itself, so no step runs twice or is skipped; it then captures the
+step, which records the kernels without running them. Every later call
+replays the graph. The step reads and writes only tensors that outlive the
+call: the model's parameters and buffers, the optimizer state (updated in
+place, its count on the device) and the static inputs.
+
+In a world, the captured NCCL kernels replay on the rank's communicators
+in the order they were captured, which is the same on every rank; the
+collectives the trainer runs eagerly between replays (the preemption flag,
+a checkpoint's gathers) run on the same communicators, ordered on the
+stream after the replay. ProcessGroupNCCL's watchdog sees only the work
+that Python enqueues, never a replay's kernels, so `world_watch` enqueues
+one empty all-reduce over the world after each replay: it launches nothing,
+and its work completes only when the replay's collectives have, so the
+watchdog times out a replay that waits on a lost peer (distributed.TIMEOUT)
+and ends the rank, which a host read of the step's metrics would otherwise
+wait on for ever.
 
 The kernel wrappers count launches in Python (ops/*.LAUNCHES), so a capture
 would count once kernels that never ran and a replay would count nothing.
@@ -24,11 +40,18 @@ replay: a counter still says how many times the card ran the kernel.
 
 from __future__ import annotations
 
+import os
 from typing import Any, Callable
 
 import torch
+import torch.distributed as dist
 
+from tf_operator_tpu_torch.parallel import collectives
 from tf_operator_tpu_torch.parallel.train_step import TrainState, batch_seed, train_step
+
+# The variables under which ProcessGroupNCCL waits for a collective on the
+# host, which a capture cannot hold (the old name, then the new one).
+BLOCKING_WAIT_ENV = ("NCCL_BLOCKING_WAIT", "TORCH_NCCL_BLOCKING_WAIT")
 
 
 def step_route(device_type: str, world: int, backend: str | None,
@@ -41,12 +64,28 @@ def step_route(device_type: str, world: int, backend: str | None,
     if multislice:
         return "eager", ("the multi-slice exchange runs on the host between the "
                          "halves of a step")
-    if world > 1:
-        if backend == "gloo":
-            return "eager", "gloo's collectives run on the host and cannot be captured"
-        return "eager", (f"a world of {world} processes: the capture of NCCL "
-                         "collectives is not ported yet")
-    return "graph", "one process on CUDA: each step replays one captured CUDA graph"
+    if world == 1:
+        return "graph", "one process on CUDA: each step replays one captured CUDA graph"
+    if backend != "nccl":
+        return "eager", f"{backend}'s collectives run on the host and cannot be captured"
+    return "graph", (f"a world of {world} processes over NCCL: each rank replays one "
+                     f"captured CUDA graph of its step, its collectives included")
+
+
+def world_watch(device) -> Callable[[], None] | None:
+    """In a world of several processes, the call GraphedStep makes after
+    each replay (module docstring): an empty all-reduce over the world on
+    `device`. None in one process. A world whose NCCL waits on the host
+    (BLOCKING_WAIT_ENV) is refused: no collective of it could be captured."""
+    if not dist.is_initialized() or dist.get_world_size() < 2:
+        return None
+    if dist.get_backend() == "nccl":
+        for name in BLOCKING_WAIT_ENV:
+            if os.environ.get(name, "0") not in ("", "0"):
+                raise RuntimeError(f"{name}={os.environ[name]} makes every NCCL collective "
+                                   f"wait on the host, which a CUDA graph cannot capture")
+    empty = torch.empty(0, device=device)
+    return lambda: collectives.all_reduce(empty, dist.group.WORLD)
 
 
 def launch_counters() -> tuple[dict, ...]:
@@ -89,13 +128,16 @@ class GraphedStep:
     call). `generators` are the CUDA generators body draws from; the
     default generator is registered by the capture itself. `pool`, a
     torch.cuda.graph_pool_handle(), shares one memory pool among several
-    graphs (None: a private pool)."""
+    graphs (None: a private pool). `watch` (world_watch's) is called after
+    each replay."""
 
-    def __init__(self, body: Callable[[], dict], generators=(), counters=None, pool=None):
+    def __init__(self, body: Callable[[], dict], generators=(), counters=None, pool=None,
+                 watch: Callable[[], Any] | None = None):
         self.body = body
         self.generators = tuple(generators)
         self.counters = launch_counters() if counters is None else counters
         self.pool = pool
+        self.watch = watch
         self.graph = None
         self.metrics: dict = {}
         self.recorded: list[dict] = []
@@ -106,6 +148,8 @@ class GraphedStep:
             self._capture()
             return metrics
         self.graph.replay()
+        if self.watch is not None:
+            self.watch()
         add_counts(self.counters, self.recorded)
         return self.metrics
 
@@ -169,7 +213,8 @@ def graphed_chunks(loss_fn, tx, make_batch: Callable[[torch.Generator], Any], de
                     batch = plan.local_rows(batch)
                 return train_step(captured, batch, loss_fn, tx, plan)[1]
 
-            held.update(state=captured, step=GraphedStep(body, [gen]))
+            held.update(state=captured,
+                        step=GraphedStep(body, [gen], watch=world_watch(device)))
         _same_state(state, held["state"])
         metrics = None
         for _ in range(n):
@@ -196,7 +241,8 @@ def graphed_batches(loss_fn, tx, preprocess: Callable[[dict], dict], plan=None):
             static.update({k: v.clone() for k, v in batch.items()})
             captured = state
             held.update(state=captured, step=GraphedStep(
-                lambda: train_step(captured, preprocess(static), loss_fn, tx, plan)[1]))
+                lambda: train_step(captured, preprocess(static), loss_fn, tx, plan)[1],
+                watch=world_watch(captured.params[0].device)))
         else:
             for k, v in batch.items():
                 if v.shape != static[k].shape or v.dtype != static[k].dtype:

@@ -129,7 +129,9 @@ def _ring_attention_sharded(q, k, v, group, n: int, my: int, causal: bool,
         src = (my - i) % n  # whose K/V block this rank holds at step i
         ob, lseb = block_fn(k_cur, v_cur, False)
         if causal:
-            visible = torch.tensor(block_visible(src, my), device=q.device)
+            # A fill on the device, not a copy from the host: the step may
+            # be under a CUDA graph's capture.
+            visible = torch.full((), block_visible(src, my), device=q.device)
             lseb = torch.where(visible, lseb, NEG_INF)
             ob = torch.where(visible, ob, 0.0)
         o, lse = merge_partials(o, lse, ob, lseb)

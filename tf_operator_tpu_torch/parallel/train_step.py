@@ -12,8 +12,9 @@ the JAX step's `mutable=["batch_stats"]` does. `make_chunked_train_step` is the
 `--log-every` loop, the counterpart of the JAX `make_scanned_train_step`:
 batches are made on the device from a generator seeded
 from (seed, global step), so how the steps are chunked does not change the
-stream. With `graphed=True` (one process on CUDA, graphed_step.step_route)
-it captures one step as a CUDA graph and replays it for every later step.
+stream. With `graphed=True` (one process on CUDA, or a rank of an NCCL
+world: graphed_step.step_route) it captures one step as a CUDA graph, its
+collectives included, and replays it for every later step.
 With `remat=True` the loss runs under a non-reentrant
 torch.utils.checkpoint (the JAX step's `jax.checkpoint(loss_fn)`): the
 forward keeps only its inputs and the backward replays it; a model that
