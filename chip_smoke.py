@@ -80,8 +80,11 @@ Phases, in order:
      bytes, the snapshot and write seconds per save, hidden_fraction and
      tokens/s beside the train phase's are logged;
   6. the evaluator (eval): a subprocess `--eval` follows the ckpt phase's
-     directory to FINAL; its last eval_loss must equal the final
-     parameters' loss on the same batches, computed here;
+     directory to FINAL on the graph route (one captured graph of the
+     loss, eval_ready); its last eval_loss must equal the final
+     parameters' loss on the same batches, computed here eagerly, and
+     here the graphed round must equal the eager one bit for bit (seconds
+     a checkpoint on both routes);
   7. the long-context LM (longctx): K1, the delta pass, K2 and K3 at
      [1, 6, 65536, 128] bf16 causal held on three 128-row tiles against
      their plain versions and timed; then bench.py's 64k point (12L x 768h,
@@ -123,7 +126,9 @@ Phases, in order:
      each bit-equal to the eager calls; the world watch's empty all-reduce
      ordered after the stream's work with no device event of its own:
      NCCL_GRAPH_PROBE); then BERT-base at seq 512, global
-     batch 32, 6 steps, as one process and at dp = 2, tp = 2 and fsdp = 2
+     batch 32, 6 steps, cut to FAULT_LAYERS (4) blocks (12 until the
+     default run passed its 950 s rule), as one process and at dp = 2,
+     tp = 2 and fsdp = 2
      as two co-located trainer processes started through the operator's
      env (JAX_COORDINATOR_ADDRESS, JAX_PROCESS_ID, JAX_NUM_PROCESSES,
      TPUJOB_MESH). Two ranks on one GPU take gloo on CUDA tensors (NCCL
@@ -141,15 +146,16 @@ Phases, in order:
      nonzero lse cotangent, K2 and K3 held against their plain versions
      (every MUTATIONS entry rejected) and timed at the ring's local blocks
      [1, 6, 8192, 128] bf16, causal and full, and at Ulysses' [1, 3,
-     16384, 128] causal; then the LM at its full width and FAULT_LAYERS
-     (4) layers deep at seq 16384, batch 1, --remat --remat-save-flash, 6
+     16384, 128] causal; then the LM at its full width and CUT_LAYERS (2)
+     layers deep at seq 16384, batch 1, --remat --remat-save-flash, 6
      steps, as one process and at sp = 2 as two co-located trainer
      processes (gloo) through ring attention and through Ulysses
      (TPUJOB_SP_MODE), each held against one process as the dist runs
      are, with the flash kernels launched sp times a layer a forward pass
      for the ring and once for Ulysses; two planted faults (sp = 2 without
-     the gradient sum over sp, a ring without the visibility mask) must
-     each fail that comparison;
+     the gradient sum over sp, a ring without the visibility mask), run at
+     once (fault_controls; no fault run is timed), must each fail that
+     comparison;
  13. the MoE LM (moe): K5, the grouped matmul of the dropless dispatch
      (gmm NN and NT, tgmm with an f32 and a bf16 output), held against its
      plain version at bench.py's MoE cell (12 x 768, 8 experts top-2, seq
@@ -192,7 +198,13 @@ Phases, in order:
      perturbed weights, with each of SERVE_GRAPH_FAULTS failing by its
      name; time to ready, prefill and decode tokens/s, tick ms against its
      bound (graphed and eager), request latencies, the cache's bytes, the
-     peak memory and a swap's copy time are logged;
+     peak memory and a swap's copy time are logged; then the classifier
+     check (classifier_check): mnist-conv trained 2 steps by the port
+     trainer, served on the graph route (a graph a row bucket, 1-64), its
+     predictions and logits at every bucket bit-equal to the eager forward
+     before and after a swap (a swap not copied into the captured
+     parameters rejected), one cudaGraphLaunch a request batch
+     (tick_census), and each bucket's request batch timed on both routes;
  15. multi-slice (multislice): the LM (train phase's argv at
      MS_REWIND_LAYERS = 4 layers, every step logged) as 2 slices, one
      process a slice on the card, each a one-rank world with
@@ -201,11 +213,19 @@ Phases, in order:
      against one process at the same argv on dist_gaps' limits with K1-K3
      and delta launched once a layer a microbatch a step in each slice;
      against the same one-process run each slice applying its own mean
-     (no-dcn-sum) must fail those limits, and slice 1 killed
+     (no-dcn-sum; its slices run while the rewind does) must fail those
+     limits, and slice 1 killed
      (SIGKILL, --chaos) at step 5, two after worker 0's step-3 save, then
      relaunched, must resume from step 3 while slice 0, never restarted,
      emits dcn_rewind and ends on the uninterrupted run's losses: global
-     tokens/s, step time, the dcn block and each slice's peak;
+     tokens/s, step time, the dcn block and each slice's peak. Each slice
+     replays graphs of the step's halves; in this process the halves
+     graphed against eager (ms_graph_check: both slices' blocks a step, a
+     rewind, bit-equal; one cudaGraphLaunch for the batch, one a block's
+     backward, one for the apply a step, K1-K3 under them, no other kernel
+     but the batch graph's generator fills); with multislice_eager in
+     --phases, the sound run again with every slice eager (tokens/s beside
+     the graphed run's, both held against one process);
  16. the pipeline (pipeline): make_pipelined_lm at the LM's widths (12
      layers, 6 a stage at pp = 2, batch 4 in 4 microbatches) as two gloo
      ranks on the card, the logits (rel_err) and one step's gradients
@@ -213,7 +233,7 @@ Phases, in order:
      weights, a zero hop over it, each flash kernel launched 24 times a
      rank a step; the step (and its backward / reduction split) beside one
      process's, the bubble;
- 17. pods of several GPUs (pod): the LM at full width and FAULT_LAYERS (4)
+ 17. pods of several GPUs (pod): the LM at full width and CUT_LAYERS (2)
      layers deep (train phase's argv, every step logged) as 2 pods x 2
      local ranks at {"dp": 2, "tp": 2},
      each pod started as the operator starts one (JAX_COORDINATOR_ADDRESS,
@@ -237,8 +257,11 @@ Phases, in order:
      WORLD_GRAPH_FAULTS each rejected by name, and a profiled graphed run
      whose census shows one cudaGraphLaunch a step a rank with every NCCL
      kernel under it; then the kill check (BERT at dp = 4, the last rank
-     SIGKILLed inside a step, a 60 s collective timeout): how each survivor
-     ends, beside --parent's eager world, which it must end no worse than;
+     SIGKILLed inside a step, a 60 s collective timeout) on the graph route
+     and on the eager one: every survivor must exit 138 with a peer_lost
+     event within KILL_LIMIT_S (90 s) of the kill; --parent's eager world
+     runs beside them, recorded (a survivor still running at the limit has
+     its Python stacks dumped), not held;
  19. (only with --phases ...,dist4, on four GPUs) the dist runs and dp = 4,
      dp x tp = 2 x 2 and fsdp = 4 (saving every 2 steps) with one GPU a rank
      (CUDA_VISIBLE_DEVICES), where the backend rule picks NCCL and every
@@ -1891,16 +1914,20 @@ def preempt_phase(args, card: str, uninterrupted: dict | None) -> dict:
 
 
 EVAL_BATCHES = 2
+EVAL_ROUNDS = 3
 
 
 def eval_phase(args, card: str, final_state) -> dict:
     """An evaluator subprocess on the card follows the ckpt phase's
-    directory to FINAL: one `eval` per checkpoint and `eval_done`; its last
-    eval_loss must equal the loss of the ckpt phase's final parameters on
-    the same batches, computed here (train.evaluate) with the same kernels
-    on the same card, after the event's own rounding to 6 decimals: the
-    two sides run the same code on the same bits, so only that rounding
-    may part them."""
+    directory to FINAL on the graph route (its eval_ready): one `eval` per
+    checkpoint and `eval_done`; its last eval_loss must equal the loss of
+    the ckpt phase's final parameters on the same batches, computed here
+    eagerly (train.evaluate) with the same kernels on the same card, after
+    the event's own rounding to 6 decimals: the two sides run the same code
+    on the same bits, so only that rounding may part them. Here too the
+    graphed round (train.evaluator) against the eager one on the final
+    parameters, bit for bit, and each one's seconds a round (a checkpoint's
+    evaluation), the mean of EVAL_ROUNDS after the graph's capture."""
     import torch
 
     from tf_operator_tpu_torch.models import checkpoint as ckpt
@@ -1917,17 +1944,35 @@ def eval_phase(args, card: str, final_state) -> dict:
                            f"steps {steps}")
     if counts.get("fwd", 0) != LAYERS * EVAL_BATCHES * len(steps):
         raise SmokeFailure(f"the evaluator launched {counts}, not K1 once a block a batch")
+    ready = [e for e in events if e["event"] == "eval_ready"]
+    if [e["step_route"] for e in ready] != ["graph"]:
+        raise SmokeFailure(f"the evaluator's route: {ready}, not one graph")
     t_args = train.build_parser().parse_args(argv)
-    _, loss_fn, make_batch = train._build_model(t_args, torch.device("cuda"))
-    here = train.evaluate(final_state.model, loss_fn, make_batch, torch.device("cuda"),
-                          EVAL_BATCHES)
+    device = torch.device("cuda")
+    _, loss_fn, make_batch = train._build_model(t_args, device)
+    model = final_state.model
+    here = train.evaluate(model, loss_fn, make_batch, device, EVAL_BATCHES)
+    rounds = {}
+    for route in ("eager", "graph"):
+        run = train.evaluator(model, loss_fn, make_batch, device, EVAL_BATCHES,
+                              graphed=route == "graph")
+        losses = [run()]  # a graph's capture, an eager run's warm caches
+        t0 = time.time()
+        losses += [run() for _ in range(EVAL_ROUNDS)]
+        rounds[route] = {"s_per_checkpoint": (time.time() - t0) / EVAL_ROUNDS,
+                         "losses": losses}
     got = evals[-1]["eval_loss"]
-    log(f"eval: last eval_loss {got!r} (step {evals[-1]['checkpoint_step']}), in-process "
-        f"{here!r}; evaluator launches {counts} [{card}]")
+    log(f"eval: last eval_loss {got!r} (step {evals[-1]['checkpoint_step']}, graphed), "
+        f"in-process eager {here!r}; evaluator launches {counts}; in-process rounds "
+        f"{json.dumps(rounds)} [{card}]")
     if got != round(here, 6):
         raise SmokeFailure(f"the evaluator's loss {got!r} is off the final parameters' "
                            f"{here!r}")
-    return {"evals": evals, "in_process_loss": here, "launches": counts, "card": card}
+    if set(rounds["graph"]["losses"]) != {here} or set(rounds["eager"]["losses"]) != {here}:
+        raise SmokeFailure(f"the graphed evaluator's rounds {rounds['graph']['losses']} are "
+                           f"not the eager loss {here!r}")
+    return {"evals": evals, "in_process_loss": here, "launches": counts,
+            "route": ready[0]["step_route"], "rounds": rounds, "card": card}
 
 
 # BERT (BASELINE.md workload 4, BERT-base at full width): the kernels at its
@@ -2367,8 +2412,17 @@ def dist_child(argv: list[str]) -> int:
     else the gap of its local parameters to that file's (dist_compare).
     CHIP_SMOKE_DIST_FAULT plants
     a fault (_plant_fault); CHIP_SMOKE_DIST_TIMEOUT_S sets the world's
-    collective timeout (distributed.TIMEOUT) for the kill check."""
+    collective timeout (distributed.TIMEOUT) for the kill check, where a
+    SIGUSR2 dumps every thread's Python stack to stderr (faulthandler).
+    CHIP_SMOKE_STEP_ROUTE=eager sends the trainer eager whatever
+    step_route says (the eager side of a graph-against-eager comparison);
+    CHIP_SMOKE_BERT_LAYERS cuts bert-base's depth (its trainer takes no
+    --layers); CHIP_SMOKE_MEMORY_SNAPSHOT=1 adds memory_pools of the
+    allocator after the last chunk to the record. The record also holds param_digest, a
+    hash of the final parameters' bytes (in every role)."""
     import datetime
+    import faulthandler
+    import hashlib
 
     import torch
 
@@ -2380,6 +2434,16 @@ def dist_child(argv: list[str]) -> int:
 
     path, argv = argv[0], argv[1:]
     ref_path = Path(os.environ.get("CHIP_SMOKE_DIST_REF") or DIST_REF)
+    snapshot, pools = os.environ.get("CHIP_SMOKE_MEMORY_SNAPSHOT") == "1", []
+    try:
+        from tf_operator_tpu_torch.parallel import peer_watch
+
+        def host_read(t) -> float:
+            # Each step's norm is read here, before the trainer's own reads:
+            # in an NCCL world through the trainer's watchdog as they are.
+            return peer_watch.read(t, "a step's gradient norm (dist_child)")
+    except ImportError:  # a tree from before the watchdog
+        host_read = float
     norms, init, plans, shapes = [], [], [], set()
     real_chunks, real_parallelize, real_fwd = (ts.make_chunked_train_step, ts.parallelize,
                                                fa._fwd_at)
@@ -2401,7 +2465,10 @@ def dist_child(argv: list[str]) -> int:
                 init.extend(p.detach().clone() for p in state.params)
             steps: list = []
             state, metrics = run(state, n, steps)
-            norms.extend(float(m["grad_norm"]) for m in steps)
+            norms.extend(host_read(m["grad_norm"]) for m in steps)
+            if snapshot:
+                # While the step's graph (and its pool) is alive.
+                pools[:] = [memory_pools(torch.cuda.memory_snapshot())]
             if every is not None:
                 every.extend(steps)
             return state, metrics
@@ -2417,17 +2484,25 @@ def dist_child(argv: list[str]) -> int:
             if not init:
                 init.extend(p.detach().clone() for p in state.params)
             state, norm = apply(state, grads)
-            norms.append(float(norm))
+            norms.append(host_read(norm))
             return state, norm
 
         return gen_batch, backward, recorded
 
     routes: list = []
     real_route = graphed_step.step_route
+    forced = os.environ.get("CHIP_SMOKE_STEP_ROUTE")
 
     def step_route(*args, **kwargs):
-        routes.append(real_route(*args, **kwargs))
+        routes.append((forced, "chip_smoke: CHIP_SMOKE_STEP_ROUTE") if forced
+                      else real_route(*args, **kwargs))
         return routes[-1]
+
+    if os.environ.get("CHIP_SMOKE_BERT_LAYERS"):
+        from tf_operator_tpu_torch.models import transformer as tfm
+
+        tfm.BERT_BASE = dataclasses.replace(
+            tfm.BERT_BASE, num_layers=int(os.environ["CHIP_SMOKE_BERT_LAYERS"]))
 
     ts.parallelize, ts.make_chunked_train_step, fa._fwd_at = (
         parallelize, make_chunked_train_step, fwd_at)
@@ -2436,6 +2511,7 @@ def dist_child(argv: list[str]) -> int:
     if os.environ.get("CHIP_SMOKE_DIST_TIMEOUT_S"):
         distributed.TIMEOUT = datetime.timedelta(
             seconds=float(os.environ["CHIP_SMOKE_DIST_TIMEOUT_S"]))
+        faulthandler.register(signal.SIGUSR2, all_threads=True)
     _plant_fault(os.environ.get("CHIP_SMOKE_DIST_FAULT", ""))
     out: dict = {}
     rc = train.main(argv, out)
@@ -2444,10 +2520,16 @@ def dist_child(argv: list[str]) -> int:
            "peak_reserved_gb": torch.cuda.max_memory_reserved() / 1e9,
            "step_route": routes[0][0] if routes else None,
            "flash_fwd_shapes": sorted(map(list, shapes))}
+    if pools:
+        rec["memory_pools"] = pools[0]
     if rc == 0:
         model = out["state"].model
         names = [n for n, _ in model.named_parameters()]
         final = [p.detach() for p in model.parameters()]
+        digest = hashlib.sha256()
+        for t in final:
+            digest.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+        rec["param_digest"] = digest.hexdigest()
         rec["param_bytes"] = {n: p.numel() * p.element_size() for n, p in zip(names, final)}
         rec["fsdp_sharded"] = [n for n, d in zip(names, plans[0].fsdp_dims) if d is not None]
         role = os.environ.get("CHIP_SMOKE_DIST_ROLE")
@@ -2458,6 +2540,27 @@ def dist_child(argv: list[str]) -> int:
             rec.update(dist_compare(torch.load(ref_path), plans[0], names, init, final))
     Path(path).write_text(json.dumps(rec))
     return rc
+
+
+def memory_pools(snapshot: list) -> dict:
+    """torch.cuda.memory_snapshot()'s segments summed by memory pool (the
+    caching allocator's own, "(0, 0)", or a CUDA graph's private one): the
+    bytes reserved, and the blocks by state and size, the largest sizes
+    first, with their counts: what a pool keeps."""
+    pools: dict = {}
+    for seg in snapshot:
+        pool = pools.setdefault(str(tuple(seg.get("segment_pool_id", (0, 0)))),
+                                {"reserved_bytes": 0, "segments": 0, "blocks": {}})
+        pool["reserved_bytes"] += seg["total_size"]
+        pool["segments"] += 1
+        for block in seg.get("blocks", []):
+            key = f"{block['state']} {block['size']}"
+            pool["blocks"][key] = pool["blocks"].get(key, 0) + 1
+    for pool in pools.values():
+        top = sorted(pool["blocks"].items(),
+                     key=lambda kv: -int(kv[0].rsplit(" ", 1)[1]) * kv[1])[:12]
+        pool["blocks"] = dict(top)
+    return pools
 
 
 def dist_compare(ref: dict, plan, names, init, final) -> dict:
@@ -2524,8 +2627,8 @@ class DistJob:
     at global batch `batch`, its tokens an example, steps, layers, how many
     forward passes a step launch K1 (2 under --remat --remat-save-flash:
     the forward and the loss's replay), the file of its one-process
-    reference, its width, and each K5 kernel's launches a step (the MoE
-    LM's sparse dispatch)."""
+    reference, its width, each K5 kernel's launches a step (the MoE LM's
+    sparse dispatch) and the env its processes add (dist_child's)."""
 
     label: str
     argv: tuple
@@ -2538,6 +2641,7 @@ class DistJob:
     ref: Path
     hidden: int = 768
     k5_per_step: int = 0
+    env: tuple = ()
 
     def sp_blocks(self, mesh: dict | None, mode: str | None) -> int:
         """Flash launches a layer a pass: sp ring blocks, else one."""
@@ -2569,6 +2673,12 @@ BERT_DIST = DistJob("bert-base", tuple(dist_argv()), DIST_SEQ, DIST_BATCH, DIST_
                     DIST_LAYERS, 12, 1, DIST_REF)
 
 
+def bert_dist_job(layers: int) -> DistJob:
+    """BERT_DIST cut to `layers` blocks (dist_child's CHIP_SMOKE_BERT_LAYERS)."""
+    return dataclasses.replace(BERT_DIST, label=f"bert-base, {layers} layers", layers=layers,
+                               env=(("CHIP_SMOKE_BERT_LAYERS", str(layers)),))
+
+
 def sp_lm_job(seq: int, batch: int, ref: str, layers: int = LAYERS) -> DistJob:
     """The full-width LM (12L x 768h, 6 heads x 128; or `layers` deep) at
     `seq`, global `batch`, 6 steps, --remat --remat-save-flash, as the
@@ -2591,6 +2701,14 @@ def dist_world(name: str, mesh: dict | None, own_gpus: bool = False,
     GPU 0 or, with own_gpus, each seeing GPU `rank` alone: every rank must
     exit 0 with K1, K2, K3 and the delta pass launched as job.launches
     says, and a finite loss and gradient norm at every step."""
+    return finish_dist_world(name, start_dist_world(name, mesh, own_gpus, role, fault, job,
+                                                    mode), mesh, job, mode)
+
+
+def start_dist_world(name: str, mesh: dict | None, own_gpus: bool = False,
+                     role: str = "run", fault: str = "", job: DistJob = BERT_DIST,
+                     mode: str | None = None) -> list:
+    """dist_world's processes, started (pass them to finish_dist_world)."""
     n = 1 if mesh is None else int(math.prod(mesh.values()))
     port = free_port()
     children = []
@@ -2602,10 +2720,17 @@ def dist_world(name: str, mesh: dict | None, own_gpus: bool = False,
                        JAX_NUM_PROCESSES=str(n), TPUJOB_MESH=json.dumps(mesh))
         if mode is not None:
             env["TPUJOB_SP_MODE"] = mode
+        env.update(job.env)
         if own_gpus:
             env["CUDA_VISIBLE_DEVICES"] = str(rank)
         children.append(start_child(list(job.argv), f"_dist_{name}_{rank}", env,
                                     _DIST_CHILD))
+    return children
+
+
+def finish_dist_world(name: str, children: list, mesh: dict | None,
+                      job: DistJob = BERT_DIST, mode: str | None = None) -> dict:
+    """dist_world's checks on its started processes, once they end."""
     ranks = [finish_child(c, timeout=900) for c in children]
     want = job.launches(mesh, mode)
     out = []
@@ -2728,16 +2853,26 @@ def fault_control(ref: dict, fault=DIST_FAULT, job: DistJob = BERT_DIST,
     """A planted fault (label, mesh, CHIP_SMOKE_DIST_FAULT, sp mode) through
     dist_world, which dist_verdict must reject on what a wrong update moves
     (the gradient norm or the parameters), the loss aside."""
-    label, mesh, kind, mode = fault
-    gaps = dist_gaps(ref, dist_world("fault", mesh, own_gpus, fault=kind, job=job,
-                                     mode=mode))
-    failed = [f for f in dist_verdict(gaps) if not f.startswith("loss")]
-    res = {"run": label, "model": job.label, "mesh": mesh, "gaps": gaps,
-           "rejected_on": failed}
-    log("dist: planted fault " + json.dumps(res))
-    if not failed:
-        raise SmokeFailure(f"the dist check accepts a run with {label}: {gaps}")
-    return res
+    return fault_controls(ref, [fault], job, own_gpus)[0]
+
+
+def fault_controls(ref: dict, faults, job: DistJob = BERT_DIST,
+                   own_gpus: bool = False) -> list[dict]:
+    """fault_control of each of `faults`, their worlds run at once (no
+    fault run is timed)."""
+    started = [start_dist_world(f"fault{i}", mesh, own_gpus, fault=kind, job=job, mode=mode)
+               for i, (_, mesh, kind, mode) in enumerate(faults)]
+    out = []
+    for i, ((label, mesh, _, mode), children) in enumerate(zip(faults, started)):
+        gaps = dist_gaps(ref, finish_dist_world(f"fault{i}", children, mesh, job, mode))
+        failed = [f for f in dist_verdict(gaps) if not f.startswith("loss")]
+        res = {"run": label, "model": job.label, "mesh": mesh, "gaps": gaps,
+               "rejected_on": failed}
+        log("dist: planted fault " + json.dumps(res))
+        if not failed:
+            raise SmokeFailure(f"the dist check accepts a run with {label}: {gaps}")
+        out.append(res)
+    return out
 
 
 def one_process(card: str, job: DistJob = BERT_DIST) -> tuple[dict, dict]:
@@ -2764,23 +2899,26 @@ def dist_kernel_check(records: dict, runs) -> None:
 
 def dist_phase(records: dict, card: str) -> dict:
     """(a) NCCL at world size 1; the flash kernels at the dist runs' local
-    shapes; (b, c) BERT-base at seq 512, global batch 32, 6 steps, at dp
-    = 2, tp = 2 and fsdp = 2 as two co-located trainer processes, held
-    against one process at the same global batch and seed (held_against;
-    fsdp's ranks hold half of each sharded parameter's bytes), and the
-    planted fault rejected: two ranks on one GPU take gloo."""
+    shapes; (b, c) BERT-base at seq 512, global batch 32, 6 steps, cut to
+    FAULT_LAYERS blocks, at dp = 2, tp = 2 and fsdp = 2 as two co-located
+    trainer processes, held against one process at the same depth, global
+    batch and seed (held_against; fsdp's ranks hold half of each sharded
+    parameter's bytes), and the planted fault rejected: two ranks on one
+    GPU take gloo. (12 blocks until the default run outgrew its rule of
+    950 s; dist4 keeps them.)"""
     import torch
 
     torch.cuda.empty_cache()
     nccl = nccl_world_of_one(card)
     dist_kernel_check(records, DIST_RUNS)
-    ref, reference = one_process(card)
+    job = bert_dist_job(FAULT_LAYERS)
+    ref, reference = one_process(card, job)
     try:
         return {"nccl_world_of_one": nccl, "reference": reference,
-                "runs": held_against(ref, DIST_RUNS, "gloo", False, card),
-                "fault_control": fault_control(ref)}
+                "runs": held_against(ref, DIST_RUNS, "gloo", False, card, job),
+                "fault_control": fault_control(ref, job=job)}
     finally:
-        DIST_REF.unlink(missing_ok=True)
+        job.ref.unlink(missing_ok=True)
 
 
 # The sp phase: sequence parallelism on the full-width LM at SP_SEQ, two
@@ -2789,10 +2927,16 @@ SP_SEQ, SP_STEPS = 16384, 6
 # The depth of the sp and pod phases' planted faults, each held against a
 # one-process run of its own at that depth (a missing sum shows at any
 # depth; cut from 12 layers for the default run's time, as the moe and
-# multislice phases' faults are), and of the sp phase's sound runs, which
+# multislice phases' faults are), of the sp phase's sound runs, which
 # share the faults' one-process run (cut from 12 layers when a default run
-# took 1040.4 s of its 1200 s limit).
+# took 1040.4 s of its 1200 s limit), and of the dist phase's BERT runs and
+# their one-process reference (cut from 12 when a default run took 984.1 s).
 FAULT_LAYERS = 4
+# The depth of the sp and pod phases' runs, sound and faulty, and of their
+# one-process references: cut from FAULT_LAYERS when the graph checks of
+# the multi-slice halves, the classifier and the Evaluator would have taken
+# a default run to ~1030 s of its 1200 s limit.
+CUT_LAYERS = 2
 # The kernels at the local shapes of SP_RUNS: the ring's [1, 6, T/2, 128]
 # blocks (the diagonal causal, the others full) and Ulysses' [1, 3, T, 128]
 # causal, bf16.
@@ -2827,16 +2971,17 @@ def sp_kernel_check(records: dict, shapes, seed: int) -> None:
 
 def sp_phase(records: dict, card: str) -> dict:
     """The flash kernels at SP_SHAPES; the LM at its full width and
-    FAULT_LAYERS deep at SP_SEQ, batch 1, --remat --remat-save-flash, as
+    CUT_LAYERS deep at SP_SEQ, batch 1, --remat --remat-save-flash, as
     one process and at sp = 2 through the ring and through Ulysses (two
     co-located ranks, gloo), each held against one process (held_against:
     launches sp times a layer a pass for the ring, once for Ulysses); and
-    the planted faults of SP_FAULTS rejected against the same process."""
+    the planted faults of SP_FAULTS, run at once, rejected against the
+    same process."""
     import torch
 
     torch.cuda.empty_cache()
     sp_kernel_check(records, SP_SHAPES, 16384)
-    job = sp_lm_job(SP_SEQ, 1, "sp_reference.pt", FAULT_LAYERS)
+    job = sp_lm_job(SP_SEQ, 1, "sp_reference.pt", CUT_LAYERS)
     ref, reference = one_process(card, job)
     try:
         runs = held_against(ref, SP_RUNS, "gloo", False, card, job)
@@ -2844,7 +2989,7 @@ def sp_phase(records: dict, card: str) -> dict:
             records.setdefault(name, {})["sp_launches_per_step_per_rank"] = {
                 r["run"]: r["launches_per_step_per_rank"][key] for r in runs}
         return {"reference": reference, "runs": runs,
-                "fault_control": [fault_control(ref, f, job) for f in SP_FAULTS]}
+                "fault_control": fault_controls(ref, SP_FAULTS, job)}
     finally:
         job.ref.unlink(missing_ok=True)
 
@@ -4093,7 +4238,127 @@ def serve_phase(card: str, cell: ServeCell = SERVE) -> dict:
                         f"{chains['chains']} vs {chains['naive']}")
     if failures:
         raise SmokeFailure("serve: " + "; ".join(failures))
+    if cell.device == "cuda":
+        rec["classifier"] = classifier_check(card)
     return rec
+
+
+# The classifier check (serve phase): the port trainer trains mnist-conv at
+# CLASSIFIER_BATCH (saving every step); the port's server loads it on the
+# graph route (a graph of the forward and its argmax a row bucket, up to
+# CLASSIFIER_BATCH rows), and at every bucket its predictions and logits on
+# rows from a seed must equal the eager forward's (the server's eager apply:
+# functional_call, argmax) bit for bit, before and after a swap to the
+# step-1 checkpoint through the dispatch thread's _swap_in; a swap that is
+# not copied into the captured parameters (CLASSIFIER_FAULT) must be
+# rejected. CLASSIFIER_CALLS request batches at each bucket time both routes
+# (host wall of the server's apply: staging, replay, the predictions' copy
+# back), and CLASSIFIER_CENSUS profiled ones at the largest bucket must each
+# be one cudaGraphLaunch, no kernel launched by another call (tick_census).
+CLASSIFIER_BATCH, CLASSIFIER_STEPS = 64, 2
+CLASSIFIER_CALLS, CLASSIFIER_CENSUS = 20, 10
+CLASSIFIER_FAULT = "a swap that does not copy into the captured parameters"
+
+
+def classifier_check(card: str) -> dict:
+    """The classifier check (above): its record."""
+    import numpy as np
+    import torch
+
+    from tf_operator_tpu_torch.models import checkpoint as ckpt
+    from tf_operator_tpu_torch.serve import decode_graphs
+    from tf_operator_tpu_torch.serve import server as server_lib
+
+    ckpt_dir = SERVE_DIR / "classifier_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    run_trainer(["--model", "mnist-conv", "--batch", str(CLASSIFIER_BATCH), "--steps",
+                 str(CLASSIFIER_STEPS), "--log-every", "1", "--device", "cuda",
+                 "--checkpoint-dir", str(ckpt_dir), "--checkpoint-every", "1"],
+                tag="_classifier")
+    srv = server_lib.InferenceServer("mnist-conv", str(ckpt_dir), 0,
+                                     batch_max=CLASSIFIER_BATCH, batch_timeout_ms=5.0,
+                                     replica="classifier", device="cuda")
+    t0 = time.time()
+    srv.load()
+    load_s = time.time() - t0
+    graphs = srv._graphs
+    if srv.route != "graph" or not isinstance(graphs, decode_graphs.GraphedForward) or \
+            sorted(graphs.buckets) != list(srv.buckets) or not graphs.sealed:
+        raise SmokeFailure(f"classifier: route {srv.route}, buckets "
+                           f"{sorted(getattr(graphs, 'buckets', {}))} of {srv.buckets}")
+    captured = srv._live[0]
+    rng = np.random.default_rng(11)
+    rows = {b: rng.normal(size=(b, 28, 28)).astype(np.float32) for b in srv.buckets}
+
+    def eager(params, x):
+        logits = torch.func.functional_call(graphs.model, params,
+                                            (torch.from_numpy(x).to("cuda"),))
+        return logits, logits.argmax(-1)
+
+    def held(params) -> list[str]:
+        fails = []
+        for b, x in rows.items():
+            out = graphs.forward(captured, x)
+            logits, pred = eager(params, x)
+            if not torch.equal(out["logits"], logits) or not torch.equal(out["pred"], pred):
+                fails.append(f"bucket {b}: max |d logits| "
+                             f"{(out['logits'] - logits).abs().max().item():.3g}")
+        return fails
+
+    swapped = srv._to_device(ckpt.restore(str(ckpt_dir), 1))
+    with torch.inference_mode():
+        before = held(captured)
+        real_adopt = graphs.adopt
+        graphs.adopt = lambda new: captured  # CLASSIFIER_FAULT
+        srv._live = (swapped, 1)
+        srv._swap_in(swapped, 1)
+        fault = held(swapped)
+        graphs.adopt = real_adopt
+        srv._live = (swapped, 1)
+        if srv._swap_in(swapped, 1) is not captured or srv._live[0] is not captured:
+            raise SmokeFailure("classifier: the swap did not hand back the captured dict")
+        after = held(swapped)
+        times = {}
+        for b, x in rows.items():
+            for route in ("graph", "eager"):
+                call = (lambda: srv._apply(captured, x)) if route == "graph" else \
+                    (lambda: eager(captured, x)[1].cpu().numpy())
+                call()
+                ms = []
+                for _ in range(CLASSIFIER_CALLS):
+                    t = time.perf_counter()
+                    call()
+                    ms.append((time.perf_counter() - t) * 1e3)
+                ms.sort()
+                times.setdefault(str(b), {})[route] = {
+                    "p50_ms": _percentile(ms, 0.5),
+                    "batches_per_s": 1e3 * len(ms) / sum(ms)}
+        big = rows[srv.buckets[-1]]
+        from torch.profiler import DeviceType, ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(CLASSIFIER_CENSUS):
+                srv._apply(captured, big)
+        raw = prof.profiler.kineto_results.events()
+        census = tick_census(
+            [(e.name(), e.start_ns(), e.correlation_id()) for e in raw
+             if e.device_type() == DeviceType.CUDA],
+            [(e.name(), e.correlation_id()) for e in raw
+             if e.device_type() == DeviceType.CPU and e.name().startswith(("cuda", "cu"))],
+            CLASSIFIER_CENSUS)
+    res = {"model": "mnist-conv", "buckets": list(srv.buckets), "load_s": load_s,
+           "bit_equal_before_swap": not before, "bit_equal_after_swap": not after,
+           "fault_rejected_on": fault, "latency": times, "census": census, "card": card}
+    log("serve: classifier " + json.dumps(res))
+    fails = [f"before the swap, {f}" for f in before] + [f"after the swap, {f}" for f in after]
+    if not fault:
+        fails.append(f"the planted fault ({CLASSIFIER_FAULT}) was not rejected")
+    fails += tick_census_failures(census)
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    if fails:
+        raise SmokeFailure("serve: the classifier's graphs: " + "; ".join(fails))
+    return res
 
 
 def serve_verdict(readings: dict) -> list[str]:
@@ -4118,7 +4383,16 @@ def serve_verdict(readings: dict) -> list[str]:
 # its relaunch and slice 0's in-process rewind must end on the
 # uninterrupted run's losses. The sound run was cut from 12 layers to the
 # fault's 4 when the graph check joined the default run (as the sp phase's
-# was when a default run took 1040.4 s of its 1200 s limit).
+# was when a default run took 1040.4 s of its 1200 s limit). Each slice
+# replays graphs of the step's halves (graphed_step.step_route), and
+# ms_graph_check holds them bit for bit against the eager halves in this
+# process, both slices' blocks reduced in one order. Across slices the
+# exchange sums the blocks in the order their files arrive (the JAX
+# package's engine, f32), so two runs of one job differ in the last bits
+# whatever their route: with multislice_eager the sound run is run again
+# with every slice eager (CHIP_SMOKE_STEP_ROUTE, for its tokens/s), and
+# both, and the rewind, are held against the one-process run at the dist
+# limits, their gaps to each other recorded (world_gap).
 MS_SLICES, MS_MICRO, MS_STEPS = 2, 2, 6
 MS_REWIND_LAYERS, MS_CKPT_EVERY, MS_KILL = 4, 3, 5
 MS_FAULT = ("each slice applies its own mean", "no-dcn-sum")
@@ -4147,13 +4421,17 @@ def dcn_dir(name: str) -> Path:
     return path
 
 
-def slice_env(sid: int, dcn: Path, job: DistJob, fault: str = "") -> dict:
+def slice_env(sid: int, dcn: Path, job: DistJob, fault: str = "", route: str = "") -> dict:
     """A slice's pod env as the operator injects it (worker `sid` of a
-    job without a chief: worker 0 writes the checkpoints), with dist_child's."""
-    return {"CHIP_SMOKE_DIST_ROLE": "run", "CHIP_SMOKE_DIST_FAULT": fault,
-            "CHIP_SMOKE_DIST_REF": str(job.ref), "TPUJOB_NUM_SLICES": str(MS_SLICES),
-            "TPUJOB_SLICE_ID": str(sid), "TPUJOB_DCN_DIR": str(dcn),
-            "TPUJOB_REPLICA_TYPE": "worker", "TPUJOB_REPLICA_INDEX": str(sid)}
+    job without a chief: worker 0 writes the checkpoints), with dist_child's
+    (`route` forces the step route: CHIP_SMOKE_STEP_ROUTE)."""
+    env = {"CHIP_SMOKE_DIST_ROLE": "run", "CHIP_SMOKE_DIST_FAULT": fault,
+           "CHIP_SMOKE_DIST_REF": str(job.ref), "TPUJOB_NUM_SLICES": str(MS_SLICES),
+           "TPUJOB_SLICE_ID": str(sid), "TPUJOB_DCN_DIR": str(dcn),
+           "TPUJOB_REPLICA_TYPE": "worker", "TPUJOB_REPLICA_INDEX": str(sid)}
+    if route:
+        env["CHIP_SMOKE_STEP_ROUTE"] = route
+    return env
 
 
 def ms_argv(job: DistJob, extra=()) -> list[str]:
@@ -4166,13 +4444,17 @@ def slice_launches(job: DistJob) -> dict:
     return {k: job.layers * job.steps * MS_MICRO for k in FLASH_LAUNCH_KEYS}
 
 
-def slice_record(name: str, job: DistJob, sid: int, res) -> dict:
-    """A slice's (exit code, events, dist_child record) checked: exit 0,
-    the flash kernels launched once a layer a microbatch a step, a finite
-    loss and gradient norm at every step, a done event with its dcn block."""
+def slice_record(name: str, job: DistJob, sid: int, res, route: str = "graph") -> dict:
+    """A slice's (exit code, events, dist_child record) checked: exit 0 on
+    `route`, the flash kernels launched once a layer a microbatch a step, a
+    finite loss and gradient norm at every step, a done event with its dcn
+    block."""
     rc, events, rec = res
     if rc != 0:
         raise SmokeFailure(f"multislice {name}: slice {sid} exited {rc}")
+    if rec.get("step_route") != route:
+        raise SmokeFailure(f"multislice {name}: slice {sid} took the {rec.get('step_route')} "
+                           f"route, not {route}")
     want = slice_launches(job)
     if rec.get("launches") != want:
         raise SmokeFailure(f"multislice {name}: slice {sid} launches {rec.get('launches')}, "
@@ -4187,18 +4469,47 @@ def slice_record(name: str, job: DistJob, sid: int, res) -> dict:
     return {**rec, "losses": losses, "done": by["done"], "events": events}
 
 
-def slice_world(name: str, job: DistJob, fault: str = "") -> dict:
+def slice_world(name: str, job: DistJob, fault: str = "", route: str = "") -> dict:
     """`job` as MS_SLICES slice processes of one rank each (dist_child),
-    every slice checked by slice_record."""
+    every slice checked by slice_record; `route` forces the step route
+    (by default the trainer's own: graph on CUDA)."""
+    return finish_slice_world(name, job, *start_slice_world(name, job, fault, route), route)
+
+
+def start_slice_world(name: str, job: DistJob, fault: str = "", route: str = "") -> tuple:
+    """slice_world's processes, started, and their exchange directory."""
     dcn = dcn_dir(name)
+    return [start_child(ms_argv(job), f"_ms_{name}_{sid}",
+                        slice_env(sid, dcn, job, fault, route), _DIST_CHILD)
+            for sid in range(MS_SLICES)], dcn
+
+
+def finish_slice_world(name: str, job: DistJob, children: list, dcn: Path,
+                       route: str = "") -> dict:
+    """slice_world's checks on its started slices, once they end."""
     try:
-        children = [start_child(ms_argv(job), f"_ms_{name}_{sid}",
-                                slice_env(sid, dcn, job, fault), _DIST_CHILD)
-                    for sid in range(MS_SLICES)]
         res = [finish_child(c, timeout=900) for c in children]
     finally:
         shutil.rmtree(dcn, ignore_errors=True)
-    return {"ranks": [slice_record(name, job, sid, r) for sid, r in enumerate(res)]}
+    device = job.argv[job.argv.index("--device") + 1]
+    want = route or ("graph" if device == "cuda" else "eager")
+    return {"ranks": [slice_record(name, job, sid, r, want) for sid, r in enumerate(res)]}
+
+
+def world_gap(a: dict, b: dict) -> dict:
+    """The largest relative gaps between two runs of one job, over every
+    rank and step: loss and gradient norm; and whether every rank's final
+    parameters are the same bytes."""
+    def rel(x, y):
+        return abs(x - y) / abs(y) if y else abs(x - y)
+
+    pairs = list(zip(a["ranks"], b["ranks"]))
+    return {"loss": max(rel(x["losses"][s], y["losses"][s]) for x, y in pairs
+                        for s in x["losses"]),
+            "grad_norm": max(rel(u, v) for x, y in pairs
+                             for u, v in zip(x["grad_norms"], y["grad_norms"])),
+            "same_params": all(x.get("param_digest") == y.get("param_digest")
+                               for x, y in pairs)}
 
 
 def ms_summary(name: str, job: DistJob, world: dict, ref: dict, card: str) -> dict:
@@ -4217,12 +4528,13 @@ def ms_summary(name: str, job: DistJob, world: dict, ref: dict, card: str) -> di
             "grad_norms": world["ranks"][0]["grad_norms"], "card": card}
 
 
-def ms_rewind(job: DistJob, ref: dict, card: str) -> dict:
+def ms_rewind(job: DistJob, ref: dict, card: str, sound: dict) -> dict:
     """Slice 1 killed (SIGKILL, by --chaos) MS_KILL steps in, two after the
     step-MS_CKPT_EVERY save of worker 0, and relaunched: it must resume
     from that step, slice 0 must emit dcn_rewind with peer_resume at that
-    step without restarting, and both must end on the uninterrupted run's
-    losses within DIST_RTOL."""
+    step without restarting, and both must end on the one-process run's
+    losses within DIST_RTOL; slice 0's gaps to the `sound` (uninterrupted)
+    run's losses are recorded."""
     dcn, ckpt = dcn_dir("rewind"), OUT_DIR / "ms_ckpt"
     shutil.rmtree(ckpt, ignore_errors=True)
     save = ["--checkpoint-dir", str(ckpt), "--checkpoint-every", str(MS_CKPT_EVERY)]
@@ -4254,8 +4566,11 @@ def ms_rewind(job: DistJob, ref: dict, card: str) -> dict:
     want = ref["losses"]
     gaps = {s: abs(got[s] - want[s]) / abs(want[s]) for s in want if s in got}
     done = next(e for e in ev0 if e["event"] == "done")
+    sound_losses = sound["ranks"][0]["losses"]
     res = {"killed_at": MS_KILL, "resumed_from": resumed[-1]["from_step"],
            "rewind": rewinds[-1], "slice0_starts": len(starts), "loss_gaps": gaps,
+           "gaps_to_the_sound_run": {s: abs(got[s] - sound_losses[s]) / abs(sound_losses[s])
+                                     for s in got if s in sound_losses},
            "final_loss": done["final_loss"], "reference_final_loss": want[MS_STEPS],
            "dcn": done["dcn"], "seconds": time.time() - t0, "card": card}
     log("multislice: rewind " + json.dumps(res))
@@ -4264,36 +4579,208 @@ def ms_rewind(job: DistJob, ref: dict, card: str) -> dict:
     return res
 
 
-def multislice_phase(records: dict, card: str) -> dict:
-    """At MS_REWIND_LAYERS layers, against one process: the LM as 2 slices x 2
-    microbatches, the planted fault rejected, the kill, relaunch and
-    rewind."""
+# ms_graph_check: steps 1, 2, the rewind to step 1's state, step 2 again
+# (profiled).
+MS_CENSUS_STEPS, MS_CENSUS_PROFILED = 3, 1
+
+
+def ms_graph_check(job: DistJob, card: str, steps: int = MS_CENSUS_STEPS) -> dict:
+    """The multi-slice halves in this process, on `job`'s model: both
+    slices' row blocks each step (MS_SLICES x MS_MICRO backward calls, their
+    f32 mean as the exchange gives it, the apply; make_multislice_step_fns
+    as the trainer makes them, flat=True), `steps` steps graphed and eager
+    from the same init, the state restored in place to its step-1 copy
+    after step 2 (a rewind) and step 2 replayed: every step's loss and norm
+    and the final parameters bit-equal, K1-K3 launched a layer a block a
+    step on both routes; then the graphed run's last step under
+    torch.profiler (tick_census): one cudaGraphLaunch for the batch, one a
+    block's backward and one for the apply a step, no kernel launched by
+    another call but the batch graph's replay prologue (two fills of its
+    generator's seed and offset), the K1-K3 kernels under the graph
+    launches (K1-K3's counts are the launch counters': a profile may miss
+    device events)."""
+    import gc
+
+    import numpy as np
+    import torch
+    from torch.profiler import DeviceType, ProfilerActivity, profile
+
+    from tf_operator_tpu_torch import optim as optim_lib
+    from tf_operator_tpu_torch.models import train
+    from tf_operator_tpu_torch.ops import flash_attention as fa
+    from tf_operator_tpu_torch.parallel import mesh as mesh_lib
+    from tf_operator_tpu_torch.parallel import train_step as ts
+
+    args = train.build_parser().parse_args(list(job.argv))
+    device = torch.device("cuda", 0)
+    blocks = MS_SLICES * MS_MICRO
+    rows = args.batch // blocks
+
+    def run(graphed: bool, profiled: int = 0) -> dict:
+        gc.collect()
+        torch.cuda.empty_cache()
+        model, loss_fn, make_batch = train._build_model(args, device)
+        plan = ts.parallelize(model, mesh_lib.Mesh({"dp": 1}), train._sharding_rules(args),
+                              device)
+        tx = optim_lib.make_optimizer(optim_lib.OptimizerConfig(
+            name=args.optimizer, learning_rate=args.lr, moment_dtype=args.moment_dtype,
+            master_weights=args.master_weights))
+        state = ts.create_train_state(model, tx, plan)
+        gen_batch, backward, apply = ts.make_multislice_step_fns(
+            loss_fn, tx, make_batch, device, rows, seed=0, plan=plan, graphed=graphed,
+            flat=True)
+        fa.reset_launches()
+        losses, norms, snap, prof = [], [], None, None
+        step, done = 0, 0
+        t0 = time.time()
+        while done < steps:
+            if profiled and done == steps - profiled:
+                torch.cuda.synchronize()
+                prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                prof.__enter__()
+            batch = gen_batch(step + 1)
+            # The blocks' mean on the host, as the exchange makes it: no
+            # kernel of this harness's own on the card.
+            mean = np.mean(np.stack([backward(state, batch, b * rows).cpu().numpy()
+                                     for b in range(blocks)]), axis=0, dtype=np.float32)
+            at, host = 1, []
+            for p in state.params:
+                host.append(mean[at:at + p.numel()].reshape(p.shape))
+                at += p.numel()
+            state, norm = apply(state, host)
+            losses.append(float(mean[0]))
+            norms.append(float(norm))
+            step, done = step + 1, done + 1
+            if step == 1:
+                snap = {k: v.detach().clone() if isinstance(v, torch.Tensor) else v
+                        for k, v in ts.state_tensors(state).items()}
+            if step == 2 and len(losses) == 2:
+                state, step = ts.load_state_tensors(state, snap), 1
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        if prof is not None:
+            prof.__exit__(None, None, None)
+        rec = {"losses": losses, "norms": norms, "wall_s": wall,
+               "launches": dict(fa.LAUNCHES),
+               "state": {k: v.detach().cpu() for k, v in ts.state_tensors(state).items()
+                         if isinstance(v, torch.Tensor)}}
+        if prof is not None:
+            raw = prof.profiler.kineto_results.events()
+            device_ev = [(e.name(), e.start_ns(), e.correlation_id()) for e in raw
+                         if e.device_type() == DeviceType.CUDA]
+            host_ev = [(e.name(), e.correlation_id()) for e in raw
+                       if e.device_type() == DeviceType.CPU and e.name().startswith(("cuda", "cu"))]
+            rec["census"] = tick_census(device_ev, host_ev, profiled)
+            runtime = {corr: name for name, corr in host_ev}
+            k123: dict = {}
+            outside: dict = {}
+            for name, _, corr in device_ev:
+                api = runtime.get(corr, "unattributed")
+                if is_k123(name):
+                    k123[api] = k123.get(api, 0) + 1
+                if api not in (GRAPH_LAUNCH, "unattributed") and \
+                        not name.startswith(COPY_EVENTS):
+                    outside[name[:90]] = outside.get(name[:90], 0) + 1
+            rec["census"]["k123_by_launch_api"] = k123
+            rec["census"]["kernels_outside_graphs"] = outside
+        return rec
+
+    eager, graphed = run(False), run(True, profiled=MS_CENSUS_PROFILED)
+    fails = []
+    for key in ("losses", "norms"):
+        if eager[key] != graphed[key]:
+            fails.append(f"{key}: graphed {graphed[key]}, eager {eager[key]}")
+    bad = [k for k in eager["state"] if not torch.equal(eager["state"][k], graphed["state"][k])]
+    if bad:
+        fails.append(f"the final state differs in {len(bad)} tensors ({bad[0]} first)")
+    want = job.layers * blocks * steps
+    for name, rec in (("eager", eager), ("graphed", graphed)):
+        off = {k: rec["launches"].get(k, 0) for k in FLASH_LAUNCH_KEYS
+               if rec["launches"].get(k, 0) != want}
+        if off:
+            fails.append(f"{name} launches {off}, not {want}")
+    census = graphed["census"]
+    per_step = 2 + blocks
+    n = MS_CENSUS_PROFILED
+    if census["graph_launches"] != per_step * n:
+        fails.append(f"{census['graph_launches']} cudaGraphLaunch calls over {n} steps, "
+                     f"not {per_step} a step")
+    # A replay of a graph with a registered generator first fills the
+    # generator's seed and offset on the card (PyTorch's replay prologue):
+    # two fills a step for the batch's graph, and no other kernel. A
+    # profile may miss device events (tick_census), so the kernels are held
+    # by where they were launched, not by their count.
+    outside = census["kernels_outside_graphs"]
+    fills = sum(n for name, n in outside.items() if "FillFunctor" in name)
+    if fills > 2 * n or sum(outside.values()) != fills:
+        fails.append(f"kernels launched outside the graphs: {outside} (the batch graph's "
+                     f"two seed and offset fills a step aside)")
+    k123 = census["k123_by_launch_api"]
+    if set(k123) - {GRAPH_LAUNCH, "unattributed"} or not k123.get(GRAPH_LAUNCH):
+        fails.append(f"K1-K3 by launch call {k123}, not under the graphs")
+    res = {"steps": steps, "blocks_a_step": blocks, "rewound_after_step": 2,
+           "bit_equal": not fails, "losses": graphed["losses"], "norms": graphed["norms"],
+           "launches": graphed["launches"], "census": census,
+           "graph_launches_per_step": census["graph_launches"] / n,
+           "eager_wall_s": eager["wall_s"], "graphed_wall_s": graphed["wall_s"], "card": card}
+    log("multislice: graph check " + json.dumps(res))
+    if fails:
+        raise SmokeFailure("multislice graph check: " + "; ".join(fails))
+    return res
+
+
+def multislice_phase(records: dict, card: str, eager_world: bool = False) -> dict:
+    """At MS_REWIND_LAYERS layers, against one process: the halves graphed
+    against eager in this process (ms_graph_check); the LM as 2 slices x 2
+    microbatches, graphed (and with `eager_world`, the multislice_eager
+    phase, again with every slice eager, for its tokens/s); the planted
+    fault rejected; the kill, relaunch and rewind."""
     import torch
 
     torch.cuda.empty_cache()
     out = {}
     job = ms_job(MS_REWIND_LAYERS, "ms_reference.pt")
+    out["graph_check"] = ms_graph_check(job, card)
+    torch.cuda.empty_cache()
     ref, reference = one_process(card, job)
     try:
-        res = ms_summary("2 slices", job, slice_world("full", job), ref, card)
+        sound = slice_world("full", job)
+        res = ms_summary("2 slices", job, sound, ref, card)
         log("multislice: " + json.dumps({k: v for k, v in res.items()
                                          if k not in ("losses", "grad_norms")}))
         failed = dist_verdict(res["gaps"])
         if failed:
             raise SmokeFailure(f"multislice is off one process's run: {failed}")
+        if eager_world:
+            eager = slice_world("eager", job, route="eager")
+            res["eager"] = ms_summary("2 slices, eager", job, eager, ref, card)
+            res["gap_to_eager"] = world_gap(sound, eager)
+            log("multislice: eager " + json.dumps({k: res["eager"][k] for k in
+                                                   ("tokens_per_s", "step_time_s", "peak_gb",
+                                                    "gaps")})
+                + f"; graphed against eager: {json.dumps(res['gap_to_eager'])}")
+            failed = dist_verdict(res["eager"]["gaps"])
+            if failed:
+                raise SmokeFailure(f"multislice's eager slices are off one process's run: "
+                                   f"{failed}")
         for name, key, _ in KERNELS:
             records.setdefault(name, {})["multislice_launches_per_slice"] = \
                 res["launches_per_slice"][key]
         out.update(reference=reference, run=res)
         label, kind = MS_FAULT
-        gaps = dist_gaps(ref, slice_world("fault", job, kind))
+        # The fault's slices run while the rewind runs (neither is timed).
+        fault_world = start_slice_world("fault", job, kind)
+        try:
+            out["rewind"] = ms_rewind(job, ref, card, sound)
+        finally:
+            fault_world = finish_slice_world("fault", job, *fault_world)
+        gaps = dist_gaps(ref, fault_world)
         failed = [f for f in dist_verdict(gaps) if not f.startswith("loss")]
         out["fault_control"] = {"run": label, "layers": MS_REWIND_LAYERS, "gaps": gaps,
                                 "rejected_on": failed}
         log("multislice: planted fault " + json.dumps(out["fault_control"]))
         if not failed:
             raise SmokeFailure(f"the multislice check accepts a run where {label}: {gaps}")
-        out["rewind"] = ms_rewind(job, ref, card)
     finally:
         job.ref.unlink(missing_ok=True)
     return out
@@ -4673,11 +5160,12 @@ def pod_summary(name: str, job: DistJob, mesh: dict, world: dict, ref: dict,
 
 
 def pod_phase(records: dict, card: str) -> dict:
-    """The LM at full width, FAULT_LAYERS deep, as POD_PODS pods x POD_LOCAL
+    """The LM at full width, CUT_LAYERS deep, as POD_PODS pods x POD_LOCAL
     local ranks on the one card against one process at that depth
     (dist_gaps' limits), the kernels held first at the ranks' shape, and
     POD_FAULT rejected against the same process (the sound run went from
-    12 layers to FAULT_LAYERS for the default run's time)."""
+    12 layers to FAULT_LAYERS, then to CUT_LAYERS, for the default run's
+    time)."""
     import gc
 
     import torch
@@ -4688,7 +5176,7 @@ def pod_phase(records: dict, card: str) -> dict:
     log(f"pod: this process holds {torch.cuda.memory_allocated() / 1e9:.3f} GB allocated, "
         f"{torch.cuda.memory_reserved() / 1e9:.3f} GB reserved; the card has "
         f"{free / 1e9:.3f} of {total / 1e9:.3f} GB free [{card}]")
-    job = pod_job(FAULT_LAYERS)
+    job = pod_job(CUT_LAYERS)
     shape_kernel_check(records, [job.local_shape(POD_MESH, None)], "pod", 8193, causal=True)
     ref, reference = one_process(card, job)
     visible = (first_card(),) * POD_PODS
@@ -4817,8 +5305,9 @@ def dist4_phase(records: dict, card: str) -> dict:
 
 def graph4_phase(card: str, parent: Path | None = None) -> dict:
     """(only with --phases ...,graph4, on four GPUs) the world graph check,
-    then the kill check (against `parent`'s eager world when given), both
-    run whatever the first gave."""
+    then the kill check on this tree's graph and eager routes (with
+    `parent`'s eager world beside them, recorded, not held), both run
+    whatever the first gave."""
     four_gpus("graph4")
     out: dict = {}
     failed: list[str] = []
@@ -4826,11 +5315,32 @@ def graph4_phase(card: str, parent: Path | None = None) -> dict:
         out["world_graph"] = world_graph_check(card)
     except SmokeFailure as e:
         failed.append(str(e))
-    out["kill"] = kill_check(card, {"graph": ROOT, **({"eager": parent} if parent else {})})
-    failed += kill_failures(out["kill"])
+    out["kill"], fails = kill4(card, parent)
+    failed += fails
     if failed:
         raise SmokeFailure("graph4: " + " | ".join(failed))
     return out
+
+
+def kill4(card: str, parent: Path | None = None) -> tuple[dict, list[str]]:
+    """The kill check on this tree's graph and eager routes (with `parent`'s
+    eager world beside them, recorded, not held): its record and
+    kill_failures'."""
+    worlds = {"graph": (ROOT, {}), "eager": (ROOT, KILL_EAGER)}
+    if parent:
+        worlds["parent eager"] = (parent, KILL_EAGER)
+    res = kill_check(card, worlds)
+    return res, kill_failures(res)
+
+
+def kill4_phase(card: str, parent: Path | None = None) -> dict:
+    """(only with --phases ...,kill4, on four GPUs) graph4's kill check
+    alone."""
+    four_gpus("kill4")
+    res, failed = kill4(card, parent)
+    if failed:
+        raise SmokeFailure("kill4: " + " | ".join(failed))
+    return res
 
 
 def moe4_phase(card: str) -> dict:
@@ -5186,15 +5696,22 @@ def world_graph_check(card: str) -> dict:
     return out
 
 
-# The kill check (dist4): BERT (dist_argv, 12 steps) at dp = 4, one GPU a
+# The kill check (graph4): BERT (dist_argv, 12 steps) at dp = 4, one GPU a
 # rank over NCCL, rank 3 killed (SIGKILL, from here) once it has reported
 # step KILL_STEP (its progress event comes after its next step is
-# dispatched: the kill lands inside a step), with the world's collective timeout at KILL_TIMEOUT_S (the
-# trainer's distributed.TIMEOUT is 300 s): how each survivor ends, on this
-# tree's graph route and on a parent tree's eager one.
+# dispatched: the kill lands inside a step), with the world's collective
+# timeout at KILL_TIMEOUT_S (the trainer's distributed.TIMEOUT is 300 s),
+# on this tree's graph route and on its eager one (CHIP_SMOKE_STEP_ROUTE):
+# every survivor must exit 138 (retryable) with a peer_lost event within
+# KILL_LIMIT_S of the kill (the trainer's watchdog, parallel/peer_watch.py).
+# A survivor still running then has its threads' Python stacks dumped
+# (faulthandler, SIGUSR2) before it is killed; with --parent, the parent
+# tree's eager world runs beside them for that record alone.
 KILL_STEP = 3
 KILL_TIMEOUT_S = 60
+KILL_LIMIT_S = KILL_TIMEOUT_S + 30
 KILL_MESH = {"dp": 4}
+KILL_EAGER = {"CHIP_SMOKE_STEP_ROUTE": "eager"}
 # A dist_child (or any chip_smoke function of argv) on another tree's
 # package: argv = [record path, tree, function, *its argv].
 _TREE_CHILD = (
@@ -5238,23 +5755,25 @@ def start_tree_world(tree: Path, tag: str, argv: list[str], mesh: dict, env: dic
             for rank in range(n)]
 
 
-def kill_check(card: str, trees: dict, argv: list[str] | None = None,
+def kill_check(card: str, worlds: dict, argv: list[str] | None = None,
                mesh: dict = KILL_MESH) -> dict:
-    """The kill check on each of `trees` (label -> tree), all at once, on
-    `argv` (the BERT run's by default) at `mesh`, its last rank killed: how
-    every survivor ends (exit code, whether it emitted peer_lost, its last
-    event, seconds from the kill), or that it did not end within
-    KILL_TIMEOUT_S + 300 s (then killed here)."""
+    """The kill check on each of `worlds` (label -> (tree, env added to the
+    ranks')), all at once, on `argv` (the BERT run's by default) at `mesh`,
+    its last rank killed: how every survivor ends (exit code, whether it
+    emitted peer_lost, its last event, seconds from the kill), or, still
+    running KILL_LIMIT_S after the kill, its threads' Python stacks and
+    kernel wait channels (then killed here)."""
     if argv is None:
         argv = dist_argv()
         argv[argv.index("--steps") + 1] = "12"
     env = {"CHIP_SMOKE_DIST_ROLE": "measure", "CHIP_SMOKE_DIST_TIMEOUT_S": str(KILL_TIMEOUT_S)}
-    worlds = {label: start_tree_world(tree, f"kill_{label}", argv, mesh, env)
-              for label, tree in trees.items()}
+    started = {label: start_tree_world(tree, f"kill_{label.replace(' ', '_')}", argv, mesh,
+                                       {**env, **extra})
+               for label, (tree, extra) in worlds.items()}
     killed: dict = {}
     deadline = time.time() + 600
-    while len(killed) < len(worlds) and time.time() < deadline:
-        for label, children in worlds.items():
+    while len(killed) < len(started) and time.time() < deadline:
+        for label, children in started.items():
             proc, events_path, _ = children[-1]
             if label not in killed and max(_progress_steps(events_path), default=0) >= KILL_STEP:
                 proc.send_signal(signal.SIGKILL)
@@ -5264,32 +5783,63 @@ def kill_check(card: str, trees: dict, argv: list[str] | None = None,
     def end(label, rank, child):
         proc, events_path, _ = child
         t_kill = killed.get(label, time.time())
+        stacks, waits = None, None
         try:
-            _, stderr = proc.communicate(timeout=max(1.0, t_kill + KILL_TIMEOUT_S + 300
-                                                     - time.time()))
+            _, stderr = proc.communicate(timeout=max(1.0, t_kill + KILL_LIMIT_S - time.time()))
             rc, seconds = proc.returncode, time.time() - t_kill
         except subprocess.TimeoutExpired:
+            waits = thread_waits(proc.pid)
+            proc.send_signal(signal.SIGUSR2)
+            time.sleep(3)
             proc.kill()
             _, stderr = proc.communicate()
             rc, seconds = None, None
+            lines = stderr.splitlines()
+            at = next((i for i, x in enumerate(lines) if x.startswith(("Thread 0x",
+                                                                      "Current thread"))),
+                      len(lines))
+            stacks = lines[at:at + 120]
         events = _events(events_path)
         return {"rank": rank, "exit_code": rc, "seconds_after_kill": seconds,
                 "peer_lost": any(e["event"] == "peer_lost" for e in events),
+                "peer_lost_error": next((e["error"] for e in events
+                                         if e["event"] == "peer_lost"), None),
                 "last_event": events[-1]["event"] if events else None,
-                "stderr_tail": stderr.strip().splitlines()[-3:]}
+                "stderr_tail": stderr.strip().splitlines()[-3:] if stacks is None else None,
+                "stacks": stacks, "thread_waits": waits}
 
-    with ThreadPoolExecutor(max_workers=sum(len(c) for c in worlds.values())) as pool:
+    with ThreadPoolExecutor(max_workers=sum(len(c) for c in started.values())) as pool:
         ends = {label: [pool.submit(end, label, r, c) for r, c in enumerate(children[:-1])]
-                for label, children in worlds.items()}
+                for label, children in started.items()}
         out = {"mesh": mesh, "kill_after_step": KILL_STEP, "timeout_s": KILL_TIMEOUT_S,
-               "card": card}
+               "limit_s": KILL_LIMIT_S, "card": card}
         for label, futures in ends.items():
-            out[label] = {"tree": str(trees[label]), "killed": label in killed,
+            out[label] = {"tree": str(worlds[label][0]), "env": worlds[label][1],
+                          "killed": label in killed,
                           "survivors": [f.result() for f in futures]}
-    for children in worlds.values():
+    for children in started.values():
         finish_child(children[-1], timeout=30)
     log("kill: " + json.dumps(out))
     return out
+
+
+def thread_waits(pid: int) -> dict:
+    """Each thread of a process by name: how many wait in each kernel wait
+    channel (/proc/<pid>/task/*/wchan), and in which state."""
+    waits: dict = {}
+    for task in Path(f"/proc/{pid}/task").glob("*"):
+        try:
+            name = (task / "comm").read_text().strip()
+            state = (task / "stat").read_text().rsplit(")", 1)[1].split()[0]
+        except OSError:
+            continue
+        try:
+            wchan = (task / "wchan").read_text().strip() or "-"
+        except OSError:
+            wchan = "?"
+        key = f"{name} {state} {wchan}"
+        waits[key] = waits.get(key, 0) + 1
+    return waits
 
 
 def _events(path: Path) -> list[dict]:
@@ -5310,30 +5860,22 @@ def _progress_steps(path: Path) -> list[int]:
     return [e["step"] for e in _events(path) if e["event"] == "progress"]
 
 
-def kill_failures(res: dict) -> list[str]:
-    """The graph world's survivors (kill_check's `graph`) must end no worse
-    than the parent's eager ones (`eager`): where an eager survivor ends,
-    with the same exit codes and peer_lost events, none later than the
-    eager world's last by more than 30 s; where every eager survivor hangs
-    past the check's wait, any ending is no worse."""
-    graph, eager = res["graph"], res.get("eager")
-    fails = [f"{label}: its last rank was never seen at step {KILL_STEP}"
-             for label in ("graph", "eager") if label in res and not res[label]["killed"]]
-    if fails or eager is None or all(s["exit_code"] is None for s in eager["survivors"]):
-        return fails
-
-    def ending(world):
-        return sorted((s["exit_code"] is None, s["exit_code"] or 0, s["peer_lost"])
-                      for s in world["survivors"])
-
-    if ending(graph) != ending(eager):
-        fails.append(f"the graph world's survivors end {ending(graph)}, the eager world's "
-                     f"{ending(eager)}")
-    late = [s["seconds_after_kill"] for s in graph["survivors"]]
-    slowest = max((s["seconds_after_kill"] or 0.0) for s in eager["survivors"])
-    if any(t is None or t > slowest + 30 for t in late):
-        fails.append(f"the graph world's survivors end {late} s after the kill, the eager "
-                     f"world's by {slowest:.1f} s")
+def kill_failures(res: dict, demanded=("graph", "eager")) -> list[str]:
+    """Every survivor of each `demanded` world of kill_check's record must
+    exit 138 with a peer_lost event within KILL_LIMIT_S of the kill."""
+    fails = []
+    for label in demanded:
+        world = res.get(label)
+        if world is None or not world["killed"]:
+            fails.append(f"{label}: its last rank was never seen at step {KILL_STEP}")
+            continue
+        for s in world["survivors"]:
+            t = s["seconds_after_kill"]
+            if s["exit_code"] != 138 or not s["peer_lost"] or t is None or t > KILL_LIMIT_S:
+                fails.append(f"{label}: rank {s['rank']} ended with {s['exit_code']} "
+                             f"(peer_lost {s['peer_lost']}) "
+                             f"{'never' if t is None else f'{t:.1f} s'} after the kill, not "
+                             f"138 with peer_lost within {KILL_LIMIT_S} s")
     return fails
 
 
@@ -5512,15 +6054,18 @@ def main(argv: list[str] | None = None) -> int:
                             "serve,multislice,pipeline,pod",
                     help="comma-separated subset of build,check,train,ckpt,eval,longctx,"
                          "preempt,bert,data,dist,sp,moe,serve,multislice,pipeline,pod,profile; "
+                         "multislice_eager (with multislice) adds its eager slices; "
                          "k4 for the fused bottleneck's "
                          "checks alone, k5 for the grouped matmul's (moe runs them too; "
                          "eval follows the ckpt phase's directory); graph4 (the world "
-                         "graph and kill checks), dist4, pod4 and moe4 (the MoE's) on a "
+                         "graph and kill checks; kill4 the kill check alone), dist4, pod4 and "
+                         "moe4 (the MoE's) on a "
                          "machine of four GPUs, in that order")
     ap.add_argument("--steps", type=int, default=6)
     ap.add_argument("--parent", type=Path, default=None,
                     help="a tree of the repo (e.g. a git archive of the parent commit) "
-                         "whose eager NCCL world graph4's kill check runs beside this one's")
+                         "whose eager NCCL world graph4's kill check runs beside this "
+                         "tree's, recorded (its survivors' stacks), not held")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -5584,13 +6129,16 @@ def main(argv: list[str] | None = None) -> int:
         if "serve" in phases:
             results["serve"] = serve_phase(card)
         if "multislice" in phases:
-            results["multislice"] = multislice_phase(records, card)
+            results["multislice"] = multislice_phase(records, card,
+                                                     "multislice_eager" in phases)
         if "pipeline" in phases:
             results["pipeline"] = pipeline_phase(records, card)
         if "pod" in phases:
             results["pod"] = pod_phase(records, card)
         if "graph4" in phases:
             results["graph4"] = graph4_phase(card, args.parent)
+        elif "kill4" in phases:
+            results["kill4"] = kill4_phase(card, args.parent)
         if "dist4" in phases:
             results["dist4"] = dist4_phase(records, card)
         if "pod4" in phases:

@@ -109,11 +109,15 @@ def install(setattr_, fake: FakeCuda) -> FakeCuda:
     def graph(g, pool=None, capture_error_mode=None):
         fake.graphs.append(g)
         saved = [t.detach().clone() for t in fake.kept]
+        # A real capture draws nothing from its registered generators either.
+        states = [gen.get_state() for gen in g.generators]
         with fake.no_host_reads():
             yield
         with torch.no_grad():
             for t, v in zip(fake.kept, saved):
                 t.copy_(v)
+        for gen, state in zip(g.generators, states):
+            gen.set_state(state)
 
     real_capture = graphed_step.GraphedStep._capture
 
@@ -123,6 +127,7 @@ def install(setattr_, fake: FakeCuda) -> FakeCuda:
 
     setattr_(torch.cuda, "CUDAGraph", FakeGraph)
     setattr_(torch.cuda, "graph", graph)
+    setattr_(torch.cuda, "graph_pool_handle", lambda: object())
     setattr_(torch.cuda, "Stream", FakeStream)
     setattr_(torch.cuda, "current_stream", lambda *a: FakeStream())
     setattr_(torch.cuda, "stream", lambda s: contextlib.nullcontext())

@@ -811,6 +811,23 @@ def test_sp_phase_holds_runs_and_rejects_its_faults_on_cpu(tmp_path, monkeypatch
         assert res["rejected_on"], res
 
 
+def test_fault_controls_run_the_faults_at_once_on_cpu(tmp_path, monkeypatch):
+    """The sp phase's faults as fault_controls runs them, both worlds at
+    once: each rejected, each by its own record."""
+    monkeypatch.setattr(chip_smoke, "OUT_DIR", tmp_path)
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    monkeypatch.setattr(chip_smoke.DistJob, "launches",
+                        lambda self, mesh, mode: dict.fromkeys(chip_smoke.FLASH_LAUNCH_KEYS, 0))
+    argv = ("--model", "transformer-lm", "--steps", "3", "--batch", "2", "--seq", "64",
+            "--layers", "2", "--hidden", "64", "--heads", "4", "--log-every", "1",
+            "--device", "cpu", "--remat", "--remat-save-flash")
+    job = chip_smoke.DistJob("tiny", argv, 64, 2, 3, 2, 4, 2, tmp_path / "ref.pt", 64)
+    ref, _ = chip_smoke.one_process("cpu", job)
+    res = chip_smoke.fault_controls(ref, chip_smoke.SP_FAULTS, job)
+    assert [r["run"] for r in res] == [f[0] for f in chip_smoke.SP_FAULTS]
+    assert all(r["rejected_on"] for r in res), res
+
+
 def _k5_operands(dtype, rows=300, k=24, n=40, sizes=(0, 1, 130, 169)):
     rng = np.random.default_rng(11)
 
@@ -1175,8 +1192,11 @@ def test_multislice_phase_holds_slices_and_rejects_its_fault_on_cpu(tmp_path, mo
     kernel launches): one process, then 2 slices (dist_child, the
     operator's env) held against it at the dist limits with the dcn block
     recorded; each slice applying its own mean rejected on what a wrong
-    update moves; the kill of slice 1, its relaunch and slice 0's rewind
-    ending on the uninterrupted losses."""
+    update moves; the same 2 slices again (sent eager by
+    CHIP_SMOKE_STEP_ROUTE) within 1e-5 of the first run (world_gap: the
+    exchange sums in the order its files arrive, so no closer); the kill
+    of slice 1, its relaunch and slice 0's rewind ending on the
+    uninterrupted losses."""
     monkeypatch.setattr(chip_smoke, "OUT_DIR", tmp_path)
     monkeypatch.setenv("OMP_NUM_THREADS", "1")
     zeros = dict.fromkeys(chip_smoke.FLASH_LAUNCH_KEYS, 0)
@@ -1187,16 +1207,22 @@ def test_multislice_phase_holds_slices_and_rejects_its_fault_on_cpu(tmp_path, mo
             "--device", "cpu")
     job = chip_smoke.DistJob("tiny", argv, 32, 4, 6, 2, 2, 1, tmp_path / "ref.pt", 32)
     ref, _ = chip_smoke.one_process("cpu", job)
-    res = chip_smoke.ms_summary("2 slices", job, chip_smoke.slice_world("full", job), ref,
-                                "cpu")
+    sound = chip_smoke.slice_world("full", job)
+    res = chip_smoke.ms_summary("2 slices", job, sound, ref, "cpu")
     assert not chip_smoke.dist_verdict(res["gaps"]), res["gaps"]
     assert [d["slice_id"] for d in res["dcn"]] == [0, 1]
     assert all(d["transfers"] == 6 * 2 * d["buckets"] for d in res["dcn"])
+    again = chip_smoke.slice_world("eager", job, route="eager")
+    assert not chip_smoke.dist_verdict(chip_smoke.dist_gaps(ref, again))
+    gap = chip_smoke.world_gap(sound, again)
+    assert gap["loss"] <= 1e-5 and gap["grad_norm"] <= 1e-5, gap
+    assert all(len(r["param_digest"]) == 64 for r in sound["ranks"])
     gaps = chip_smoke.dist_gaps(ref, chip_smoke.slice_world("fault", job, "no-dcn-sum"))
     assert [f for f in chip_smoke.dist_verdict(gaps) if not f.startswith("loss")], gaps
-    rewind = chip_smoke.ms_rewind(job, ref, "cpu")
+    rewind = chip_smoke.ms_rewind(job, ref, "cpu", sound)
     assert rewind["resumed_from"] == 3 and rewind["rewind"]["peer_resume"] == 3
     assert rewind["slice0_starts"] == 1 and rewind["dcn"]["rewinds"] == 1
+    assert max(rewind["gaps_to_the_sound_run"].values()) <= 1e-5, rewind
 
 
 PIPE_TINY = chip_smoke.PipeCell(layers=2, hidden=32, heads=2, vocab=64, seq=16, batch=4,
@@ -1519,40 +1545,50 @@ def test_world_route_is_the_backend_rule():
 
 def _kill_world(ends):
     return {"killed": True, "survivors": [
-        {"exit_code": rc, "peer_lost": lost, "seconds_after_kill": t} for rc, lost, t in ends]}
+        {"rank": r, "exit_code": rc, "peer_lost": lost, "seconds_after_kill": t}
+        for r, (rc, lost, t) in enumerate(ends)]}
 
 
 def test_kill_failures_hold_the_graph_world_to_no_worse_than_the_eager_one():
-    eager = _kill_world([(-6, False, 61.0)] * 3)
-    assert chip_smoke.kill_failures({"graph": _kill_world([(-6, False, 62.5)] * 3),
-                                     "eager": eager}) == []
-    fails = chip_smoke.kill_failures({"graph": _kill_world([(None, False, None)] * 3),
-                                      "eager": eager})
-    assert len(fails) == 2 and "end" in fails[0], fails
-    late = chip_smoke.kill_failures({"graph": _kill_world([(-6, False, 95.0)] * 3),
-                                     "eager": eager})
-    assert len(late) == 1 and "after the kill" in late[0]
-    assert chip_smoke.kill_failures({"graph": _kill_world([(138, True, 1.0)] * 3)}) == []
-    # An eager world that never ends holds the graph world to nothing more.
-    hung = _kill_world([(None, False, None)] * 3)
-    assert chip_smoke.kill_failures({"graph": _kill_world([(-6, False, 131.1)] * 3),
-                                     "eager": hung}) == []
+    # Both NCCL worlds, graphed and eager, are held to the trainer's own
+    # watchdog: every survivor exits 138 with peer_lost within KILL_LIMIT_S.
+    limit = chip_smoke.KILL_LIMIT_S
+    ok = _kill_world([(138, True, 61.0)] * 3)
+    assert chip_smoke.kill_failures({"graph": ok, "eager": ok}) == []
+    sigabrt = chip_smoke.kill_failures({"graph": _kill_world([(-6, False, 131.1)] * 3),
+                                        "eager": ok})
+    assert len(sigabrt) == 3 and all(f.startswith("graph: rank") for f in sigabrt), sigabrt
+    hung = chip_smoke.kill_failures({"graph": ok,
+                                     "eager": _kill_world([(None, False, None)] * 3)})
+    assert len(hung) == 3 and "never after the kill" in hung[0], hung
+    late = chip_smoke.kill_failures({"graph": _kill_world([(138, True, limit + 0.5)] * 3),
+                                     "eager": ok})
+    assert len(late) == 3 and f"within {limit} s" in late[0]
+    silent = chip_smoke.kill_failures({"graph": ok,
+                                       "eager": _kill_world([(138, False, 10.0)] * 3)})
+    assert len(silent) == 3 and "peer_lost False" in silent[0]
     unseen = dict(_kill_world([]), killed=False)
-    assert "never seen" in chip_smoke.kill_failures({"graph": unseen, "eager": eager})[0]
+    assert "never seen" in chip_smoke.kill_failures({"graph": unseen, "eager": ok})[0]
+    assert "eager: its last rank" in chip_smoke.kill_failures({"graph": ok})[0]
+    # A world recorded beside them (the parent's) is not held.
+    assert chip_smoke.kill_failures({"graph": ok, "eager": ok,
+                                     "parent eager": _kill_world([(None, False, None)])}) == []
 
 
 def test_kill_check_on_cpu(tmp_path, monkeypatch):
     """The kill check's machinery on the CPU: a tiny LM at dp = 2 over gloo
-    on two "trees" (this checkout twice, through chip_smoke._TREE_CHILD),
-    the last rank killed once it reports step 3; gloo reports the lost
-    peer at once, so each survivor exits 138 with a peer_lost event, and
-    both worlds end alike."""
+    in two worlds of this checkout (through chip_smoke._TREE_CHILD, one on
+    the trainer's own route, one sent eager by CHIP_SMOKE_STEP_ROUTE), the
+    last rank killed once it reports step 3; gloo reports the lost peer at
+    once, so each survivor exits 138 with a peer_lost event, as
+    kill_failures demands."""
     monkeypatch.setattr(chip_smoke, "OUT_DIR", tmp_path)
     monkeypatch.setenv("OMP_NUM_THREADS", "1")
     argv = ["--model", "transformer-lm", "--steps", "400", "--batch", "4", "--seq", "32",
             "--layers", "2", "--hidden", "64", "--heads", "4", "--log-every", "1",
             "--device", "cpu"]
-    res = chip_smoke.kill_check("cpu", {"graph": chip_smoke.ROOT, "eager": chip_smoke.ROOT},
+    res = chip_smoke.kill_check("cpu", {"graph": (chip_smoke.ROOT, {}),
+                                        "eager": (chip_smoke.ROOT, chip_smoke.KILL_EAGER)},
                                 argv, {"dp": 2})
     for label in ("graph", "eager"):
         assert res[label]["killed"], res

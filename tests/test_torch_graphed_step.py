@@ -219,8 +219,10 @@ def test_a_restore_writes_the_live_count_and_keeps_an_int_on_the_wire():
     ("cuda", 4, "nccl", False, "graph", "NCCL"),
     ("cuda", 8, "nccl", False, "graph", "world of 8"),
     ("cuda", 4, "gloo", False, "eager", "gloo"),
-    ("cuda", 1, None, True, "eager", "multi-slice"),
-    ("cuda", 2, "nccl", True, "eager", "multi-slice"),
+    ("cuda", 1, None, True, "graph", "multi-slice job, one process"),
+    ("cuda", 2, "nccl", True, "graph", "slice of 2 processes over NCCL"),
+    ("cuda", 2, "gloo", True, "eager", "gloo"),
+    ("cpu", 1, None, True, "eager", "CUDA device"),
 ])
 def test_step_route(device, world, backend, multislice, route, why):
     got, reason = graphed_step.step_route(device, world, backend, multislice)

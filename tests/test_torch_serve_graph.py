@@ -204,7 +204,7 @@ def test_public_functions_are_their_bodies(lm64):
 @pytest.mark.parametrize("device,generative,route,why", [
     ("cpu", True, "eager", "CUDA device"),
     ("cpu", False, "eager", "CUDA device"),
-    ("cuda", False, "eager", "classifier"),
+    ("cuda", False, "graph", "a classifier on CUDA"),
     ("cuda", True, "graph", "replays one captured CUDA graph"),
 ])
 def test_serve_route(device, generative, route, why):

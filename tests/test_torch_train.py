@@ -434,7 +434,7 @@ def test_import_hygiene_in_a_fresh_process():
         "assert {'tf_operator_tpu_torch.parallel.' + m for m in ('distributed', 'mesh',\n"
         "        'sharding_rules', 'collectives', 'train_step', 'ring_attention',\n"
         "        'ulysses', 'multislice', 'pipeline', 'launch',\n"
-        "        'graphed_step')} <= set(names), names\n"
+        "        'graphed_step', 'peer_watch')} <= set(names), names\n"
         "assert {'tf_operator_tpu_torch.models.moe',\n"
         "        'tf_operator_tpu_torch.ops.grouped_matmul'} <= set(names), names\n"
         "assert {'tf_operator_tpu_torch.serve.server', 'tf_operator_tpu_torch.models.decode',\n"
@@ -462,7 +462,7 @@ def test_import_hygiene_ast_scan():
         assert ROOT / "tf_operator_tpu_torch" / "data" / f"{name}.py" in files
     for name in ("distributed", "mesh", "sharding_rules", "collectives", "train_step",
                  "ring_attention", "ulysses", "multislice", "pipeline", "launch",
-                 "graphed_step"):
+                 "graphed_step", "peer_watch"):
         assert ROOT / "tf_operator_tpu_torch" / "parallel" / f"{name}.py" in files
     for name in ("models/moe.py", "ops/grouped_matmul.py", "serve/server.py", "models/decode.py",
                  "serve/decode_graphs.py", "status/metrics.py"):

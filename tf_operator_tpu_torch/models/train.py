@@ -34,8 +34,10 @@ GPU of their own (NCCL), runs each optimizer step as a replay of a CUDA
 graph (parallel/graphed_step.py), as the JAX trainer compiles its chunk
 and its dataset step over the whole mesh: the first step runs eagerly and
 is then captured, batches and collectives included, and `model_ready`
-names the route (`step_route`, and why). The CPU, a gloo world and a
-multi-slice job step eagerly.
+names the route (`step_route`, and why). In a multi-slice job each half of
+the step replays a graph (the batch, each microbatch's backward, the
+apply), the DCN exchange on the host between them. The CPU and a gloo
+world step eagerly.
 
 Checkpoints (`--checkpoint-dir`, models/checkpoint.py) follow the JAX
 trainer: step_<N> holds the parameters and trainstate_<N> the resume
@@ -60,7 +62,9 @@ kill / hang / torn / stall:ckpt faults (chaos/). `--trace` records host
 spans and writes `<rank>.trace.json` under `--trace-dir`; `--profile-dir`
 keeps a torch.profiler trace of the last steady chunk, outside the
 throughput window. `--eval` makes this process the Evaluator: it follows
-`--checkpoint-dir` to FINAL and evaluates each step on fixed batches.
+`--checkpoint-dir` to FINAL and evaluates each step on fixed batches (on
+CUDA by replaying one captured graph of the loss, `eval_ready` naming the
+route).
 
 `--data-dir` trains on a sharded on-disk dataset (data/dataset.py) one
 step at a time, its batches fed by the copy thread of data/prefetch.py
@@ -84,9 +88,12 @@ rank, as the JAX step replicates their batch there). Rank 0 writes
 the checkpoints, gathered to full tensors; the replicas agree on the resume
 step, on a preemption, and exit together (distributed_goodbye) on clean
 completion only. A collective that fails because a peer died exits 138
-(retryable); in an NCCL world a lost peer shows in no call: a graphed
-rank is ended by the process group's watchdog after its timeout
-(graphed_step.world_watch), an eager one was seen to hang (ROADMAP §C5).
+(retryable); in an NCCL world, where a lost peer shows in no call, every
+host wait (the metrics read, the collectives issued outside a graph, the
+replay behind world_watch's all-reduce, the preemption flag, the
+checkpoint snapshot) is polled against distributed.TIMEOUT by the
+trainer's own watchdog (parallel/peer_watch.py), which aborts the
+communicators and exits 138 with a `peer_lost` event too.
 The data axis splits the batch as dp does; pp is replicated,
 as the JAX trainer makes it (the GPipe schedule, parallel/pipeline.py, is
 on no trainer path there either).
@@ -537,6 +544,17 @@ def main(argv: list[str] | None = None, state_out: dict | None = None,
                 os.environ.pop(chaos_lib.ENV_CHAOS, None)
             else:
                 os.environ[chaos_lib.ENV_CHAOS] = chaos_env_prev
+        from tf_operator_tpu_torch.parallel import peer_watch
+
+        if peer_watch.wedged():
+            # A world whose communicators would not abort (its CUDA graph's
+            # kernels still wait on the lost peer) cannot be torn down:
+            # leave at once, retryable, the peer_lost event written.
+            from tf_operator_tpu_torch.utils.exit_codes import EXIT_USER_RETRYABLE
+
+            sys.stdout.flush()
+            sys.stderr.flush()
+            os._exit(EXIT_USER_RETRYABLE)
 
 
 def _rank() -> str:
@@ -873,9 +891,11 @@ def _snapshot_state(ckpt_dir: str, step: int, state, final: bool, keep: int,
     host_params = _host_tree(params, buffers)
     host_aux = _host_tree(aux, buffers)
     if any(t.device.type == "cuda" for t in params.values()):
+        from tf_operator_tpu_torch.parallel import peer_watch
+
         done = torch.cuda.Event()
         done.record()
-        done.synchronize()
+        peer_watch.synchronize(done, "the checkpoint snapshot")
     info = {**_gang_shape(plan),
             "leaves": ckpt.leaf_shardings(host_params, _leaf_specs(plan, ("",))),
             "auxLeaves": ckpt.leaf_shardings(host_aux,
@@ -1386,18 +1406,61 @@ def _preempt_exit(args, guard, state, done: int, ck: _Checkpointing | None,
     return guard.exit_code
 
 
+def eval_route(device_type: str) -> tuple[str, str]:
+    """("graph" or "eager", why) for the Evaluator on `device_type` (one
+    process whatever its env says)."""
+    if device_type != "cuda":
+        return "eager", "CUDA graphs exist only on a CUDA device"
+    return "graph", "the Evaluator on CUDA: each batch's loss replays one captured CUDA graph"
+
+
+def evaluator(model, loss_fn, make_batch, device: torch.device, n_batches: int,
+              graphed: bool = False) -> Callable[[], float]:
+    """run() -> the mean loss of `model` over the evaluator's fixed
+    batches: batch i is make_batch of a generator seeded 10_000 + i, so
+    every round sees the same batches (made one at a time, never all held).
+    The loss runs as the train step runs it (model in train mode), without
+    gradients. graphed (eval_route): the loss is one graphed_step.GraphedStep
+    over a static batch, into which each batch is copied before its replay,
+    captured at the first batch on the model's parameters, which every later
+    round must hold in place (the Evaluator copies each checkpoint into
+    them); the same loss bit for bit."""
+    def batch(i: int) -> dict:
+        return make_batch(torch.Generator(device=device).manual_seed(10_000 + i))
+
+    held: dict = {}
+
+    def loss(b: dict) -> float:
+        if not graphed:
+            with torch.no_grad():
+                return float(loss_fn(model, b))
+        if not held:
+            from tf_operator_tpu_torch.parallel.graphed_step import GraphedStep
+
+            static = {k: v.clone() for k, v in b.items()}
+
+            def body() -> dict:
+                with torch.no_grad():
+                    return {"loss": loss_fn(model, static)}
+
+            held.update(static=static, step=GraphedStep(body))
+        else:
+            for k, v in b.items():
+                held["static"][k].copy_(v)
+        return float(held["step"]()["loss"])
+
+    def run() -> float:
+        model.train()
+        losses = [loss(batch(i)) for i in range(n_batches)]
+        return sum(losses) / len(losses)
+
+    return run
+
+
 def evaluate(model, loss_fn, make_batch, device: torch.device, n_batches: int) -> float:
-    """Mean loss of `model` over the evaluator's fixed batches: batch i is
-    make_batch of a generator seeded 10_000 + i, so every round sees the
-    same batches (made one at a time, never all held). The loss runs as
-    the train step runs it (model in train mode), without gradients."""
-    model.train()
-    losses = []
-    with torch.no_grad():
-        for i in range(n_batches):
-            batch = make_batch(torch.Generator(device=device).manual_seed(10_000 + i))
-            losses.append(float(loss_fn(model, batch)))
-    return sum(losses) / len(losses)
+    """The mean loss of `model` over the evaluator's fixed batches, eagerly
+    (evaluator's run)."""
+    return evaluator(model, loss_fn, make_batch, device, n_batches)()
 
 
 def _run_evaluator(args, model, loss_fn, make_batch, device: torch.device, guard) -> int:
@@ -1410,6 +1473,10 @@ def _run_evaluator(args, model, loss_fn, make_batch, device: torch.device, guard
         print("--eval requires --checkpoint-dir", file=sys.stderr)
         return 2
     template = {name: p.dtype for name, p in model.named_parameters()}
+    route, route_why = eval_route(device.type)
+    _emit({"event": "eval_ready", "t": time.time(), "step_route": route,
+           "step_route_why": route_why})
+    run = evaluator(model, loss_fn, make_batch, device, args.steps, graphed=route == "graph")
     seen: set[int] = set()
     evaluated = 0
     while True:
@@ -1432,12 +1499,20 @@ def _run_evaluator(args, model, loss_fn, make_batch, device: torch.device, guard
             for name, p in model.named_parameters():
                 p.copy_(params[name])
         with tracer.span("eval", checkpoint_step=step, n_batches=args.steps):
-            loss = evaluate(model, loss_fn, make_batch, device, args.steps)
+            loss = run()
         evaluated += 1
         _emit({"event": "eval", "checkpoint_step": step, "eval_loss": round(loss, 6),
                "n_batches": args.steps})
     _emit({"event": "eval_done", "checkpoints_evaluated": evaluated})
     return 0
+
+
+def _loss(t) -> float:
+    """A step's loss on the host; in an NCCL world the wait for it is the
+    watchdog's (parallel/peer_watch.py)."""
+    from tf_operator_tpu_torch.parallel import peer_watch
+
+    return peer_watch.read(t, "the step's loss")
 
 
 def _device_kind(device: torch.device) -> str:
@@ -1507,7 +1582,7 @@ def _train_on_dataset(args, device: torch.device, state, start_step: int, loss_f
 
     try:
         state, metrics = step(state, next(it))
-        first_loss = float(metrics["loss"])
+        first_loss = _loss(metrics["loss"])
         t_first = time.time()
         done = start_step + 1
         _emit({
@@ -1540,7 +1615,7 @@ def _train_on_dataset(args, device: torch.device, state, start_step: int, loss_f
                     pstep, pmetrics = pending
                     if pstep % args.log_every == 0:
                         with st.phase("device_blocked"):
-                            ploss = float(pmetrics["loss"])
+                            ploss = _loss(pmetrics["loss"])
                         _emit({"event": "progress", "step": pstep, "loss": ploss})
                 pending = (done, metrics)
                 maybe_checkpoint(done, state, st)
@@ -1549,7 +1624,7 @@ def _train_on_dataset(args, device: torch.device, state, start_step: int, loss_f
                     return rc
         if pending is not None:
             pstep, pmetrics = pending
-            closing_loss = float(pmetrics["loss"])
+            closing_loss = _loss(pmetrics["loss"])
         dt = time.time() - t0
         if pending is not None:
             _emit({"event": "progress", "step": pstep, "loss": closing_loss})
@@ -1563,32 +1638,32 @@ def _train_on_dataset(args, device: torch.device, state, start_step: int, loss_f
                   _ingest_block(args, prefetch_stats, staging_stats, lanes, chunks, tune))
 
 
-def _host_grads(loss, grads) -> tuple[list, Any]:
-    """Enqueue the copy of one microbatch's loss and gradients to the host
-    as one f32 buffer (pinned, on CUDA) and return (numpy views of it, the
-    loss first, each gradient in its shape; the event the copy records,
-    None on the CPU). The views own their buffer: the exchange's engine
-    may write them after the next microbatch's copy has begun."""
-    leaves = [loss.reshape(1)] + list(grads)
-    flat = torch.cat([g.detach().reshape(-1).float() for g in leaves])
+def _host_grads(flat: torch.Tensor, shapes) -> tuple[list, Any]:
+    """Enqueue the copy of one microbatch's flat f32 loss and gradients
+    (make_multislice_step_fns' backward) to a host buffer of its own
+    (pinned, on CUDA) and return (numpy views of it, one for each of
+    `shapes`: the loss's (1,), then each gradient's; the event the copy
+    records, None on the CPU). The views own their buffer: the exchange's
+    engine may write them after the next microbatch's copy has begun, and a
+    graphed backward's next replay rewrites `flat`."""
     if flat.device.type == "cuda":
         host = torch.empty(flat.shape, dtype=torch.float32, pin_memory=True)
         host.copy_(flat, non_blocking=True)
         done = torch.cuda.Event()
         done.record()
     else:
-        host, done = flat, None
+        host, done = flat.clone(), None
     views, off = [], 0
-    for g in leaves:
-        n = g.numel()
-        views.append(host[off:off + n].view(g.shape).numpy())
+    for shape in shapes:
+        n = math.prod(shape)
+        views.append(host[off:off + n].view(shape).numpy())
         off += n
     return views, done
 
 
 def _train_multislice(args, device, state, start_step: int, loss_fn, tx, make_batch, plan,
                       world, heartbeat, guard, t_start: float, maybe_checkpoint,
-                      check_boundary, finish, rewind) -> int:
+                      check_boundary, finish, rewind, graphed: bool) -> int:
     """The multi-slice step loop (TPUJOB_NUM_SLICES > 1), the JAX trainer's
     _train_multislice: this world spans one slice, and the slices meet in
     the DCN exchange (parallel/multislice.py).
@@ -1607,8 +1682,13 @@ def _train_multislice(args, device, state, start_step: int, loss_fn, tx, make_ba
     resume from the shared checkpoint; SliceRewind then re-restores that
     checkpoint in process (`rewind`) and the loop replays forward. A peer
     that never returns exits retryable (138); a latched preemption signal
-    leaves the hold through the graceful path."""
-    from tf_operator_tpu_torch.parallel import multislice
+    leaves the hold through the graceful path.
+
+    With `graphed` (graphed_step.step_route) the batch, each microbatch's
+    backward and the apply each replay a captured CUDA graph, the
+    counterpart of the JAX trainer's three jitted functions; a rewind
+    restores the state in place, so the graphs replay from it."""
+    from tf_operator_tpu_torch.parallel import multislice, peer_watch
     from tf_operator_tpu_torch.parallel.train_step import make_multislice_step_fns
     from tf_operator_tpu_torch.telemetry.phases import make_step_accounting
     from tf_operator_tpu_torch.utils.exit_codes import EXIT_USER_RETRYABLE
@@ -1626,7 +1706,9 @@ def _train_multislice(args, device, state, start_step: int, loss_fn, tx, make_ba
     # reduction: the bandwidth dial charges the 1/ici_degree fraction only.
     world.ici_degree = plan.mesh.world
     gen_batch, backward, apply = make_multislice_step_fns(
-        loss_fn, tx, make_batch, device, rows, seed=0, remat=args.remat, plan=plan)
+        loss_fn, tx, make_batch, device, rows, seed=0, remat=args.remat, plan=plan,
+        graphed=graphed, flat=True)
+    shapes = [(1,)] + [tuple(p.shape) for p in state.params]
     ex = multislice.DcnExchange(world, resume_step=start_step, microbatches=M,
                                 buckets=args.dcn_buckets,
                                 peer_timeout_s=args.dcn_peer_timeout)
@@ -1653,16 +1735,16 @@ def _train_multislice(args, device, state, start_step: int, loss_fn, tx, make_ba
                         m, views, event = pending.pop()
                         if event is not None:
                             with st.phase("device_blocked"):
-                                event.synchronize()
+                                peer_watch.synchronize(event, "a microbatch's gradients")
                         ex.submit(step, m, views)
 
                     with st.phase("dispatch"):
                         batch = gen_batch(done)
                     for m in range(M):
                         with st.phase("dispatch"):
-                            loss_m, grads_m = backward(state, batch, (sid * M + m) * rows)
-                            views, event = _host_grads(loss_m, grads_m)
-                            del loss_m, grads_m
+                            flat = backward(state, batch, (sid * M + m) * rows)
+                            views, event = _host_grads(flat, shapes)
+                            del flat
                         if pending:
                             submit()
                         pending.append((m, views, event))
@@ -1843,9 +1925,10 @@ def _run_trainer(args, device: torch.device, heartbeat, guard, chaos=None,
     state = create_train_state(model, tx, plan)
     state, start_step = _try_resume(args.checkpoint_dir, state, tx, allow_reshape, plan)
     # One process on CUDA and every rank of an NCCL world replay a CUDA graph
-    # of each step; the CPU, a gloo world (its collectives run on the host)
-    # and a multi-slice job (its exchange runs on the host between the halves
-    # of a step) step eagerly. No fallback: a failed capture raises.
+    # of each step (in a multi-slice job, of each half of it: the exchange
+    # runs on the host between them); the CPU and a gloo world (its
+    # collectives run on the host) step eagerly. No fallback: a failed
+    # capture raises.
     route, route_why = step_route(device.type, mesh.world, dist_backend, ms_world is not None)
 
     _emit({"event": "model_ready", "t": time.time(), "step_route": route,
@@ -1936,7 +2019,7 @@ def _run_trainer(args, device: torch.device, heartbeat, guard, chaos=None,
                 "steps": args.steps,
                 "steady_steps_per_sec": round(steady / dt, 4) if steady > 0 else None,
                 "examples_per_sec": round(steady * args.batch / dt, 4) if steady > 0 else None,
-                "final_loss": float(metrics["loss"]),
+                "final_loss": _loss(metrics["loss"]),
                 "total_s": round(time.time() - t_start, 3),
                 "step_time_s": telem["step_time_s"] if telem else None,
                 "phase_breakdown": telem["phase_breakdown"] if telem else None,
@@ -1981,12 +2064,13 @@ def _run_trainer(args, device: torch.device, heartbeat, guard, chaos=None,
 
             return _train_multislice(args, device, state, start_step, loss_fn, tx,
                                      make_batch, plan, ms_world, heartbeat, guard, t_start,
-                                     maybe_checkpoint, check_boundary, finish, rewind)
+                                     maybe_checkpoint, check_boundary, finish, rewind,
+                                     graphed=route == "graph")
 
         state, metrics = step_chunk(state, chunk)
         # The loss fetch waits for the first chunk's device work: startup_s
         # includes it.
-        first_loss = float(metrics["loss"])
+        first_loss = _loss(metrics["loss"])
         t_first = time.time()
         done = start_step + chunk
         _emit({
@@ -2028,7 +2112,7 @@ def _run_trainer(args, device: torch.device, heartbeat, guard, chaos=None,
                     pstep, pmetrics = pending
                     if pstep % args.log_every == 0:
                         with st.phase("device_blocked"):
-                            ploss = float(pmetrics["loss"])
+                            ploss = _loss(pmetrics["loss"])
                         _emit({"event": "progress", "step": pstep, "loss": ploss})
                 pending = (done, metrics)
                 maybe_checkpoint(done, state, st)
@@ -2037,7 +2121,7 @@ def _run_trainer(args, device: torch.device, heartbeat, guard, chaos=None,
                     return rc
         if pending is not None:
             pstep, pmetrics = pending
-            closing_loss = float(pmetrics["loss"])  # the window's closing sync
+            closing_loss = _loss(pmetrics["loss"])  # the window's closing sync
         dt = time.time() - t0
         if pending is not None and (pstep % args.log_every == 0 or pstep == args.steps):
             _emit({"event": "progress", "step": pstep, "loss": closing_loss})
@@ -2052,7 +2136,7 @@ def _run_trainer(args, device: torch.device, heartbeat, guard, chaos=None,
             done += chunk
             # The loss fetch waits for the chunk's device work before the
             # trace stops.
-            chunk_loss = float(metrics["loss"])
+            chunk_loss = _loss(metrics["loss"])
             if done % args.log_every == 0 or done == args.steps:
                 _emit({"event": "progress", "step": done, "loss": chunk_loss})
             prof.stop()
@@ -2066,7 +2150,7 @@ def _run_trainer(args, device: torch.device, heartbeat, guard, chaos=None,
         if tail:
             state, metrics = step_chunk(state, tail)
             done += tail
-            _emit({"event": "progress", "step": done, "loss": float(metrics["loss"])})
+            _emit({"event": "progress", "step": done, "loss": _loss(metrics["loss"])})
         return finish(state, metrics, steady, dt, acct, {})
     finally:
         if ck is not None and ck.writer is not None:

@@ -33,7 +33,16 @@ graph (graphed_step.py), so none of those the step runs reads the host:
 each makes its buffers on the device and waits on its work at once, which
 under a capture only orders the stream after the collective. Those that
 read the host (broadcast_int, all_gather_int, agree_int) run outside the
-step.
+step. Outside a capture, `_call` then waits for the collective on the host
+through the trainer's watchdog (peer_watch.wait), so a lost peer raises
+PeerLostError within distributed.TIMEOUT instead of blocking the host.
+
+The ring's point-to-point buffers on NCCL persist (`_ring_buffer`: one
+send and one receive buffer a shape): every rotation copies its K and V
+into the send buffer and its result out of the receive buffer on the
+current stream, so NCCL's stream touches no other memory. Inside a CUDA
+graph's capture a block that NCCL's stream used cannot be handed out again,
+so fresh buffers would each stay in the graph's pool for its life.
 
 gloo's point-to-point ops take no CUDA tensor (the process aborts), so
 where the backend is gloo and the tensors live on a GPU (two ranks sharing
@@ -91,13 +100,21 @@ def peer_lost(e: BaseException) -> bool:
     return isinstance(e, RuntimeError) and bool(_PEER_LOST.search(str(e)))
 
 
-def _call(fn, *args, **kwargs):
+def _call(fn, *args, wait: bool = True, **kwargs):
+    """fn(*args, **kwargs), a lost peer's error as PeerLostError; then, with
+    `wait`, the host waits for it through the watchdog (a no-op but in an
+    NCCL world outside a capture)."""
+    from tf_operator_tpu_torch.parallel import peer_watch
+
     try:
-        return fn(*args, **kwargs)
+        out = fn(*args, **kwargs)
     except RuntimeError as e:
         if peer_lost(e):
             raise PeerLostError(f"{fn.__name__} failed: {e}") from e
         raise
+    if wait:
+        peer_watch.wait(fn.__name__)
+    return out
 
 
 def all_reduce(t: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
@@ -331,19 +348,51 @@ def _pinned(x: torch.Tensor) -> torch.Tensor:
     return torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
 
 
-def _exchange(buf: torch.Tensor, dst: int, src: int, group) -> torch.Tensor:
-    """Send the flat `buf` to group rank `dst` and receive one of its size
-    from group rank `src`, in one batch of point-to-point ops."""
-    out = torch.empty_like(buf)
-    staged = buf.is_cuda and dist.get_backend(group) == "gloo"
-    send, recv = (_pinned(_wire(buf)).copy_(_wire(buf)), _pinned(_wire(out))) if staged \
-        else (_wire(buf), _wire(out))
+_RING_BUFFERS: dict = {}
+
+
+def _ring_buffer(kind: str, numel: int, dtype: torch.dtype, device) -> torch.Tensor:
+    """The persistent flat `kind` ("send" or "recv") buffer of the ring's
+    point-to-point exchanges at (device, dtype, numel) on NCCL (module
+    docstring): made at its first use, which is the graph's warm-up."""
+    key = (kind, torch.device(device), dtype, numel)
+    buf = _RING_BUFFERS.get(key)
+    if buf is None:
+        buf = _RING_BUFFERS[key] = torch.empty(numel, dtype=dtype, device=device)
+    return buf
+
+
+def _exchange(parts: list[torch.Tensor], dst: int, src: int, group) -> torch.Tensor:
+    """Send `parts` (as one flat buffer, in order) to group rank `dst` and
+    receive one of their size from group rank `src`, in one batch of
+    point-to-point ops; returns the received flat tensor (a fresh one)."""
+    numel = sum(p.numel() for p in parts)
+    first = parts[0]
+    backend = dist.get_backend(group)
+    if first.is_cuda and backend != "gloo":
+        send = _ring_buffer("send", numel, first.dtype, first.device)
+        at = 0
+        for p in parts:
+            send[at:at + p.numel()].view(p.shape).copy_(p)
+            at += p.numel()
+        recv = _ring_buffer("recv", numel, first.dtype, first.device)
+    else:
+        send = torch.cat([p.reshape(-1) for p in parts])
+        recv = torch.empty_like(send)
+    out = recv
+    staged = first.is_cuda and backend == "gloo"
+    if staged:
+        send, recv = _pinned(_wire(send)).copy_(_wire(send)), _pinned(_wire(out))
+    else:
+        send, recv = _wire(send), _wire(out)
     ops = [dist.P2POp(dist.isend, send, dist.get_global_rank(group, dst), group=group),
            dist.P2POp(dist.irecv, recv, dist.get_global_rank(group, src), group=group)]
-    for work in _call(dist.batch_isend_irecv, ops):
+    for work in _call(dist.batch_isend_irecv, ops, wait=False):
         _call(work.wait)
     if staged:
         _wire(out).copy_(recv)
+    elif first.is_cuda and backend != "gloo":
+        out = out.clone()
     return out
 
 
@@ -372,8 +421,7 @@ def _shift(k: torch.Tensor, v: torch.Tensor, group, step: int):
     """(k, v) of the rank `step` places before this one in `group`'s ring
     (step 1: the previous rank's; -1: the next one's), sent as one buffer."""
     n, r = dist.get_world_size(group), dist.get_rank(group)
-    flat = torch.cat([k.reshape(-1), v.reshape(-1)])
-    out = _exchange(flat, (r + step) % n, (r - step) % n, group)
+    out = _exchange([k, v], (r + step) % n, (r - step) % n, group)
     return out[:k.numel()].view(k.shape), out[k.numel():].view(v.shape)
 
 

@@ -62,8 +62,16 @@ ENV_VISIBLE_DEVICES = "CUDA_VISIBLE_DEVICES"
 
 # How long the store waits for every process to join, and a collective for
 # its peers: a dead peer closes its sockets and fails a collective at once,
-# a wedged one fails it here.
+# a wedged one fails it here. In an NCCL world it is the deadline of the
+# trainer's own watchdog (parallel/peer_watch.py), and the group's timeout
+# is NCCL_TIMEOUT_FACTOR times it, so ProcessGroupNCCL's watchdog, which
+# only logs there (NCCL_ASYNC_ERROR_ENV), comes after it.
 TIMEOUT = datetime.timedelta(seconds=300)
+NCCL_TIMEOUT_FACTOR = 2
+# ProcessGroupNCCL's handling of a failed or timed-out collective: 0 leaves
+# it to the caller, which the watchdog's _abort_process_group asks for; its
+# default (3) ends the process by SIGABRT with no event.
+NCCL_ASYNC_ERROR_ENV = "TORCH_NCCL_ASYNC_ERROR_HANDLING"
 # distributed_goodbye's bound on the closing barrier, in seconds.
 GOODBYE_TIMEOUT_S = 300.0
 
@@ -186,8 +194,17 @@ def initialize_from_env(force: bool = False,
                           timeout=TIMEOUT, wait_for_workers=False)
     agree_local_ranks(store)
     backend = choose_backend(store, pid, nprocs, device)
+    timeout = TIMEOUT
+    if backend == "nccl":
+        handling = os.environ.get(NCCL_ASYNC_ERROR_ENV, "")
+        if handling not in ("", "0"):
+            raise RuntimeError(f"{NCCL_ASYNC_ERROR_ENV}={handling} lets ProcessGroupNCCL end "
+                               f"the process on a lost peer before the trainer's watchdog "
+                               f"reports it (exit 138); leave it unset or 0")
+        os.environ[NCCL_ASYNC_ERROR_ENV] = "0"
+        timeout = TIMEOUT * NCCL_TIMEOUT_FACTOR
     dist.init_process_group(backend, store=store, rank=pid, world_size=nprocs,
-                            timeout=TIMEOUT)
+                            timeout=timeout)
     return backend
 
 

@@ -1,12 +1,15 @@
 """Training as CUDA graphs: the counterpart of the JAX trainer's compiled
 step (`make_scanned_train_step`'s chunk on synthetic batches,
-`make_train_step`'s jitted step on a dataset's), in one process and on every
-rank of an NCCL world.
+`make_train_step`'s jitted step on a dataset's, the multi-slice halves), in
+one process and on every rank of an NCCL world.
 
 `step_route` is the rule: one process on CUDA, and every rank of a world
 whose ranks each have a GPU of their own (NCCL), replays a captured graph
-of each optimizer step; every other run steps eagerly, for the reason it
-returns. There is no fallback: a capture or a replay that fails raises.
+of each optimizer step, or in a multi-slice job of each half of it (the
+batch, each microbatch's backward, the apply; parallel/train_step.py's
+make_multislice_step_fns), with the DCN exchange on the host between them;
+every other run steps eagerly, for the reason it returns. There is no
+fallback: a capture or a replay that fails raises.
 
 `GraphedStep` runs one step a call. Its first call runs the step eagerly on
 a side stream (the warm-up the PyTorch documentation asks for before a
@@ -18,19 +21,20 @@ the step itself, so no step runs twice or is skipped; it then captures the
 step, which records the kernels without running them. Every later call
 replays the graph. The step reads and writes only tensors that outlive the
 call: the model's parameters and buffers, the optimizer state (updated in
-place, its count on the device) and the static inputs.
+place, its count on the device) and the static inputs (`StaticInputs`,
+filled by `stage` from pinned host memory, or copied in on the stream).
 
 In a world, the captured NCCL kernels replay on the rank's communicators
 in the order they were captured, which is the same on every rank; the
 collectives the trainer runs eagerly between replays (the preemption flag,
 a checkpoint's gathers) run on the same communicators, ordered on the
-stream after the replay. ProcessGroupNCCL's watchdog sees only the work
-that Python enqueues, never a replay's kernels, so `world_watch` enqueues
-one empty all-reduce over the world after each replay: it launches nothing,
-and its work completes only when the replay's collectives have, so the
-watchdog times out a replay that waits on a lost peer (distributed.TIMEOUT)
-and ends the rank, which a host read of the step's metrics would otherwise
-wait on for ever.
+stream after the replay. A replay's kernels are invisible to
+ProcessGroupNCCL's watchdog, and a lost peer would leave them, and the
+host's next read behind them, waiting for ever: `world_watch` enqueues one
+empty all-reduce over the world after each replay (it launches nothing) and
+then waits, through the trainer's watchdog (parallel/peer_watch.py), for
+the replay before the last, so a replay that waits on a lost peer raises
+PeerLostError within distributed.TIMEOUT.
 
 The kernel wrappers count launches in Python (ops/*.LAUNCHES), so a capture
 would count once kernels that never ran and a replay would count nothing.
@@ -40,13 +44,14 @@ replay: a counter still says how many times the card ran the kernel.
 
 from __future__ import annotations
 
+import math
 import os
 from typing import Any, Callable
 
 import torch
 import torch.distributed as dist
 
-from tf_operator_tpu_torch.parallel import collectives
+from tf_operator_tpu_torch.parallel import collectives, peer_watch
 from tf_operator_tpu_torch.parallel.train_step import TrainState, batch_seed, train_step
 
 # The variables under which ProcessGroupNCCL waits for a collective on the
@@ -57,17 +62,20 @@ BLOCKING_WAIT_ENV = ("NCCL_BLOCKING_WAIT", "TORCH_NCCL_BLOCKING_WAIT")
 def step_route(device_type: str, world: int, backend: str | None,
                multislice: bool) -> tuple[str, str]:
     """("graph" or "eager", why) for a trainer on `device_type` in a world
-    of `world` processes joined over `backend`, in a multi-slice job or
-    not."""
+    of `world` processes joined over `backend` (in a multi-slice job, the
+    slice's world), in a multi-slice job or not."""
     if device_type != "cuda":
         return "eager", "CUDA graphs exist only on a CUDA device"
+    if world > 1 and backend != "nccl":
+        return "eager", f"{backend}'s collectives run on the host and cannot be captured"
     if multislice:
-        return "eager", ("the multi-slice exchange runs on the host between the "
-                         "halves of a step")
+        where = ("one process" if world == 1 else
+                 f"a slice of {world} processes over NCCL (its collectives included)")
+        return "graph", (f"a multi-slice job, {where}: the batch, each microbatch's "
+                         f"backward and the apply each replay one captured CUDA graph, "
+                         f"the DCN exchange on the host between them")
     if world == 1:
         return "graph", "one process on CUDA: each step replays one captured CUDA graph"
-    if backend != "nccl":
-        return "eager", f"{backend}'s collectives run on the host and cannot be captured"
     return "graph", (f"a world of {world} processes over NCCL: each rank replays one "
                      f"captured CUDA graph of its step, its collectives included")
 
@@ -75,17 +83,71 @@ def step_route(device_type: str, world: int, backend: str | None,
 def world_watch(device) -> Callable[[], None] | None:
     """In a world of several processes, the call GraphedStep makes after
     each replay (module docstring): an empty all-reduce over the world on
-    `device`. None in one process. A world whose NCCL waits on the host
+    `device`, then, over NCCL, a watched wait for the replay before the
+    last. None in one process. A world whose NCCL waits on the host
     (BLOCKING_WAIT_ENV) is refused: no collective of it could be captured."""
     if not dist.is_initialized() or dist.get_world_size() < 2:
         return None
-    if dist.get_backend() == "nccl":
+    nccl = dist.get_backend() == "nccl"
+    if nccl:
         for name in BLOCKING_WAIT_ENV:
             if os.environ.get(name, "0") not in ("", "0"):
                 raise RuntimeError(f"{name}={os.environ[name]} makes every NCCL collective "
                                    f"wait on the host, which a CUDA graph cannot capture")
     empty = torch.empty(0, device=device)
-    return lambda: collectives.all_reduce(empty, dist.group.WORLD)
+    # On the card (a CPU test's stand-in world has no stream to wait on).
+    pace = nccl and empty.device.type != "cpu"
+    behind: list = []
+
+    def watch() -> None:
+        with peer_watch.deferred():  # waited for below, one replay behind
+            collectives.all_reduce(empty, dist.group.WORLD)
+        if pace:
+            done = torch.cuda.Event()
+            done.record()
+            behind.append(done)
+            if len(behind) > 1:
+                peer_watch.synchronize(behind.pop(0), "the replay before the last")
+
+    return watch
+
+
+class StaticInputs:
+    """One graph's inputs of one dtype: a device buffer and the host buffer
+    it is copied from (pinned on CUDA), laid out as `shapes` (name ->
+    shape); `views[name]` is the device tensor a body reads."""
+
+    def __init__(self, shapes: dict, device: torch.device, dtype=torch.int64):
+        cuda = device.type == "cuda"
+        total = sum(math.prod(s) for s in shapes.values())
+        # Ordinary tensors even when made under inference mode (a server's
+        # load), so that a caller outside it may stage into them too.
+        with torch.inference_mode(False):
+            self.host_buffer = torch.zeros(total, dtype=dtype, pin_memory=cuda)
+            self.device_buffer = torch.zeros(total, dtype=dtype, device=device)
+        self.views, self.host_views = {}, {}
+        at = 0
+        for name, shape in shapes.items():
+            n = math.prod(shape)
+            self.views[name] = self.device_buffer[at:at + n].view(shape)
+            self.host_views[name] = self.host_buffer[at:at + n].numpy().reshape(shape)
+            at += n
+        # Recorded behind each copy out of the host buffer (an event not yet
+        # recorded synchronises at once).
+        self.copied = torch.cuda.Event() if cuda else None
+
+
+def stage(static: StaticInputs, values: dict) -> None:
+    """Write `values` (name -> host array of its shape) into the static
+    inputs: wait for the previous copy out of the host buffer, fill it,
+    then copy it to the device on the current stream."""
+    if static.copied is not None:
+        static.copied.synchronize()
+    for name, a in values.items():
+        static.host_views[name][...] = a
+    static.device_buffer.copy_(static.host_buffer, non_blocking=True)
+    if static.copied is not None:
+        static.copied.record()
 
 
 def launch_counters() -> tuple[dict, ...]:

@@ -595,7 +595,8 @@ def make_multislice_step_fns(loss_fn: LossFn,
                              tx: optim_lib.MixedPrecisionTransformation,
                              make_batch: Callable[[torch.Generator], Any],
                              device, rows: int, seed: int = 0, remat: bool = False,
-                             plan: ParallelPlan | None = None):
+                             plan: ParallelPlan | None = None, graphed: bool = False,
+                             flat: bool = False):
     """(gen_batch, backward, apply) of the multi-slice step loop
     (models/train.py's _train_multislice): the optimizer step split at the
     gradient boundary, so that the cross-slice exchange
@@ -608,13 +609,31 @@ def make_multislice_step_fns(loss_fn: LossFn,
       backward(state, batch, offset) -> (loss, grads) over `rows` rows of
         that batch from `offset`: this rank's part of them under `plan`
         (the slice's world), the gradients reduced over the slice as
-        train_step reduces them, the loss the rows' mean. Fresh tensors on
-        every call (torch.autograd.grad), so each microbatch's gradients go
-        to the exchange alone. The mean over every slice x microbatch block
-        of the global batch is the global batch's mean.
+        train_step reduces them, the loss the rows' mean; with `flat`, one
+        flat f32 tensor of them instead, the loss first, then each gradient
+        in state.params' order (the trainer's wire to the host). Fresh
+        tensors on every eager call (torch.autograd.grad), so each
+        microbatch's gradients go to the exchange alone. The mean over every
+        slice x microbatch block of the global batch is the global batch's
+        mean.
       apply(state, grads) -> (state', grad_norm): the exchange's mean
         gradients (host arrays or tensors, f32 on the wire) cast to each
-        parameter's dtype, then AdamW, as train_step applies it."""
+        parameter's dtype, then AdamW, as train_step applies it.
+
+    graphed (graphed_step.step_route): each is a graphed_step.GraphedStep,
+    captured at its first call, in one memory pool, replayed in the order
+    of the captures. gen_batch's graph draws the batch from one generator,
+    re-seeded on the host with batch_seed(seed, i) before each replay (its
+    first call is its warm-up, its capture and its first replay), and
+    returns the graph's static batch; backward has a graph a microbatch
+    offset, reading that static batch, its flat output valid until its
+    next call; apply's graph reads one static f32 buffer, into which the
+    exchange's gradients are staged (graphed_step.stage) before each
+    replay. The graphs are captured on the first call's state, and every
+    later call must pass that state (a slice rewind restores it in place).
+    Without `flat`, a graphed backward's loss and gradients are views of its
+    flat output. The batch, the backward's outputs and the norm are the
+    eager ones bit for bit."""
     plan = plan or ParallelPlan()
     if remat:
         loss_fn = remat_loss(loss_fn)
@@ -632,12 +651,81 @@ def make_multislice_step_fns(loss_fn: LossFn,
         grads = plan.reduce_grads(list(torch.autograd.grad(loss, state.params)))
         return collectives.all_reduce(loss.detach(), plan.loss_group), grads
 
-    def apply(state: TrainState, grads):
-        params = state.params
-        grads = [torch.as_tensor(g).to(device=p.device, dtype=p.dtype)
-                 for g, p in zip(grads, params)]
-        tx.update_in_place(grads, state.opt_state, params)
-        return (TrainState(state.step + 1, state.model, state.opt_state),
-                plan.global_norm(grads))
+    def flat_backward(state: TrainState, batch, offset: int) -> torch.Tensor:
+        loss, grads = backward(state, batch, offset)
+        return torch.cat([g.detach().reshape(-1).float() for g in [loss.reshape(1), *grads]])
 
-    return gen_batch, backward, apply
+    def split(state: TrainState, out: torch.Tensor):
+        """(loss, grads) as views of a flat backward's output."""
+        grads, at = [], 1
+        for p in state.params:
+            grads.append(out[at:at + p.numel()].view(p.shape))
+            at += p.numel()
+        return out[0], grads
+
+    def update(state: TrainState, grads):
+        """AdamW on the mean gradients (device f32 tensors) -> grad_norm."""
+        params = state.params
+        grads = [g.to(dtype=p.dtype) for g, p in zip(grads, params)]
+        tx.update_in_place(grads, state.opt_state, params)
+        return plan.global_norm(grads)
+
+    if not graphed:
+        def apply(state: TrainState, grads):
+            grads = [torch.as_tensor(g).to(device=p.device, dtype=torch.float32)
+                     for g, p in zip(grads, state.params)]
+            return TrainState(state.step + 1, state.model, state.opt_state), update(state, grads)
+
+        return gen_batch, flat_backward if flat else backward, apply
+
+    from tf_operator_tpu_torch.parallel import graphed_step as gs
+
+    gen = torch.Generator(device=device)
+    pool = torch.cuda.graph_pool_handle()
+    held: dict = {}
+
+    def graphed_gen_batch(i: int):
+        if "batch" not in held:
+            # The first call's warm-up and capture, then the first replay:
+            # the backward graphs read the captured batch.
+            held["batch"] = gs.GraphedStep(lambda: make_batch(gen), [gen], pool=pool)
+            gs._reseed(gen, seed, i)
+            held["batch"]()
+        gs._reseed(gen, seed, i)
+        return held["batch"]()
+
+    def captured_state(state: TrainState) -> TrainState:
+        held.setdefault("state", state)
+        gs._same_state(state, held["state"])
+        return held["state"]
+
+    def graphed_backward(state: TrainState, batch, offset: int):
+        captured = captured_state(state)
+        if "batch" not in held or held["batch"].metrics is not batch:
+            raise RuntimeError("a graphed backward reads the static batch of gen_batch")
+        key = ("backward", offset)
+        if key not in held:
+            held[key] = gs.GraphedStep(
+                lambda: {"flat": flat_backward(captured, batch, offset)}, pool=pool,
+                watch=gs.world_watch(device))
+        out = held[key]()["flat"]
+        return out if flat else split(state, out)
+
+    def graphed_apply(state: TrainState, grads):
+        captured = captured_state(state)
+        if "apply" not in held:
+            static = gs.StaticInputs({i: tuple(p.shape) for i, p in enumerate(state.params)},
+                                     torch.device(device), torch.float32)
+
+            def body() -> dict:
+                return {"grad_norm": update(captured, [static.views[i]
+                                                       for i in range(len(static.views))])}
+
+            held["apply"] = static, gs.GraphedStep(body, pool=pool,
+                                                   watch=gs.world_watch(device))
+        static, step = held["apply"]
+        gs.stage(static, dict(enumerate(grads)))
+        norm = step()["grad_norm"]
+        return TrainState(state.step + 1, state.model, state.opt_state), norm
+
+    return graphed_gen_batch, graphed_backward, graphed_apply

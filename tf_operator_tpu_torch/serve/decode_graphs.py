@@ -1,12 +1,12 @@
-"""The serving decode as CUDA graphs: the counterpart of the JAX server's
+"""The server's forwards as CUDA graphs: the counterpart of the JAX server's
 `jax.jit` of prefill_into_slots over its (rows x seq-len) bucket grid and of
 its decode tick, each with the KV cache donated
-(tf_operator_tpu/serve/server.py:603-630).
+(tf_operator_tpu/serve/server.py:603-630), and of a classifier's bucketed
+forward (:545-556).
 
-`serve_route` is the rule: a server of a generative model on CUDA replays
-captured graphs; every other server runs eagerly, for the reason it
-returns. There is no flag and no fallback: a capture or a replay that fails
-raises.
+`serve_route` is the rule: a server on CUDA replays captured graphs; the
+CPU runs eagerly, for the reason it returns. There is no flag and no
+fallback: a capture or a replay that fails raises.
 
 `GraphedDecode` holds one graph of the decode tick at its one shape (every
 cache slot, the whole window) and one graph of prefill_into_slots at each
@@ -17,24 +17,26 @@ those first calls at load, over the grid it warms, then `seal`s: a call at
 a shape that was not captured raises. Each callable keeps the eager
 function's signature, `(params, k, v, tokens, ...) -> (k, v, next,
 logits)`, and its host checks (decode.check_slot_ids, check_positions),
-which run before anything is copied.
+which run before anything is copied. `GraphedForward` is a classifier's:
+one graph of the forward and its argmax a row bucket, captured at load.
 
 What a graph reads and writes outlives it: the captured parameter dict (a
 checkpoint swap copies the new weights into these tensors in place,
 `adopt`), the one KV cache pair (updated in place, as JAX's donation makes
 it), the score scale, and each graph's static inputs. A graph's static
-inputs are one int64 device buffer (tokens, then lengths and slot ids, or
-positions), written only by one copy from a pinned host buffer of the same
-layout, on the current stream and so after every replay queued before it.
+inputs are one device buffer (int64 for the decode: tokens, then lengths
+and slot ids, or positions; f32 rows for a classifier), written only by
+one copy from a pinned host buffer of the same layout, on the current
+stream and so after every replay queued before it (graphed_step.stage).
 Before the host rewrites a pinned buffer it waits for the event recorded
 behind that buffer's last copy: a copy still queued never reads the next
 call's values.
 
-Memory: the prefill graphs share one pool. They replay in any order, so a
-prefill's replay may overwrite another prefill's outputs; the tick has a
-pool of its own. A call's outputs (next tokens, logits) are valid until the
-next call of this object, and the server reads them at once (the next
-tokens to the host) or drops them.
+Memory: the prefill graphs share one pool, as do a classifier's buckets.
+They replay in any order, so a replay may overwrite another graph's
+outputs; the tick has a pool of its own. A call's outputs (next tokens,
+logits, predictions) are valid until the next call of this object, and the
+server reads them at once (to the host) or drops them.
 """
 
 from __future__ import annotations
@@ -43,7 +45,7 @@ import numpy as np
 import torch
 
 from tf_operator_tpu_torch.models import decode
-from tf_operator_tpu_torch.parallel.graphed_step import GraphedStep
+from tf_operator_tpu_torch.parallel.graphed_step import GraphedStep, StaticInputs, stage
 
 
 def serve_route(device_type: str, generative: bool) -> tuple[str, str]:
@@ -52,45 +54,24 @@ def serve_route(device_type: str, generative: bool) -> tuple[str, str]:
     if device_type != "cuda":
         return "eager", "CUDA graphs exist only on a CUDA device"
     if not generative:
-        return "eager", ("the classifier's bucketed forward is not captured: it runs "
-                         "eagerly at each bucket")
+        return "graph", ("a classifier on CUDA: each row bucket's forward and argmax "
+                         "replays one captured CUDA graph")
     return "graph", ("a generative model on CUDA: each decode tick and each prefill grid "
                      "point replays one captured CUDA graph")
 
 
-class StaticInputs:
-    """One graph's int64 inputs: a device buffer and the host buffer it is
-    copied from (pinned on CUDA), laid out as `shapes` (name -> shape);
-    `views[name]` is the device tensor a body reads."""
-
-    def __init__(self, shapes: dict, device: torch.device):
-        cuda = device.type == "cuda"
-        total = sum(int(np.prod(s)) for s in shapes.values())
-        self.host_buffer = torch.zeros(total, dtype=torch.int64, pin_memory=cuda)
-        self.device_buffer = torch.zeros(total, dtype=torch.int64, device=device)
-        self.views, self.host_views = {}, {}
-        at = 0
-        for name, shape in shapes.items():
-            n = int(np.prod(shape))
-            self.views[name] = self.device_buffer[at:at + n].view(shape)
-            self.host_views[name] = self.host_buffer[at:at + n].numpy().reshape(shape)
-            at += n
-        # Recorded behind each copy out of the host buffer (an event not yet
-        # recorded synchronises at once).
-        self.copied = torch.cuda.Event() if cuda else None
-
-
-def stage(static: StaticInputs, values: dict) -> None:
-    """Write `values` (name -> host int64 array of its shape) into the
-    static inputs: wait for the previous copy out of the host buffer, fill
-    it, then copy it to the device on the current stream."""
-    if static.copied is not None:
-        static.copied.synchronize()
-    for name, a in values.items():
-        static.host_views[name][...] = a
-    static.device_buffer.copy_(static.host_buffer, non_blocking=True)
-    if static.copied is not None:
-        static.copied.record()
+def adopt(captured: dict, new: dict) -> dict:
+    """Copy a swapped-in parameter dict (the follower's, of the same names,
+    shapes and dtypes) into the `captured` tensors in place, on the
+    current stream: after every replay queued before it, before every one
+    queued after. Returns the captured dict."""
+    if new is captured:
+        return new
+    if new.keys() != captured.keys():
+        raise ValueError("a swapped-in parameter dict must hold the captured names")
+    for name, t in captured.items():
+        t.copy_(new[name])
+    return captured
 
 
 class GraphedDecode:
@@ -179,14 +160,60 @@ class GraphedDecode:
         return self.k, self.v, out["next"], out["logits"]
 
     def adopt(self, new: dict) -> dict:
-        """Copy a swapped-in parameter dict (the follower's, of the same
-        names, shapes and dtypes) into the captured tensors in place, on
-        the current stream: after every replay queued before it, before
-        every one queued after. Returns the captured dict."""
-        if new is self.params:
-            return new
-        if new.keys() != self.params.keys():
-            raise ValueError("a swapped-in parameter dict must hold the captured names")
-        for name, t in self.params.items():
-            t.copy_(new[name])
-        return self.params
+        """adopt() into the captured parameter dict."""
+        return adopt(self.params, new)
+
+
+class GraphedForward:
+    """apply(params, rows), a classifier server's forward on the graph
+    route: `model`'s forward over `params` (the dict every graph reads) and
+    the argmax of its logits, one GraphedStep a row bucket, fed from one f32
+    StaticInputs a bucket; returns the predictions on the host (int64)."""
+
+    def __init__(self, model: torch.nn.Module, params: dict, input_shape: tuple,
+                 device: torch.device):
+        self.model = model
+        self.params = params
+        self.input_shape = tuple(input_shape)
+        self.device = device
+        self.pool = torch.cuda.graph_pool_handle()
+        self.buckets: dict[int, tuple[StaticInputs, GraphedStep]] = {}
+        self.sealed = False
+
+    def seal(self) -> None:
+        """No more captures: a bucket not captured raises."""
+        self.sealed = True
+
+    def forward(self, params, rows) -> dict:
+        """The graph's outputs for `rows` (a host f32 array of a bucket's
+        shape): {"logits", "pred"} on the device, valid until the next
+        call."""
+        if params is not self.params:
+            raise RuntimeError("the classifier graphs were captured on another parameter dict")
+        rows = np.asarray(rows, np.float32)
+        if rows.shape[1:] != self.input_shape:
+            raise ValueError(f"rows of shape {rows.shape[1:]}; the graphs take "
+                             f"{self.input_shape}")
+        n = rows.shape[0]
+        if n not in self.buckets:
+            if self.sealed:
+                raise ValueError(f"a batch of {n} rows is outside the captured buckets "
+                                 f"{sorted(self.buckets)}")
+            static = StaticInputs({"x": rows.shape}, self.device, torch.float32)
+            x = static.views["x"]
+
+            def body() -> dict:
+                logits = torch.func.functional_call(self.model, self.params, (x,))
+                return {"logits": logits, "pred": logits.argmax(-1)}
+
+            self.buckets[n] = static, GraphedStep(body, pool=self.pool)
+        static, step = self.buckets[n]
+        stage(static, {"x": rows})
+        return step()
+
+    def __call__(self, params, rows) -> np.ndarray:
+        return self.forward(params, rows)["pred"].cpu().numpy()
+
+    def adopt(self, new: dict) -> dict:
+        """adopt() into the captured parameter dict."""
+        return adopt(self.params, new)

@@ -66,13 +66,13 @@ loop over models/decode.py.
 The compute dtype's copies of the dense weights are made once at load and
 once at each swap (decode.prepare_params), not at each call: the same bits.
 
-On CUDA the decode runs as CUDA graphs (serve/decode_graphs.py, the
+On CUDA the forwards run as CUDA graphs (serve/decode_graphs.py, the
 counterpart of the JAX server's jit): load warms and captures prefill at
-every grid point and the tick at its one shape, and serving only replays
-them. A swap's new weights are copied into the captured parameters by the
-dispatch thread between ticks, before the re-prefill. The CPU and the
-classifiers run eagerly (`decode_graphs.serve_route`, reported in the
-serve_ready event).
+every grid point and the tick at its one shape, or a classifier's forward
+and argmax at every row bucket, and serving only replays them. A swap's new
+weights are copied into the captured parameters by the dispatch thread
+between ticks (before the re-prefill) or batches. The CPU runs eagerly
+(`decode_graphs.serve_route`, reported in the serve_ready event).
 
 --device cuda (the default) or cpu; with cuda and no CUDA device the
 server exits 1 with a message, it never runs on the CPU instead.
@@ -99,7 +99,11 @@ from http.server import ThreadingHTTPServer
 import numpy as np
 import torch
 
-from tf_operator_tpu_torch.serve.decode_graphs import GraphedDecode, serve_route
+from tf_operator_tpu_torch.serve.decode_graphs import (
+    GraphedDecode,
+    GraphedForward,
+    serve_route,
+)
 from tf_operator_tpu_torch.status import metrics as metrics_mod
 from tf_operator_tpu_torch.utils.preemption import HeartbeatWriter
 
@@ -477,7 +481,7 @@ class InferenceServer:
         # thread after load()): prefill-into-slots and the decode step, the
         # KV cache pair, and per-slot feed position / last-token host arrays.
         self._decode_cfg = None
-        self._graphs: GraphedDecode | None = None  # the graph route's
+        self._graphs: GraphedDecode | GraphedForward | None = None  # the graph route's
         self._prefill_fn = None
         self._decode_fn = None
         self._kv = None
@@ -589,20 +593,27 @@ class InferenceServer:
                 f"every checkpoint under {self.ckpt_dir} failed to restore")
         self._signature = self._tree_signature(host)
         params = self._to_device(host)
-
-        def apply(p, x_np):
-            x = torch.from_numpy(x_np).to(self.device)
-            logits = torch.func.functional_call(model, p, (x,))
-            return logits.argmax(-1).cpu().numpy()
+        if self.route == "graph":
+            self._graphs = GraphedForward(model, params, self._input_shape, self.device)
+            apply = self._graphs
+        else:
+            def apply(p, x_np):
+                x = torch.from_numpy(x_np).to(self.device)
+                logits = torch.func.functional_call(model, p, (x,))
+                return logits.argmax(-1).cpu().numpy()
 
         # Warm EVERY bucket shape (a small, fixed set: log2(batchMaxSize)+1
-        # shapes) so no real request pays a first call's setup.
+        # shapes) so no real request pays a first call's setup; on the graph
+        # route each first call also captures its bucket's graph, and the
+        # buckets are then sealed.
         with torch.inference_mode():
             for b in self.buckets:
                 apply(params, np.zeros((b, *self._input_shape), np.float32))
                 # Per-bucket liveness: a silent warmup can trip the serving
                 # watchdog (which measures from pod start).
                 self._hb.write(0, force=True)
+        if self._graphs is not None:
+            self._graphs.seal()
         self._apply = apply
         self._live = (params, step)
 
@@ -679,7 +690,7 @@ class InferenceServer:
 
     def _swap_in(self, fresh: dict, step: int | None) -> dict:
         """On the graph route, a swapped-in parameter dict is copied into
-        the captured tensors (GraphedDecode.adopt: in place, on the
+        the captured tensors (decode_graphs.adopt: in place, on the
         dispatch thread's stream, so no replay reads the old weights after
         it or a half-copied set), and _live is handed the captured dict
         back unless the follower swapped again meanwhile. Returns the dict
@@ -1192,6 +1203,8 @@ class InferenceServer:
             batch, n = staged.items, staged.n
             params, step = self._live
             try:
+                if self._graphs is not None and params is not self._graphs.params:
+                    params = self._swap_in(params, step)
                 preds = self._apply(params, staged.padded)[:n]
             except Exception as e:  # noqa: BLE001 — reported per request
                 for item in batch:

@@ -1,16 +1,20 @@
 #!/usr/bin/env python3
-"""The port's trainer on four GPUs, one a rank over NCCL, from two trees of
-the repo: each rank's graphed step against a tree whose ranks step eagerly.
+"""The port's trainer on four GPUs, one a rank over NCCL, from several trees
+of the repo, or one tree on each of its routes: each rank's graphed step
+against a tree (or a route) whose ranks step eagerly.
 
     python3 tools/world_cells.py --trees .,artifacts/parent
     python3 tools/world_cells.py --trees .,artifacts/parent --cells lm-dp4-pod,bert-dp4
+    python3 tools/world_cells.py --trees .,.:eager,artifacts/parent --cells lm64k-sp4
 
 A tree is a checkout (e.g. a `git archive` of a parent commit unpacked
-under a git-ignored directory). Each run starts the cell's ranks (or its
-pod) as fresh processes that import the tree's `tf_operator_tpu_torch` and
-this checkout's chip_smoke.py (chip_smoke._TREE_CHILD), each rank through
-chip_smoke.dist_child (a pod through chip_smoke.pod_child), at the cell's
-arguments from chip_smoke's own argv functions, STEPS steps in chunks of 2:
+under a git-ignored directory); `TREE:eager` runs it with every rank sent
+eager (chip_smoke.dist_child's CHIP_SMOKE_STEP_ROUTE). Each run starts the
+cell's ranks (or its pod) as fresh processes that import the tree's
+`tf_operator_tpu_torch` and this checkout's chip_smoke.py
+(chip_smoke._TREE_CHILD), each rank through chip_smoke.dist_child (a pod
+through chip_smoke.pod_child), at the cell's arguments from chip_smoke's
+own argv functions, STEPS steps in chunks of 2:
 
   lm-dp4-pod  the full-width LM, seq 8192, batch 4, at dp 4 as one pod of
               four GPUs (its supervisor starts the ranks)
@@ -21,14 +25,16 @@ arguments from chip_smoke's own argv functions, STEPS steps in chunks of 2:
   lm64k-sp4   the 64k LM, batch 1, --remat --remat-save-flash, sp 4 (ring)
 
 A run reports global tokens/s (rank 0's examples/s x seq over the
-trainer's timed window) and its mean step time, and for each rank its
-route, its peak allocated and reserved memory (torch.cuda.max_memory_*)
-and its device's idle share over the last chunk, which the trainer
-profiles outside the timed window (--profile-dir): one minus the union of
-its kernels, copies and sets over the span from the first to the last.
-The trees alternate their order from cell to cell, one run each. Each
-run's record is a JSON line in --out, the card's name and power limit in
-each.
+trainer's timed window) and its mean step time, rank 0's every step's
+loss and gradient norm, and for each rank its route, its peak allocated
+and reserved memory (torch.cuda.max_memory_*) and its device's idle share
+over the last chunk, which the trainer profiles outside the timed window
+(--profile-dir): one minus the union of its kernels, copies and sets over
+the span from the first to the last. At lm64k-sp4 each rank also records
+what the allocator holds after its last chunk, by pool (a CUDA graph's own
+or the allocator's) and by block size (chip_smoke.memory_pools). The trees
+rotate their order from cell to cell, one run each. Each run's record is
+a JSON line in --out, the card's name and power limit in each.
 """
 
 from __future__ import annotations
@@ -98,15 +104,25 @@ def idle_share(trace: Path) -> dict:
             "idle_share": 1.0 - busy / window if window else None, "events": len(spans)}
 
 
-def run_cell(tree: Path, cell: str, out: Path, timeout: float, card: str) -> dict:
-    """One run of `cell` on `tree`'s package: its record (module docstring)."""
+# The cells whose ranks record their allocator's pools.
+SNAPSHOT_CELLS = ("lm64k-sp4",)
+
+
+def run_cell(tree: Path, cell: str, out: Path, timeout: float, card: str,
+             route: str = "") -> dict:
+    """One run of `cell` on `tree`'s package (every rank sent to `route`
+    when given): its record (module docstring)."""
     argv, tokens, mesh, env = cell_spec(cell)
     n = int(math.prod(mesh.values()))
-    tag = f"cells_{cell}_{tree.name or 'tree'}"
+    tag = f"cells_{cell}_{tree.name or 'tree'}" + (f"_{route}" if route else "")
     prof_dir = cs.OUT_DIR / tag
     shutil.rmtree(prof_dir, ignore_errors=True)
     argv = argv + ["--profile-dir", str(prof_dir)]
     env = {**env, "CHIP_SMOKE_DIST_ROLE": "measure"}
+    if route:
+        env["CHIP_SMOKE_STEP_ROUTE"] = route
+    if cell in SNAPSHOT_CELLS:
+        env["CHIP_SMOKE_MEMORY_SNAPSHOT"] = "1"
     t0 = time.time()
     if cell.endswith("-pod"):
         cs.link_build(tree)
@@ -128,14 +144,17 @@ def run_cell(tree: Path, cell: str, out: Path, timeout: float, card: str) -> dic
         traces = [prof_dir / f"local-{i}" / "trace.json" for i in range(n)]
     by = {e["event"]: e for e in events}
     eps = by.get("done", {}).get("examples_per_sec")
-    rec = {"cell": cell, "tree": str(tree), "mesh": mesh, "exit_codes": rcs,
-           "route": [r.get("step_route") for r in ranks],
+    rec = {"cell": cell, "tree": str(tree), "forced_route": route or None, "mesh": mesh,
+           "exit_codes": rcs, "route": [r.get("step_route") for r in ranks],
            "tokens_per_s": eps * tokens if eps else None,
            "step_time_s": (by.get("done", {}).get("step_time_s") or {}).get("mean"),
            "final_loss": by.get("done", {}).get("final_loss"),
+           "losses": {e["step"]: e["loss"] for e in events if e["event"] == "progress"},
+           "grad_norms": ranks[0].get("grad_norms") if ranks else None,
            "peak_allocated_gb": [r.get("peak_gb") for r in ranks],
            "peak_reserved_gb": [r.get("peak_reserved_gb") for r in ranks],
            "device": [idle_share(t) if t.exists() else None for t in traces],
+           "memory_pools": [r.get("memory_pools") for r in ranks],
            "wall_s": time.time() - t0, "card": card}
     with out.open("a") as f:
         f.write(json.dumps(rec) + "\n")
@@ -146,7 +165,8 @@ def run_cell(tree: Path, cell: str, out: Path, timeout: float, card: str) -> dic
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--trees", default=".,artifacts/parent",
-                    help="two trees, comma-separated, relative to the repo root")
+                    help="trees, comma-separated, relative to the repo root, each TREE or "
+                         "TREE:eager")
     ap.add_argument("--cells", default=",".join(CELLS))
     ap.add_argument("--out", default="artifacts/world_cells/world_cells.jsonl")
     ap.add_argument("--timeout", type=float, default=900)
@@ -157,15 +177,17 @@ def main() -> int:
         print(f"world_cells: needs four GPUs, sees {torch.cuda.device_count()}",
               file=sys.stderr)
         return 1
-    trees = [(ROOT / t).resolve() for t in args.trees.split(",")]
+    trees = [((ROOT / t.partition(":")[0]).resolve(), t.partition(":")[2])
+             for t in args.trees.split(",")]
     out = (ROOT / args.out).resolve()
     out.parent.mkdir(parents=True, exist_ok=True)
     card = cs.card_line()
     cs.build_phase()
     failed = 0
     for i, cell in enumerate(args.cells.split(",")):
-        for tree in (trees if i % 2 == 0 else trees[::-1]):
-            rec = run_cell(tree, cell, out, args.timeout, card)
+        k = i % len(trees)
+        for tree, route in trees[k:] + trees[:k]:
+            rec = run_cell(tree, cell, out, args.timeout, card, route)
             failed += any(rc != 0 for rc in rec["exit_codes"])
     print(f"world_cells: {failed} failed runs; records in {out}", flush=True)
     return 1 if failed else 0
