@@ -454,7 +454,8 @@ def test_import_hygiene_in_a_fresh_process():
 def test_import_hygiene_ast_scan():
     # The port, chip_smoke.py and the tools that time the port's trainers
     # and servers on the card.
-    tools = [ROOT / "tools" / f"{name}_cells.py" for name in ("graph", "serve", "world")]
+    tools = [ROOT / "tools" / f"{name}_cells.py"
+             for name in ("graph", "serve", "world", "phase")]
     files = sorted((ROOT / "tf_operator_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     files += tools
     assert len(files) > 10 and all(path.exists() for path in tools)

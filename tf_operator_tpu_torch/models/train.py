@@ -245,8 +245,10 @@ def build_parser() -> argparse.ArgumentParser:
                          "chunk (outside the throughput window) under "
                          "this directory")
     ap.add_argument("--trace", action="store_true",
-                    help="record host-side spans (step phases, checkpoint "
-                         "IO, eval) and write Chrome trace-event JSON at exit")
+                    help="record spans (step phases, checkpoint IO, eval) and, "
+                         "on the graph route, the step's device phases "
+                         "(stamped inside the CUDA graph), and write Chrome "
+                         "trace-event JSON at exit")
     ap.add_argument("--trace-dir", default=None,
                     help="directory for the trace file (<replica rank>"
                          ".trace.json; default ./traces)")
@@ -577,15 +579,17 @@ def _trace_window_check(args, steps_done: int) -> None:
 
 def _maybe_export_trace(args) -> None:
     """Write the Chrome trace-event JSON (Perfetto, chrome://tracing) and
-    emit trace_done with its path."""
+    emit trace_done with its path. The device phases' track is left out of
+    a world whose card never finishes its queue (peer_watch.wedged)."""
     if not args.trace:
         return
+    from tf_operator_tpu_torch.parallel import peer_watch
     from tf_operator_tpu_torch.telemetry import tracer
 
     t = tracer.get_tracer()
     t.enabled = False  # the export is not part of the trace
     path = os.path.join(args.trace_dir or "traces", f"{_rank()}.trace.json")
-    n = t.export(path)
+    n = t.export(path, device=not peer_watch.wedged())
     _emit({"event": "trace_done", "path": path, "events": n,
            "dropped_events": t.dropped_events})
 
@@ -2024,6 +2028,12 @@ def _run_trainer(args, device: torch.device, heartbeat, guard, chaos=None,
                 "step_time_s": telem["step_time_s"] if telem else None,
                 "phase_breakdown": telem["phase_breakdown"] if telem else None,
             }
+            if args.trace:
+                # The graph route's device phases over the steady steps
+                # (telemetry/phases.py's stamps); nothing where none ran.
+                from tf_operator_tpu_torch.telemetry import phases
+
+                done_event.update(phases.device_summary(steady) or {})
             ckpt_block = _ckpt_done_stats(ck)
             if ckpt_block:
                 # The step loop paid snapshot_s (+ drain_wait_s of

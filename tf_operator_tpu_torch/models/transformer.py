@@ -61,6 +61,7 @@ from torch.utils.checkpoint import checkpoint, noop_context_fn
 from tf_operator_tpu_torch.ops.flash_attention import flash_save_context
 from tf_operator_tpu_torch.parallel import collectives
 from tf_operator_tpu_torch.parallel.ring_attention import attention_reference
+from tf_operator_tpu_torch.telemetry import phases
 
 LN_EPS = 1e-6  # flax nn.LayerNorm's default
 
@@ -369,7 +370,9 @@ class TransformerClassifier(nn.Module):
 class BertMLM(nn.Module):
     """BERT's masked-LM model over the trunk: the MLM transform (dense,
     GELU, LayerNorm) and a bias-free decoder to the vocabulary at every
-    position; f32 logits [B, T, vocab]."""
+    position; f32 logits [B, T, vocab]. In a step whose device stamps are
+    on, the trunk's output marks where the head's forward starts, and its
+    gradient where the head's and the loss's backward end."""
 
     def __init__(self, cfg: TransformerConfig, attn_fn: AttnFn | None = None,
                  device=None, generator: torch.Generator | None = None):
@@ -385,6 +388,8 @@ class BertMLM(nn.Module):
     def forward(self, tokens: torch.Tensor, deterministic: bool = True,
                 generator: torch.Generator | None = None) -> torch.Tensor:
         h = self.trunk(tokens, deterministic, generator)
+        phases.mark("trunk")
+        phases.mark_grad(h, "trunk_grad")
         h = self.mlm_ln(F.gelu(self.mlm_transform(h), approximate="tanh"))
         return self.lm_head(tp_input(h, self.lm_head)).float()
 

@@ -40,6 +40,13 @@ The kernel wrappers count launches in Python (ops/*.LAUNCHES), so a capture
 would count once kernels that never ran and a replay would count nothing.
 `GraphedStep` takes the capture's counts back and adds them again on every
 replay: a counter still says how many times the card ran the kernel.
+
+While the tracer is enabled, a step's body stamps its phases on the device
+(telemetry/phases.py): the stamps are captured with the step, so every
+replay records them. A capture whose warm-up stamped keeps the captured
+graph (keep_graph=True), counts each phase's device operations in it
+(phases.graph_ops, `phase_ops`) and then instantiates it; any other capture
+is made as it is without stamps.
 """
 
 from __future__ import annotations
@@ -53,6 +60,7 @@ import torch.distributed as dist
 
 from tf_operator_tpu_torch.parallel import collectives, peer_watch
 from tf_operator_tpu_torch.parallel.train_step import TrainState, batch_seed, train_step
+from tf_operator_tpu_torch.telemetry import phases
 
 # The variables under which ProcessGroupNCCL waits for a collective on the
 # host, which a capture cannot hold (the old name, then the new one).
@@ -191,7 +199,8 @@ class GraphedStep:
     default generator is registered by the capture itself. `pool`, a
     torch.cuda.graph_pool_handle(), shares one memory pool among several
     graphs (None: a private pool). `watch` (world_watch's) is called after
-    each replay."""
+    each replay. `phase_ops`: each phase's device operations in the graph,
+    where its capture was stamped (else None)."""
 
     def __init__(self, body: Callable[[], dict], generators=(), counters=None, pool=None,
                  watch: Callable[[], Any] | None = None):
@@ -203,10 +212,16 @@ class GraphedStep:
         self.graph = None
         self.metrics: dict = {}
         self.recorded: list[dict] = []
+        self.stamped = False
+        self.phase_ops: dict | None = None
 
     def __call__(self) -> dict:
         if self.graph is None:
+            stamps = phases.device_stamps()
+            before = stamps.launches
             metrics = self._warm_up()
+            # The capture follows the warm-up at once: it stamps if that did.
+            self.stamped = stamps.launches > before
             self._capture()
             return metrics
         self.graph.replay()
@@ -228,7 +243,11 @@ class GraphedStep:
 
     def _capture(self) -> None:
         before = [dict(c) for c in self.counters]
-        graph = torch.cuda.CUDAGraph()
+        walk = self.stamped
+        graph = torch.cuda.CUDAGraph(keep_graph=True) if walk else torch.cuda.CUDAGraph()
+        stamps = phases.device_stamps()
+        if walk:
+            stamps.nodes = []
         for gen in self.generators:
             graph.register_generator_state(gen)
         # The flash and grouped-matmul wrappers build their TMA descriptors on
@@ -238,8 +257,14 @@ class GraphedStep:
         # every operand the same address on every replay, and the state and
         # static inputs are never reallocated. Thread-local capture: the
         # input threads of the --data-dir loop may copy to the card meanwhile.
-        with torch.cuda.graph(graph, pool=self.pool, capture_error_mode="thread_local"):
-            self.metrics = self.body()
+        try:
+            with torch.cuda.graph(graph, pool=self.pool, capture_error_mode="thread_local"):
+                self.metrics = self.body()
+        finally:
+            captured, stamps.nodes = stamps.nodes, None
+        if walk:
+            self.phase_ops = stamps.ops = phases.graph_ops(graph.raw_cuda_graph(), captured)
+            graph.instantiate()
         self.recorded = counts_since(self.counters, before)
         for c, b in zip(self.counters, before):
             c.update(b)  # the capture ran nothing
@@ -270,9 +295,11 @@ def graphed_chunks(loss_fn, tx, make_batch: Callable[[torch.Generator], Any], de
             captured = state
 
             def body() -> dict:
+                phases.start_step(device)
                 batch = make_batch(gen)
                 if plan is not None:
                     batch = plan.local_rows(batch)
+                phases.mark("batch")
                 return train_step(captured, batch, loss_fn, tx, plan)[1]
 
             held.update(state=captured,
@@ -302,9 +329,15 @@ def graphed_batches(loss_fn, tx, preprocess: Callable[[dict], dict], plan=None):
         if not held:
             static.update({k: v.clone() for k, v in batch.items()})
             captured = state
-            held.update(state=captured, step=GraphedStep(
-                lambda: train_step(captured, preprocess(static), loss_fn, tx, plan)[1],
-                watch=world_watch(captured.params[0].device)))
+            device = captured.params[0].device
+
+            def body() -> dict:
+                phases.start_step(device)
+                batch = preprocess(static)
+                phases.mark("batch")
+                return train_step(captured, batch, loss_fn, tx, plan)[1]
+
+            held.update(state=captured, step=GraphedStep(body, watch=world_watch(device)))
         else:
             for k, v in batch.items():
                 if v.shape != static[k].shape or v.dtype != static[k].dtype:

@@ -75,6 +75,7 @@ from tf_operator_tpu_torch import optim as optim_lib
 from tf_operator_tpu_torch.parallel import collectives
 from tf_operator_tpu_torch.parallel import mesh as mesh_lib
 from tf_operator_tpu_torch.parallel import sharding_rules
+from tf_operator_tpu_torch.telemetry import phases
 
 LossFn = Callable[[nn.Module, Any], torch.Tensor]
 # signature: loss_fn(model, batch) -> scalar loss
@@ -503,17 +504,23 @@ def train_step(state: TrainState, batch, loss_fn: LossFn,
     with the metrics as device scalars (no host sync in one process).
     Under a plan of several data (or sequence) ranks the loss is weighted
     to this rank's share of the global loss, and the metrics are the
-    global batch's."""
+    global batch's. In a step whose device stamps are on (a graphed body's
+    phases.start_step), it stamps the ends of the forward, the backward,
+    the optimizer and the metrics."""
     plan = plan or ParallelPlan()
     params = state.params
     state.model.train()
     loss = loss_fn(state.model, batch)
     if plan.loss_group is not None:
         loss = loss * plan.loss_weight(batch)
+    phases.mark("forward")
     grads = plan.reduce_grads(list(torch.autograd.grad(loss, params)))
+    phases.mark("backward")
     tx.update_in_place(grads, state.opt_state, params)
+    phases.mark("optimizer")
     metrics = {"loss": collectives.all_reduce(loss.detach(), plan.loss_group),
                "grad_norm": plan.global_norm(grads)}
+    phases.mark("end")
     return TrainState(state.step + 1, state.model, state.opt_state), metrics
 
 

@@ -34,6 +34,15 @@ Chrome trace-event mapping: completed spans are "X" (complete) events
 with microsecond `ts`/`dur`; `instant()` is an "i" event; process/thread
 names are "M" metadata events. See the trace-event format spec
 (docs/perf.md round-8 section explains how to read one).
+
+The device, in two ways. While a torch.profiler records in this process,
+every span also opens a torch.profiler range (record_function) of its
+name, so the program's host spans land in the profiler's own trace, on
+its clock, beside the device's operations. And the default tracer's
+export adds a track of the training step's device phases
+(telemetry/phases.py's stamps), moved onto this tracer's clock by one
+stamp timed between two perf_counter_ns reads; otherData records the
+bracket's width as `device_clock_error_us`.
 """
 
 from __future__ import annotations
@@ -41,6 +50,7 @@ from __future__ import annotations
 import collections
 import json
 import os
+import sys
 import threading
 import time
 from typing import Any
@@ -70,7 +80,7 @@ class _Span:
     id it was OPENED on, so begin()/end() pairs that cross threads still
     render on the opening thread's track."""
 
-    __slots__ = ("_tracer", "name", "attrs", "_t0", "_tid")
+    __slots__ = ("_tracer", "name", "attrs", "_t0", "_tid", "_range")
 
     def __init__(self, tracer: "Tracer", name: str, attrs: dict):
         self._tracer = tracer
@@ -81,6 +91,7 @@ class _Span:
         # recorded at end() would otherwise stamp the CLOSING thread's
         # name onto the opening thread's track.
         tracer._note_thread(self._tid)
+        self._range = _profiler_range(name)
         self._t0 = time.perf_counter_ns()
 
     def __enter__(self):
@@ -149,6 +160,8 @@ class Tracer:
 
     def _record(self, sp: _Span) -> None:
         dur = time.perf_counter_ns() - sp._t0
+        if sp._range is not None:
+            sp._range.__exit__(None, None, None)
         with self._lock:
             self._events.append(
                 (sp.name, sp._t0, dur, sp._tid, sp.attrs or None))
@@ -182,8 +195,10 @@ class Tracer:
 
     # --------------------------------------------------------------- export
 
-    def chrome_trace(self) -> dict:
-        """The trace as a Chrome trace-event JSON object (dict form)."""
+    def chrome_trace(self, device: bool = True) -> dict:
+        """The trace as a Chrome trace-event JSON object (dict form); the
+        default tracer's adds the device phases' track unless `device` is
+        false (a card that may never finish its queue cannot be read)."""
         with self._lock:
             events = list(self._events)
             names = dict(self._thread_names)
@@ -218,22 +233,41 @@ class Tracer:
             if attrs:
                 ev["args"] = {k: _jsonable(v) for k, v in attrs.items()}
             out.append(ev)
+        other = {"dropped_events": self.dropped_events}
+        if device and self is _DEFAULT:
+            from tf_operator_tpu_torch.telemetry import phases
+
+            track, track_other = phases.device_stamps().chrome_events(
+                self._epoch_ns, pid, len(tid_map))
+            out.extend(track)
+            other.update(track_other)
         return {
             "traceEvents": out,
             "displayTimeUnit": "ms",
-            "otherData": {"dropped_events": self.dropped_events},
+            "otherData": other,
         }
 
-    def export(self, path: str) -> int:
+    def export(self, path: str, device: bool = True) -> int:
         """Write the Chrome trace JSON to `path` (dirs created); returns
         the number of non-metadata events written."""
-        trace = self.chrome_trace()
+        trace = self.chrome_trace(device)
         d = os.path.dirname(path)
         if d:
             os.makedirs(d, exist_ok=True)
         with open(path, "w") as f:
             json.dump(trace, f)
         return sum(1 for e in trace["traceEvents"] if e["ph"] != "M")
+
+
+def _profiler_range(name: str):
+    """An open torch.profiler range named `name` while a profiler records in
+    this process (torch imported and profiling), else None."""
+    torch = sys.modules.get("torch")
+    if torch is None or not getattr(torch.autograd.profiler, "_is_profiler_enabled", False):
+        return None
+    rf = torch.autograd.profiler.record_function(name)
+    rf.__enter__()
+    return rf
 
 
 def _jsonable(v: Any):
