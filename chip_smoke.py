@@ -107,8 +107,10 @@ Phases, in order:
      beside their bound, plain version and SDPA; then BERT-base (12L x
      768h, 12 heads x 64, vocab 30522) through the trainer at seq 512 /
      batch 32 and seq 128 / batch 128, and bert-tiny at seq 512, each
-     finite with every flash kernel launched once a layer a step: tokens/s,
-     MFU (bert_flops_per_step), peak memory; then a BERT-base chief saving
+     finite with every flash kernel launched once a layer a step and the
+     MLM loss kernel (ops/mlm_xent.py; mlm_xent_check: against its plain
+     version at XENT_SHAPES and timed beside its bound first) once a step:
+     tokens/s, MFU (bert_flops_per_step), peak memory; then a BERT-base chief saving
      every 2 steps with an Evaluator subprocess following it, whose last
      eval_loss must equal the final parameters' loss computed here;
  10. the on-disk input path (data): a uint8 ImageNet-shaped shard set
@@ -396,7 +398,7 @@ TIME_BATCHES = (1, BATCH)
 SOURCE = "tf_operator_tpu_torch/csrc/flash_attention.cu"
 K4 = ("fused_bottleneck_fwd", "tf_operator_tpu_torch/csrc/fused_bottleneck.cu",
       "tf_operator_tpu/ops/fused_bottleneck.py:100")
-SOURCES = ("flash_attention", "fused_bottleneck", "grouped_matmul")
+SOURCES = ("flash_attention", "fused_bottleneck", "grouped_matmul", "mlm_xent")
 
 # The fused bottleneck's cases: (label, ResNet-50 block index or None for
 # random inputs, dtype). Blocks 1, 4, 8 and 14 are the first identity
@@ -516,6 +518,7 @@ def build_phase() -> float:
     from tf_operator_tpu_torch.ops import flash_attention as fa
     from tf_operator_tpu_torch.ops import fused_bottleneck as fb
     from tf_operator_tpu_torch.ops import grouped_matmul as gm
+    from tf_operator_tpu_torch.ops import mlm_xent as mx
 
     t0 = time.time()
     with ThreadPoolExecutor(len(SOURCES)) as pool:
@@ -523,6 +526,7 @@ def build_phase() -> float:
     fa._lib()
     fb._lib()
     gm._lib()
+    mx._lib()
     secs = time.time() - t0
     log(f"build: {', '.join(n + '.cu' for n in SOURCES)} in parallel in {secs:.1f} s")
     for name in SOURCES:
@@ -1989,6 +1993,128 @@ BERT_CKPT = ("bert-base", 128, 8)
 BERT_CKPT_DIR = OUT_DIR / "bert_ckpt"
 
 
+# The MLM head's loss kernel (ops/mlm_xent.py): (rows, vocab) at BERT's 65536
+# tokens a step (the cells' 128 x 512 and 512 x 128) and vocabulary, then
+# rows held in registers at a small vocabulary, and GPT-2's 50257 columns,
+# past the 32768 a block holds (read twice with a gradient).
+XENT_SHAPES = ((65536, 30522), (4096, 1021), (4096, 50257))
+XENT_MASK_RATE = 0.15
+XENT_REPS = 10
+
+
+def xent_bound_ms(n: int, vocab: int) -> float:
+    """The kernel's bound: the bf16 logits [n, Vp] read once and their
+    gradient written once at the HBM rate (its exp are not the limit)."""
+    from tf_operator_tpu_torch.ops import mlm_xent as mx
+
+    return 2 * n * mx.padded_vocab(vocab) * 2 / PEAK_BYTES_PER_S * 1e3
+
+
+def xent_gaps(n: int, vocab: int, seed: int) -> dict:
+    """The kernel against its plain version on the same bf16 logits
+    [n, Vp] (normal, std 2, the pad 0), targets and a 15% mask: the loss's
+    relative gap, the gradient's largest gap in units of the plain
+    gradient's bf16 rounding step (0.5 = both rounded the same f32 value;
+    1 = one step apart), the loss-only call's gap and whether it left the
+    logits as they were, and a planted fault (the target's -1 left out of
+    the gradient) that the same measure must reject."""
+    import torch
+
+    from tf_operator_tpu_torch.ops import mlm_xent as mx
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    vp = mx.padded_vocab(vocab)
+    z = torch.zeros((n, vp), dtype=torch.bfloat16, device="cuda")
+    z[:, :vocab] = (2.0 * torch.randn((n, vocab), generator=gen, device="cuda")).bfloat16()
+    targets = torch.randint(0, vocab, (n,), generator=gen, device="cuda")
+    mask = (torch.rand((n,), generator=gen, device="cuda") < XENT_MASK_RATE).float()
+    got = z.clone()
+    loss = mx.masked_xent_(got, vocab, targets, mask, True)
+    ref = z.clone()
+    want = mx.masked_xent_reference_(ref, vocab, targets, mask, True)
+    kept = z.clone()
+    loss_only = mx.masked_xent_(kept, vocab, targets, mask, False)
+
+    def steps(a, b) -> float:
+        # |a - b| over the bf16 rounding step at b (8 bits of mantissa).
+        b32 = b.float()
+        ulp = torch.ldexp(torch.ones_like(b32), torch.frexp(b32)[1] - 8).clamp_min(2.0 ** -133)
+        ulp = torch.where(b32 == 0, 2.0 ** -133, ulp)
+        return float(((a.float() - b32).abs() / ulp).max())
+
+    planted = ref.clone()
+    rows = torch.arange(n, device="cuda")
+    planted[rows, targets] = (ref[rows, targets].float()
+                              + mask / mask.sum().clamp_min(1.0)).bfloat16()
+    out = {"shape": [n, vocab], "pitch": vp,
+           "loss_rel_gap": abs(float(loss) - float(want)) / abs(float(want)),
+           "grad_steps": steps(got, ref), "pad_zero": bool((got[:, vocab:] == 0).all()),
+           "loss_only_rel_gap": abs(float(loss_only) - float(want)) / abs(float(want)),
+           "loss_only_kept_logits": bool(torch.equal(kept, z)),
+           "planted_grad_steps": steps(planted, ref)}
+    del z, got, ref, kept, planted
+    torch.cuda.empty_cache()
+    return out
+
+
+def mlm_xent_check(records: dict) -> dict:
+    """ops/mlm_xent.py's kernel at XENT_SHAPES against its plain version
+    (xent_gaps): the loss within 1e-5 relative, the gradient within one
+    bf16 rounding step, the pad 0, the loss-only call the same loss with
+    the logits left alone, the planted fault rejected; bit-equal loss and
+    gradient over two launches; then timed (mean of XENT_REPS, CUDA events,
+    with and without the gradient) beside its bound and the plain version.
+    Fills records["mlm_xent"] with the first shape's numbers."""
+    import torch
+
+    from tf_operator_tpu_torch.ops import mlm_xent as mx
+
+    if "mlm_xent" in records:
+        return records["mlm_xent"]
+    failures, rows = [], []
+    for i, (n, vocab) in enumerate(XENT_SHAPES):
+        gaps = xent_gaps(n, vocab, 25 + i)
+        bad = [k for k, ok in (("loss_rel_gap", gaps["loss_rel_gap"] <= 1e-5),
+                               ("grad_steps", gaps["grad_steps"] <= 1.0),
+                               ("pad_zero", gaps["pad_zero"]),
+                               ("loss_only_rel_gap", gaps["loss_only_rel_gap"] <= 1e-5),
+                               ("loss_only_kept_logits", gaps["loss_only_kept_logits"]),
+                               ("planted_grad_steps", gaps["planted_grad_steps"] > 1.0))
+               if not ok]
+        failures += [f"{[n, vocab]} {k}" for k in bad]
+        gen = torch.Generator(device="cuda").manual_seed(50 + i)
+        vp = mx.padded_vocab(vocab)
+        z = torch.randn((n, vp), generator=gen, device="cuda").bfloat16()
+        targets = torch.randint(0, vocab, (n,), generator=gen, device="cuda")
+        mask = (torch.rand((n,), generator=gen, device="cuda") < XENT_MASK_RATE).float()
+        runs = [z.clone() for _ in range(2)]
+        losses = [mx.masked_xent_(r, vocab, targets, mask, True) for r in runs]
+        gaps["bit_equal_repeat"] = bool(torch.equal(runs[0], runs[1])
+                                        and torch.equal(losses[0], losses[1]))
+        if not gaps["bit_equal_repeat"]:
+            failures.append(f"{[n, vocab]} two launches differ")
+        del runs
+        # Each timed launch overwrites z with a gradient, which is finite
+        # logits for the next: the same bytes and exp either way.
+        gaps["ms"] = time_ms(lambda: mx.masked_xent_(z, vocab, targets, mask, True),
+                             reps=XENT_REPS)
+        gaps["loss_only_ms"] = time_ms(lambda: mx.masked_xent_(z, vocab, targets, mask, False),
+                                       reps=XENT_REPS)
+        gaps["bound_ms"], gaps["bound_by"] = xent_bound_ms(n, vocab), "bytes"
+        gaps["plain_ms"] = time_ms(
+            lambda: mx.masked_xent_reference_(z, vocab, targets, mask, True), reps=2)
+        gaps["roofline"] = gaps["bound_ms"] / gaps["ms"]
+        del z
+        torch.cuda.empty_cache()
+        log("mlm_xent: " + json.dumps(gaps))
+        rows.append(gaps)
+    if failures:
+        raise SmokeFailure("the MLM cross-entropy kernel disagrees with its plain version: "
+                           + "; ".join(failures))
+    records["mlm_xent"] = {**rows[0], "shapes": rows[1:]}
+    return records["mlm_xent"]
+
+
 def bert_flops_per_step(batch: int, seq: int, layers: int = 12, hidden: int = 768,
                         vocab: int = 30522, mlp_ratio: int = 4) -> float:
     """Model FLOPs of one BERT MLM training step: 6 x the dense weights per
@@ -2045,21 +2171,25 @@ def bert_kernel_check(records: dict) -> None:
 
 
 def bert_train_run(model: str, seq: int, batch: int, layers: int, card: str) -> dict:
-    """One BERT run through the trainer: a finite loss, and K1, K2, K3 and
-    the delta pass launched once a layer a step."""
+    """One BERT run through the trainer: a finite loss, K1, K2, K3 and the
+    delta pass launched once a layer a step, the MLM loss kernel once a
+    step."""
     import torch
 
     from tf_operator_tpu_torch.ops import flash_attention as fa
+    from tf_operator_tpu_torch.ops import mlm_xent as mx
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launches()
+    mx.reset_launches()
     by = run_trainer(bert_argv(model, seq, batch, BERT_STEPS), tag=f"_{seq}_{batch}")
     launches = dict(fa.LAUNCHES)
     want = {key: layers * BERT_STEPS for key in FLASH_LAUNCH_KEYS}
-    if launches != want:
-        raise SmokeFailure(f"{model} seq {seq}: launches {launches}, not one a layer a "
-                           f"step {want}")
+    if launches != want or mx.LAUNCHES["mlm_xent"] != BERT_STEPS:
+        raise SmokeFailure(f"{model} seq {seq}: launches {launches}, MLM loss "
+                           f"{mx.LAUNCHES['mlm_xent']}, not one a layer a step {want} and "
+                           f"one a step")
     done = by["done"]
     eps = done.get("examples_per_sec")
     hidden, heads = (768, 12) if model == "bert-base" else (128, 4)
@@ -2072,6 +2202,8 @@ def bert_train_run(model: str, seq: int, batch: int, layers: int, card: str) -> 
            "startup_s": by["first_step"]["startup_s"],
            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
            "launches_per_step": {k: n / BERT_STEPS for k, n in launches.items()},
+           "mlm_xent_launches_per_step": mx.LAUNCHES["mlm_xent"] / BERT_STEPS,
+           "step_route": by["model_ready"].get("step_route"),
            "first_loss": by["first_step"]["loss"], "final_loss": done["final_loss"],
            "head_width": hidden // heads, "card": card}
     log("bert: " + json.dumps(res))
@@ -2121,8 +2253,9 @@ def bert_eval_run(card: str) -> dict:
 
 def bert_phase(records: dict, card: str) -> dict:
     bert_kernel_check(records)
+    xent = mlm_xent_check(records)
     runs = [bert_train_run(*run, card) for run in BERT_RUNS]
-    return {"runs": runs, "eval": bert_eval_run(card)}
+    return {"mlm_xent": xent, "runs": runs, "eval": bert_eval_run(card)}
 
 
 # The --data-dir path: a uint8 ImageNet-shaped shard set (x [N, 224, 224, 3]
@@ -2429,6 +2562,7 @@ def dist_child(argv: list[str]) -> int:
     from tf_operator_tpu_torch.models import train
     from tf_operator_tpu_torch.ops import flash_attention as fa
     from tf_operator_tpu_torch.ops import grouped_matmul as gm
+    from tf_operator_tpu_torch.ops import mlm_xent as mx
     from tf_operator_tpu_torch.parallel import distributed, graphed_step
     from tf_operator_tpu_torch.parallel import train_step as ts
 
@@ -2515,7 +2649,8 @@ def dist_child(argv: list[str]) -> int:
     _plant_fault(os.environ.get("CHIP_SMOKE_DIST_FAULT", ""))
     out: dict = {}
     rc = train.main(argv, out)
-    rec = {"launches": dict(fa.LAUNCHES), "k5_launches": dict(gm.LAUNCHES), "grad_norms": norms,
+    rec = {"launches": dict(fa.LAUNCHES), "k5_launches": dict(gm.LAUNCHES),
+           "xent_launches": mx.LAUNCHES["mlm_xent"], "grad_norms": norms,
            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
            "peak_reserved_gb": torch.cuda.max_memory_reserved() / 1e9,
            "step_route": routes[0][0] if routes else None,
@@ -2654,6 +2789,17 @@ class DistJob:
         return {key: n * (self.fwd_passes if key == "fwd" else 1)
                 for key in FLASH_LAUNCH_KEYS}
 
+    def xent_launches(self, mesh: dict | None) -> int:
+        """Each rank's launches of the MLM loss kernel over the run: BERT's
+        loss takes it once a step (twice under --remat: the loss's replay)
+        where the decoder is whole on the rank, so not under tp or fsdp;
+        the other models never."""
+        mesh = mesh or {}
+        model = self.argv[self.argv.index("--model") + 1]
+        if not model.startswith("bert") or mesh.get("tp", 1) > 1 or mesh.get("fsdp", 1) > 1:
+            return 0
+        return self.steps * (2 if "--remat" in self.argv else 1)
+
     def local_shape(self, mesh: dict | None, mode: str | None) -> tuple:
         """The [B, H, T, D] of each flash launch on a rank: its rows, its tp
         heads, and under sp its T/sp block (ring) or its H/sp heads over the
@@ -2738,9 +2884,13 @@ def finish_dist_world(name: str, children: list, mesh: dict | None,
         if rc != 0:
             raise SmokeFailure(f"dist {name}: rank {rank} exited {rc}")
         want_k5 = {key: job.k5_per_step * job.steps for _, key in K5}
-        if rec.get("launches") != want or rec.get("k5_launches") != want_k5:
+        want_xent = job.xent_launches(mesh)
+        if rec.get("launches") != want or rec.get("k5_launches") != want_k5 \
+                or rec.get("xent_launches") != want_xent:
             raise SmokeFailure(f"dist {name}: rank {rank} launches {rec.get('launches')}, "
-                               f"K5 {rec.get('k5_launches')}, not {want}, {want_k5}")
+                               f"K5 {rec.get('k5_launches')}, MLM loss "
+                               f"{rec.get('xent_launches')}, not {want}, {want_k5}, "
+                               f"{want_xent}")
         losses, norms = _step_losses(events), rec["grad_norms"]
         if sorted(losses) != list(range(1, job.steps + 1)) or len(norms) != job.steps or \
                 not all(math.isfinite(x) for x in list(losses.values()) + norms):
@@ -2836,6 +2986,8 @@ def held_against(ref: dict, runs, backend: str, own_gpus: bool, card: str,
                "kernel_shape": list(job.local_shape(mesh, mode)),
                "launches_per_step_per_rank": {k: n / job.steps for k, n in
                                               job.launches(mesh, mode).items()},
+               "mlm_xent_launches_per_step_per_rank": [r["xent_launches"] / job.steps
+                                                       for r in world["ranks"]],
                "losses": world["ranks"][0]["losses"],
                "grad_norms": world["ranks"][0]["grad_norms"], "card": card}
         if mesh.get("fsdp", 1) > 1:
@@ -6057,6 +6209,7 @@ def main(argv: list[str] | None = None) -> int:
                          "multislice_eager (with multislice) adds its eager slices; "
                          "k4 for the fused bottleneck's "
                          "checks alone, k5 for the grouped matmul's (moe runs them too; "
+                         "xent for the MLM loss kernel's (bert runs them too); "
                          "eval follows the ckpt phase's directory); graph4 (the world "
                          "graph and kill checks; kill4 the kill check alone), dist4, pod4 and "
                          "moe4 (the MoE's) on a "
@@ -6099,6 +6252,8 @@ def main(argv: list[str] | None = None) -> int:
             k4_check_phase(records)
         if "k5" in phases and "moe" not in phases:
             k5_check_phase(records)
+        if "xent" in phases:
+            results["mlm_xent"] = mlm_xent_check(records)
         uninterrupted = synthetic_ips = None
         if "train" in phases:
             launches, uninterrupted = train_phase(args, card)
@@ -6209,6 +6364,16 @@ def main(argv: list[str] | None = None) -> int:
                      "torch._grouped_mm, or its error"),
             **{k: rec.get(k) for k in ("ms_f32_out", "ms_k3072_n768", "group_sizes")},
         })
+    rec = records.get("mlm_xent", {})
+    kernels.append({
+        "name": "mlm_xent", "route": "cuda", "source": "tf_operator_tpu_torch/csrc/mlm_xent.cu",
+        "replaces": None,
+        **{k: rec.get(k) for k in ("ms", "plain_ms", "bound_ms", "bound_by", "loss_only_ms",
+                                   "grad_steps", "loss_rel_gap", "shapes")},
+        "note": ("replaces no Pallas kernel (the JAX loss is XLA's); BERT's masked cross "
+                 "entropy and its gradient in place over the bf16 logits; times at "
+                 "[65536, 30522] (pitch 30528); launches in the bert phase's runs "
+                 "(mlm_xent_launches_per_step) and the dist worlds'")})
     log(f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"phases": results}))
     print(json.dumps({"kernels": kernels}))

@@ -436,7 +436,8 @@ def test_import_hygiene_in_a_fresh_process():
         "        'ulysses', 'multislice', 'pipeline', 'launch',\n"
         "        'graphed_step', 'peer_watch')} <= set(names), names\n"
         "assert {'tf_operator_tpu_torch.models.moe',\n"
-        "        'tf_operator_tpu_torch.ops.grouped_matmul'} <= set(names), names\n"
+        "        'tf_operator_tpu_torch.ops.grouped_matmul',\n"
+        "        'tf_operator_tpu_torch.ops.mlm_xent'} <= set(names), names\n"
         "assert {'tf_operator_tpu_torch.serve.server', 'tf_operator_tpu_torch.models.decode',\n"
         "        'tf_operator_tpu_torch.serve.decode_graphs',\n"
         "        'tf_operator_tpu_torch.status.metrics'} <= set(names), names\n"
@@ -466,7 +467,7 @@ def test_import_hygiene_ast_scan():
                  "graphed_step", "peer_watch"):
         assert ROOT / "tf_operator_tpu_torch" / "parallel" / f"{name}.py" in files
     for name in ("models/moe.py", "ops/grouped_matmul.py", "serve/server.py", "models/decode.py",
-                 "serve/decode_graphs.py", "status/metrics.py"):
+                 "serve/decode_graphs.py", "status/metrics.py", "ops/mlm_xent.py"):
         assert ROOT / "tf_operator_tpu_torch" / name in files
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):

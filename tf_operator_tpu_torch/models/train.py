@@ -715,7 +715,7 @@ def _build_model(args, device: torch.device, mesh=None):
             seq = model.trunk.seq_shard
             tokens, targets, mask = (seq_slice(batch[k], seq)
                                      for k in ("tokens", "targets", "mask"))
-            return tfm.mlm_loss(model(tokens), targets, mask)
+            return tfm.mlm_head_loss(model, tokens, targets, mask)
 
         def make_batch(g):
             return tfm.make_mlm_batch(g, args.batch, args.seq, cfg.vocab_size)

@@ -58,6 +58,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint, noop_context_fn
 
+from tf_operator_tpu_torch.ops import mlm_xent
 from tf_operator_tpu_torch.ops.flash_attention import flash_save_context
 from tf_operator_tpu_torch.parallel import collectives
 from tf_operator_tpu_torch.parallel.ring_attention import attention_reference
@@ -387,11 +388,16 @@ class BertMLM(nn.Module):
 
     def forward(self, tokens: torch.Tensor, deterministic: bool = True,
                 generator: torch.Generator | None = None) -> torch.Tensor:
+        h = self.head_hidden(tokens, deterministic, generator)
+        return self.lm_head(tp_input(h, self.lm_head)).float()
+
+    def head_hidden(self, tokens: torch.Tensor, deterministic: bool = True,
+                    generator: torch.Generator | None = None) -> torch.Tensor:
+        """The MLM transform's output, the decoder's input [B, T, hidden]."""
         h = self.trunk(tokens, deterministic, generator)
         phases.mark("trunk")
         phases.mark_grad(h, "trunk_grad")
-        h = self.mlm_ln(F.gelu(self.mlm_transform(h), approximate="tanh"))
-        return self.lm_head(tp_input(h, self.lm_head)).float()
+        return self.mlm_ln(F.gelu(self.mlm_transform(h), approximate="tanh"))
 
 
 @torch.no_grad()
@@ -458,6 +464,21 @@ def mlm_loss(logits: torch.Tensor, targets: torch.Tensor, mask: torch.Tensor) ->
     logp = F.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, targets[..., None].long())[..., 0]
     return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+
+
+def mlm_head_loss(model: BertMLM, tokens: torch.Tensor, targets: torch.Tensor,
+                  mask: torch.Tensor) -> torch.Tensor:
+    """mlm_loss(model(tokens), targets, mask). Where the decoder is whole on
+    this rank (no tp shard, no fsdp unit over it) and the head computes in
+    bf16, the decoder and the loss run fused (ops.mlm_xent): bf16 logits at
+    an aligned pitch, one pass for the loss and its gradient. Otherwise the
+    logits are made and the loss taken as mlm_loss does."""
+    head = model.lm_head
+    if head.tp is None and "fsdp_unit" not in head.__dict__ \
+            and model.cfg.dtype == torch.bfloat16:
+        return mlm_xent.linear_masked_xent(model.head_hidden(tokens), head.weight, targets,
+                                           mask)
+    return mlm_loss(model(tokens), targets, mask)
 
 
 def make_mlm_batch(generator: torch.Generator, batch: int, seq: int, vocab_size: int,

@@ -160,10 +160,11 @@ def stage(static: StaticInputs, values: dict) -> None:
 
 def launch_counters() -> tuple[dict, ...]:
     """The kernel wrappers' launch counters."""
-    from tf_operator_tpu_torch.ops import flash_attention, fused_bottleneck, grouped_matmul
+    from tf_operator_tpu_torch.ops import (flash_attention, fused_bottleneck, grouped_matmul,
+                                           mlm_xent)
 
     return (flash_attention.LAUNCHES, fused_bottleneck.LAUNCHES, grouped_matmul.LAUNCHES,
-            grouped_matmul.ROUTE_LAUNCHES)
+            grouped_matmul.ROUTE_LAUNCHES, mlm_xent.LAUNCHES)
 
 
 def counts_since(counters, before) -> list[dict]:
